@@ -1,0 +1,231 @@
+"""Transformer NMT (encoder-decoder) — the port of
+``deeplearning_cfn_tpu/models/transformer_nmt.py``.
+
+Pre-LN transformer-base with one token table tied three ways (source,
+target and output projection) plus learned source/target positions. The
+methods the serving engine and the offline decoders call are here:
+``encode``, ``decode`` (teacher-forced), ``decode_step`` (one shared
+position, for the offline oracles), ``decode_step_at`` (per-row positions
+over a dense cache), ``decode_step_paged`` (per-row positions over a block
+pool), and the fused-argmax ``greedy_step_at``/``greedy_step_paged``.
+
+Decoder KV caches are explicit: :meth:`TransformerNMT.init_cache` returns a
+list of per-layer ``(k, v)`` tensors [B, H, max_len, D] and
+:meth:`TransformerNMT.init_paged_cache` a list of per-layer pools
+[num_blocks, H, block_size, D]; the decode steps update them in place.
+
+Batch contract: src_ids [B, S], src_mask [B, S], tgt ids [B, T].
+Special ids: 0=[PAD], 1=[BOS], 2=[EOS].
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from . import register_model
+from .transformer import KvCache, LayerNorm, TransformerLayer, padding_bias
+
+
+class NmtEmbeddings(nn.Module):
+    """Shared token table (tied 3 ways) plus separate learned source/target
+    positions."""
+
+    def __init__(self, vocab_size: int, hidden_size: int, max_len: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.token = nn.Embedding(vocab_size, hidden_size)
+        self.src_position = nn.Parameter(torch.empty(max_len, hidden_size))
+        self.tgt_position = nn.Parameter(torch.empty(max_len, hidden_size))
+        self.src_norm = LayerNorm(hidden_size, dtype)
+        self.tgt_norm = LayerNorm(hidden_size, dtype)
+
+    def embed_src(self, ids: torch.Tensor) -> torch.Tensor:
+        x = self.token(ids) + self.src_position[None, :ids.shape[1], :]
+        return self.src_norm(x.to(self.dtype))
+
+    def embed_tgt(self, ids: torch.Tensor) -> torch.Tensor:
+        y = self.token(ids) + self.tgt_position[None, :ids.shape[1], :]
+        return self.tgt_norm(y.to(self.dtype))
+
+    def embed_tgt_at(self, ids: torch.Tensor, pos: torch.Tensor
+                     ) -> torch.Tensor:
+        """[B, 1] ids at per-row positions ``pos`` [B]."""
+        y = self.token(ids) + self.tgt_position[pos][:, None, :]
+        return self.tgt_norm(y.to(self.dtype))
+
+    def logits(self, y: torch.Tensor) -> torch.Tensor:
+        # Tied output projection, in f32 (Flax Embed.attend on an f32 query).
+        return torch.matmul(y.float(), self.token.weight.t())
+
+
+class TransformerNMT(nn.Module):
+    def __init__(self, vocab_size: int = 32000, hidden_size: int = 512,
+                 num_layers: int = 6, num_heads: int = 8, mlp_dim: int = 2048,
+                 max_len: int = 512, dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.0, attention_impl: str = "auto"):
+        super().__init__()
+        # dropout_rate is accepted for config compatibility; every path of
+        # this slice is inference, where dropout is the identity.
+        del dropout_rate
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.max_len = max_len
+        self.dtype = dtype
+        self.embed = NmtEmbeddings(vocab_size, hidden_size, max_len, dtype)
+        layer = lambda cross: TransformerLayer(
+            hidden_size, num_heads, mlp_dim, dtype, prenorm=True,
+            cross_attention=cross, attention_impl=attention_impl)
+        self.enc = nn.ModuleList([layer(False) for _ in range(num_layers)])
+        self.enc_norm = LayerNorm(hidden_size, dtype)
+        self.dec = nn.ModuleList([layer(True) for _ in range(num_layers)])
+        self.dec_norm = LayerNorm(hidden_size, dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.token.weight.device
+
+    # -- caches ------------------------------------------------------------
+
+    def init_cache(self, batch: int) -> List[KvCache]:
+        """Per-layer dense decoder caches [B, H, max_len, D] (zeros)."""
+        shape = (batch, self.num_heads, self.max_len,
+                 self.hidden_size // self.num_heads)
+        return [(torch.zeros(shape, dtype=self.dtype, device=self.device),
+                 torch.zeros(shape, dtype=self.dtype, device=self.device))
+                for _ in range(self.num_layers)]
+
+    def init_paged_cache(self, num_blocks: int, block_size: int
+                         ) -> List[KvCache]:
+        """Per-layer block pools [num_blocks, H, block_size, D] (zeros)."""
+        shape = (num_blocks, self.num_heads, block_size,
+                 self.hidden_size // self.num_heads)
+        return [(torch.zeros(shape, dtype=self.dtype, device=self.device),
+                 torch.zeros(shape, dtype=self.dtype, device=self.device))
+                for _ in range(self.num_layers)]
+
+    # -- forward paths -----------------------------------------------------
+
+    def encode(self, src_ids: torch.Tensor, src_mask: torch.Tensor
+               ) -> torch.Tensor:
+        x = self.embed.embed_src(src_ids)
+        enc_bias = padding_bias(src_mask)
+        for lyr in self.enc:
+            x = lyr(x, self_bias=enc_bias)
+        return self.enc_norm(x)
+
+    def decode(self, tgt_in_ids: torch.Tensor, enc: torch.Tensor,
+               src_mask: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced full-sequence decoder → f32 logits [B, T, V]."""
+        y = self.embed.embed_tgt(tgt_in_ids)
+        cross_bias = padding_bias(src_mask)
+        for lyr in self.dec:
+            y = lyr(y, enc=enc, cross_bias=cross_bias, causal=True)
+        return self.embed.logits(self.dec_norm(y))
+
+    def _step(self, tgt_id, enc, src_mask, pos, cache, block_tables=None):
+        y = self.embed.embed_tgt_at(tgt_id, pos)
+        cross_bias = padding_bias(src_mask)
+        for lyr, c in zip(self.dec, cache):
+            y = lyr(y, enc=enc, cross_bias=cross_bias, cache=c, pos=pos,
+                    block_tables=block_tables)
+        return self.embed.logits(self.dec_norm(y))
+
+    def decode_step_at(self, tgt_id: torch.Tensor, enc: torch.Tensor,
+                       src_mask: torch.Tensor, pos: torch.Tensor,
+                       cache: List[KvCache]) -> torch.Tensor:
+        """Single-position decode with per-row positions ``pos`` [B]: row b's
+        token ``tgt_id[b]`` sits at position ``pos[b]`` and its K/V land at
+        that cache row's ``pos[b]`` slot. Returns logits [B, 1, V]."""
+        return self._step(tgt_id, enc, src_mask, pos, cache)
+
+    def decode_step(self, tgt_id: torch.Tensor, enc: torch.Tensor,
+                    src_mask: torch.Tensor, pos: int,
+                    cache: List[KvCache]) -> torch.Tensor:
+        """:meth:`decode_step_at` with every row at position ``pos`` — the
+        form the offline searchers drive."""
+        pos_t = torch.full((tgt_id.shape[0],), int(pos), dtype=torch.long,
+                           device=tgt_id.device)
+        return self._step(tgt_id, enc, src_mask, pos_t, cache)
+
+    def decode_step_paged(self, tgt_id: torch.Tensor, enc: torch.Tensor,
+                          src_mask: torch.Tensor, pos: torch.Tensor,
+                          block_tables: torch.Tensor,
+                          cache: List[KvCache]) -> torch.Tensor:
+        """Paged-KV form of :meth:`decode_step_at` over per-layer block
+        pools; ``block_tables`` [B, max_blocks] maps row b's position p to
+        pool block ``block_tables[b, p // block_size]``."""
+        return self._step(tgt_id, enc, src_mask, pos, cache, block_tables)
+
+    def greedy_step_at(self, tgt_id, enc, src_mask, pos, cache
+                       ) -> torch.Tensor:
+        """Fused greedy :meth:`decode_step_at`: next-token ids [B] (ties
+        break to the lowest index)."""
+        logits = self.decode_step_at(tgt_id, enc, src_mask, pos, cache)
+        return torch.argmax(logits[:, 0, :], dim=-1)
+
+    def greedy_step_paged(self, tgt_id, enc, src_mask, pos, block_tables,
+                          cache) -> torch.Tensor:
+        """Fused greedy :meth:`decode_step_paged`."""
+        logits = self.decode_step_paged(tgt_id, enc, src_mask, pos,
+                                        block_tables, cache)
+        return torch.argmax(logits[:, 0, :], dim=-1)
+
+    def forward(self, src_ids, src_mask, tgt_in_ids):
+        enc = self.encode(src_ids, src_mask)
+        return self.decode(tgt_in_ids, enc, src_mask)
+
+
+@register_model("transformer_nmt")
+def transformer_nmt(num_classes: int = 0, dtype=torch.bfloat16, *,
+                    vocab_size: int = 32000, hidden_size: int = 512,
+                    num_layers: int = 6, num_heads: int = 8,
+                    mlp_dim: int = 2048, max_len: int = 512,
+                    dropout_rate: float = 0.0, attention_impl: str = "auto",
+                    device: Optional[torch.device] = None):
+    del num_classes  # vocab_size plays that role
+    with torch.device(device or "cpu"):
+        return TransformerNMT(
+            vocab_size=vocab_size, hidden_size=hidden_size,
+            num_layers=num_layers, num_heads=num_heads, mlp_dim=mlp_dim,
+            max_len=max_len, dtype=dtype, dropout_rate=dropout_rate,
+            attention_impl=attention_impl)
+
+
+@register_model("transformer_nmt_tiny")
+def transformer_nmt_tiny(num_classes: int = 0, dtype=torch.float32, **kw):
+    """Test-scale config for CPU smoke/parity."""
+    del num_classes
+    device = kw.pop("device", None)
+    defaults = dict(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_heads=4, mlp_dim=128, max_len=64)
+    defaults.update(kw)
+    with torch.device(device or "cpu"):
+        return TransformerNMT(dtype=dtype, **defaults)
+
+
+def init_weights(model: TransformerNMT, generator: torch.Generator) -> None:
+    """Seeded init with Flax's distributions: xavier-uniform Dense kernels,
+    zero biases, ``normal(0.02)`` token table and positions, LayerNorm
+    ones/zeros. Runs on the model's device with ``generator`` (which must
+    live there too)."""
+    from .transformer import Dense, LayerNorm
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Dense):
+                fan_out, fan_in = mod.weight.shape
+                limit = (6.0 / (fan_in + fan_out)) ** 0.5
+                mod.weight.uniform_(-limit, limit, generator=generator)
+                mod.bias.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        emb = model.embed
+        for t in (emb.token.weight, emb.src_position, emb.tgt_position):
+            t.normal_(0.0, 0.02, generator=generator)
