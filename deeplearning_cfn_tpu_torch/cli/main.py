@@ -1,14 +1,17 @@
-"""The port's command line: the ``serve`` verb.
+"""The port's command line: the ``train`` and ``serve`` verbs.
 
+    python -m deeplearning_cfn_tpu_torch.cli train --preset transformer_nmt_wmt \\
+        [--max-steps N] [overrides ...]
     python -m deeplearning_cfn_tpu_torch.cli serve --preset transformer_nmt_wmt \\
         --allow-init --requests reqs.jsonl [overrides ...]
 
 Same flags, defaults, result lines and stderr summary as the JAX package's
-``dlcfn-tpu serve`` for the options this slice ports. ``--accelerator``
-takes ``gpu`` (the default — the CUDA card, raising without one) or
-``cpu``. Requests are JSONL lines ``{"src_ids": [...]}`` with optional
-``id``, ``max_new_tokens``, ``beam_size`` and ``deadline_s``; text requests
-need the BPE tokenizer, which is not ported yet.
+``dlcfn-tpu train``/``serve`` for the options these slices port (``train``
+runs on this host only: no ``--stack``). ``--accelerator`` takes ``gpu``
+(the default — the CUDA card, raising without one) or ``cpu``. Serve
+requests are JSONL lines ``{"src_ids": [...]}`` with optional ``id``,
+``max_new_tokens``, ``beam_size`` and ``deadline_s``; text requests need
+the BPE tokenizer, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +23,25 @@ from typing import List, Optional
 
 from ..config import apply_overrides
 from ..presets import get_preset
+
+
+def _cmd_train(args) -> int:
+    """Train a preset on this host's card (or the CPU with
+    ``--accelerator cpu``) and print the final metrics."""
+    from ..runtime.platform import resolve_device
+    from ..train.run import run_experiment
+
+    cfg = apply_overrides(get_preset(args.preset), args.overrides)
+    cfg.stack.accelerator = args.accelerator
+    try:
+        device = resolve_device(args.accelerator)
+    except RuntimeError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    final = run_experiment(cfg, max_steps=args.max_steps, device=device)
+    print(f"[dlcfn-tpu] final metrics: "
+          f"{ {k: round(v, 4) for k, v in final.items()} }")
+    return 0
 
 
 def _cmd_serve(args) -> int:
@@ -128,8 +150,16 @@ def _cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
-        description="PyTorch/CUDA port of dlcfn-tpu (slice 1: serve)")
+        description="PyTorch/CUDA port of dlcfn-tpu (slices 1-2: serve, "
+                    "train)")
     sub = parser.add_subparsers(dest="command", required=True)
+    tr = sub.add_parser("train", help="train a preset on this host")
+    tr.add_argument("--preset", required=True)
+    tr.add_argument("--accelerator", default="gpu", choices=["gpu", "cpu"])
+    tr.add_argument("--max-steps", type=int, default=None)
+    tr.add_argument("overrides", nargs="*",
+                    help="config overrides, e.g. train.global_batch=256")
+    tr.set_defaults(fn=_cmd_train)
     sv = sub.add_parser(
         "serve",
         help="continuous-batching inference over an NMT checkpoint "

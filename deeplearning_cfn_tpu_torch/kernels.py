@@ -28,7 +28,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-KERNEL_NAMES = ("flash_attn_fwd",)
+KERNEL_NAMES = ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -9,7 +9,12 @@ the Flax modules exactly:
   the compute dtype;
 - the MLP activation is Flax's default ``gelu`` (the tanh approximation);
 - attention goes through ``ops.fused_attention`` — on the card the
-  hand-written flash kernel for every call, the decode steps included.
+  hand-written flash kernels for every call, the decode steps included, and
+  under grad their backward;
+- dropout sits where Flax puts it: after ``attn_out`` and after ``mlp_out``
+  (none on the attention weights, so none inside a kernel). It draws its
+  masks from an explicit ``torch.Generator`` passed down the call
+  (``generator=None`` means not training: dropout is the identity).
 
 ``MultiHeadAttention`` has the three modes of the JAX module that the
 serving slice uses: dense (full sequences), the per-row ``decode_pos``
@@ -33,6 +38,18 @@ from ..ops import fused_attention
 _NEG_INF = -1e30
 
 KvCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale kept values by ``1 / (1 - rate)``. The mask is drawn from
+    ``generator`` (``F.dropout`` takes none); without one — not training —
+    or at rate 0 this is the identity."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
 
 class Dense(nn.Module):
@@ -87,7 +104,7 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, features: int, num_heads: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", dropout_rate: float = 0.0):
         super().__init__()
         if features % num_heads:
             raise ValueError(f"hidden size {features} not divisible by "
@@ -96,6 +113,7 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = features // num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
+        self.dropout_rate = dropout_rate
         self.query = Dense(features, features, dtype)
         self.key = Dense(features, features, dtype)
         self.value = Dense(features, features, dtype)
@@ -115,12 +133,14 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
-                causal: bool = False) -> torch.Tensor:
+                causal: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         kv = x if kv is None else kv
         q = self._split(self.query(x))
         k = self._split(self.key(kv))
         v = self._split(self.value(kv))
-        return self._merge(self._attend(q, k, v, bias, causal))
+        out = self._merge(self._attend(q, k, v, bias, causal))
+        return dropout(out, self.dropout_rate, generator)
 
     def decode_at(self, x: torch.Tensor, cache: KvCache,
                   pos: torch.Tensor) -> torch.Tensor:
@@ -171,13 +191,17 @@ class MultiHeadAttention(nn.Module):
 
 class Mlp(nn.Module):
     def __init__(self, features: int, mlp_dim: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.mlp_in = Dense(features, mlp_dim, dtype)
         self.mlp_out = Dense(mlp_dim, features, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
+        return dropout(y, self.dropout_rate, generator)
 
 
 class TransformerLayer(nn.Module):
@@ -192,11 +216,11 @@ class TransformerLayer(nn.Module):
     def __init__(self, features: int, num_heads: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16, prenorm: bool = False,
                  cross_attention: bool = False,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", dropout_rate: float = 0.0):
         super().__init__()
         self.prenorm = prenorm
         attn = lambda: MultiHeadAttention(features, num_heads, dtype,
-                                          attention_impl)
+                                          attention_impl, dropout_rate)
         ln = lambda: LayerNorm(features, dtype)
         self.self_attn = attn()
         self.self_attn_norm = ln()
@@ -204,7 +228,7 @@ class TransformerLayer(nn.Module):
         if cross_attention:
             self.cross_attn = attn()
             self.cross_attn_norm = ln()
-        self.mlp = Mlp(features, mlp_dim, dtype)
+        self.mlp = Mlp(features, mlp_dim, dtype, dropout_rate)
         self.mlp_norm = ln()
 
     def _residual(self, x, sub, norm):
@@ -217,10 +241,14 @@ class TransformerLayer(nn.Module):
                 cross_bias: Optional[torch.Tensor] = None,
                 causal: bool = False, cache: Optional[KvCache] = None,
                 pos: Optional[torch.Tensor] = None,
-                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+                block_tables: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` (dense mode only) draws the dropout masks; None
+        means not training."""
         if cache is None:
             self_sub = lambda y: self.self_attn(y, bias=self_bias,
-                                                causal=causal)
+                                                causal=causal,
+                                                generator=generator)
         elif block_tables is None:
             self_sub = lambda y: self.self_attn.decode_at(y, cache, pos)
         else:
@@ -231,6 +259,8 @@ class TransformerLayer(nn.Module):
             if enc is None:
                 raise ValueError("cross_attention layer needs encoder output")
             x = self._residual(
-                x, lambda y: self.cross_attn(y, kv=enc, bias=cross_bias),
+                x, lambda y: self.cross_attn(y, kv=enc, bias=cross_bias,
+                                             generator=generator),
                 self.cross_attn_norm)
-        return self._residual(x, self.mlp, self.mlp_norm)
+        return self._residual(x, lambda y: self.mlp(y, generator),
+                              self.mlp_norm)

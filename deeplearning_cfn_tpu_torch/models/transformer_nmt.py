@@ -14,6 +14,10 @@ list of per-layer ``(k, v)`` tensors [B, H, max_len, D] and
 :meth:`TransformerNMT.init_paged_cache` a list of per-layer pools
 [num_blocks, H, block_size, D]; the decode steps update them in place.
 
+Training: ``forward(src_ids, src_mask, tgt_in_ids, train=True,
+generator=g)`` applies dropout (embeddings, after every attention and MLP
+block, as Flax does) with masks drawn from the ``torch.Generator`` ``g``.
+
 Batch contract: src_ids [B, S], src_mask [B, S], tgt ids [B, T].
 Special ids: 0=[PAD], 1=[BOS], 2=[EOS].
 """
@@ -26,7 +30,8 @@ import torch
 from torch import nn
 
 from . import register_model
-from .transformer import KvCache, LayerNorm, TransformerLayer, padding_bias
+from .transformer import (KvCache, LayerNorm, TransformerLayer, dropout,
+                          padding_bias)
 
 
 class NmtEmbeddings(nn.Module):
@@ -34,22 +39,30 @@ class NmtEmbeddings(nn.Module):
     positions."""
 
     def __init__(self, vocab_size: int, hidden_size: int, max_len: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.token = nn.Embedding(vocab_size, hidden_size)
         self.src_position = nn.Parameter(torch.empty(max_len, hidden_size))
         self.tgt_position = nn.Parameter(torch.empty(max_len, hidden_size))
         self.src_norm = LayerNorm(hidden_size, dtype)
         self.tgt_norm = LayerNorm(hidden_size, dtype)
 
-    def embed_src(self, ids: torch.Tensor) -> torch.Tensor:
+    def embed_src(self, ids: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
         x = self.token(ids) + self.src_position[None, :ids.shape[1], :]
-        return self.src_norm(x.to(self.dtype))
+        return dropout(self.src_norm(x.to(self.dtype)), self.dropout_rate,
+                       generator)
 
-    def embed_tgt(self, ids: torch.Tensor) -> torch.Tensor:
+    def embed_tgt(self, ids: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
         y = self.token(ids) + self.tgt_position[None, :ids.shape[1], :]
-        return self.tgt_norm(y.to(self.dtype))
+        return dropout(self.tgt_norm(y.to(self.dtype)), self.dropout_rate,
+                       generator)
 
     def embed_tgt_at(self, ids: torch.Tensor, pos: torch.Tensor
                      ) -> torch.Tensor:
@@ -68,19 +81,19 @@ class TransformerNMT(nn.Module):
                  max_len: int = 512, dtype: torch.dtype = torch.bfloat16,
                  dropout_rate: float = 0.0, attention_impl: str = "auto"):
         super().__init__()
-        # dropout_rate is accepted for config compatibility; every path of
-        # this slice is inference, where dropout is the identity.
-        del dropout_rate
+        self.dropout_rate = dropout_rate
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.max_len = max_len
         self.dtype = dtype
-        self.embed = NmtEmbeddings(vocab_size, hidden_size, max_len, dtype)
+        self.embed = NmtEmbeddings(vocab_size, hidden_size, max_len, dtype,
+                                   dropout_rate)
         layer = lambda cross: TransformerLayer(
             hidden_size, num_heads, mlp_dim, dtype, prenorm=True,
-            cross_attention=cross, attention_impl=attention_impl)
+            cross_attention=cross, attention_impl=attention_impl,
+            dropout_rate=dropout_rate)
         self.enc = nn.ModuleList([layer(False) for _ in range(num_layers)])
         self.enc_norm = LayerNorm(hidden_size, dtype)
         self.dec = nn.ModuleList([layer(True) for _ in range(num_layers)])
@@ -111,21 +124,24 @@ class TransformerNMT(nn.Module):
 
     # -- forward paths -----------------------------------------------------
 
-    def encode(self, src_ids: torch.Tensor, src_mask: torch.Tensor
-               ) -> torch.Tensor:
-        x = self.embed.embed_src(src_ids)
+    def encode(self, src_ids: torch.Tensor, src_mask: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks (None: not training)."""
+        x = self.embed.embed_src(src_ids, generator)
         enc_bias = padding_bias(src_mask)
         for lyr in self.enc:
-            x = lyr(x, self_bias=enc_bias)
+            x = lyr(x, self_bias=enc_bias, generator=generator)
         return self.enc_norm(x)
 
     def decode(self, tgt_in_ids: torch.Tensor, enc: torch.Tensor,
-               src_mask: torch.Tensor) -> torch.Tensor:
+               src_mask: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher-forced full-sequence decoder → f32 logits [B, T, V]."""
-        y = self.embed.embed_tgt(tgt_in_ids)
+        y = self.embed.embed_tgt(tgt_in_ids, generator)
         cross_bias = padding_bias(src_mask)
         for lyr in self.dec:
-            y = lyr(y, enc=enc, cross_bias=cross_bias, causal=True)
+            y = lyr(y, enc=enc, cross_bias=cross_bias, causal=True,
+                    generator=generator)
         return self.embed.logits(self.dec_norm(y))
 
     def _step(self, tgt_id, enc, src_mask, pos, cache, block_tables=None):
@@ -176,9 +192,20 @@ class TransformerNMT(nn.Module):
                                         block_tables, cache)
         return torch.argmax(logits[:, 0, :], dim=-1)
 
-    def forward(self, src_ids, src_mask, tgt_in_ids):
-        enc = self.encode(src_ids, src_mask)
-        return self.decode(tgt_in_ids, enc, src_mask)
+    def forward(self, src_ids, src_mask, tgt_in_ids, train: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Teacher-forced logits [B, T, V] (f32). ``train`` applies dropout
+        with masks from ``generator``, which a nonzero rate then requires
+        (as Flax requires a 'dropout' rng); ``train=False`` is the
+        deterministic forward."""
+        if not train:
+            generator = None
+        elif generator is None and self.dropout_rate > 0:
+            raise ValueError(
+                f"train=True with dropout_rate={self.dropout_rate} needs a "
+                f"torch.Generator for the dropout masks")
+        enc = self.encode(src_ids, src_mask, generator)
+        return self.decode(tgt_in_ids, enc, src_mask, generator)
 
 
 @register_model("transformer_nmt")

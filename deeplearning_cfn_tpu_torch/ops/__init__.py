@@ -1,4 +1,4 @@
-"""Port of deeplearning_cfn_tpu.ops (attention only in this slice)."""
+"""Port of deeplearning_cfn_tpu.ops (attention only)."""
 
 from .attention import attention_reference, flash_attention_forward, \
     fused_attention  # noqa: F401

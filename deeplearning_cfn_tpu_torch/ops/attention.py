@@ -1,4 +1,4 @@
-"""Fused multi-head attention: a hand-written CUDA flash kernel + torch reference.
+"""Fused multi-head attention: hand-written CUDA flash kernels + torch reference.
 
 The port of ``deeplearning_cfn_tpu/ops/attention.py``:
 
@@ -11,14 +11,24 @@ The port of ``deeplearning_cfn_tpu/ops/attention.py``:
   launches the kernel or raises; for a CPU tensor it computes the plain
   version (the only reason it ever does). ``flash_attention_forward.launches``
   counts kernel launches.
+- ``flash_attn_bwd_dkdv`` / ``flash_attn_bwd_dq``: the wrappers of
+  ``csrc/flash_attn_bwd_dkdv.cu`` and ``csrc/flash_attn_bwd_dq.cu``, the CUDA
+  ports of ``_flash_bwd_dkdv_kernel`` and ``_flash_bwd_dq_kernel``, with their
+  plain versions ``flash_bwd_dkdv_reference`` / ``flash_bwd_dq_reference``
+  beside them and a ``launches`` counter each.
+- ``FlashAttention``: the ``torch.autograd.Function`` that mirrors the JAX
+  custom VJP (``_fwd``/``_bwd``): without a bias the forward keeps O and the
+  per-row lse and the backward runs the two backward kernels; with a bias the
+  backward recomputes the reference VJP (``attention_reference_vjp``, whose
+  ``calls`` counter audits how often), returning the bias's gradient too.
 - ``fused_attention``: the public entry, with the JAX contract
   (``[B,H,S,D]`` inputs, causal ``Sq <= Sk``, bias broadcastable to
-  ``[B,H,Sq,Sk]``).
+  ``[B,H,Sq,Sk]``). Under grad it goes through ``FlashAttention``.
 
 Deliberate differences from the JAX package:
 
-- ``implementation="auto"`` means the kernel for CUDA tensors and the plain
-  version for CPU tensors. The v5e short-sequence crossover
+- ``implementation="auto"`` means the kernels for CUDA tensors and the plain
+  versions for CPU tensors. The v5e short-sequence crossover
   (``_auto_use_pallas``) is not carried over: on a TPU it sent every call
   with ``Sk < 1024`` — this whole NMT model — to XLA.
 - The single-position decode attentions of ``models/transformer.py``, which
@@ -26,14 +36,12 @@ Deliberate differences from the JAX package:
   well. Both compute the same function, so on the card every attention call
   of the serving path is a kernel launch and the plain version serves only
   as the comparison.
-- Causal masking in the kernel removes the keys above the diagonal rather
-  than setting them to ``-1e30`` (whole tiles of them are skipped). The
-  two agree except for a causal row whose every visible key a bias also
+- Causal masking in the forward kernel removes the keys above the diagonal
+  rather than setting them to ``-1e30`` (whole tiles of them are skipped).
+  The two agree except for a causal row whose every visible key a bias also
   masks: the kernel spreads that row's uniform weight over the visible
-  keys, the plain version over all keys. No serving call is causal with a
-  bias.
-- Forward only: the backward kernels (``_flash_bwd_dkdv_kernel``,
-  ``_flash_bwd_dq_kernel``) belong to the training slice.
+  keys, the plain version over all keys. No serving or training call is
+  causal with a bias.
 """
 
 from __future__ import annotations
@@ -64,12 +72,17 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None:
         logits = logits + bias.float()
     if causal:
-        q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        k_pos = torch.arange(sk, device=q.device)[None, :]
-        logits = torch.where(k_pos <= q_pos, logits,
+        logits = torch.where(_causal_live(sq, sk, q.device), logits,
                              torch.full_like(logits, _NEG_INF))
     weights = torch.softmax(logits, dim=-1)
     return torch.matmul(weights.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _causal_live(sq: int, sk: int, device) -> torch.Tensor:
+    """[Sq, Sk] True where key j is visible to query i (ends aligned)."""
+    q_pos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=device)[None, :]
+    return k_pos <= q_pos
 
 
 def _check_shapes(q, k, v, causal):
@@ -104,49 +117,69 @@ def _kernel_bias(bias: Optional[torch.Tensor], b: int, h: int, sq: int,
             f"{(b, h, sq, sk)}") from e
 
 
-def _launch(q, k, v, bias, causal, scale, return_lse):
-    b, h, sq, d = q.shape
-    sk = k.shape[-2]
+def _check_kernel_inputs(q, k, v, **others):
+    """What every kernel of this module refuses: dtypes other than f32/bf16
+    or differing, mismatched shapes, head dims outside 16..128 in steps of
+    16, tensors on different devices, and a non-unit head-dim stride."""
+    b, h, _, d = q.shape
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash kernel takes float32 or bfloat16, got "
+        raise TypeError(f"flash kernels take float32 or bfloat16, got "
                         f"{q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+    same = {"k": k, "v": v, **others}
+    for name, t in same.items():
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
     if k.shape[:2] != (b, h) or v.shape != k.shape or k.shape[-1] != d:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
     if d < 16 or d > 128 or d % 16:
         raise ValueError(f"head dim {d} not supported (16..128, multiple "
                          f"of 16)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), *same.items()):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a unit stride on the head dim")
+
+
+def _bind(name: str, argtypes):
+    """The C entry point of kernel ``name`` with its argument types set.
+    Every launcher here takes its pointers first, then the int shape, then
+    long long strides, then (float scale, int causal, int dtype, void*
+    stream), and returns a cudaError_t."""
+    fn = getattr(kernels.load(name), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TAIL = [ctypes.c_float, _I, _I, _P]  # scale, causal, dtype, stream
+
+
+def _strides3(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _launch(q, k, v, bias, causal, scale, return_lse):
+    b, h, sq, d = q.shape
+    sk = k.shape[-2]
+    _check_kernel_inputs(q, k, v)
     kb = _kernel_bias(bias, b, h, sq, sk)
     if kb is not None and kb.device != q.device:
         raise ValueError(f"bias is on {kb.device}, q on {q.device}")
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    lib = kernels.load("flash_attn_fwd")
-    fn = lib.flash_attn_fwd
-    if fn.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I,
-                       L, L, L, L, L, L, L, L, L, L, L, L, L,
-                       ctypes.c_float, I, I, P]
-        fn.restype = I
+    fn = _bind("flash_attn_fwd",
+               [_P] * 6 + [_I] * 5 + [_L] * 13 + _TAIL)
     bstr = kb.stride() if kb is not None else (0, 0, 0, 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              kb.data_ptr() if kb is not None else None, out.data_ptr(),
              lse.data_ptr() if lse is not None else None,
-             b, h, sq, sk, d,
-             q.stride(0), q.stride(1), q.stride(2),
-             k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2),
+             b, h, sq, sk, d, *_strides3(q), *_strides3(k), *_strides3(v),
              *bstr, float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
              stream)
     if err != 0:
@@ -163,10 +196,24 @@ def _reference_lse(q, k, bias, causal, scale):
     if bias is not None and bias.shape[-1] != 1:
         s = s + bias.float()
     if causal:
-        q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        k_pos = torch.arange(sk, device=q.device)[None, :]
-        s = torch.where(k_pos <= q_pos, s, torch.full_like(s, _NEG_INF))
+        s = torch.where(_causal_live(sq, sk, q.device), s,
+                        torch.full_like(s, _NEG_INF))
     return torch.logsumexp(s, dim=-1)
+
+
+def _forward(q, k, v, bias, causal, scale, return_lse):
+    """Kernel #1 on the card, its plain version on the CPU; no autograd."""
+    if q.device.type == "cpu":
+        out = attention_reference(q, k, v, bias, causal, scale)
+        lse = _reference_lse(q, k, bias, causal, scale) if return_lse \
+            else None
+        return out, lse
+    return _launch(q, k, v, bias, causal, scale, return_lse)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -176,19 +223,183 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             return_lse: bool = False):
     """The flash kernel's wrapper: launches ``csrc/flash_attn_fwd.cu`` for
     CUDA tensors (raising on anything it does not take), the plain version
-    for CPU tensors. Returns ``out`` or ``(out, lse)``."""
+    for CPU tensors. Under grad the call goes through :class:`FlashAttention`
+    so that the output carries its backward. Returns ``out`` or
+    ``(out, lse)``."""
     _check_shapes(q, k, v, causal)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        out = attention_reference(q, k, v, bias, causal, scale)
-        lse = _reference_lse(q, k, bias, causal, scale) if return_lse \
-            else None
+    if _wants_grad(q, k, v, bias):
+        out, lse = FlashAttention.apply(q, k, v, bias, causal, scale)
     else:
-        out, lse = _launch(q, k, v, bias, causal, scale, return_lse)
+        out, lse = _forward(q, k, v, bias, causal, scale, return_lse)
     return (out, lse) if return_lse else out
 
 
 flash_attention_forward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels (#2, #3) and their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _bwd_probs(q, k, lse, causal, scale):
+    """P = exp(scale·QKᵀ − lse) in f32 with the forward's masking
+    (``_bwd_mask``: masked logits at -1e30, so they underflow to 0)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = torch.where(_causal_live(q.shape[-2], k.shape[-2], q.device), s,
+                        torch.full_like(s, _NEG_INF))
+    return torch.exp(s - lse[..., None])
+
+
+def _bwd_ds(q, k, v, do, lse, delta, causal, scale):
+    p = _bwd_probs(q, k, lse, causal, scale)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal, scale):
+    """Plain version of kernel #2: ``(dK, dV)`` in k's / v's dtype."""
+    p, ds = _bwd_ds(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    dk = scale * torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale):
+    """Plain version of kernel #3: ``dQ`` in q's dtype."""
+    _, ds = _bwd_ds(q, k, v, do, lse, delta, causal, scale)
+    return (scale * torch.matmul(ds, k.float())).to(q.dtype)
+
+
+def _launch_bwd(name, q, k, v, do, lse, delta, causal, scale, outs):
+    """Check what a backward kernel refuses, then launch it to fill
+    ``outs``."""
+    _check_kernel_inputs(q, k, v, dO=do)
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    want = tuple(q.shape[:3])
+    for stat, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want:
+            raise ValueError(f"{stat} must be float32 {want}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{stat} is on {t.device}, q on {q.device}")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    b, h, sq, d = q.shape
+    sk = k.shape[-2]
+    fn = _bind(name, [_P] * (6 + len(outs)) + [_I] * 5 + [_L] * 12 + _TAIL)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+             b, h, sq, sk, d, *_strides3(q), *_strides3(k), *_strides3(v),
+             *_strides3(do), float(scale), int(bool(causal)),
+             _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def flash_attn_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Kernel #2's wrapper → ``(dK, dV)``: launches
+    ``csrc/flash_attn_bwd_dkdv.cu`` for CUDA tensors (raising on anything it
+    does not take), the plain version for CPU tensors. ``lse``/``delta`` are
+    f32 ``[B,H,Sq]``; q/k/v/dO share one dtype and have a unit head-dim
+    stride."""
+    _check_shapes(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
+                                        scale)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("flash_attn_bwd_dkdv", q, k, v, do, lse, delta, causal,
+                scale, (dk, dv))
+    flash_attn_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_attn_bwd_dkdv.launches = 0
+
+
+def flash_attn_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Kernel #3's wrapper → ``dQ``: launches ``csrc/flash_attn_bwd_dq.cu``
+    for CUDA tensors (raising on anything it does not take), the plain
+    version for CPU tensors. Same arguments as :func:`flash_attn_bwd_dkdv`."""
+    _check_shapes(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_attn_bwd_dq", q, k, v, do, lse, delta, causal, scale,
+                (dq,))
+    flash_attn_bwd_dq.launches += 1
+    return dq
+
+
+flash_attn_bwd_dq.launches = 0
+
+
+def flash_attention_backward(q, k, v, out, lse, g, causal, scale):
+    """``(dq, dk, dv)`` of the bias-free flash path (``_flash_backward``):
+    ``delta = rowsum(dO·O)`` as a plain op on the stored (possibly bf16) O,
+    dO cast to q's dtype, then kernels #2 and #3."""
+    delta = (g.float() * out.float()).sum(-1)
+    do = g.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    dk, dv = flash_attn_bwd_dkdv(q, k, v, do, lse, delta, causal, scale)
+    dq = flash_attn_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+def attention_reference_vjp(q, k, v, bias, g, causal, scale, wanted):
+    """The biased path's backward (``_bwd`` at attention.py:557-565):
+    recompute :func:`attention_reference` under grad and pull ``g`` back.
+    ``wanted`` flags which of (q, k, v, bias) need a gradient; the others
+    come back as None. ``attention_reference_vjp.calls`` counts recomputes."""
+    attention_reference_vjp.calls += 1
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(w)
+                  for t, w in zip((q, k, v, bias), wanted)]
+        out = attention_reference(*leaves, causal=causal, sm_scale=scale)
+        want = [t for t, w in zip(leaves, wanted) if t is not None and w]
+        grads = iter(torch.autograd.grad(out, want, g))
+    return tuple(next(grads) if t is not None and w else None
+                 for t, w in zip(leaves, wanted))
+
+
+attention_reference_vjp.calls = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The JAX custom VJP of ``_fused_attention`` in PyTorch: returns
+    ``(out, lse)`` with ``lse`` non-differentiable. Forward: kernel #1 (with
+    lse). Backward without a bias: kernels #2 and #3; with a bias: the
+    reference VJP, including the bias's gradient when it requires one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, scale):
+        out, lse = _forward(q, k, v, bias, causal, scale, True)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.has_bias = bias is not None
+        if ctx.has_bias:
+            ctx.save_for_backward(q, k, v, bias)
+        else:
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        if not ctx.has_bias:
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_backward(q, k, v, out, lse, g,
+                                                  ctx.causal, ctx.scale)
+            return dq, dk, dv, None, None, None
+        q, k, v, bias = ctx.saved_tensors
+        grads = attention_reference_vjp(q, k, v, bias, g, ctx.causal,
+                                        ctx.scale, ctx.needs_input_grad[:4])
+        return (*grads, None, None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -196,8 +407,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None,
                     implementation: str = "auto") -> torch.Tensor:
     """Multi-head attention. ``implementation``: 'auto' and 'kernel' go
-    through :func:`flash_attention_forward` (the CUDA kernel on the card,
-    the plain version on the CPU); 'reference' is the plain version."""
+    through :func:`flash_attention_forward` (the CUDA kernels on the card,
+    the plain versions on the CPU; under grad, :class:`FlashAttention`);
+    'reference' is the plain version with plain autograd."""
     _check_shapes(q, k, v, causal)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if implementation in ("auto", "kernel"):
