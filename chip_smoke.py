@@ -12,18 +12,31 @@ order; a failing phase raises, so the exit code is nonzero:
 2. build every kernel of the path from ``csrc/`` (one ``nvcc`` per source,
    in parallel) and print the build seconds;
 3. hold the flash-attention kernel against its plain PyTorch version on the
-   card: the serving path's three shapes at 8 slots, plus causal, ragged
-   Sq != Sk, the lse output and head dim 16; f32 within 1e-4, bf16 within
-   2e-2 (absolute);
-4. time each of the three shapes with CUDA events: the kernel, the plain
-   version, one ``scaled_dot_product_attention`` call (a yardstick only;
-   the port never calls it) and the byte/operation bound;
+   card: the serving path's three shapes at 8 slots, contiguous and in the
+   model's strided [B,S,H,D] layout, plus causal, ragged Sq != Sk, the
+   boundaries of the bf16 variants (Sq 15/16/65, head dims 16 and 128) and
+   the lse output; f32 within 1e-4, bf16 within 2e-2 (absolute); each bf16
+   call must take the variant ``forward_variant`` names (tc or decode on
+   the main path's shapes);
+4. time each of the three shapes: the kernel, the first port's kernel
+   body on the same inputs (the ``simt`` variant, the CUDA-core kernel
+   before the tensor-core redesign: ``*_before``), the plain version and one
+   ``scaled_dot_product_attention`` call (a yardstick only; the port never
+   calls it) with CUDA events over back-to-back calls (``ms``,
+   ``kernel_ms_before``, ``plain_ms``, ``library_ms``: the host's time
+   included, as the first timings were taken), and all but the plain
+   version by their device time per call (``device_ms``,
+   ``device_ms_before``, ``library_device_ms``: torch.profiler's kernel
+   rows; the kernel also in the model's strided layout,
+   ``device_ms_strided``), beside the byte/operation bound;
 5. serve: ``load_engine`` on the ``transformer_nmt_wmt`` preset at full
    width (seeded random init, seed 0, bf16), 8 slots, paged KV blocks of
    16, decode window 4, prefix cache 32; 24 seeded requests (sources of 8
    to 120 tokens, 32 new tokens, 4 of them beam 4), drained. Every request
-   must be done, and the kernel's launch count over this phase must equal
-   6 per encoder forward plus 12 per decoder step, as the engine tallied;
+   must be done, the kernel's launch count over this phase must equal
+   6 per encoder forward plus 12 per decoder step, as the engine tallied,
+   and every one of those bf16 launches must have taken the tc or decode
+   variant (none the CUDA-core simt kernel);
 6. the same engine in f32 through the kernel and through the plain
    version: the first decode step's logits agree within 1e-3, and the
    number of token-identical greedy requests is printed;
@@ -31,11 +44,12 @@ order; a failing phase raises, so the exit code is nonzero:
    the card — the training shape, causal and not, ragged Sq != Sk (37/101),
    lengths off the tile, head dims 16 and 128, f32 within 5e-4 and bf16
    within 5e-2 (absolute + relative, the tolerances of tests/test_ops.py's
-   flash backward tests) — and the autograd Function's (dq, dk, dv) against
-   ``torch.autograd.grad`` of ``attention_reference``; two backward calls
-   must be bit-identical;
-8. time, at the training shape (q/k/v/dO [128, 8, 128, 64] bf16, causal),
-   the forward kernel with lse, dK/dV and dQ with CUDA events, beside
+   flash backward tests; Q-tile boundaries and strided views included,
+   bf16 dK/dV on its tc variant) — and the autograd Function's (dq, dk, dv)
+   against ``torch.autograd.grad`` of ``attention_reference``; two backward
+   calls must be bit-identical;
+8. time, as phase 4 does, at the training shape (q/k/v/dO [128, 8, 128,
+   64] bf16, causal) the forward kernel with lse, dK/dV and dQ, beside
    their plain versions, their byte/operation bounds and, as a yardstick
    the port never calls, ``scaled_dot_product_attention`` forward and
    backward;
@@ -47,7 +61,8 @@ order; a failing phase raises, so the exit code is nonzero:
    eval loss and BLEU on 128 eval examples (decode length 32).
    Every loss must be finite, the mean of the last 5 below the mean of the
    first 5, and the launch counts over the 30 steps exactly 18 forward,
-   6 dK/dV, 6 dQ and 12 reference-VJP recomputes per microbatch step;
+   6 dK/dV, 6 dQ and 12 reference-VJP recomputes per microbatch step,
+   every forward and dK/dV launch on its tc variant;
 10. f32 gradient parity at full width (batch 16): one train step from the
    same init and dropout seed through the kernels and through the plain
    attention — losses within 1e-5 relative, every parameter's gradient
@@ -115,10 +130,17 @@ MAIN_PATH_SHAPES = [("encoder_self", SRC_LEN, True),
 
 
 def make_inputs(torch, seed, b, h, sq, sk, d, dtype, bias_kind,
-                causal=False):
+                causal=False, strided=False):
+    """q, k, v [b, h, s, d] (``strided``: the model's layout, a [b, s, h, d]
+    tensor seen through ``transpose(1, 2)``) and an optional padding bias."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    mk = lambda s: torch.randn((b, h, s, d), generator=g, device=DEVICE,
-                               dtype=torch.float32).to(dtype)
+
+    def mk(s):
+        shape = (b, s, h, d) if strided else (b, h, s, d)
+        x = torch.randn(shape, generator=g, device=DEVICE,
+                        dtype=torch.float32).to(dtype)
+        return x.transpose(1, 2) if strided else x
+
     q, k, v = mk(sq), mk(sk), mk(sk)
     bias = None
     if bias_kind:
@@ -137,22 +159,35 @@ def make_inputs(torch, seed, b, h, sq, sk, d, dtype, bias_kind,
 def check_kernel(torch, attn):
     """Phase 3: kernel vs plain version on the card. Returns max errors."""
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    cases = [(name, SLOTS, HEADS, sq, SRC_LEN, HEAD_DIM, False, bias)
+    cases = [(name, SLOTS, HEADS, sq, SRC_LEN, HEAD_DIM, False, bias, False)
              for name, sq, bias in MAIN_PATH_SHAPES]
-    cases += [("causal", 2, 4, 96, 96, 64, True, False),
-              ("ragged_causal", 2, 4, 37, 101, 64, True, False),
-              ("ragged_bias", 3, 2, 45, 77, 64, False, True),
-              ("head_dim_16", 2, 3, 50, 70, 16, False, True),
-              ("head_dim_128", 2, 2, 33, 65, 128, True, True)]
+    cases += [(name + "_strided", SLOTS, HEADS, sq, SRC_LEN, HEAD_DIM, False,
+               bias, True) for name, sq, bias in MAIN_PATH_SHAPES]
+    cases += [("train_strided", 4, HEADS, SRC_LEN, SRC_LEN, HEAD_DIM, True,
+               False, True),
+              ("causal", 2, 4, 96, 96, 64, True, False, False),
+              ("ragged_causal", 2, 4, 37, 101, 64, True, False, False),
+              ("ragged_bias", 3, 2, 45, 77, 64, False, True, False),
+              ("decode_15", 2, 4, 15, 77, 64, True, False, False),
+              ("tc_16", 2, 4, 16, 101, 64, False, True, False),
+              ("tc_65", 2, 4, 65, 101, 64, True, False, True),
+              ("head_dim_16", 2, 3, 50, 70, 16, False, True, False),
+              ("head_dim_128", 2, 2, 33, 65, 128, True, True, False),
+              ("head_dim_128_decode", 2, 2, 1, 65, 128, False, True, True)]
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
-        for i, (name, b, h, sq, sk, d, causal, bias_kind) in \
+        for i, (name, b, h, sq, sk, d, causal, bias_kind, strided) in \
                 enumerate(cases):
             q, k, v, bias = make_inputs(torch, 100 + i, b, h, sq, sk, d,
-                                        dtype, bias_kind, causal)
+                                        dtype, bias_kind, causal, strided)
+            variant = attn.forward_variant(dtype, sq, d)
+            before = attn.flash_attention_forward.variant_launches[variant]
             out, lse = attn.flash_attention_forward(q, k, v, bias, causal,
                                                     return_lse=True)
             torch.cuda.synchronize()
+            if attn.flash_attention_forward.variant_launches[variant] \
+                    != before + 1:
+                raise AssertionError(f"{name}: not launched as {variant}")
             ref = attn.attention_reference(q, k, v, bias, causal)
             err = (out.float() - ref.float()).abs().max().item()
             ref_lse = attn._reference_lse(q, k, bias, causal,
@@ -161,8 +196,8 @@ def check_kernel(torch, attn):
                        / ref_lse.abs().clamp_min(1.0)).max().item()
             ok = err <= TOL[dtype_name] and lse_err <= 1e-3 \
                 and bool(torch.isfinite(out).all())
-            log(f"  {dtype_name:8s} {name:18s} [{b},{h},{sq},{sk},{d}] "
-                f"causal={causal} max_abs_err={err:.3e} "
+            log(f"  {dtype_name:8s} {name:24s} [{b},{h},{sq},{sk},{d}] "
+                f"causal={causal} {variant:6s} max_abs_err={err:.3e} "
                 f"lse_rel_err={lse_err:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(
@@ -184,6 +219,67 @@ def time_fn(torch, fn, iters=200, warmup=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters=50, warmup=5):
+    """Device time per call: the summed duration of every kernel the call
+    launched (torch.profiler's CUDA rows, kernels only), over ``iters``
+    calls. Unlike ``time_fn`` it leaves out the host's time between
+    launches, which at the serving shapes is most of a call. A profiler
+    session now and then records no device activity at all; such a
+    session is run again, up to three times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = kernel_rows(prof)
+        if events:
+            return sum(dev_time(e) for e in events) / iters / 1e3
+        log(f"  (profiler session {attempt + 1} saw no device time)")
+    raise AssertionError("three profiler sessions saw no device time")
+
+
+def dev_time(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def kernel_rows(prof):
+    """The profile's kernel rows. An operator's, autograd Function's or
+    annotated range's row (the optimizer step is one, on the device timeline
+    too) repeats the device time of the kernels it launched, which have rows
+    of their own."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if dev_time(e) > 0 and e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def time_row(torch, kernel, strided, before, plain, library, iters, warmup,
+             plain_iters, plain_warmup):
+    """One timing row: CUDA events over back-to-back calls (``*_ms``, the
+    host's time included where it is the slower side) and device times
+    (``*device_ms*``) of the kernel, of the first port's kernel body on the
+    same inputs (``before``: the ``simt`` variant, the CUDA-core kernel
+    before the tensor-core redesign), and of the library call; events of the plain version; device time
+    of the kernel on the model's strided layout."""
+    return dict(
+        kernel_ms=time_fn(torch, kernel, iters, warmup),
+        kernel_ms_before=time_fn(torch, before, iters, warmup),
+        plain_ms=time_fn(torch, plain, plain_iters, plain_warmup),
+        library_ms=time_fn(torch, library, iters, warmup),
+        device_ms=device_ms(torch, kernel, iters, warmup),
+        device_ms_strided=device_ms(torch, strided, iters, warmup),
+        device_ms_before=device_ms(torch, before, iters, warmup),
+        library_device_ms=device_ms(torch, library, iters, warmup))
 
 
 def bound_ms(b, h, sq, sk, d, elem_bytes, bias):
@@ -209,27 +305,43 @@ def time_kernel(torch, attn):
         q, k, v, bias = make_inputs(torch, 200 + i, SLOTS, HEADS, sq,
                                     SRC_LEN, HEAD_DIM, torch.bfloat16,
                                     bias_kind)
+        qs, ks, vs, _ = make_inputs(torch, 200 + i, SLOTS, HEADS, sq,
+                                    SRC_LEN, HEAD_DIM, torch.bfloat16,
+                                    bias_kind, strided=True)
         lib_mask = None if bias is None else bias.to(torch.bfloat16)
-        before = attn.flash_attention_forward.launches
-        k_ms = time_fn(torch, lambda: attn.flash_attention_forward(
-            q, k, v, bias))
-        attn.flash_attention_forward.launches = before  # timing, not path
-        p_ms = time_fn(torch, lambda: attn.attention_reference(q, k, v,
-                                                                bias))
-        l_ms = time_fn(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=lib_mask))
+        # (Timing launches are comparisons, not the main path's: the counts
+        # are set to 0 before phase 5.)
+        t = time_row(
+            torch, lambda: attn.flash_attention_forward(q, k, v, bias),
+            lambda: attn.flash_attention_forward(qs, ks, vs, bias),
+            lambda: attn._launch(q, k, v, bias, False, HEAD_DIM ** -0.5,
+                                 False, "simt"),
+            lambda: attn.attention_reference(q, k, v, bias),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   attn_mask=lib_mask),
+            200, 20, 200, 20)
         b_ms, by, nbytes, flops = bound_ms(SLOTS, HEADS, sq, SRC_LEN,
                                            HEAD_DIM, 2, bias)
         row = dict(shape=name, q=[SLOTS, HEADS, sq, HEAD_DIM],
                    kv=[SLOTS, HEADS, SRC_LEN, HEAD_DIM], dtype="bfloat16",
-                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                   bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=by,
-                   bytes=nbytes, flops=flops)
-        log(f"  {name:18s} kernel {k_ms * 1e3:8.2f} us  plain "
-            f"{p_ms * 1e3:8.2f} us  sdpa {l_ms * 1e3:8.2f} us  bound "
-            f"{b_ms * 1e3:6.3f} us ({by})")
+                   variant=attn.forward_variant(torch.bfloat16, sq,
+                                                HEAD_DIM),
+                   **t, bound_ms=b_ms, bound_by=by, bytes=nbytes,
+                   flops=flops)
+        log_times(name, row)
         rows.append(row)
     return rows
+
+
+def log_times(name, row):
+    us = {k: v * 1e3 for k, v in row.items() if "_ms" in k}
+    log(f"  {name:20s} {row['variant']:6s} per call (events): kernel "
+        f"{us['kernel_ms']:8.2f} us (simt {us['kernel_ms_before']:8.2f})  "
+        f"plain {us['plain_ms']:8.2f}  library {us['library_ms']:7.2f}; "
+        f"device time: kernel {us['device_ms']:7.2f} (strided "
+        f"{us['device_ms_strided']:7.2f}, simt {us['device_ms_before']:7.2f})"
+        f"  library {us['library_device_ms']:7.2f}; bound "
+        f"{us['bound_ms']:6.3f} ({row['bound_by']})")
 
 
 def make_requests(n=24, n_beam=4, vocab=32000, seed=0):
@@ -270,7 +382,7 @@ def build_engine(cfg, attention_impl=None):
 
 def serve(torch, attn, reqs):
     """Phase 5: the main path, with every launch count set to 0 first."""
-    attn.flash_attention_forward.launches = 0
+    set_counts(attn, 0)
     t_build = time.perf_counter()
     engine = build_engine(smoke_cfg("bfloat16"))
     torch.cuda.synchronize()
@@ -282,6 +394,7 @@ def serve(torch, attn, reqs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = attn.flash_attention_forward.launches
+    variants = dict(attn.flash_attention_forward.variant_launches)
     model = engine.model
     states = {rid: engine.poll(rid).state.value for rid, *_ in reqs}
     bad = {r: s for r, s in states.items() if s != "done"}
@@ -305,13 +418,18 @@ def serve(torch, attn, reqs):
     if launches <= 0 or launches != expect:
         raise AssertionError(
             f"flash kernel launches {launches} != expected {expect}")
+    log(f"  launches by variant: {variants}")
+    if variants["simt"] or variants["tc"] + variants["decode"] != launches:
+        raise AssertionError(f"bf16 serving launches off the tc/decode "
+                             f"variants: {variants}")
     snap = engine.metrics.snapshot()
     generated = sum(len(t) for t in tokens.values())
     step_ms = snap["serve_step_latency_p50_s"] * 1e3
     log(f"  tokens/s {generated / wall:.1f} ({generated} tokens), TTFT p50 "
         f"{snap['serve_ttft_p50_s'] * 1e3:.2f} ms, decode-step p50 "
         f"{step_ms:.3f} ms, slot occupancy {snap['serve_slot_occupancy']}")
-    return dict(launches=launches, encoder_forwards=engine.encoder_forwards,
+    return dict(launches=launches, variant_launches=variants,
+                encoder_forwards=engine.encoder_forwards,
                 decoder_steps=engine.decoder_steps, wall_s=wall,
                 tokens=generated, tokens_per_s=generated / wall,
                 ttft_p50_s=snap["serve_ttft_p50_s"],
@@ -370,10 +488,15 @@ def close_enough(got, ref, tol):
     return bool(((got - ref).abs() <= tol + tol * ref.abs()).all())
 
 
-def bwd_inputs(torch, attn, seed, b, h, sq, sk, d, dtype, causal):
-    q, k, v, _ = make_inputs(torch, seed, b, h, sq, sk, d, dtype, False)
+def bwd_inputs(torch, attn, seed, b, h, sq, sk, d, dtype, causal,
+               strided=False):
+    q, k, v, _ = make_inputs(torch, seed, b, h, sq, sk, d, dtype, False,
+                             strided=strided)
     g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
-    do = torch.randn((b, h, sq, d), generator=g, device=DEVICE).to(dtype)
+    do = torch.randn((b, sq, h, d) if strided else (b, h, sq, d),
+                     generator=g, device=DEVICE).to(dtype)
+    if strided:  # the gradient _merge hands back: a transposed view
+        do = do.transpose(1, 2)
     out, lse = attn.flash_attention_forward(q, k, v, causal=causal,
                                             return_lse=True)
     delta = (do.float() * out.float()).sum(-1)
@@ -384,23 +507,33 @@ def check_backward(torch, attn):
     """Phase 7: the backward kernels and the autograd Function vs their
     plain versions on the card. Returns max abs errors per kernel."""
     errs = {"flash_attn_bwd_dkdv": 0.0, "flash_attn_bwd_dq": 0.0}
-    cases = [("train_causal", *TRAIN_SHAPE, True),
-             ("train_full", 8, HEADS, SRC_LEN, SRC_LEN, HEAD_DIM, False),
-             ("ragged_causal", 2, 3, 37, 101, 64, True),
-             ("ragged", 2, 3, 37, 101, 64, False),
-             ("off_tile_d16", 3, 2, 45, 45, 16, True),
-             ("d16_ragged", 2, 2, 50, 70, 16, False),
-             ("d128", 2, 2, 33, 65, 128, False),
-             ("d128_causal", 1, 2, 70, 70, 128, True)]
+    cases = [("train_causal", *TRAIN_SHAPE, True, False),
+             ("train_strided", *TRAIN_SHAPE, True, True),
+             ("train_full", 8, HEADS, SRC_LEN, SRC_LEN, HEAD_DIM, False,
+              False),
+             ("ragged_causal", 2, 3, 37, 101, 64, True, False),
+             ("ragged", 2, 3, 37, 101, 64, False, False),
+             ("q_rows_1", 4, 8, 1, 128, 64, False, True),
+             ("q_rows_65", 2, 3, 65, 77, 64, True, True),
+             ("off_tile_d16", 3, 2, 45, 45, 16, True, False),
+             ("d16_ragged", 2, 2, 50, 70, 16, False, False),
+             ("d128", 2, 2, 33, 65, 128, False, False),
+             ("d128_causal", 1, 2, 70, 70, 128, True, False)]
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         tol = BWD_TOL[dtype_name]
-        for i, (name, b, h, sq, sk, d, causal) in enumerate(cases):
+        for i, (name, b, h, sq, sk, d, causal, strided) in enumerate(cases):
             args = bwd_inputs(torch, attn, 300 + i, b, h, sq, sk, d, dtype,
-                              causal)
+                              causal, strided)
+            variant = attn.dkdv_variant(dtype, d)
+            before = attn.flash_attn_bwd_dkdv.variant_launches[variant]
             dk, dv = attn.flash_attn_bwd_dkdv(*args)
             dq = attn.flash_attn_bwd_dq(*args)
             torch.cuda.synchronize()
+            if attn.flash_attn_bwd_dkdv.variant_launches[variant] \
+                    != before + 1:
+                raise AssertionError(f"{name}: dK/dV not launched as "
+                                     f"{variant}")
             rk, rv = attn.flash_bwd_dkdv_reference(*args)
             rq = attn.flash_bwd_dq_reference(*args)
             line = []
@@ -430,7 +563,8 @@ def check_backward(torch, attn):
                     f"FlashAttention grads disagree with autograd of the "
                     f"reference: {dtype_name} {name} max abs err {fn_err}")
             log(f"  {dtype_name:8s} {name:14s} [{b},{h},{sq},{sk},{d}] "
-                f"causal={causal} dk {line[0]:.3e} dv {line[1]:.3e} "
+                f"causal={causal} dkdv:{variant:4s} dk {line[0]:.3e} "
+                f"dv {line[1]:.3e} "
                 f"dq {line[2]:.3e} Function vs autograd {fn_err:.3e} ok")
     # No atomics: a second call gives the same bits.
     args = bwd_inputs(torch, attn, 399, *TRAIN_SHAPE, torch.bfloat16, True)
@@ -478,11 +612,31 @@ def time_training_kernels(torch, attn):
     F = torch.nn.functional
     args = bwd_inputs(torch, attn, 500, *TRAIN_SHAPE, torch.bfloat16, True)
     q, k, v, do, lse, delta, causal, scale = args
+    # The same call in the model's layout: q/k/v and dO as transposed views.
+    sargs = bwd_inputs(torch, attn, 500, *TRAIN_SHAPE, torch.bfloat16, True,
+                       strided=True)
+    strided = {
+        "flash_attn_fwd": lambda: attn.flash_attention_forward(
+            *sargs[:3], causal=True, return_lse=True),
+        "flash_attn_bwd_dkdv": lambda: attn.flash_attn_bwd_dkdv(*sargs),
+        "flash_attn_bwd_dq": lambda: attn.flash_attn_bwd_dq(*sargs),
+    }
     kernel = {
         "flash_attn_fwd": lambda: attn.flash_attention_forward(
             q, k, v, causal=True, return_lse=True),
         "flash_attn_bwd_dkdv": lambda: attn.flash_attn_bwd_dkdv(*args),
         "flash_attn_bwd_dq": lambda: attn.flash_attn_bwd_dq(*args),
+    }
+    # The first port's kernel bodies (the ``simt`` variants) on the same
+    # inputs; dQ has no other.
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    before = {
+        "flash_attn_fwd": lambda: attn._launch(q, k, v, None, True, scale,
+                                               True, "simt"),
+        "flash_attn_bwd_dkdv": lambda: attn._launch_bwd(
+            "flash_attn_bwd_dkdv", *args, (dk, dv), "simt",
+            attn.flash_attn_bwd_dkdv),
+        "flash_attn_bwd_dq": kernel["flash_attn_bwd_dq"],
     }
     plain = {
         "flash_attn_fwd": lambda: (
@@ -506,18 +660,17 @@ def time_training_kernels(torch, attn):
     rows = {}
     # (Launches made here and in phase 7 are comparisons, not the main
     # path's: every count is set to 0 before phase 9.)
+    variant = {"flash_attn_fwd": attn.forward_variant(q.dtype, q.shape[2],
+                                                      q.shape[3]),
+               "flash_attn_bwd_dkdv": attn.dkdv_variant(q.dtype, q.shape[3]),
+               "flash_attn_bwd_dq": "simt"}
     for name in kernel:
-        k_ms = time_fn(torch, kernel[name], iters=50, warmup=5)
-        p_ms = time_fn(torch, plain[name], iters=20, warmup=3)
-        l_ms = time_fn(torch, library[name], iters=50, warmup=5)
+        t = time_row(torch, kernel[name], strided[name], before[name],
+                     plain[name], library[name], 50, 5, 20, 3)
         rows[name] = dict(shape="train_decoder_self", q=list(q.shape),
                           kv=list(k.shape), dtype="bfloat16", causal=True,
-                          kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                          **bounds[name])
-        log(f"  {name:20s} kernel {k_ms * 1e3:9.2f} us  plain "
-            f"{p_ms * 1e3:9.2f} us  library {l_ms * 1e3:8.2f} us  bound "
-            f"{bounds[name]['bound_ms'] * 1e3:7.3f} us "
-            f"({bounds[name]['bound_by']})")
+                          variant=variant[name], **t, **bounds[name])
+        log_times(name, rows[name])
     return rows
 
 
@@ -545,10 +698,17 @@ def counts(attn):
             "vjp": attn.attention_reference_vjp.calls}
 
 
+def variant_counts(attn):
+    return {"fwd": dict(attn.flash_attention_forward.variant_launches),
+            "dkdv": dict(attn.flash_attn_bwd_dkdv.variant_launches),
+            "dq": dict(attn.flash_attn_bwd_dq.variant_launches)}
+
+
 def set_counts(attn, value):
-    attn.flash_attention_forward.launches = value
-    attn.flash_attn_bwd_dkdv.launches = value
-    attn.flash_attn_bwd_dq.launches = value
+    for fn in (attn.flash_attention_forward, attn.flash_attn_bwd_dkdv,
+               attn.flash_attn_bwd_dq):
+        fn.launches = value
+        fn.variant_launches = dict.fromkeys(fn.variant_launches, value)
     attn.attention_reference_vjp.calls = value
 
 
@@ -560,10 +720,13 @@ def train(torch, attn):
                     "smoke_train")
     records, at_end = [], {}
 
+    by_variant = {}
+
     def hook(step, state, record):
         records.append(record)
         if step == TRAIN_STEPS:
             at_end.update(counts(attn))  # before the eval's forwards
+            by_variant.update(variant_counts(attn))
 
     torch.cuda.reset_peak_memory_stats()
     set_counts(attn, 0)
@@ -587,9 +750,14 @@ def train(torch, attn):
         f"(expected {expect})")
     if at_end != expect:
         raise AssertionError(f"launch counts {at_end} != {expect}")
-    timed = [r for r in records if "step_time_s" in r]
-    step_s = sorted(r["step_time_s"] for r in timed)
-    tok_s = sorted(r["target_tokens_per_sec"] for r in timed)
+    log(f"  launches by variant: {by_variant}")
+    if by_variant["fwd"]["tc"] != at_end["fwd"] \
+            or by_variant["dkdv"]["tc"] != at_end["dkdv"]:
+        raise AssertionError(f"bf16 training launches off the tc variant: "
+                             f"{by_variant}")
+    stepped = [r for r in records if "step_time_s" in r]
+    step_s = sorted(r["step_time_s"] for r in stepped)
+    tok_s = sorted(r["target_tokens_per_sec"] for r in stepped)
     p50 = lambda xs: xs[len(xs) // 2]
     out = dict(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
                grad_accum_steps=accum, first5_loss=first, last5_loss=last,
@@ -599,7 +767,8 @@ def train(torch, attn):
                max_memory_allocated_bytes=peak, wall_s=wall,
                final_eval_loss=final["loss"],
                final_eval_token_accuracy=final["token_accuracy"],
-               final_eval_bleu=final["bleu"], launches=at_end)
+               final_eval_bleu=final["bleu"], launches=at_end,
+               variant_launches=by_variant)
     log(f"  step time p50 {out['step_time_p50_s'] * 1e3:.2f} ms, target "
         f"tokens/s p50 {out['target_tokens_per_s_p50']:.1f}, first step "
         f"{out['first_step_s']:.2f} s, max_memory_allocated "
@@ -734,17 +903,7 @@ def profile_training(torch, steps: int = 3) -> None:
 
 
 def report_profile(prof, wall, steps, what):
-    from torch.autograd import DeviceType
-
-    dev_time = lambda e: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0))
-    # Kernel rows only: an operator's, autograd Function's or annotated
-    # range's row (the optimizer step is one, on the device timeline too)
-    # repeats the device time of the kernels it launched, which have rows
-    # of their own.
-    events = [e for e in prof.key_averages()
-              if dev_time(e) > 0 and e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
+    events = kernel_rows(prof)
     busy_us = sum(dev_time(e) for e in events)
     n_kernels = sum(e.count for e in events)
     log(f"  {steps} {what}s in {wall * 1e3:.1f} ms: "
@@ -752,9 +911,12 @@ def report_profile(prof, wall, steps, what):
         f"{busy_us / 1e3 / steps:.3f} ms device-busy per {what} "
         f"({busy_us / (wall * 1e6):.1%} busy), {n_kernels / steps:.0f} "
         f"device ops per {what}")
-    for e in sorted(events, key=dev_time, reverse=True)[:15]:
-        log(f"    {dev_time(e) / steps:9.1f} us/{what}  "
-            f"x{e.count / steps:5.1f}  {e.key[:90]}")
+    ranked = sorted(events, key=dev_time, reverse=True)
+    # The top 15, then the port's own kernels wherever they rank.
+    for i, e in enumerate(ranked):
+        if i < 15 or "flash_attn" in e.key:
+            log(f"    {dev_time(e) / steps:9.1f} us/{what}  "
+                f"x{e.count / steps:5.1f}  #{i + 1:<3d} {e.key[:90]}")
 
 
 def profile_serving(torch, ticks: int = 16) -> None:
@@ -850,9 +1012,10 @@ def main() -> int:
 
     # The forward kernel serves both paths: its numbers cover the three
     # serving shapes and the training shape (one call at each).
-    rows = rows + [dict(train_rows["flash_attn_fwd"], bound_us=train_rows[
-        "flash_attn_fwd"]["bound_ms"] * 1e3)]
-    total = lambda key: sum(r[key] for r in rows)
+    rows = rows + [train_rows["flash_attn_fwd"]]
+    timings = ("kernel_ms_before", "device_ms", "device_ms_strided",
+               "device_ms_before", "plain_ms", "bound_ms", "library_ms",
+               "library_device_ms")
     fwd = {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -862,18 +1025,17 @@ def main() -> int:
         "launches": served["launches"] + trained["launches"]["fwd"],
         "launches_serve": served["launches"],
         "launches_train": trained["launches"]["fwd"],
+        "variant_launches": {
+            v: served["variant_launches"][v]
+            + trained["variant_launches"]["fwd"][v]
+            for v in served["variant_launches"]},
         "max_abs_err": max(errs.values()),
-        "max_err": max(errs.values()),
         "max_abs_err_f32": errs["float32"],
         "max_abs_err_bf16": errs["bfloat16"],
-        "ms": total("kernel_ms"),
-        "kernel_ms": total("kernel_ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_us": total("bound_us"),
+        "ms": sum(r["kernel_ms"] for r in rows),
+        **{key: sum(r[key] for r in rows) for key in timings},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
         else "operations",
-        "library_ms": total("library_ms"),
         "shapes": rows,
     }
     replaces = {
@@ -893,12 +1055,12 @@ def main() -> int:
             "source": f"deeplearning_cfn_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": trained["launches"][key],
+            "variant_launches": trained["variant_launches"][key],
             "max_abs_err": bwd_errs[name],
-            "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["kernel_ms"], **{t: r[t] for t in timings},
             "bound_by": r["bound_by"],
-            # SDPA's backward: one call giving dq, dk and dv together.
-            "library_ms": r["library_ms"], "shapes": [r],
+            # library_ms: SDPA's backward, one call giving dq, dk and dv.
+            "shapes": [r],
         })
     summary = {
         "build_s": build_s,

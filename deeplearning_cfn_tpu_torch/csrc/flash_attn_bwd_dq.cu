@@ -216,8 +216,10 @@ int launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dQ share it). Strides are in
-// elements. Returns a cudaError_t (0 = launched). The caller checks shapes;
-// this only refuses head dims the kernel was not written for.
+// elements. `variant` is 0: this file has one kernel, the CUDA-core one
+// ("simt"), and takes the argument as the other entry points do. Returns a
+// cudaError_t (0 = launched). The caller checks shapes; this only refuses
+// head dims the kernel was not written for.
 int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq,
                       int B, int H, int Sq, int Sk, int D,
@@ -225,9 +227,10 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* d
                       long long k_sb, long long k_sh, long long k_ss,
                       long long v_sb, long long v_sh, long long v_ss,
                       long long o_sb, long long o_sh, long long o_ss,
-                      float scale, int causal, int dtype, void* stream) {
+                      float scale, int causal, int dtype, int variant, void* stream) {
   if (D < 16 || D > 32 * kMaxCols || D % 16 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
+  if (variant != 0) return (int)cudaErrorInvalidValue;
   Params p{q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, scale, causal};

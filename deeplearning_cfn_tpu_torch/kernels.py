@@ -4,8 +4,10 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``_build/`` at first use, and loaded through ``ctypes`` (no PyTorch headers,
 so a build takes seconds, not minutes). The library's file name carries a
-hash of its source, so an edited source is rebuilt and a stale library is
-never loaded. Nothing is built when a module is imported: the CPU tests
+hash of its source, of every ``csrc/*.cuh`` header the source includes
+(``#include "..."``, followed recursively) and of the compiler flags, so an
+edited source, header or flag is rebuilt and a stale library is never
+loaded. Nothing is built when a module is imported: the CPU tests
 import every module and this machine may have no ``nvcc``.
 
 ``build()`` compiles several kernels at once (one ``nvcc`` process per
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +30,9 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+              "-fPIC"]
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 KERNEL_NAMES = ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq")
 
@@ -48,16 +54,33 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every local header it includes, directly or
+    through another header, in the order first met."""
+    todo, seen = [os.path.join(CSRC_DIR, f"{name}.cu")], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as fh:
+            for inc in _INCLUDE.findall(fh.read()):
+                todo.append(os.path.join(os.path.dirname(path),
+                                         inc.decode()))
+    return seen
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(ARCH_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def _nvcc_cmd(name: str, out: str) -> List[str]:
-    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-o", out,
+    return [_nvcc(), *NVCC_FLAGS, "-o", out,
             os.path.join(CSRC_DIR, f"{name}.cu")]
 
 

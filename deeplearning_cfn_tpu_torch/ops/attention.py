@@ -10,12 +10,20 @@ The port of ``deeplearning_cfn_tpu/ops/attention.py``:
   the CUDA port of the Pallas ``_flash_kernel``. For a CUDA tensor it
   launches the kernel or raises; for a CPU tensor it computes the plain
   version (the only reason it ever does). ``flash_attention_forward.launches``
-  counts kernel launches.
+  counts kernel launches, and ``.variant_launches`` splits them by variant
+  (``forward_variant``).
 - ``flash_attn_bwd_dkdv`` / ``flash_attn_bwd_dq``: the wrappers of
   ``csrc/flash_attn_bwd_dkdv.cu`` and ``csrc/flash_attn_bwd_dq.cu``, the CUDA
   ports of ``_flash_bwd_dkdv_kernel`` and ``_flash_bwd_dq_kernel``, with their
   plain versions ``flash_bwd_dkdv_reference`` / ``flash_bwd_dq_reference``
-  beside them and a ``launches`` counter each.
+  beside them and a ``launches`` counter each (dK/dV also
+  ``.variant_launches``, by ``dkdv_variant``).
+- ``forward_variant`` / ``dkdv_variant``: the one rule that picks each
+  kernel's variant — ``tc`` (bf16 on tensor cores: wgmma fed by TMA),
+  ``decode`` (bf16 with fewer than 16 query rows: split-K over the block's
+  warps) or ``simt`` (the CUDA-core kernels; f32 always, because they are
+  exact there). The wrapper passes the choice to the C entry point, which
+  launches that variant or returns an error.
 - ``FlashAttention``: the ``torch.autograd.Function`` that mirrors the JAX
   custom VJP (``_fwd``/``_bwd``): without a bias the forward keeps O and the
   per-row lse and the backward runs the two backward kernels; with a bias the
@@ -57,6 +65,27 @@ from .. import kernels
 _NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The variant argument of the C entry points.
+_VARIANT_CODES = {"simt": 0, "tc": 1, "decode": 2}
+_TC_HEAD_DIMS = (64, 128)
+
+
+def forward_variant(dtype: torch.dtype, sq: int, d: int) -> str:
+    """The variant of ``csrc/flash_attn_fwd.cu`` to launch for this dtype,
+    query length and head dim: ``decode`` for bf16 with ``sq < 16`` (a wgmma
+    needs 64 rows), ``tc`` for bf16 with ``d`` in (64, 128), else ``simt``."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if sq < 16:
+        return "decode"
+    return "tc" if d in _TC_HEAD_DIMS else "simt"
+
+
+def dkdv_variant(dtype: torch.dtype, d: int) -> str:
+    """The variant of ``csrc/flash_attn_bwd_dkdv.cu`` to launch: ``tc`` for
+    bf16 with ``d`` in (64, 128), else ``simt``."""
+    return "tc" if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS else "simt"
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -145,24 +174,64 @@ def _check_kernel_inputs(q, k, v, **others):
 def _bind(name: str, argtypes):
     """The C entry point of kernel ``name`` with its argument types set.
     Every launcher here takes its pointers first, then the int shape, then
-    long long strides, then (float scale, int causal, int dtype, void*
-    stream), and returns a cudaError_t."""
-    fn = getattr(kernels.load(name), name)
-    if fn.argtypes is None:
+    long long strides, then (float scale, int causal, int dtype, int
+    variant, void* stream), and returns a cudaError_t."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(kernels.load(name), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _bound[name] = fn
     return fn
 
 
+_bound = {}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_TAIL = [ctypes.c_float, _I, _I, _P]  # scale, causal, dtype, stream
+_TAIL = [ctypes.c_float, _I, _I, _I, _P]  # scale, causal, dtype, variant, stream
 
 
 def _strides3(t):
-    return t.stride(0), t.stride(1), t.stride(2)
+    """Batch, head and sequence strides in elements. A dim of size 1 is never
+    stepped, so its stride is set to span the dims inside it: views such as
+    ``x.t()`` of a row vector can carry any stride there, and the TMA maps of
+    the tensor-core variants need 16-byte multiples."""
+    b, h, s, d = t.shape  # the head dim has unit stride
+    sb, sh, ss, _ = t.stride()
+    if s == 1:
+        ss = d
+    if h == 1:
+        sh = ss * s
+    if b == 1:
+        sb = sh * h
+    return sb, sh, ss
 
 
-def _launch(q, k, v, bias, causal, scale, return_lse):
+def _check_aligned(variant, **tensors):
+    """The bf16 variants read rows with TMA or 16-byte vector loads: every
+    row must start on a 16-byte boundary. Each value is a tensor and its
+    :func:`_strides3`."""
+    for name, (t, strides) in tensors.items():
+        if t.data_ptr() % 16 or any(s % 8 for s in strides):
+            raise ValueError(
+                f"{name}: the bf16 {variant} kernel needs 16-byte aligned "
+                f"rows (data pointer and batch/head/sequence strides), got "
+                f"strides {tuple(t.stride())}")
+
+
+def _launched(name, err, variant, counter):
+    """Raise on a C entry point's failed launch, else count it on
+    ``counter`` under ``variant``."""
+    if err != 0:
+        raise RuntimeError(f"{name} ({variant}) launch failed: cudaError_t "
+                           f"{err}")
+    counter.launches += 1
+    counter.variant_launches[variant] += 1
+
+
+def _launch(q, k, v, bias, causal, scale, return_lse, variant=None):
+    """Kernel #1 on the card as ``variant`` (default: ``forward_variant``'s
+    choice; chip_smoke.py also times ``simt``, the first port's kernel, at
+    the bf16 shapes)."""
     b, h, sq, d = q.shape
     sk = k.shape[-2]
     _check_kernel_inputs(q, k, v)
@@ -172,6 +241,10 @@ def _launch(q, k, v, bias, causal, scale, return_lse):
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
+    variant = variant or forward_variant(q.dtype, sq, d)
+    qs, ks, vs = _strides3(q), _strides3(k), _strides3(v)
+    if variant != "simt":
+        _check_aligned(variant, q=(q, qs), k=(k, ks), v=(v, vs))
     fn = _bind("flash_attn_fwd",
                [_P] * 6 + [_I] * 5 + [_L] * 13 + _TAIL)
     bstr = kb.stride() if kb is not None else (0, 0, 0, 0)
@@ -179,12 +252,10 @@ def _launch(q, k, v, bias, causal, scale, return_lse):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              kb.data_ptr() if kb is not None else None, out.data_ptr(),
              lse.data_ptr() if lse is not None else None,
-             b, h, sq, sk, d, *_strides3(q), *_strides3(k), *_strides3(v),
-             *bstr, float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
+             b, h, sq, sk, d, *qs, *ks, *vs, *bstr, float(scale),
+             int(bool(causal)), _DTYPE_CODES[q.dtype], _VARIANT_CODES[variant],
              stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: cudaError_t {err}")
-    flash_attention_forward.launches += 1
+    _launched("flash_attn_fwd", err, variant, flash_attention_forward)
     return out, lse
 
 
@@ -236,6 +307,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.variant_launches = {"tc": 0, "decode": 0, "simt": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -273,9 +345,10 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale):
     return (scale * torch.matmul(ds, k.float())).to(q.dtype)
 
 
-def _launch_bwd(name, q, k, v, do, lse, delta, causal, scale, outs):
-    """Check what a backward kernel refuses, then launch it to fill
-    ``outs``."""
+def _launch_bwd(name, q, k, v, do, lse, delta, causal, scale, outs,
+                variant, counter):
+    """Check what a backward kernel refuses, then launch it (as ``variant``)
+    to fill ``outs`` and count the launch on ``counter``."""
     _check_kernel_inputs(q, k, v, dO=do)
     if do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} does not match q "
@@ -287,6 +360,10 @@ def _launch_bwd(name, q, k, v, do, lse, delta, causal, scale, outs):
                              f"{tuple(t.shape)}")
         if t.device != q.device:
             raise ValueError(f"{stat} is on {t.device}, q on {q.device}")
+    strides = [_strides3(t) for t in (q, k, v, do)]
+    if variant != "simt":
+        _check_aligned(variant, **{n: (t, st) for n, t, st in zip(
+            ("q", "k", "v", "dO"), (q, k, v, do), strides)})
     lse, delta = lse.contiguous(), delta.contiguous()
     b, h, sq, d = q.shape
     sk = k.shape[-2]
@@ -294,11 +371,10 @@ def _launch_bwd(name, q, k, v, do, lse, delta, causal, scale, outs):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-             b, h, sq, sk, d, *_strides3(q), *_strides3(k), *_strides3(v),
-             *_strides3(do), float(scale), int(bool(causal)),
-             _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+             b, h, sq, sk, d, *(x for st in strides for x in st),
+             float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
+             _VARIANT_CODES[variant], stream)
+    _launched(name, err, variant, counter)
 
 
 def flash_attn_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, scale: float):
@@ -314,12 +390,13 @@ def flash_attn_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, scale: float):
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("flash_attn_bwd_dkdv", q, k, v, do, lse, delta, causal,
-                scale, (dk, dv))
-    flash_attn_bwd_dkdv.launches += 1
+                scale, (dk, dv), dkdv_variant(q.dtype, q.shape[-1]),
+                flash_attn_bwd_dkdv)
     return dk, dv
 
 
 flash_attn_bwd_dkdv.launches = 0
+flash_attn_bwd_dkdv.variant_launches = {"tc": 0, "simt": 0}
 
 
 def flash_attn_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
@@ -331,12 +408,12 @@ def flash_attn_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("flash_attn_bwd_dq", q, k, v, do, lse, delta, causal, scale,
-                (dq,))
-    flash_attn_bwd_dq.launches += 1
+                (dq,), "simt", flash_attn_bwd_dq)
     return dq
 
 
 flash_attn_bwd_dq.launches = 0
+flash_attn_bwd_dq.variant_launches = {"simt": 0}
 
 
 def flash_attention_backward(q, k, v, out, lse, g, causal, scale):

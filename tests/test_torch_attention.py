@@ -124,3 +124,59 @@ def test_validation_errors_match_jax():
     with pytest.raises(ValueError, match="unknown implementation"):
         tattn.fused_attention(zt, zt, zt, implementation="nope")
     assert tattn.flash_attention_forward.launches == 0
+
+
+# (dtype, Sq, D, forward variant, dK/dV variant) for every attention call of
+# the port's main paths at the NMT preset's head dim 64, and the edges of the
+# rule: bf16 takes the tensor-core kernels (decode below 16 query rows, where
+# a 64-row wgmma does not fit), f32 always the exact CUDA-core ones.
+VARIANT_CASES = [
+    (torch.bfloat16, 128, 64, "tc", "tc"),       # encoder / decoder self
+    (torch.bfloat16, 1, 64, "decode", "tc"),     # decode cross / self
+    (torch.float32, 128, 64, "simt", "simt"),    # the f32 parity paths
+    (torch.float32, 1, 64, "simt", "simt"),
+    (torch.bfloat16, 15, 64, "decode", "tc"),
+    (torch.bfloat16, 16, 64, "tc", "tc"),
+    (torch.bfloat16, 16, 128, "tc", "tc"),
+    (torch.bfloat16, 1, 128, "decode", "tc"),
+    (torch.bfloat16, 64, 16, "simt", "simt"),    # head dims off the wgmma
+    (torch.bfloat16, 64, 48, "simt", "simt"),
+    (torch.bfloat16, 3, 48, "decode", "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,sq,d,fwd,dkdv", VARIANT_CASES)
+def test_variant_rule_pins_each_main_path_shape(dtype, sq, d, fwd, dkdv):
+    assert tattn.forward_variant(dtype, sq, d) == fwd
+    assert tattn.dkdv_variant(dtype, d) == dkdv
+
+
+def test_variant_counters_start_empty_and_name_every_variant():
+    assert set(tattn.flash_attention_forward.variant_launches) == {
+        "tc", "decode", "simt"}
+    assert set(tattn.flash_attn_bwd_dkdv.variant_launches) == {"tc", "simt"}
+    assert set(tattn.flash_attn_bwd_dq.variant_launches) == {"simt"}
+
+
+def test_strides_of_unit_dims_are_made_tma_friendly():
+    """A size-1 dim is never stepped, so its stride may be anything in a
+    view; the wrapper hands the kernels one that spans the inner dims."""
+    x = torch.zeros(4, 1, 8, 64).transpose(1, 2)   # [B,S=1,H,D] -> [B,H,1,D]
+    assert tattn._strides3(x) == (512, 64, 64)
+    row = torch.zeros(64, 1).t()[None, None]        # strides (.., .., 1, 1)
+    assert row.stride(2) == 1 and tattn._strides3(row) == (64, 64, 64)
+    model = torch.zeros(2, 40, 8, 64).transpose(1, 2)
+    assert tattn._strides3(model) == (40 * 8 * 64, 64, 8 * 64)
+
+
+def test_bf16_variants_refuse_rows_off_16_bytes():
+    def check(variant, t):
+        tattn._check_aligned(variant, x=(t, tattn._strides3(t)))
+
+    big = torch.zeros(2, 4, 16, 72, dtype=torch.bfloat16)
+    check("tc", big[..., :64])   # stride 72: 144-byte rows
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        check("tc", big[..., 4:68])   # starts 8 bytes in
+    odd = torch.zeros(2, 4, 16, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        check("decode", odd)    # 136-byte rows

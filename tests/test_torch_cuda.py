@@ -32,9 +32,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(rng, b, h, sq, sk, d, dtype, device):
-    mk = lambda s: torch.from_numpy(
-        rng.standard_normal((b, h, s, d)).astype(np.float32)).to(device, dtype)
+def _qkv(rng, b, h, sq, sk, d, dtype, device, strided=False):
+    """q, k, v as [B,H,S,D]; ``strided`` gives the model's layout instead: a
+    [B,S,H,D] tensor seen through ``transpose(1, 2)``."""
+    def mk(s):
+        x = rng.standard_normal((b, s, h, d) if strided else (b, h, s, d))
+        x = torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+        return x.transpose(1, 2) if strided else x
     return mk(sq), mk(sk), mk(sk)
 
 
@@ -46,7 +50,7 @@ def _bias(rng, shape, device, pad_from=None):
 
 
 CASES = [
-    # (b, h, sq, sk, d, causal, bias_shape)
+    # (b, h, sq, sk, d, causal, bias_shape[, strided])
     (8, 8, 128, 128, 64, False, (8, 1, 1, 128)),   # encoder self-attention
     (8, 8, 1, 128, 64, False, (8, 1, 1, 128)),     # decode cross-attention
     (8, 8, 1, 128, 64, False, None),
@@ -55,21 +59,43 @@ CASES = [
     (2, 2, 50, 70, 16, False, (1, 2, 50, 70)),      # per-head, per-row bias
     (1, 2, 19, 45, 128, False, (1, 1, 19, 45)),
     (3, 1, 5, 200, 48, True, (3, 1, 1, 200)),
+    # The boundaries of the bf16 variants (decode below Sq = 16, tc from 16
+    # with D in {64, 128}): ragged Sk, broadcast padding and per-row biases,
+    # causal with Sq != Sk, and the model's strided [B,S,H,D] views.
+    (4, 8, 1, 101, 64, False, (4, 1, 1, 101)),
+    (2, 4, 1, 77, 128, True, None),
+    (2, 4, 15, 77, 64, True, None),
+    (2, 4, 15, 101, 128, False, (2, 1, 15, 101)),
+    (2, 4, 16, 77, 64, True, None),
+    (2, 4, 16, 16, 128, False, (2, 1, 1, 16)),
+    (2, 4, 63, 101, 64, False, (2, 1, 1, 101)),
+    (2, 4, 64, 64, 128, True, None),
+    (2, 4, 65, 101, 64, True, (2, 1, 1, 101)),
+    (2, 4, 65, 77, 128, False, (2, 1, 65, 77)),
+    (1, 2, 128, 128, 128, False, (1, 1, 128, 128)),
+    (4, 8, 128, 128, 64, True, None, True),         # decoder self-attention
+    (8, 8, 128, 128, 64, False, (8, 1, 1, 128), True),
+    (8, 8, 1, 128, 64, False, (8, 1, 1, 128), True),
+    (2, 4, 65, 101, 128, True, None, True),
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", CASES)
 def test_flash_kernel_matches_reference(cuda, case, dtype):
-    b, h, sq, sk, d, causal, bshape = case
+    b, h, sq, sk, d, causal, bshape, *strided = case
     rng = np.random.default_rng(sq * 1000 + sk)
-    q, k, v = _qkv(rng, b, h, sq, sk, d, dtype, cuda)
+    q, k, v = _qkv(rng, b, h, sq, sk, d, dtype, cuda, bool(strided))
     bias = _bias(rng, bshape, cuda, pad_from=sk - 7) if bshape else None
     before = attn.flash_attention_forward.launches
+    variant = attn.forward_variant(dtype, sq, d)
+    n_variant = attn.flash_attention_forward.variant_launches[variant]
     out, lse = attn.flash_attention_forward(q, k, v, bias, causal,
                                             return_lse=True)
     torch.cuda.synchronize()
     assert attn.flash_attention_forward.launches == before + 1
+    assert attn.flash_attention_forward.variant_launches[variant] == \
+        n_variant + 1
     ref = attn.attention_reference(q, k, v, bias, causal)
     assert out.dtype == q.dtype and out.shape == ref.shape
     err = (out.float() - ref.float()).abs().max().item()
@@ -112,6 +138,13 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 1, 4, 128), device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="unit stride"):
         attn.flash_attention_forward(q, q, q)
+    # The bf16 variants (TMA, 16-byte loads) raise on rows off 16 bytes;
+    # there is no fallback to the CUDA-core kernel.
+    q = torch.zeros((1, 1, 32, 72), device=cuda, dtype=torch.bfloat16)
+    for rows in (32, 1):
+        view = q[:, :, :rows, 4:68]
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            attn.flash_attention_forward(view, q[..., :64], q[..., :64])
 
 
 def test_flash_kernel_causal_all_masked_row_spreads_over_visible_keys(cuda):
@@ -134,7 +167,7 @@ def test_flash_kernel_causal_all_masked_row_spreads_over_visible_keys(cuda):
 BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
 
 BWD_CASES = [
-    # (b, h, sq, sk, d, causal)
+    # (b, h, sq, sk, d, causal[, strided])
     (128, 8, 128, 128, 64, True),    # the training shape (decoder self-attn)
     (4, 8, 128, 128, 64, False),
     (2, 3, 37, 101, 64, True),       # ragged Sq != Sk, ends-aligned diagonal
@@ -142,6 +175,17 @@ BWD_CASES = [
     (3, 2, 45, 45, 16, True),        # lengths not a multiple of the tile
     (2, 2, 33, 65, 128, False),
     (1, 2, 70, 70, 128, True),
+    # Q-tile boundaries of the tc variant (64 rows), ragged Sk, and the
+    # model's strided views.
+    (4, 8, 1, 128, 64, False),
+    (2, 3, 15, 77, 64, True),
+    (2, 3, 16, 101, 128, True),
+    (2, 3, 63, 64, 64, False),
+    (2, 3, 64, 77, 64, True),
+    (2, 3, 65, 77, 128, True),
+    (2, 2, 128, 128, 128, True),
+    (8, 8, 128, 128, 64, True, True),
+    (2, 3, 65, 101, 64, False, True),
 ]
 
 
@@ -151,8 +195,8 @@ def _close(a, b, tol):
 
 
 def _bwd_inputs(rng, case, dtype, device):
-    b, h, sq, sk, d, causal = case
-    q, k, v = _qkv(rng, b, h, sq, sk, d, dtype, device)
+    b, h, sq, sk, d, causal, *strided = case
+    q, k, v = _qkv(rng, b, h, sq, sk, d, dtype, device, bool(strided))
     do = torch.from_numpy(rng.standard_normal((b, h, sq, d)).astype(
         np.float32)).to(device, dtype)
     scale = 1.0 / d ** 0.5
@@ -169,10 +213,13 @@ def test_backward_kernels_match_plain_versions(cuda, case, dtype):
     args = _bwd_inputs(rng, case, dtype, cuda)
     n_dkdv, n_dq = attn.flash_attn_bwd_dkdv.launches, \
         attn.flash_attn_bwd_dq.launches
+    variant = attn.dkdv_variant(dtype, case[4])
+    n_variant = attn.flash_attn_bwd_dkdv.variant_launches[variant]
     dk, dv = attn.flash_attn_bwd_dkdv(*args)
     dq = attn.flash_attn_bwd_dq(*args)
     torch.cuda.synchronize()
     assert attn.flash_attn_bwd_dkdv.launches == n_dkdv + 1
+    assert attn.flash_attn_bwd_dkdv.variant_launches[variant] == n_variant + 1
     assert attn.flash_attn_bwd_dq.launches == n_dq + 1
     rk, rv = attn.flash_bwd_dkdv_reference(*args)
     rq = attn.flash_bwd_dq_reference(*args)
@@ -186,10 +233,10 @@ def test_backward_kernels_match_plain_versions(cuda, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", BWD_CASES[1:])
 def test_function_grads_match_autograd_of_reference(cuda, case, dtype):
-    b, h, sq, sk, d, causal = case
+    b, h, sq, sk, d, causal, *strided = case
     rng = np.random.default_rng(7 + sq + sk)
-    q, k, v = (t.requires_grad_() for t in _qkv(rng, b, h, sq, sk, d, dtype,
-                                                 cuda))
+    q, k, v = (t.detach().requires_grad_() for t in _qkv(
+        rng, b, h, sq, sk, d, dtype, cuda, bool(strided)))
     g = torch.from_numpy(rng.standard_normal((b, h, sq, d)).astype(
         np.float32)).to(cuda, dtype)
     out = attn.fused_attention(q, k, v, causal=causal)
