@@ -44,15 +44,18 @@ order; a failing phase raises, so the exit code is nonzero:
    the card — the training shape, causal and not, ragged Sq != Sk (37/101),
    lengths off the tile, head dims 16 and 128, f32 within 5e-4 and bf16
    within 5e-2 (absolute + relative, the tolerances of tests/test_ops.py's
-   flash backward tests; Q-tile boundaries and strided views included,
-   bf16 dK/dV on its tc variant) — and the autograd Function's (dq, dk, dv)
-   against ``torch.autograd.grad`` of ``attention_reference``; two backward
-   calls must be bit-identical;
+   flash backward tests; the tc variants' 64-row Q tiles end at Sq
+   63/64/65 and 127/128/129, keys off the 64-key tile, strided views
+   included, every bf16 launch of both kernels on the variant
+   ``backward_variant`` names) — and the autograd Function's (dq, dk, dv)
+   against ``torch.autograd.grad`` of ``attention_reference``; rows that saw
+   no key (lse = +1e30) must get a dQ of exactly 0 on the tc variant, and
+   two backward calls must be bit-identical;
 8. time, as phase 4 does, at the training shape (q/k/v/dO [128, 8, 128,
    64] bf16, causal) the forward kernel with lse, dK/dV and dQ, beside
-   their plain versions, their byte/operation bounds and, as a yardstick
-   the port never calls, ``scaled_dot_product_attention`` forward and
-   backward;
+   each one's simt body, their plain versions, their byte/operation
+   bounds and, as a yardstick the port never calls,
+   ``scaled_dot_product_attention`` forward and backward;
 9. train ``transformer_nmt_wmt`` at full width in bf16 through
    ``train.run.run_experiment``: global batch 128, dropout 0.1, label
    smoothing 0.1, AdamW + rsqrt with warmup 10 and base lr 1e-3 (peak
@@ -62,7 +65,7 @@ order; a failing phase raises, so the exit code is nonzero:
    Every loss must be finite, the mean of the last 5 below the mean of the
    first 5, and the launch counts over the 30 steps exactly 18 forward,
    6 dK/dV, 6 dQ and 12 reference-VJP recomputes per microbatch step,
-   every forward and dK/dV launch on its tc variant;
+   every forward, dK/dV and dQ launch on its tc variant;
 10. f32 gradient parity at full width (batch 16): one train step from the
    same init and dropout seed through the kernels and through the plain
    attention — losses within 1e-5 relative, every parameter's gradient
@@ -514,7 +517,12 @@ def check_backward(torch, attn):
              ("ragged_causal", 2, 3, 37, 101, 64, True, False),
              ("ragged", 2, 3, 37, 101, 64, False, False),
              ("q_rows_1", 4, 8, 1, 128, 64, False, True),
+             ("q_rows_63", 2, 3, 63, 63, 64, False, False),
+             ("q_rows_64", 2, 3, 64, 100, 128, True, False),
              ("q_rows_65", 2, 3, 65, 77, 64, True, True),
+             ("q_rows_127", 2, 3, 127, 129, 64, True, True),
+             ("q_rows_129", 2, 3, 129, 200, 128, False, False),
+             ("q_rows_129_causal", 2, 3, 129, 150, 64, True, False),
              ("off_tile_d16", 3, 2, 45, 45, 16, True, False),
              ("d16_ragged", 2, 2, 50, 70, 16, False, False),
              ("d128", 2, 2, 33, 65, 128, False, False),
@@ -525,15 +533,16 @@ def check_backward(torch, attn):
         for i, (name, b, h, sq, sk, d, causal, strided) in enumerate(cases):
             args = bwd_inputs(torch, attn, 300 + i, b, h, sq, sk, d, dtype,
                               causal, strided)
-            variant = attn.dkdv_variant(dtype, d)
-            before = attn.flash_attn_bwd_dkdv.variant_launches[variant]
+            variant = attn.backward_variant(dtype, d)
+            before = {fn: fn.variant_launches[variant] for fn in (
+                attn.flash_attn_bwd_dkdv, attn.flash_attn_bwd_dq)}
             dk, dv = attn.flash_attn_bwd_dkdv(*args)
             dq = attn.flash_attn_bwd_dq(*args)
             torch.cuda.synchronize()
-            if attn.flash_attn_bwd_dkdv.variant_launches[variant] \
-                    != before + 1:
-                raise AssertionError(f"{name}: dK/dV not launched as "
-                                     f"{variant}")
+            for fn, n in before.items():
+                if fn.variant_launches[variant] != n + 1:
+                    raise AssertionError(f"{name}: {fn.__name__} not "
+                                         f"launched as {variant}")
             rk, rv = attn.flash_bwd_dkdv_reference(*args)
             rq = attn.flash_bwd_dq_reference(*args)
             line = []
@@ -563,9 +572,25 @@ def check_backward(torch, attn):
                     f"FlashAttention grads disagree with autograd of the "
                     f"reference: {dtype_name} {name} max abs err {fn_err}")
             log(f"  {dtype_name:8s} {name:14s} [{b},{h},{sq},{sk},{d}] "
-                f"causal={causal} dkdv:{variant:4s} dk {line[0]:.3e} "
+                f"causal={causal} {variant:4s} dk {line[0]:.3e} "
                 f"dv {line[1]:.3e} "
                 f"dq {line[2]:.3e} Function vs autograd {fn_err:.3e} ok")
+    # Rows that saw no key carry lse = +1e30: their dQ is exactly 0.
+    for causal in (False, True):
+        q, k, v, do, lse, delta, _, scale = bwd_inputs(
+            torch, attn, 398, 2, 3, 129, 150, HEAD_DIM, torch.bfloat16,
+            causal)
+        lse = lse.clone()
+        lse[:, :, 5] = 1e30
+        lse[1, 0, 63:] = 1e30
+        args = (q, k, v, do, lse, delta, causal, scale)
+        dq = attn.flash_attn_bwd_dq(*args)
+        rq = attn.flash_bwd_dq_reference(*args)
+        if not ((dq[:, :, 5] == 0).all() and (dq[1, 0, 63:] == 0).all()
+                and close_enough(dq, rq, BWD_TOL["bfloat16"])):
+            raise AssertionError(f"dQ of rows that saw no key is not 0 "
+                                 f"(causal={causal})")
+    log("  rows that saw no key (lse = +1e30): dQ exactly 0")
     # No atomics: a second call gives the same bits.
     args = bwd_inputs(torch, attn, 399, *TRAIN_SHAPE, torch.bfloat16, True)
     first = (*attn.flash_attn_bwd_dkdv(*args), attn.flash_attn_bwd_dq(*args))
@@ -628,15 +653,17 @@ def time_training_kernels(torch, attn):
         "flash_attn_bwd_dq": lambda: attn.flash_attn_bwd_dq(*args),
     }
     # The first port's kernel bodies (the ``simt`` variants) on the same
-    # inputs; dQ has no other.
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # inputs.
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
     before = {
         "flash_attn_fwd": lambda: attn._launch(q, k, v, None, True, scale,
                                                True, "simt"),
         "flash_attn_bwd_dkdv": lambda: attn._launch_bwd(
             "flash_attn_bwd_dkdv", *args, (dk, dv), "simt",
             attn.flash_attn_bwd_dkdv),
-        "flash_attn_bwd_dq": kernel["flash_attn_bwd_dq"],
+        "flash_attn_bwd_dq": lambda: attn._launch_bwd(
+            "flash_attn_bwd_dq", *args, (dq,), "simt",
+            attn.flash_attn_bwd_dq),
     }
     plain = {
         "flash_attn_fwd": lambda: (
@@ -660,10 +687,10 @@ def time_training_kernels(torch, attn):
     rows = {}
     # (Launches made here and in phase 7 are comparisons, not the main
     # path's: every count is set to 0 before phase 9.)
+    bwd = attn.backward_variant(q.dtype, q.shape[3])
     variant = {"flash_attn_fwd": attn.forward_variant(q.dtype, q.shape[2],
                                                       q.shape[3]),
-               "flash_attn_bwd_dkdv": attn.dkdv_variant(q.dtype, q.shape[3]),
-               "flash_attn_bwd_dq": "simt"}
+               "flash_attn_bwd_dkdv": bwd, "flash_attn_bwd_dq": bwd}
     for name in kernel:
         t = time_row(torch, kernel[name], strided[name], before[name],
                      plain[name], library[name], 50, 5, 20, 3)
@@ -751,8 +778,8 @@ def train(torch, attn):
     if at_end != expect:
         raise AssertionError(f"launch counts {at_end} != {expect}")
     log(f"  launches by variant: {by_variant}")
-    if by_variant["fwd"]["tc"] != at_end["fwd"] \
-            or by_variant["dkdv"]["tc"] != at_end["dkdv"]:
+    if any(by_variant[key]["tc"] != at_end[key]
+           for key in ("fwd", "dkdv", "dq")):
         raise AssertionError(f"bf16 training launches off the tc variant: "
                              f"{by_variant}")
     stepped = [r for r in records if "step_time_s" in r]

@@ -8,31 +8,62 @@
 // delta = rowsum(dO * O) computed outside:
 //   dS = P * (dO V^T - delta),   dQ = scale * dS K.
 // A row that saw no key carries lse = +1e30 (the forward kernel writes it), so
-// its P underflows to 0 and its dQ is exactly 0.
+// its P underflows to 0 and its dQ is exactly 0. Both variants loop over the KV
+// tiles inside one block per Q tile (the TPU grid's sequential axis becomes
+// that loop), so dQ stays in f32 registers and is written once. No atomics:
+// every output element has one writer, so gradients are deterministic. Causal
+// KV tiles wholly above the diagonal for this Q tile are skipped (the Pallas
+// kernel's `kb*bk < (iq+1)*bq + (Sk-Sq)` rule), and q, k, v and dO are read
+// through their batch/head/sequence strides (unit stride on the head dim).
 //
-// Design (a first, simple, correct kernel; CUDA-core FMAs, no tensor cores):
-//   - one thread block of 8 warps per (Q tile of 32 rows, head, batch); the loop
-//     over KV tiles of 32 keys runs inside the block, so dQ stays in f32
-//     registers and is written once. No atomics: deterministic gradients;
+// Two variants, chosen by the one rule for both backward kernels,
+// ops/attention.py:backward_variant, which passes its choice to the C entry
+// point:
+//   tc   - bf16, D in {64, 128}: tensor cores (wgmma) fed by TMA;
+//   simt - everything else, f32 above all: the CUDA-core kernel of the first
+//          port, kept as it was. It is exact in f32, which chip_smoke.py's f32
+//          gradient parity (1e-3 of each gradient's norm) relies on.
+// The entry point launches the variant it is given or returns an error.
+//
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at the training
+// shape (B=128, H=8, Sq=Sk=128, D=64, bf16, causal) the call must read q, k, v,
+// dO, lse and delta and write dQ, ~84.9 MB, about 25 us; its ~3.25 GFLOP
+// (QK^T, dO V^T and dS K over the pairs the causal mask keeps) take ~3.3 us at
+// the tensor-core rate, so bytes bound it.
+//
+// tc design. One block = one warpgroup (128 threads) per (64-row Q tile, head,
+// batch), Q tiles scheduled heaviest first; thread 0 doubles as the TMA
+// producer. Q and dO arrive once by TMA, K and V tiles of 64 keys through a
+// two-stage TMA ring with one mbarrier per stage (128-byte swizzle,
+// hopper.cuh); each thread keeps lse and delta of its two fragment rows in
+// registers. Q rows are the M dimension of every product, so nothing but the
+// loaded tiles goes through shared memory:
+//   S  = Q K^T     wgmma, A = Q and B = K from shared memory (K-major);
+//   dP = dO V^T    wgmma, A = dO and B = V from shared memory (K-major);
+//   P  = exp(scale*S - lse), masked, and dS = P * (dP - delta), f32 registers;
+//   dQ += dS K     wgmma, A = dS in registers (bf16), B = the same K tile read
+//                  N-major;
+// and dQ is scaled once when it is written. TMA zero-fills keys past Sk (S is
+// 0 there, not -inf), so they are masked in the fragment like causal keys.
+// Numerics: dS is rounded to bf16 for its product with K and the sums stay
+// f32, as the dK/dV tc variant does for P^T and dS^T and the forward for P;
+// the Pallas kernel keeps dS and K in f32 for that product
+// (attention.py:432-434).
+//
+// simt design (the first port's kernel, CUDA-core FMAs, no tensor cores):
+//   - one thread block of 8 warps per (Q tile of 32 rows, head, batch) looping
+//     over KV tiles of 32 keys;
 //   - Q and dO (once) and each K, V tile are staged in shared memory as f32,
 //     rows padded to D+1 floats;
 //   - phase 1 of a KV tile: lane j scores key j against 4 query rows of its
 //     warp (q.k and dO.v) and writes scale*dS to shared memory; phase 2: each
 //     warp owns 4 query rows, lane d owns head-dim columns d, d+32, d+64, d+96,
-//     and accumulates dQ += dS K;
-//   - causal KV tiles wholly above the diagonal for this Q tile are skipped;
-//   - q, k, v and dO are read through their strides (unit stride on the head
-//     dim).
-//
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at the training
-// shape (B=128, H=8, Sq=Sk=128, D=64, bf16, causal) the call must read q, k, v,
-// dO, lse and delta and write dQ, ~84.9 MB, about 25 us; its ~3 GFLOP (halved by
-// the causal skip) take ~3 us at the tensor-core rate, so bytes bound it. Like
-// the dK/dV kernel it runs on CUDA cores with plain loads, far above that bound;
-// wgmma and TMA are a later PR's work.
+//     and accumulates dQ += dS K.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -211,15 +242,214 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------- tc variant
+
+constexpr int kTcRows = 64;   // query rows per block (every product's M)
+constexpr int kTcKeys = 64;   // keys per K/V tile
+constexpr int kTcThreads = 128;
+constexpr int kPanelBytes = 64 * hopper::kSwizzleRow;  // [64 rows][64 cols] bf16
+
+struct TcParams {
+  const float* lse;    // [B, H, Sq] contiguous
+  const float* delta;  // [B, H, Sq] contiguous
+  void* dq;            // [B, H, Sq, D] contiguous
+  int H, Sq, Sk;
+  float scale;
+  int causal;
+};
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  // Q, dO, two K stages, two V stages, three mbarriers, and room to align.
+  return 6 * (D / 64) * kPanelBytes + 3 * sizeof(uint64_t) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do, const TcParams p) {
+  using namespace hopper;
+  constexpr int kPanels = D / 64;
+  constexpr int kTile = kPanels * kPanelBytes;  // one [64][D] bf16 tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* do_s = q_s + kTile;
+  uint8_t* k_s = do_s + kTile;     // [2 stages][tile]
+  uint8_t* v_s = k_s + 2 * kTile;  // [2 stages][tile]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(v_s + 2 * kTile);  // Q/dO, stage 0, 1
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int shift = p.Sk - p.Sq;  // ends-aligned causal diagonal
+  // The last key any row of this tile may see is min(q0 + 64, Sq) - 1 + shift;
+  // KV tiles wholly past it are skipped.
+  int k_end = p.Sk;
+  if (p.causal) k_end = min(k_end, min(q0 + kTcRows, p.Sq) + shift);
+  const int n_tiles = max(0, (k_end + kTcKeys - 1) / kTcKeys);
+
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  auto load_kv = [&](int j, int st) {
+    mbar_expect_tx(&bar[1 + st], 2 * kTile);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) {
+      tma_load(k_s + st * kTile + pn * kPanelBytes, map_k, &bar[1 + st], pn * 64,
+               j * kTcKeys, h, b);
+      tma_load(v_s + st * kTile + pn * kPanelBytes, map_v, &bar[1 + st], pn * 64,
+               j * kTcKeys, h, b);
+    }
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar[0], 2 * kTile);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) {
+      tma_load(q_s + pn * kPanelBytes, &tm_q, &bar[0], pn * 64, q0, h, b);
+      tma_load(do_s + pn * kPanelBytes, &tm_do, &bar[0], pn * 64, q0, h, b);
+    }
+    for (int j = 0; j < min(2, n_tiles); ++j) load_kv(j, j);
+  }
+
+  // This thread's rows (r_lo, r_lo + 8) with their lse and delta, and its
+  // columns (c_lo + 8n + {0, 1}) of every fragment.
+  const int r_lo = q0 + warp * 16 + (lane >> 2);
+  const int c_lo = 2 * (lane & 3);
+  const long long row0 = ((long long)b * p.H + h) * p.Sq;
+  bool row_in[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r_lo + 8 * i;
+    row_in[i] = qi < p.Sq;
+    lse_r[i] = row_in[i] ? p.lse[row0 + qi] : 0.f;
+    delta_r[i] = row_in[i] ? p.delta[row0 + qi] : 0.f;
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(&bar[0], 0);
+  const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    mbar_wait(&bar[1 + st], (j >> 1) & 1);
+    const uint32_t k_addr = smem_u32(k_s + st * kTile);
+    const uint32_t v_addr = smem_u32(v_s + st * kTile);
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(s, kmajor_desc(q_addr, kk, kPanelBytes),
+                         kmajor_desc(k_addr, kk, kPanelBytes), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(dp, kmajor_desc(do_addr, kk, kPanelBytes),
+                         kmajor_desc(v_addr, kk, kPanelBytes), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS in place of dP. TMA zero-fills keys past Sk (S = 0 there, not
+    // -inf), so they are masked here like the causal ones: exactly 0.
+    const int k0 = j * kTcKeys;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int kj = k0 + 8 * n + c_lo + (e & 1);
+        const bool live = row_in[i] && kj < p.Sk && !(p.causal && kj > r_lo + 8 * i + shift);
+        const float pr = live ? __expf(s[4 * n + e] * p.scale - lse_r[i]) : 0.f;
+        dp[4 * n + e] = pr * (dp[4 * n + e] - delta_r[i]);
+      }
+    }
+    uint32_t dsa[4][4];
+    to_a_frags(dp, dsa);  // dS rounded to bf16 for the dS K product
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      if constexpr (D == 64) {
+        wgmma_rs_m64n64k16(dq, dsa[kk], nmajor_desc(k_addr, kk, kPanelBytes), 1);
+      } else {
+        wgmma_rs_m64n128k16(dq, dsa[kk], nmajor_desc(k_addr, kk, kPanelBytes), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+
+    // Every warp is done with this stage: refill it with tile j + 2.
+    named_barrier_sync(1, kTcThreads);
+    if (tid == 0 && j + 2 < n_tiles) load_kv(j + 2, st);
+  }
+
+  __nv_bfloat16* dq_out = static_cast<__nv_bfloat16*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!row_in[i]) continue;
+    const long long row = (row0 + r_lo + 8 * i) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dq_out + row + 8 * n + c_lo) = __floats2bfloat162_rn(
+          dq[4 * n + 2 * i] * p.scale, dq[4 * n + 2 * i + 1] * p.scale);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const void* dout,
+              const TcParams& tp, int B, long long q_sb, long long q_sh, long long q_ss,
+              long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+              long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+              cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hopper::make_map(&tq, q, B, tp.H, tp.Sq, D, q_ss, q_sh, q_sb, kTcRows) ||
+      !hopper::make_map(&tk, k, B, tp.H, tp.Sk, D, k_ss, k_sh, k_sb, kTcKeys) ||
+      !hopper::make_map(&tv, v, B, tp.H, tp.Sk, D, v_ss, v_sh, v_sb, kTcKeys) ||
+      !hopper::make_map(&tdo, dout, B, tp.H, tp.Sq, D, o_ss, o_sh, o_sb, kTcRows))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = tc_smem_bytes<D>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attn_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const dim3 grid((tp.Sq + kTcRows - 1) / kTcRows, tp.H, B);
+  flash_attn_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, tp);
+  return (int)cudaGetLastError();
+}
+
+enum Variant { kSimt = 0, kTc = 1 };
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dQ share it). Strides are in
-// elements. `variant` is 0: this file has one kernel, the CUDA-core one
-// ("simt"), and takes the argument as the other entry points do. Returns a
-// cudaError_t (0 = launched). The caller checks shapes; this only refuses
-// head dims the kernel was not written for.
+// elements. `variant` is the one the caller's rule picked (0 simt, 1 tc); the
+// caller also checks shapes and, for tc, that rows start on 16 bytes. Returns
+// a cudaError_t (0 = launched); refuses head dims the kernels were not written
+// for and tc asked for another dtype or head dim.
 int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq,
                       int B, int H, int Sq, int Sk, int D,
@@ -230,14 +460,21 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* d
                       float scale, int causal, int dtype, int variant, void* stream) {
   if (D < 16 || D > 32 * kMaxCols || D % 16 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
-  if (variant != 0) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (variant != kSimt && (variant != kTc || dtype != 1 || (D != 64 && D != 128)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == kTc) {
+    const TcParams tp{lse, delta, dq, H, Sq, Sk, scale, causal};
+    return D == 64 ? launch_tc<64>(q, k, v, dout, tp, B, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                                   v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, s)
+                   : launch_tc<128>(q, k, v, dout, tp, B, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                                    v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, s);
+  }
   Params p{q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, scale, causal};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return dtype == 0 ? launch<float>(p, s) : launch<__nv_bfloat16>(p, s);
 }
 
 }  // extern "C"

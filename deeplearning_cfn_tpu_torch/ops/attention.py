@@ -16,14 +16,15 @@ The port of ``deeplearning_cfn_tpu/ops/attention.py``:
   ``csrc/flash_attn_bwd_dkdv.cu`` and ``csrc/flash_attn_bwd_dq.cu``, the CUDA
   ports of ``_flash_bwd_dkdv_kernel`` and ``_flash_bwd_dq_kernel``, with their
   plain versions ``flash_bwd_dkdv_reference`` / ``flash_bwd_dq_reference``
-  beside them and a ``launches`` counter each (dK/dV also
-  ``.variant_launches``, by ``dkdv_variant``).
-- ``forward_variant`` / ``dkdv_variant``: the one rule that picks each
-  kernel's variant — ``tc`` (bf16 on tensor cores: wgmma fed by TMA),
-  ``decode`` (bf16 with fewer than 16 query rows: split-K over the block's
-  warps) or ``simt`` (the CUDA-core kernels; f32 always, because they are
-  exact there). The wrapper passes the choice to the C entry point, which
-  launches that variant or returns an error.
+  beside them and a ``launches`` counter each, split by variant in
+  ``.variant_launches`` (``backward_variant``).
+- ``forward_variant`` / ``backward_variant``: the one rule that picks each
+  kernel's variant (``backward_variant`` for both backward kernels) —
+  ``tc`` (bf16 on tensor cores: wgmma fed by TMA), ``decode`` (bf16 with
+  fewer than 16 query rows: split-K over the block's warps) or ``simt``
+  (the CUDA-core kernels; f32 always, because they are exact there). The
+  wrapper passes the choice to the C entry point, which launches that
+  variant or returns an error.
 - ``FlashAttention``: the ``torch.autograd.Function`` that mirrors the JAX
   custom VJP (``_fwd``/``_bwd``): without a bias the forward keeps O and the
   per-row lse and the backward runs the two backward kernels; with a bias the
@@ -82,9 +83,10 @@ def forward_variant(dtype: torch.dtype, sq: int, d: int) -> str:
     return "tc" if d in _TC_HEAD_DIMS else "simt"
 
 
-def dkdv_variant(dtype: torch.dtype, d: int) -> str:
-    """The variant of ``csrc/flash_attn_bwd_dkdv.cu`` to launch: ``tc`` for
-    bf16 with ``d`` in (64, 128), else ``simt``."""
+def backward_variant(dtype: torch.dtype, d: int) -> str:
+    """The variant of both backward kernels (``csrc/flash_attn_bwd_dkdv.cu``
+    and ``csrc/flash_attn_bwd_dq.cu``) to launch: ``tc`` for bf16 with ``d``
+    in (64, 128), else ``simt``."""
     return "tc" if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS else "simt"
 
 
@@ -390,7 +392,7 @@ def flash_attn_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, scale: float):
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("flash_attn_bwd_dkdv", q, k, v, do, lse, delta, causal,
-                scale, (dk, dv), dkdv_variant(q.dtype, q.shape[-1]),
+                scale, (dk, dv), backward_variant(q.dtype, q.shape[-1]),
                 flash_attn_bwd_dkdv)
     return dk, dv
 
@@ -408,12 +410,13 @@ def flash_attn_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("flash_attn_bwd_dq", q, k, v, do, lse, delta, causal, scale,
-                (dq,), "simt", flash_attn_bwd_dq)
+                (dq,), backward_variant(q.dtype, q.shape[-1]),
+                flash_attn_bwd_dq)
     return dq
 
 
 flash_attn_bwd_dq.launches = 0
-flash_attn_bwd_dq.variant_launches = {"simt": 0}
+flash_attn_bwd_dq.variant_launches = {"tc": 0, "simt": 0}
 
 
 def flash_attention_backward(q, k, v, out, lse, g, causal, scale):

@@ -126,10 +126,11 @@ def test_validation_errors_match_jax():
     assert tattn.flash_attention_forward.launches == 0
 
 
-# (dtype, Sq, D, forward variant, dK/dV variant) for every attention call of
-# the port's main paths at the NMT preset's head dim 64, and the edges of the
-# rule: bf16 takes the tensor-core kernels (decode below 16 query rows, where
-# a 64-row wgmma does not fit), f32 always the exact CUDA-core ones.
+# (dtype, Sq, D, forward variant, backward variant) for every attention call
+# of the port's main paths at the NMT preset's head dim 64, and the edges of
+# the rule: bf16 takes the tensor-core kernels (decode below 16 query rows,
+# where a 64-row wgmma does not fit), f32 always the exact CUDA-core ones.
+# One rule picks the variant of both backward kernels (dK/dV and dQ).
 VARIANT_CASES = [
     (torch.bfloat16, 128, 64, "tc", "tc"),       # encoder / decoder self
     (torch.bfloat16, 1, 64, "decode", "tc"),     # decode cross / self
@@ -145,17 +146,17 @@ VARIANT_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype,sq,d,fwd,dkdv", VARIANT_CASES)
-def test_variant_rule_pins_each_main_path_shape(dtype, sq, d, fwd, dkdv):
+@pytest.mark.parametrize("dtype,sq,d,fwd,bwd", VARIANT_CASES)
+def test_variant_rule_pins_each_main_path_shape(dtype, sq, d, fwd, bwd):
     assert tattn.forward_variant(dtype, sq, d) == fwd
-    assert tattn.dkdv_variant(dtype, d) == dkdv
+    assert tattn.backward_variant(dtype, d) == bwd
 
 
 def test_variant_counters_start_empty_and_name_every_variant():
     assert set(tattn.flash_attention_forward.variant_launches) == {
         "tc", "decode", "simt"}
     assert set(tattn.flash_attn_bwd_dkdv.variant_launches) == {"tc", "simt"}
-    assert set(tattn.flash_attn_bwd_dq.variant_launches) == {"simt"}
+    assert set(tattn.flash_attn_bwd_dq.variant_launches) == {"tc", "simt"}
 
 
 def test_strides_of_unit_dims_are_made_tma_friendly():

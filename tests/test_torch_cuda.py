@@ -186,6 +186,14 @@ BWD_CASES = [
     (2, 2, 128, 128, 128, True),
     (8, 8, 128, 128, 64, True, True),
     (2, 3, 65, 101, 64, False, True),
+    # dQ's tc Q tiles (64 rows) end at Sq 63/64/65 and 127/128/129, its K/V
+    # tiles (64 keys) off Sk.
+    (2, 3, 63, 63, 128, True),
+    (2, 3, 127, 129, 64, True),
+    (2, 3, 128, 150, 128, True),
+    (2, 3, 129, 129, 64, False),
+    (2, 3, 129, 200, 128, False),
+    (2, 3, 127, 127, 64, False, True),
 ]
 
 
@@ -213,14 +221,16 @@ def test_backward_kernels_match_plain_versions(cuda, case, dtype):
     args = _bwd_inputs(rng, case, dtype, cuda)
     n_dkdv, n_dq = attn.flash_attn_bwd_dkdv.launches, \
         attn.flash_attn_bwd_dq.launches
-    variant = attn.dkdv_variant(dtype, case[4])
+    variant = attn.backward_variant(dtype, case[4])
     n_variant = attn.flash_attn_bwd_dkdv.variant_launches[variant]
+    n_dq_variant = attn.flash_attn_bwd_dq.variant_launches[variant]
     dk, dv = attn.flash_attn_bwd_dkdv(*args)
     dq = attn.flash_attn_bwd_dq(*args)
     torch.cuda.synchronize()
     assert attn.flash_attn_bwd_dkdv.launches == n_dkdv + 1
     assert attn.flash_attn_bwd_dkdv.variant_launches[variant] == n_variant + 1
     assert attn.flash_attn_bwd_dq.launches == n_dq + 1
+    assert attn.flash_attn_bwd_dq.variant_launches[variant] == n_dq_variant + 1
     rk, rv = attn.flash_bwd_dkdv_reference(*args)
     rq = attn.flash_bwd_dq_reference(*args)
     for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
@@ -299,14 +309,15 @@ def test_backward_is_deterministic_and_reads_strided_dout(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_rows_that_saw_no_key_get_exactly_zero(cuda, causal):
+def test_rows_that_saw_no_key_get_exactly_zero(cuda, causal, dtype):
     """lse = +1e30 (the forward kernel's value for a row that saw no key)
-    makes P underflow to 0 in both kernels: dQ of such a row is exactly 0,
-    and dK/dV equal those of the batch without it."""
+    makes P underflow to 0 in both kernels, in every variant: dQ of such a
+    row is exactly 0, and dK/dV equal those of the batch without it."""
     rng = np.random.default_rng(13)
     q, k, v, do, lse, delta, _, scale = _bwd_inputs(
-        rng, (2, 2, 40, 72, 64, causal), torch.float32, cuda)
+        rng, (2, 2, 40, 72, 64, causal), dtype, cuda)
     dead = lse.clone()
     dead[:, :, 5] = 1e30
     dead[1, 0, 33:] = 1e30
@@ -318,4 +329,4 @@ def test_rows_that_saw_no_key_get_exactly_zero(cuda, causal):
     rq = attn.flash_bwd_dq_reference(*args)
     rk, rv = attn.flash_bwd_dkdv_reference(*args)
     for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
-        assert _close(got, ref, BWD_TOL[torch.float32])
+        assert _close(got, ref, BWD_TOL[dtype])

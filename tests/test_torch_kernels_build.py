@@ -43,12 +43,14 @@ def test_library_path_is_stable_and_follows_the_source(csrc, name):
 def test_library_path_follows_an_included_header(csrc):
     """Editing the shared header rebuilds every kernel that includes it, and
     only those."""
-    users = [n for n in kernels.KERNEL_NAMES
+    (csrc / "no_header.cu").write_text("// includes no local header\n")
+    names = (*kernels.KERNEL_NAMES, "no_header")
+    users = [n for n in names
              if any(p.endswith("hopper.cuh") for p in kernels.sources(n))]
-    assert set(users) == {"flash_attn_fwd", "flash_attn_bwd_dkdv"}
-    before = {n: kernels._lib_path(n) for n in kernels.KERNEL_NAMES}
+    assert set(users) == set(kernels.KERNEL_NAMES)
+    before = {n: kernels._lib_path(n) for n in names}
     _append(csrc / "hopper.cuh", "\n// edited\n")
-    for name in kernels.KERNEL_NAMES:
+    for name in names:
         changed = kernels._lib_path(name) != before[name]
         assert changed == (name in users), name
 
@@ -77,7 +79,8 @@ def test_library_path_follows_the_flags(csrc, monkeypatch):
 
 @pytest.mark.parametrize("name,wrapper", [
     ("flash_attn_fwd", attention.flash_attention_forward),
-    ("flash_attn_bwd_dkdv", attention.flash_attn_bwd_dkdv)])
+    ("flash_attn_bwd_dkdv", attention.flash_attn_bwd_dkdv),
+    ("flash_attn_bwd_dq", attention.flash_attn_bwd_dq)])
 def test_variant_codes_match_the_c_sources(name, wrapper):
     """The wrapper passes its variant to the C entry point as an int; each
     source's ``enum Variant`` says what the ints mean there, and names every
