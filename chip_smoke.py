@@ -73,10 +73,36 @@ order; a failing phase raises, so the exit code is nonzero:
    the key biases' true gradient is 0), and every attention projection's
    gradient present and nonzero.
 
+11. train ``imagenet_resnet50`` at full width in bf16 through
+   ``train.run.run_experiment`` (224² images, the 7×7/s2 stem, [3, 4, 6, 3]
+   bottlenecks, 1000 classes, LARS + cosine, label smoothing 0.1) on
+   synthetic ImageNet: global batch 256, 2 warm-up steps then 30 timed,
+   each step synced (log every step). Cuts, printed by the phase: batch 256
+   for the preset's 8192 (the lr follows the preset's ``scale_with_batch``
+   rule), 1024 train examples for 8192, warmup scaled to the step count,
+   eval on 512 examples. It prints step time p50 and images/s p50 (host
+   clock), the MFU share (images/s × 3 × the forward FLOPs counted from
+   the model's conv and Dense shapes, over 989 TFLOP/s), the peak memory,
+   the loss (first-5 and last-5 means, which must fall), eval top-1 and
+   top-5, and asserts that every parameter and buffer is on the card, the
+   activations are channels_last, the running statistics finite and moved.
+   It then measures the host's feed rate of the sharded ImageNet source
+   through the C++ ``dataio`` loader (1024 synthetic u8 256² images written
+   by ``write_shards``, batch 256) against the card's images/s. The ResNet
+   launches none of the three kernels; the counts stay as phase 9 left them;
+12. f32 ``cifar10_resnet20`` at full width (batch 128) on the card against
+   the CPU, from one seeded init and the same 3 host batches (TF32 off, as
+   the trainer sets it for an f32 run): losses within 1e-4 relative, every
+   gradient within 1e-5 of the global gradient norm, running statistics
+   within 1e-5.
+
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
-ticks, and ``--profile-train`` steady full-width bf16 train steps (host
-time against device-busy time, kernels ranked); neither prints a result
-line.
+ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
+``--profile-resnet`` steady full-width bf16 ResNet-50 train steps (batch
+256): host time against device-busy time, device ops per step, kernels
+ranked and, for the ResNet, device time by kind (convolutions forward /
+data-gradient / weight-gradient, elementwise and reductions — BatchNorm's
+share —, copies and casts, the optimizer); none prints a result line.
 
 The line before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -105,6 +131,18 @@ TRAIN_BATCH, TRAIN_STEPS, PARITY_BATCH = 128, 30, 16
 # causal decoder self-attentions; the reference VJP for the 6 encoder
 # self-attentions and 6 cross-attentions (padding bias).
 PER_STEP = {"fwd": 18, "dkdv": 6, "dq": 6, "vjp": 12}
+# Phase 11: ResNet-50 at full width, bf16.
+RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS = 256, 2, 30
+RESNET_CUTS = ["train.global_batch=256 (preset 8192, a 128-chip batch; lr "
+               "by the preset's scale_with_batch rule)",
+               "data.num_train_examples=1024 (preset 8192: 4.9 GB of f32 "
+               "on the host)",
+               "schedule.warmup_steps=2 (the preset's 5 of 90 epochs, "
+               "scaled to 32 steps)",
+               "eval on 512 examples"]
+FEED_IMAGES, FEED_STORED, FEED_OUT = 1024, 256, 224
+# Phase 12: ResNet-20 f32, card against CPU.
+CIFAR_BATCH, CIFAR_STEPS = 128, 3
 
 
 def log(msg: str) -> None:
@@ -946,6 +984,330 @@ def report_profile(prof, wall, steps, what):
                 f"x{e.count / steps:5.1f}  #{i + 1:<3d} {e.key[:90]}")
 
 
+# -- the ResNet path (no kernel of ours: cuDNN convs, eager f32 BatchNorm) --
+
+
+def resnet_cfg(batch, steps, workdir_name):
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    workdir = os.path.join(REPO, "deeplearning_cfn_tpu_torch", "_build",
+                           workdir_name)
+    return apply_overrides(get_preset("imagenet_resnet50"), [
+        f"workdir={workdir}", "train.seed=0", f"train.global_batch={batch}",
+        f"train.steps={steps}", "train.log_every_steps=1",
+        "train.eval_every_steps=1000000", "schedule.warmup_steps=2",
+        "data.num_train_examples=1024", "data.num_eval_examples=512"])
+
+
+def train_resnet(torch):
+    """Phase 11: ResNet-50 at full width in bf16 through run_experiment."""
+    from deeplearning_cfn_tpu_torch.models.resnet import forward_flops
+    from deeplearning_cfn_tpu_torch.train.run import run_experiment
+
+    steps = RESNET_WARMUP + RESNET_STEPS
+    cfg = resnet_cfg(RESNET_BATCH, steps, "smoke_resnet")
+    for cut in RESNET_CUTS:
+        log(f"  cut: {cut}")
+    records, seen = [], {}
+
+    def hook(step, state, record):
+        records.append(record)
+        if step == steps:
+            seen["model"] = state.model
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = run_experiment(cfg, device=DEVICE, hooks=(hook,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    model = seen["model"]
+    losses = [r["loss"] for r in records]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bad losses: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first-5 mean {first}, "
+                             f"last-5 mean {last}")
+    off = [n for n, t in [*model.named_parameters(), *model.named_buffers()]
+           if t.device.type != torch.device(DEVICE).type]
+    if off:
+        raise AssertionError(f"{len(off)} tensors not on the card, e.g. "
+                             f"{off[:3]}")
+    # The seeded init leaves every running mean at 0 and variance at 1.
+    moved, buffers = 0, dict(model.named_buffers())
+    for name, buf in buffers.items():
+        if not bool(torch.isfinite(buf).all()):
+            raise AssertionError(f"{name}: non-finite running statistic")
+        start = 0.0 if name.endswith("running_mean") else 1.0
+        moved += int(bool((buf != start).any()))
+    if moved != len(buffers):
+        raise AssertionError(f"only {moved} of {len(buffers)} running "
+                             f"statistics moved")
+    layouts = channels_last_share(torch, model, cfg.data.image_size)
+    timed = [r for r in records[RESNET_WARMUP:] if "step_time_s" in r]
+    step_s = sorted(r["step_time_s"] for r in timed)
+    img_s = sorted(r["examples_per_sec"] for r in timed)
+    p50 = lambda xs: xs[len(xs) // 2]
+    flops = forward_flops(model, cfg.data.image_size)
+    mfu = p50(img_s) * 3 * flops / BF16_FLOP_PER_S
+    out = dict(steps=steps, timed_steps=len(timed),
+               global_batch=RESNET_BATCH, image_size=cfg.data.image_size,
+               params=sum(p.numel() for p in model.parameters()),
+               forward_gflop_per_image=flops / 1e9,
+               first5_loss=first, last5_loss=last,
+               step_time_p50_s=p50(step_s), images_per_s_p50=p50(img_s),
+               mfu_share=mfu, first_step_s=records[0]["compile_s"],
+               max_memory_allocated_bytes=peak, wall_s=wall,
+               final_eval_loss=final["loss"],
+               final_eval_top1=final["accuracy"],
+               final_eval_top5=final["accuracy_top5"],
+               final_eval_examples=final["examples"],
+               channels_last_activations=layouts, cuts=RESNET_CUTS)
+    log(f"  model: ResNet-50, {out['params']} parameters, "
+        f"{out['forward_gflop_per_image']:.3f} GFLOP forward per "
+        f"{cfg.data.image_size}² image (counted from the conv/Dense shapes; "
+        f"published ~8.2)")
+    log(f"  step time p50 {out['step_time_p50_s'] * 1e3:.2f} ms, images/s "
+        f"p50 {out['images_per_s_p50']:.1f}, MFU share {mfu:.4f} (of 989 "
+        f"TFLOP/s dense bf16), first step {out['first_step_s']:.2f} s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; eval on "
+        f"{final['examples']:.0f}: loss {final['loss']:.4f}, top-1 "
+        f"{final['accuracy']:.4f}, top-5 {final['accuracy_top5']:.4f}; "
+        f"{moved} running statistics moved, all finite; activations "
+        f"channels_last: {layouts}; run {wall:.1f} s")
+    out["feed"] = feed_rate(torch, out["images_per_s_p50"])
+    return out
+
+
+def channels_last_share(torch, model, size):
+    """Every conv and BatchNorm output of one train-mode forward (batch 8)
+    must be channels_last; returns 'n/n'. The forward runs under no_grad
+    and its statistics update is undone."""
+    from deeplearning_cfn_tpu_torch.models import resnet
+
+    saved = {n: b.clone() for n, b in model.named_buffers()}
+    flags = []
+    handles = [m.register_forward_hook(lambda m, i, o: flags.append(
+        o.is_contiguous(memory_format=torch.channels_last)))
+        for m in model.modules()
+        if isinstance(m, (resnet.Conv, resnet.BatchNorm))]
+    try:
+        with torch.no_grad():
+            model(torch.randn(8, size, size, 3, device=DEVICE), train=True)
+    finally:
+        for h in handles:
+            h.remove()
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(saved[n])
+    if not flags or not all(flags):
+        raise AssertionError(f"activations not channels_last: "
+                             f"{sum(flags)}/{len(flags)}")
+    return f"{sum(flags)}/{len(flags)}"
+
+
+def feed_rate(torch, card_images_per_s):
+    """The host's feed rate of the sharded ImageNet source through dataio
+    (random-resized-crop to 224, flip, normalize), at batch 256, with the
+    preset's 4 loader threads and with one per core."""
+    import shutil
+
+    import numpy as np
+
+    from deeplearning_cfn_tpu_torch import dataio
+    from deeplearning_cfn_tpu_torch.data.imagenet import (
+        ShardedImageNetSource, measure_feed_rate, write_shards)
+    from deeplearning_cfn_tpu_torch.data.pipeline import DataPipeline
+
+    if not dataio.available():
+        raise AssertionError("the dataio C++ loader did not build (g++)")
+    root = os.path.join(REPO, "deeplearning_cfn_tpu_torch", "_build",
+                        "feed_shards")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    write_shards(root, rng.randint(0, 256, (FEED_IMAGES, FEED_STORED,
+                                            FEED_STORED, 3), dtype=np.uint8),
+                 rng.randint(0, 1000, FEED_IMAGES), 1000, shard_records=256)
+    write_s = time.perf_counter() - t0
+    out = {"shards_write_s": write_s, "images": FEED_IMAGES,
+           "stored": f"{FEED_STORED}x{FEED_STORED} u8", "out": FEED_OUT,
+           "card_images_per_s": card_images_per_s}
+    try:
+        for workers in (4, os.cpu_count() or 4):
+            source = ShardedImageNetSource(root, train=True,
+                                           image_size=FEED_OUT,
+                                           num_workers=workers)
+            pipe = DataPipeline(source, RESNET_BATCH, prefetch=0)
+            if not pipe._seeded or not source._native:
+                raise AssertionError("feed path is not the native seeded "
+                                     "gather")
+            rate = measure_feed_rate(pipe, num_batches=8, warmup=1)
+            out[f"images_per_s_{workers}_threads"] = rate["images_per_sec"]
+            log(f"  feed rate ({workers} loader threads, batch "
+                f"{RESNET_BATCH}, {FEED_STORED}² u8 → {FEED_OUT}² f32): "
+                f"{rate['images_per_sec']:.1f} images/s — "
+                f"{rate['images_per_sec'] / card_images_per_s:.2f}× the "
+                f"card's {card_images_per_s:.1f}; "
+                f"{'enough' if rate['images_per_sec'] >= card_images_per_s else 'NOT enough'} "
+                f"to feed it")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def cifar_parity(torch):
+    """Phase 12: f32 ResNet-20 at full width, the card against the CPU."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.train.optim import (build_optimizer,
+                                                        build_schedule)
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.task import build_task
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+    from deeplearning_cfn_tpu_torch.train.optim import global_norm
+
+    cfg = apply_overrides(get_preset("cifar10_resnet20"), [
+        "train.seed=0", f"train.global_batch={CIFAR_BATCH}",
+        f"data.num_train_examples={CIFAR_BATCH * CIFAR_STEPS}"])
+    host = [b for _, b in zip(range(CIFAR_STEPS), build_pipeline(
+        cfg.data, CIFAR_BATCH, cfg.model.num_classes, seed=0).one_epoch())]
+    runs = {}
+    init = None
+    for name in ("cpu", DEVICE):
+        dev = torch.device(name)
+        task = build_task(cfg, dev)
+        if init is None:
+            task.init(torch.Generator(device=dev).manual_seed(0))
+            init = {k: v.clone() for k, v in task.model.state_dict().items()}
+        else:
+            task.model.load_state_dict(init)
+        sched = build_schedule(cfg.schedule, 100, CIFAR_BATCH, 100)
+        state = create_train_state(task.model, build_optimizer(
+            cfg.optimizer, sched, task.model))
+        trainer = Trainer(cfg, task, dev)
+        losses = [float(trainer.train_step(state, to_device(b, dev))["loss"])
+                  for b in host]
+        grads = {n: p.grad.detach().cpu() for n, p in
+                 task.model.named_parameters()}
+        stats = {n: b.detach().cpu() for n, b in
+                 task.model.named_buffers()}
+        runs[name] = (losses, grads, stats)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    (lc, gc, sc), (lg, gg, sg) = runs["cpu"], runs[DEVICE]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    gnorm = float(global_norm(list(gc.values())))
+    grad_rel = max(float((gg[n] - gc[n]).norm()) for n in gc) / gnorm
+    stat_err = max(float((sg[n] - sc[n]).abs().max() /
+                         max(float(sc[n].abs().max()), 1.0)) for n in sc)
+    log(f"  losses card {' '.join(f'{x:.7f}' for x in lg)} vs CPU "
+        f"{' '.join(f'{x:.7f}' for x in lc)} (worst rel {loss_rel:.2e}); "
+        f"{len(gc)} gradients, worst {grad_rel:.2e} of the global norm "
+        f"{gnorm:.4f}; {len(sc)} running statistics, worst {stat_err:.2e}; "
+        f"TF32 (cudnn, matmul) during the run: {tf32}")
+    if tf32 != (False, False):
+        raise AssertionError(f"TF32 on for an f32 run: {tf32}")
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-5 and stat_err <= 1e-5):
+        raise AssertionError(
+            f"card vs CPU: losses {loss_rel}, gradients {grad_rel}, "
+            f"statistics {stat_err}")
+    return dict(steps=CIFAR_STEPS, global_batch=CIFAR_BATCH,
+                losses_card=lg, losses_cpu=lc, loss_rel_diff=loss_rel,
+                grad_rel_to_global_norm=grad_rel, running_stat_err=stat_err,
+                params=len(gc))
+
+
+# Device-time kinds of a ResNet step, by kernel name, first match wins.
+# PyTorch's own kernels (at::native) are copies and casts, reductions,
+# the optimizer's foreach ops, max-pool or elementwise; the rest are
+# cuDNN's and cuBLAS's convolutions and GEMMs.
+KINDS = (("copy / cast", ("copy_kernel",)),
+         ("reduction (BN statistics and their backward)",
+          ("reduce_kernel",)),
+         ("optimizer (foreach)", ("multi_tensor",)),
+         ("max-pool", ("max_pool",)),
+         ("elementwise (BN, ReLU, residual)", ("at::native",)),
+         ("conv wgrad", ("wgrad",)),
+         ("conv dgrad", ("dgrad",)),
+         ("conv fprop", ("fprop",)),
+         ("conv / gemm, other cuDNN and cuBLAS kernels",
+          ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90", "nvjet")))
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k.lower() in low for k in keys):
+            return kind
+    return "other"
+
+
+def profile_resnet(torch, steps: int = 3) -> None:
+    """``--profile-resnet``: where a steady full-width bf16 ResNet-50 train
+    step (batch 256, LARS) spends its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning_cfn_tpu_torch.train.optim import (build_optimizer,
+                                                        build_schedule)
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.task import build_task
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    cfg = resnet_cfg(RESNET_BATCH, 100, "smoke_resnet_profile")
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(0)
+    size = cfg.data.image_size
+    batches = [{"image": torch.randn(RESNET_BATCH, size, size, 3, device=dev,
+                                     generator=g),
+                "label": torch.randint(0, 1000, (RESNET_BATCH,), device=dev,
+                                       generator=g)}
+               for _ in range(steps + 2)]
+    task = build_task(cfg, dev)
+    task.init(torch.Generator(device=dev).manual_seed(0))
+    opt = build_optimizer(cfg.optimizer, build_schedule(
+        cfg.schedule, 100, RESNET_BATCH, 4), task.model)
+    trainer, state = Trainer(cfg, task, dev), create_train_state(task.model,
+                                                                 opt)
+
+    def run(bs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bs:
+            trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(batches[:2])  # warm up
+    plain = run(batches[2:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        wall = run(batches[2:])
+    log(f"  host clock without the profiler: {plain * 1e3 / steps:.2f} ms "
+        f"per step ({RESNET_BATCH * steps / plain:.1f} images/s)")
+    report_profile(prof, wall, steps, "train step")
+    by_kind = {}
+    for e in kernel_rows(prof):
+        kind = kernel_kind(e.key)
+        t, n, rows = by_kind.get(kind, (0.0, 0, []))
+        by_kind[kind] = (t + dev_time(e), n + e.count, rows + [e])
+    busy = sum(t for t, _, _ in by_kind.values())
+    log("  device time by kind (the top 3 kernels of each, names cut at "
+        "200 characters):")
+    for kind, (t, n, rows) in sorted(by_kind.items(),
+                                      key=lambda kv: -kv[1][0]):
+        log(f"    {t / steps / 1e3:9.3f} ms/step  {t / busy:6.1%}  "
+            f"x{n / steps:6.1f}  {kind}")
+        for e in sorted(rows, key=dev_time, reverse=True)[:3]:
+            log(f"        {dev_time(e) / steps / 1e3:8.3f} ms  "
+                f"x{e.count / steps:5.1f}  {e.key[:200]}")
+
+
 def profile_serving(torch, ticks: int = 16) -> None:
     """``--profile``: where a steady greedy decode tick spends its time —
     host wall time per tick against device-busy time (torch.profiler),
@@ -972,7 +1334,8 @@ def profile_serving(torch, ticks: int = 16) -> None:
 
 def main() -> int:
     profiles = {"--profile": profile_serving,
-                "--profile-train": profile_training}
+                "--profile-train": profile_training,
+                "--profile-resnet": profile_resnet}
     wanted = [a for a in sys.argv[1:] if a in profiles]
     if wanted:
         import torch
@@ -1036,6 +1399,15 @@ def main() -> int:
 
     phase("10. f32 gradients: kernels vs plain attention (batch 16)")
     parity = grad_parity(torch, attn)
+    after_nmt = counts(attn)
+
+    phase("11. train imagenet_resnet50 (full width, bf16, batch 256)")
+    resnet = train_resnet(torch)
+    if counts(attn) != after_nmt:
+        raise AssertionError("the ResNet path launched an attention kernel")
+
+    phase("12. f32 cifar10_resnet20 (full width, batch 128): card vs CPU")
+    cifar = cifar_parity(torch)
 
     # The forward kernel serves both paths: its numbers cover the three
     # serving shapes and the training shape (one call at each).
@@ -1096,6 +1468,8 @@ def main() -> int:
         "f32_greedy_token_identical": f"{same}/{n_greedy}",
         "train": trained,
         "f32_grad_parity": parity,
+        "resnet50_train": resnet,
+        "resnet20_f32_card_vs_cpu": cifar,
     }
     log(json.dumps({"summary": summary}))
     log(card)

@@ -10,7 +10,9 @@ under ``csrc/`` and are built at first use (``kernels.py``).
 Slice 1 ports the NMT serving path: config/presets, the flash-attention
 forward kernel, the Transformer NMT model, the offline decoders, the weight
 bridge from Flax checkpoints, and the continuous-batching serve engine with
-its loader and ``serve`` CLI verb.
+its loader and ``serve`` CLI verb. Slice 2 ports NMT training (with the
+flash backward kernels); slice 5 ports ResNet training (the ResNets, LARS,
+the image pipelines and a copy of the C++ ``dataio`` loader).
 """
 
 __version__ = "0.1.0"

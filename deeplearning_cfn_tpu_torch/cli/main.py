@@ -2,6 +2,7 @@
 
     python -m deeplearning_cfn_tpu_torch.cli train --preset transformer_nmt_wmt \\
         [--max-steps N] [overrides ...]
+    python -m deeplearning_cfn_tpu_torch.cli train --preset imagenet_resnet50
     python -m deeplearning_cfn_tpu_torch.cli serve --preset transformer_nmt_wmt \\
         --allow-init --requests reqs.jsonl [overrides ...]
 
@@ -150,8 +151,8 @@ def _cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
-        description="PyTorch/CUDA port of dlcfn-tpu (slices 1-2: serve, "
-                    "train)")
+        description="PyTorch/CUDA port of dlcfn-tpu (serve the NMT; train "
+                    "the NMT and the ResNets)")
     sub = parser.add_subparsers(dest="command", required=True)
     tr = sub.add_parser("train", help="train a preset on this host")
     tr.add_argument("--preset", required=True)

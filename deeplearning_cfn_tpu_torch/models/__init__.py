@@ -1,4 +1,5 @@
-"""Model zoo of the port — the slice-1 models (the NMT family).
+"""Model zoo of the port — the NMT family (slices 1–2) and the ResNets
+(slice 5).
 
 Registry maps ModelConfig.name → constructor, as in the JAX package.
 """
@@ -19,7 +20,7 @@ def register_model(name: str):
 
 
 def build_model(name: str, num_classes: int, dtype, **kwargs):
-    from . import transformer_nmt  # noqa: F401
+    from . import resnet, transformer_nmt  # noqa: F401
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
@@ -27,6 +28,6 @@ def build_model(name: str, num_classes: int, dtype, **kwargs):
 
 
 def list_models():
-    from . import transformer_nmt  # noqa: F401
+    from . import resnet, transformer_nmt  # noqa: F401
 
     return sorted(_REGISTRY)

@@ -22,6 +22,8 @@ semantics around it:
 ``adamw`` is ``torch.optim.AdamW`` (decoupled decay, as ``optax.adamw``);
 ``adam``, ``sgd`` and ``momentum`` take decay as an L2 term added to the
 gradient after clipping, as ``optax.add_decayed_weights`` does before them.
+``lars`` is :class:`Lars`, ``optax.lars`` step for step (the trust ratio and
+the learning rate come BEFORE the momentum trace; see its docstring).
 """
 
 from __future__ import annotations
@@ -109,10 +111,69 @@ def _decays(p: torch.Tensor) -> bool:
 
 
 _NOT_PORTED = {
-    "lars": "A.8 (the ResNet path)",
     "lamb": "A.9 (BERT)",
     "adafactor": "A.9 (the other model families)",
 }
+
+
+class Lars(torch.optim.Optimizer):
+    """``optax.lars``: per update, for each parameter ``p`` with gradient
+    ``g``:
+
+    1. ``u = g + wd·p`` (``add_decayed_weights``) where the group decays;
+    2. ``u = u · tc·‖p‖ / ‖u‖`` (``scale_by_trust_ratio``, eps 0) where the
+       group takes the trust ratio — replaced by 1 where either norm is 0
+       (at step 0 that covers the zero-initialised head and BN scales);
+    3. ``u = −lr · u`` (the learning-rate scale);
+    4. **then** the momentum trace ``t = u + μ·t``; the update is ``t``, or
+       ``u + μ·t`` with Nesterov (``trace(nesterov=True)``), added to ``p``.
+
+    A torch-style LARS that applies the learning rate after the momentum
+    differs from this whenever the learning rate changes — under warmup and
+    cosine, at every step. Each param group carries ``weight_decay`` and
+    ``trust_ratio``; the trainer gives both only to params with ``ndim >
+    1`` (optax's ``_non_bn_mask`` for both masks)."""
+
+    def __init__(self, groups, lr: float, momentum: float = 0.9,
+                 nesterov: bool = False, trust_coefficient: float = 0.001):
+        super().__init__(groups, dict(
+            lr=lr, weight_decay=0.0, trust_ratio=False, momentum=momentum,
+            nesterov=nesterov, trust_coefficient=trust_coefficient))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        del closure
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            updates = [p.grad for p in params]
+            if group["weight_decay"]:
+                updates = torch._foreach_add(updates, params,
+                                             alpha=group["weight_decay"])
+            if group["trust_ratio"]:
+                p_norm = torch.stack(torch._foreach_norm(params))
+                u_norm = torch.stack(torch._foreach_norm(updates))
+                ratio = group["trust_coefficient"] * p_norm / u_norm
+                ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                    torch.ones_like(ratio), ratio)
+                updates = torch._foreach_mul(updates, list(ratio.unbind()))
+            updates = torch._foreach_mul(updates, -group["lr"])
+            traces = []
+            for p in params:
+                state = self.state[p]
+                if "trace" not in state:
+                    state["trace"] = torch.zeros_like(p)
+                traces.append(state["trace"])
+            momentum = group["momentum"]
+            torch._foreach_mul_(traces, momentum)
+            torch._foreach_add_(traces, updates)
+            if group["nesterov"]:
+                torch._foreach_add_(updates, torch._foreach_mul(traces,
+                                                                momentum))
+                torch._foreach_add_(params, updates)
+            else:
+                torch._foreach_add_(params, traces)
 
 
 class Optimizer:
@@ -129,9 +190,9 @@ class Optimizer:
         self.params = [p for p in params if p.requires_grad]
         groups = [
             {"params": [p for p in self.params if _decays(p)],
-             "weight_decay": cfg.weight_decay},
+             "weight_decay": cfg.weight_decay, "trust_ratio": True},
             {"params": [p for p in self.params if not _decays(p)],
-             "weight_decay": 0.0},
+             "weight_decay": 0.0, "trust_ratio": False},
         ]
         groups = [g for g in groups if g["params"]]
         lr0 = schedule(0)
@@ -149,6 +210,10 @@ class Optimizer:
             self.inner = torch.optim.SGD(groups, lr=lr0,
                                          momentum=cfg.momentum,
                                          nesterov=cfg.nesterov)
+        elif name == "lars":
+            self.inner = Lars(groups, lr=lr0, momentum=cfg.momentum,
+                              nesterov=cfg.nesterov,
+                              trust_coefficient=cfg.trust_coefficient)
         else:
             raise ValueError(f"unknown optimizer {cfg.name!r}")
         self.schedule = schedule

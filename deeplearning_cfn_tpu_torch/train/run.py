@@ -3,8 +3,9 @@
 
 ``run_experiment`` builds the task (model on the device, seeded init), the
 train and eval pipelines, the schedule and optimizer, the train state, runs
-``Trainer.fit`` and then the weighted full-set eval plus the task's own
-acceptance metric (BLEU for NMT). Records go to
+``Trainer.fit`` and then the weighted full-set eval (for the ResNets: loss,
+top-1 and top-5 accuracy) plus the task's own acceptance metric where it
+has one (BLEU for NMT). Records go to
 ``<workdir>/<preset>/metrics.jsonl`` and stdout, as in the JAX package.
 
 Not in this slice: checkpoint writing and resume (the port's ``ckpt/``,
@@ -90,9 +91,9 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
             eval_every=eval_every, hooks=tuple(hooks),
             log_every=cfg.train.log_every_steps, metrics_writer=writer)
         final = trainer.evaluate(state, eval_pipe.one_epoch())
-        if cfg.eval.enabled:
-            final.update(task.final_eval(state,
-                                         lambda: eval_pipe.one_epoch()))
+        final_eval = getattr(task, "final_eval", None)
+        if final_eval is not None and cfg.eval.enabled:
+            final.update(final_eval(state, lambda: eval_pipe.one_epoch()))
         writer.write({"step": state.step,
                       **{f"final_eval_{k}": v for k, v in final.items()}})
     finally:

@@ -6,8 +6,10 @@ ema_params) that every step replaces. Here the model owns its parameters and
 the optimizer its slots, both updated in place (the JAX step donates its
 state buffers to the same effect); :class:`TrainState` holds them with the
 step counter and the optional EMA copy of the parameters. One device, no
-sharding: ZeRO-1 and the mesh belong to ROADMAP A.10. The NMT model has no
-BatchNorm, so there are no batch stats.
+sharding: ZeRO-1 and the mesh belong to ROADMAP A.10. The JAX state's
+``batch_stats`` (BatchNorm running statistics) are the model's buffers
+here: a train-mode forward updates them in place, they are not parameters,
+and the EMA does not cover them, as in the JAX package.
 """
 
 from __future__ import annotations

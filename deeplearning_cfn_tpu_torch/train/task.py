@@ -1,11 +1,12 @@
 """Task definitions: glue a model into the Trainer's loss_fn contract — the
-port of ``deeplearning_cfn_tpu/train/task.py`` for the NMT workload.
+port of ``deeplearning_cfn_tpu/train/task.py`` for the NMT and ResNet
+workloads.
 
 A task owns its model and gives the trainer
 ``loss_fn(batch, train, generator) -> (loss, aux)``: a global-batch mean loss
 and a dict of scalar metrics (on eval, ``eval_weight`` too). The other
-families' tasks (classification, MLM, causal LM, detection) belong to ROADMAP
-A.8, A.9 and A.11.
+families' tasks (ViT classification, MLM, causal LM, detection) belong to
+ROADMAP A.9 and A.11.
 """
 
 from __future__ import annotations
@@ -140,13 +141,67 @@ class Seq2SeqTask:
         return {"bleu": corpus_bleu(hyps, refs, smooth=True)}
 
 
+class ClassificationTask:
+    """Image classification (CIFAR ResNet-20, ImageNet ResNet-50).
+
+    Batch contract: ``{"image": [B,H,W,C] float32, "label": [B] int}``.
+    The model's BatchNorm running statistics are buffers, not parameters:
+    a train-mode forward updates them (in microbatch order under gradient
+    accumulation, as the JAX step threads ``batch_stats``), an eval-mode
+    forward reads them, and the parameters' EMA does not cover them.
+    """
+
+    exact_eval = True  # consumes eval_mask; gets the padded full eval set
+
+    def __init__(self, cfg: ExperimentConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        if cfg.model.name.startswith("vit"):
+            raise NotImplementedError(
+                f"model {cfg.model.name!r}: ViT's stats-free classification "
+                f"path is not ported yet (ROADMAP A.9)")
+        dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
+            else torch.float32
+        self.model = build_model(cfg.model.name, cfg.model.num_classes,
+                                 dtype, device=device, **cfg.model.kwargs)
+
+    def init(self, generator: torch.Generator) -> None:
+        """Seeded init with Flax's distributions, on the model's device."""
+        from ..models.resnet import init_weights
+
+        init_weights(self.model, generator)
+
+    def loss_fn(self, batch: Batch, train: bool,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        del generator  # no dropout in the ResNets
+        logits = self.model(batch["image"], train=train)
+        labels = batch["label"]
+        mask = example_mask(batch, logits.shape[0])
+        denom = torch.clamp(mask.sum(), min=1e-6)
+        ce = cross_entropy(logits, labels, self.cfg.train.label_smoothing)
+        loss = (ce * mask).sum() / denom
+        correct = (torch.argmax(logits, -1) == labels).float()
+        aux = {"accuracy": (correct * mask).sum() / denom}
+        if not train:
+            # Top-5 by a rank comparison (one reduction, no sort): the
+            # label is in the top 5 when fewer than 5 logits beat it.
+            label_logit = logits.gather(-1, labels.long()[:, None])
+            rank = (logits > label_logit).sum(-1)
+            aux["accuracy_top5"] = ((rank < 5).float() * mask).sum() / denom
+            aux["eval_weight"] = mask.sum()
+        return loss, aux
+
+
 def build_task(cfg: ExperimentConfig, device: torch.device,
-               attention_impl: Optional[str] = None) -> Seq2SeqTask:
-    """Task registry keyed by model family; only the NMT family is
-    ported."""
+               attention_impl: Optional[str] = None):
+    """Task registry keyed by model family (the NMT and ResNet families are
+    ported)."""
     name = cfg.model.name
     if name.startswith("transformer_nmt"):
         return Seq2SeqTask(cfg, device, attention_impl)
+    if name.startswith(("resnet", "vit")):
+        return ClassificationTask(cfg, device)
     raise NotImplementedError(
-        f"no task for model {name!r} in the port yet (ROADMAP A.8: ResNet, "
-        f"A.9: BERT/GPT/ViT, A.11: Mask R-CNN)")
+        f"no task for model {name!r} in the port yet (ROADMAP A.9: "
+        f"BERT/GPT/ViT, A.11: Mask R-CNN)")

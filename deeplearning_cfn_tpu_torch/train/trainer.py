@@ -17,6 +17,12 @@ in-place update. What carries over exactly:
   kept out of the throughput window), and writes the same JSONL records;
 - ``evaluate`` aggregates by each batch's ``eval_weight``, so metrics are
   exact over the full eval set.
+- BatchNorm running statistics (the JAX step's ``batch_stats``) are model
+  buffers that each train-mode forward updates, so under accumulation they
+  advance microbatch by microbatch in order, as the JAX scan threads them;
+- an f32 ``train.dtype`` computes in f32 on the card: TF32 is switched off
+  for cuDNN convolutions (on by default in PyTorch) and matmuls, in one
+  place, when the trainer is built for such a run.
 
 Not ported in this slice: ``train.step_window > 1`` (fused multi-step
 windows; on the card that is CUDA graphs, ROADMAP A.5 step_window) and
@@ -80,6 +86,12 @@ class Trainer:
             raise ValueError(
                 f"train.device_prefetch must be >= 0, got "
                 f"{cfg.train.device_prefetch}")
+        if cfg.train.dtype == "float32" and self.device.type == "cuda":
+            # An f32 preset computes in f32. cuDNN runs f32 convolutions on
+            # TF32 unless told not to (allow_tf32 defaults to True for
+            # convs, unlike matmuls); the switch is process-wide.
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
 
     # -- steps --------------------------------------------------------------
 

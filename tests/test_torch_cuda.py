@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
 They hold each hand-written kernel — the flash forward and the dK/dV and dQ
-backward kernels — against its plain PyTorch version on the card, at the
+backward kernels — against its plain PyTorch version on the card (and the
+ResNet, which launches none of them, against itself on the CPU), at the
 serving and training paths' shapes and at the edges the kernels must mask
 (ragged lengths, causal, broadcast biases, all-masked rows, rows that saw
 no key, head dims 16 to 128), and the autograd Function against autograd of
@@ -330,3 +331,63 @@ def test_rows_that_saw_no_key_get_exactly_zero(cuda, causal, dtype):
     rk, rv = attn.flash_bwd_dkdv_reference(*args)
     for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
         assert _close(got, ref, BWD_TOL[dtype])
+
+
+# -- the ResNet on the card (no kernel of ours: cuDNN convs, eager BN) --------
+
+
+def _resnet_pair(dtype, device):
+    from deeplearning_cfn_tpu_torch.models import resnet
+
+    cpu = resnet.ResNet([1, 1, 1, 1], resnet.BottleneckBlock, 10,
+                        num_filters=8, dtype=dtype)
+    resnet.init_weights(cpu, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # no trivially-zero gradients
+        torch.nn.init.normal_(cpu.head.weight, std=0.5)
+        for block in cpu.blocks:
+            block.norms[-1].weight.fill_(0.5)
+    card = resnet.ResNet([1, 1, 1, 1], resnet.BottleneckBlock, 10,
+                         num_filters=8, dtype=dtype).to(device)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def test_resnet_f32_forward_backward_on_card_matches_cpu(cuda):
+    """f32 with TF32 off (the trainer's rule for f32 runs): train-mode
+    logits, running statistics and every gradient match the CPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    cpu, card = _resnet_pair(torch.float32, cuda)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 3))
+                         .astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((8, 10)).astype(np.float32))
+    out_cpu = cpu(x, train=True)
+    (out_cpu * w).sum().backward()
+    out = card(x.to(cuda), train=True)
+    (out * w.to(cuda)).sum().backward()
+    assert _close(out.cpu(), out_cpu.detach(), 1e-4)
+    for (name, b), (_, ref) in zip(card.named_buffers(),
+                                   cpu.named_buffers()):
+        assert _close(b.cpu(), ref, 1e-5), name
+    for (name, p), (_, ref) in zip(card.named_parameters(),
+                                   cpu.named_parameters()):
+        err = (p.grad.cpu() - ref.grad).norm() / ref.grad.norm()
+        assert err <= 1e-4, f"{name}: {err:.2e} of its norm"
+
+
+def test_resnet_bf16_on_card_is_channels_last_and_close_to_cpu(cuda):
+    cpu, card = _resnet_pair(torch.bfloat16, cuda)
+    layouts = []
+    for conv in card.modules():
+        if conv.__class__.__name__ == "Conv":
+            conv.register_forward_hook(lambda m, i, o: layouts.append(
+                o.is_contiguous(memory_format=torch.channels_last)))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (8, 64, 64, 3)).astype(np.float32))
+    out = card(x.to(cuda), train=True)
+    out.float().sum().backward()
+    assert layouts and all(layouts)
+    ref = cpu(x, train=True)
+    scale = ref.abs().max()
+    assert ((out.detach().cpu() - ref.detach()).abs().max() / scale) < 5e-2
+    assert all(torch.isfinite(p.grad).all() for p in card.parameters())

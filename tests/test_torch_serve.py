@@ -329,18 +329,22 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter starts without jax; importing every port module
-    must leave it (and the JAX package) unloaded."""
+    must leave it (and the JAX package) unloaded — and PIL, which the card's
+    machine does not have (only ``prepare_imagenet`` imports it, inside)."""
     modules = _port_modules()
     assert {"deeplearning_cfn_tpu_torch.train.trainer",
             "deeplearning_cfn_tpu_torch.data.pipeline",
-            "deeplearning_cfn_tpu_torch.metrics.bleu"} <= set(modules)
+            "deeplearning_cfn_tpu_torch.metrics.bleu",
+            "deeplearning_cfn_tpu_torch.models.resnet",
+            "deeplearning_cfn_tpu_torch.data.imagenet",
+            "deeplearning_cfn_tpu_torch.dataio"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'flax', 'deeplearning_cfn_tpu.')) or "
-        "m == 'deeplearning_cfn_tpu')\n"
+        "m.startswith(('jax.', 'flax', 'deeplearning_cfn_tpu.', 'PIL.')) "
+        "or m in ('deeplearning_cfn_tpu', 'PIL'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
