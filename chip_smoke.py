@@ -96,13 +96,49 @@ order; a failing phase raises, so the exit code is nonzero:
    gradient within 1e-5 of the global gradient norm, running statistics
    within 1e-5.
 
+13. train ``bert_base_wikipedia`` at full width in bf16 through
+   ``train.run.run_experiment`` (vocab 30522, hidden 768, 12 layers, 12
+   heads of 64, MLP 3072, sequence 128, dropout 0.1, LAMB with weight decay
+   0.01 behind the 1.0 clip, cosine) on the synthetic MLM source: global
+   batch 1024 as 2 microbatches of 512, 2 warm-up steps then 20 timed, each
+   synced. Cuts, printed by the phase. It prints the step time p50 and
+   sequences/s p50 (host clock), the MFU share (sequences/s × 3 × the
+   forward FLOPs counted from the model's shapes, over 989 TFLOP/s), the
+   peak memory, the first-5 and last-5 mean losses (finite and falling),
+   the eval metrics, and the f32 MLM decoder's product ([512·25, 768] ×
+   [768, 30522], forward and backward, TF32 off) by CUDA events. Over the
+   run the forward kernel must have launched on ``tc`` 12 times per
+   microbatch step plus 12 per eval batch, the reference VJP 12 times per
+   microbatch step, dK/dV and dQ never. The forward kernel is then timed at
+   BERT's shape ([512, 12, 128, 64] bf16 with a padding bias), as phase 4
+   times it, beside ``scaled_dot_product_attention`` with the same additive
+   mask;
+14. checkpoint and resume on the card: BERT at full width cut to 2 layers,
+   f32, batch 32, dropout 0.1, through ``run_experiment``: a run to step
+   2k = 6 against a run killed after step k = 3 (mid-epoch; its step-3
+   checkpoint committed) and resumed to 6 with ``train.profile_steps=2``.
+   The resumed losses must match the uninterrupted run's within 1e-4
+   relative (not bit for bit: the embedding backward's atomics make the
+   card's order of additions vary), the trace file must exist, and the
+   ``ckpt list``, ``eval --step`` and ``ckpt rollback`` verbs run on the
+   checkpoint directory.
+
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
 ``--profile-resnet`` steady full-width bf16 ResNet-50 train steps (batch
-256): host time against device-busy time, device ops per step, kernels
-ranked and, for the ResNet, device time by kind (convolutions forward /
-data-gradient / weight-gradient, elementwise and reductions — BatchNorm's
-share —, copies and casts, the optimizer); none prints a result line.
+256), ``--profile-bert`` steady full-width bf16 BERT-base train steps
+(batch 1024 as 2 × 512): host time against device-busy time, device ops per
+step, kernels ranked and, for the ResNet and BERT, device time by kind
+(convolutions forward / data-gradient / weight-gradient, elementwise and
+reductions — BatchNorm's share —, copies and casts, the optimizer; for
+BERT the bf16 and f32 GEMMs, the forward kernel, softmax, layer norm and
+dropout), and for BERT the same step with ``train.remat`` in turns (step
+time, peak memory, forward-kernel launches); none prints a result line.
+
+Every ``run_experiment`` phase trains in a fresh workdir under
+``deeplearning_cfn_tpu_torch/_build/`` and saves its checkpoint only at the
+end (the save cadence is set past the run), so the timed steps hold no
+save.
 
 The line before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -143,6 +179,26 @@ RESNET_CUTS = ["train.global_batch=256 (preset 8192, a 128-chip batch; lr "
 FEED_IMAGES, FEED_STORED, FEED_OUT = 1024, 256, 224
 # Phase 12: ResNet-20 f32, card against CPU.
 CIFAR_BATCH, CIFAR_STEPS = 128, 3
+# Phase 13: BERT-base at full width, bf16. Attention calls per microbatch
+# step: 12 self-attentions, each with the padding bias, so the forward
+# kernel and the reference-VJP recompute for each, no backward kernel.
+BERT_BATCH, BERT_ACCUM, BERT_WARMUP, BERT_STEPS = 1024, 2, 2, 20
+BERT_SEQ, BERT_LAYERS, BERT_HEADS, BERT_PRED = 128, 12, 12, 25
+BERT_PER_STEP = {"fwd": 12, "dkdv": 0, "dq": 0, "vjp": 12}
+BERT_CUTS = ["train.grad_accum_steps=2 (the preset's global batch 1024 as "
+             "2 microbatches of 512, to leave room on one 80 GB card)",
+             "train.steps=22 (preset 100000: 2 warm-up steps, 20 timed)",
+             "schedule.warmup_steps=2 (preset 3000, scaled to the step "
+             "count)",
+             "train.shard_opt_state ignored (ZeRO-1 over one device is the "
+             "unsharded update)",
+             "one checkpoint, the final forced save (every_steps past the "
+             "run), so no save lands among the timed steps",
+             "eval on the synthetic source's 512 examples, once, at the end"]
+# Phase 14: checkpoint and resume on the card — BERT at full width cut to
+# 2 layers, f32, batch 32: a run to 2k steps against a run killed after k
+# and resumed.
+RESUME_K, RESUME_BATCH, RESUME_TOL = 3, 32, 1e-4
 
 
 def log(msg: str) -> None:
@@ -739,12 +795,22 @@ def time_training_kernels(torch, attn):
     return rows
 
 
+def fresh_workdir(name: str) -> str:
+    """An empty workdir under ``_build/`` (a checkpoint left by an earlier
+    run there would be resumed)."""
+    import shutil
+
+    workdir = os.path.join(REPO, "deeplearning_cfn_tpu_torch", "_build",
+                           name)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return workdir
+
+
 def train_cfg(torch, dtype, batch, steps, workdir_name):
     from deeplearning_cfn_tpu_torch.config import apply_overrides
     from deeplearning_cfn_tpu_torch.presets import get_preset
 
-    workdir = os.path.join(REPO, "deeplearning_cfn_tpu_torch", "_build",
-                           workdir_name)
+    workdir = fresh_workdir(workdir_name)
     # Preset recipe kept (dropout 0.1, label smoothing 0.1, AdamW(0.9,
     # 0.98), rsqrt) but for the schedule's scale: warmup is clamped to
     # steps - 1, so a short run needs a small base lr for the loss to fall.
@@ -753,7 +819,7 @@ def train_cfg(torch, dtype, batch, steps, workdir_name):
         f"train.global_batch={batch}", f"train.steps={steps}",
         "train.log_every_steps=1", "schedule.warmup_steps=10",
         "schedule.base_lr=1e-3", "data.num_eval_examples=128",
-        "eval.max_decode_len=32"])
+        "eval.max_decode_len=32", "checkpoint.every_steps=1000000"])
 
 
 def counts(attn):
@@ -991,13 +1057,13 @@ def resnet_cfg(batch, steps, workdir_name):
     from deeplearning_cfn_tpu_torch.config import apply_overrides
     from deeplearning_cfn_tpu_torch.presets import get_preset
 
-    workdir = os.path.join(REPO, "deeplearning_cfn_tpu_torch", "_build",
-                           workdir_name)
+    workdir = fresh_workdir(workdir_name)
     return apply_overrides(get_preset("imagenet_resnet50"), [
         f"workdir={workdir}", "train.seed=0", f"train.global_batch={batch}",
         f"train.steps={steps}", "train.log_every_steps=1",
         "train.eval_every_steps=1000000", "schedule.warmup_steps=2",
-        "data.num_train_examples=1024", "data.num_eval_examples=512"])
+        "data.num_train_examples=1024", "data.num_eval_examples=512",
+        "checkpoint.every_steps=1000000"])
 
 
 def train_resnet(torch):
@@ -1223,6 +1289,248 @@ def cifar_parity(torch):
                 params=len(gc))
 
 
+# -- BERT-base (kernel #1 with a padding bias; the reference-VJP backward) --
+
+
+def bert_cfg(overrides, workdir_name):
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    return apply_overrides(get_preset("bert_base_wikipedia"), [
+        f"workdir={fresh_workdir(workdir_name)}", "train.seed=0",
+        "train.log_every_steps=1", *overrides])
+
+
+def mlm_decoder_ms(torch, rows):
+    """The f32 tied MLM decoder's product at ``rows`` predictions, forward
+    and backward (TF32 off, as the port computes it), by CUDA events."""
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    h = torch.randn(rows, 768, generator=g, device=DEVICE,
+                    requires_grad=True)
+    w = torch.randn(30522, 768, generator=g, device=DEVICE,
+                    requires_grad=True)
+    dy = torch.randn(rows, 30522, generator=g, device=DEVICE)
+
+    def step():
+        torch.autograd.grad(torch.matmul(h, w.t()), (h, w), dy)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return time_fn(torch, step, iters=10, warmup=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def train_bert(torch, attn):
+    """Phase 13: BERT-base at full width in bf16 through run_experiment,
+    with every count set to 0 first."""
+    from deeplearning_cfn_tpu_torch.models.bert import forward_flops
+    from deeplearning_cfn_tpu_torch.train.run import run_experiment
+
+    steps = BERT_WARMUP + BERT_STEPS
+    cfg = bert_cfg([f"train.global_batch={BERT_BATCH}",
+                    f"train.grad_accum_steps={BERT_ACCUM}",
+                    f"train.steps={steps}", "schedule.warmup_steps=2",
+                    "train.eval_every_steps=1000000",
+                    "checkpoint.every_steps=1000000"], "smoke_bert")
+    for cut in BERT_CUTS:
+        log(f"  cut: {cut}")
+    records, at_end, by_variant, seen = [], {}, {}, {}
+
+    def hook(step, state, record):
+        records.append(record)
+        if step == steps:
+            at_end.update(counts(attn))  # before the eval's forwards
+            by_variant.update(variant_counts(attn))
+            seen["model"] = state.model
+
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(attn, 0)
+    t0 = time.perf_counter()
+    final = run_experiment(cfg, device=DEVICE, hooks=(hook,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after_eval = counts(attn)
+    peak = torch.cuda.max_memory_allocated()
+    model = seen["model"]
+    losses = [r["loss"] for r in records]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bad losses: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first-5 mean {first}, "
+                             f"last-5 mean {last}")
+    micro = steps * BERT_ACCUM
+    expect = {k: v * micro for k, v in BERT_PER_STEP.items()}
+    eval_batches = math.ceil(final["examples"] / BERT_BATCH)
+    log(f"  launches over {steps} steps (accum {BERT_ACCUM}): {at_end} "
+        f"(expected {expect}); after the eval's {eval_batches} batch(es): "
+        f"{after_eval}; by variant {by_variant}")
+    if at_end != expect:
+        raise AssertionError(f"launch counts {at_end} != {expect}")
+    eval_fwd = BERT_LAYERS * eval_batches
+    if after_eval != {**expect, "fwd": expect["fwd"] + eval_fwd}:
+        raise AssertionError(f"eval launches {after_eval} != 12 per eval "
+                             f"batch on top of {expect}")
+    if by_variant["fwd"]["tc"] != at_end["fwd"]:
+        raise AssertionError(f"bf16 BERT launches off the tc variant: "
+                             f"{by_variant}")
+    timed = [r for r in records[BERT_WARMUP:] if "step_time_s" in r]
+    step_s = sorted(r["step_time_s"] for r in timed)
+    seq_s = sorted(r["examples_per_sec"] for r in timed)
+    p50 = lambda xs: xs[len(xs) // 2]
+    flops = forward_flops(model, BERT_SEQ, BERT_PRED)
+    mfu = p50(seq_s) * 3 * flops / BF16_FLOP_PER_S
+    bound_step_s = BERT_BATCH * 3 * flops / BF16_FLOP_PER_S
+    decoder = mlm_decoder_ms(torch, BERT_BATCH // BERT_ACCUM * BERT_PRED)
+    out = dict(steps=steps, timed_steps=len(timed), global_batch=BERT_BATCH,
+               grad_accum_steps=BERT_ACCUM, seq_len=BERT_SEQ,
+               params=sum(p.numel() for p in model.parameters()),
+               forward_mflop_per_token=flops / BERT_SEQ / 1e6,
+               first5_loss=first, last5_loss=last,
+               step_time_p50_s=p50(step_s), sequences_per_s_p50=p50(seq_s),
+               mfu_share=mfu, tensor_core_bound_step_s=bound_step_s,
+               first_step_s=records[0]["compile_s"],
+               max_memory_allocated_bytes=peak, wall_s=wall,
+               mlm_decoder_f32_fwd_bwd_ms_per_microbatch=decoder,
+               final_eval={k: v for k, v in final.items()},
+               launches=at_end, launches_with_eval=after_eval,
+               variant_launches=by_variant, cuts=BERT_CUTS)
+    log(f"  model: BERT-base, {out['params']} parameters, "
+        f"{out['forward_mflop_per_token']:.1f} MFLOP forward per token "
+        f"(counted from the shapes, MLM head at {BERT_PRED} of "
+        f"{BERT_SEQ} positions); tensor-core bound of a step "
+        f"{bound_step_s * 1e3:.1f} ms")
+    log(f"  step time p50 {out['step_time_p50_s'] * 1e3:.2f} ms, sequences/s "
+        f"p50 {out['sequences_per_s_p50']:.1f}, MFU share {mfu:.4f} (of 989 "
+        f"TFLOP/s dense bf16), first step {out['first_step_s']:.2f} s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; f32 MLM decoder fwd+"
+        f"bwd {decoder:.2f} ms per microbatch; eval {final}; run "
+        f"{wall:.1f} s")
+    return out
+
+
+def time_bert_kernel(torch, attn, batch):
+    """Kernel #1 at BERT's shape: [batch, 12, 128, 64] bf16 with a [batch, 1,
+    1, 128] padding bias, as phase 4 times the serving shapes, beside SDPA
+    with the same additive mask (cast to bf16, as phase 4 does)."""
+    F = torch.nn.functional
+    h, s, d = BERT_HEADS, BERT_SEQ, HEAD_DIM
+    q, k, v, bias = make_inputs(torch, 300, batch, h, s, s, d,
+                                torch.bfloat16, True)
+    qs, ks, vs, _ = make_inputs(torch, 300, batch, h, s, s, d,
+                                torch.bfloat16, True, strided=True)
+    out = attn.flash_attention_forward(q, k, v, bias)
+    err = (out.float() - attn.attention_reference(q, k, v, bias).float()) \
+        .abs().max().item()
+    if err > TOL["bfloat16"]:
+        raise AssertionError(f"BERT shape: kernel vs plain {err}")
+    lib_mask = bias.to(torch.bfloat16)
+    t = time_row(
+        torch, lambda: attn.flash_attention_forward(q, k, v, bias),
+        lambda: attn.flash_attention_forward(qs, ks, vs, bias),
+        lambda: attn._launch(q, k, v, bias, False, d ** -0.5, False,
+                             "simt"),
+        lambda: attn.attention_reference(q, k, v, bias),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask),
+        20, 3, 10, 2)
+    b_ms, by, nbytes, flops = bound_ms(batch, h, s, s, d, 2, bias)
+    row = dict(shape="bert_self", q=[batch, h, s, d], kv=[batch, h, s, d],
+               dtype="bfloat16",
+               variant=attn.forward_variant(torch.bfloat16, s, d), **t,
+               bound_ms=b_ms, bound_by=by, bytes=nbytes, flops=flops,
+               max_abs_err=err)
+    log_times("bert_self", row)
+    return row
+
+
+def resume_on_card(torch):
+    """Phase 14: a run to 2k steps against one killed after k and resumed,
+    then the ckpt and eval verbs on its checkpoint directory."""
+    import contextlib
+    import io
+
+    from deeplearning_cfn_tpu_torch.cli.main import main as cli
+    from deeplearning_cfn_tpu_torch.runtime.profiling import trace_files
+    from deeplearning_cfn_tpu_torch.train.run import run_experiment
+
+    class Killed(Exception):
+        pass
+
+    over = ["model.kwargs.num_layers=2", "train.dtype=float32",
+            f"train.global_batch={RESUME_BATCH}",
+            f"train.steps={2 * RESUME_K}", "schedule.warmup_steps=2",
+            "data.num_train_examples=512", "data.num_eval_examples=64",
+            f"checkpoint.every_steps={RESUME_K}", "checkpoint.keep=0"]
+
+    def run(cfg, kill_after=None):
+        losses = {}
+
+        def hook(step, state, record):
+            losses[step] = record["loss"]
+            if step == kill_after:
+                raise Killed()
+
+        try:
+            run_experiment(cfg, device=DEVICE, hooks=(hook,))
+        except Killed:
+            pass
+        return losses
+
+    straight = run(bert_cfg(over, "smoke_resume_a"))
+    resumed_cfg = bert_cfg(over, "smoke_resume_b")
+    head = run(resumed_cfg, kill_after=RESUME_K)
+    resumed_cfg.train.profile_steps = 2
+    tail = run(resumed_cfg)
+    if sorted(head) != list(range(1, RESUME_K + 1)) or \
+            sorted(tail) != list(range(RESUME_K + 1, 2 * RESUME_K + 1)):
+        raise AssertionError(f"steps run: {sorted(head)} then {sorted(tail)}")
+    got = {**head, **tail}
+    rel = max(abs(got[s] - straight[s]) / abs(straight[s]) for s in straight)
+    log(f"  losses uninterrupted {[round(straight[s], 6) for s in sorted(straight)]}"
+        f"; killed after {RESUME_K} and resumed "
+        f"{[round(got[s], 6) for s in sorted(got)]}; worst rel diff "
+        f"{rel:.2e} (tolerance {RESUME_TOL})")
+    if not rel <= RESUME_TOL:
+        raise AssertionError(f"resumed run differs by {rel}")
+    workdir = os.path.join(resumed_cfg.workdir, "bert_base_wikipedia")
+    traces = trace_files(os.path.join(workdir, "profile"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile_steps=2 left {traces}")
+    trace_mb = os.path.getsize(traces[0]) / 2**20
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    overrides = [f"workdir={resumed_cfg.workdir}", *over]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rcs = [cli(["ckpt", "list", ckpt_dir]),
+               cli(["eval", "--preset", "bert_base_wikipedia", "--step",
+                    str(RESUME_K), "--accelerator",
+                    "gpu" if DEVICE == "cuda" else "cpu", *overrides]),
+               cli(["ckpt", "rollback", ckpt_dir, "--step", str(RESUME_K)]),
+               cli(["ckpt", "list", ckpt_dir])]
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    listed = [json.loads(ln)["committed_steps"] for ln in lines
+              if "committed_steps" in ln]
+    evaluated = [json.loads(ln) for ln in lines if "checkpoint_step" in ln]
+    log(f"  trace {os.path.basename(traces[0])} ({trace_mb:.1f} MiB); "
+        f"ckpt list {listed[0]}, eval --step {RESUME_K} {evaluated}, "
+        f"after rollback {listed[-1]}; rcs {rcs}")
+    if rcs != [0, 0, 0, 0] or listed != [[RESUME_K, 2 * RESUME_K],
+                                         [RESUME_K]] \
+            or evaluated[0]["checkpoint_step"] != RESUME_K:
+        raise AssertionError(f"ckpt verbs: rcs {rcs}, lists {listed}, "
+                             f"eval {evaluated}")
+    return dict(k=RESUME_K, steps=2 * RESUME_K, global_batch=RESUME_BATCH,
+                losses_uninterrupted=[straight[s] for s in sorted(straight)],
+                losses_resumed=[got[s] for s in sorted(got)],
+                worst_rel_loss_diff=rel, tolerance=RESUME_TOL,
+                trace_file=os.path.basename(traces[0]), trace_mib=trace_mb,
+                ckpt_list=listed[0], after_rollback=listed[-1],
+                eval_at_k=evaluated[0])
+
+
 # Device-time kinds of a ResNet step, by kernel name, first match wins.
 # PyTorch's own kernels (at::native) are copies and casts, reductions,
 # the optimizer's foreach ops, max-pool or elementwise; the rest are
@@ -1240,12 +1548,114 @@ KINDS = (("copy / cast", ("copy_kernel",)),
           ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90", "nvjet")))
 
 
-def kernel_kind(name: str) -> str:
-    low = name.lower()
-    for kind, keys in KINDS:
-        if any(k.lower() in low for k in keys):
-            return kind
-    return "other"
+# Device-time kinds of a BERT step, by kernel name, first match wins.
+BERT_KINDS = (("flash forward (kernel #1)", ("flash_attn",)),
+              ("GEMM, f32 (the tied MLM decoder, TF32 off)",
+               ("sgemm", "f32f32", "simt")),
+              ("GEMM, bf16", ("gemm", "nvjet", "xmma", "cutlass", "sm90")),
+              ("softmax (reference VJP, log-softmax)", ("softmax",)),
+              ("layer norm", ("layer_norm",)),
+              ("dropout masks", ("bernoulli", "distribution")),
+              ("copy / cast", ("copy_kernel",)),
+              ("reduction", ("reduce_kernel",)),
+              ("optimizer (foreach)", ("multi_tensor",)),
+              ("gather / scatter / index (embeddings, MLM positions)",
+               ("index", "gather", "scatter", "embedding")),
+              ("elementwise (residual, dropout scale, GELU, masks)",
+               ("at::native",)))
+
+
+def profile_by_kind(prof, steps, kinds):
+    """Device time per step by kind (``kinds``: first name match wins),
+    with the top 3 kernels of each."""
+    by_kind = {}
+    for e in kernel_rows(prof):
+        low = e.key.lower()
+        kind = next((k for k, keys in kinds
+                     if any(x.lower() in low for x in keys)), "other")
+        t, n, rows = by_kind.get(kind, (0.0, 0, []))
+        by_kind[kind] = (t + dev_time(e), n + e.count, rows + [e])
+    busy = sum(t for t, _, _ in by_kind.values())
+    log("  device time by kind (the top 3 kernels of each, names cut at "
+        "200 characters):")
+    for kind, (t, n, rows) in sorted(by_kind.items(),
+                                      key=lambda kv: -kv[1][0]):
+        log(f"    {t / steps / 1e3:9.3f} ms/step  {t / busy:6.1%}  "
+            f"x{n / steps:6.1f}  {kind}")
+        for e in sorted(rows, key=dev_time, reverse=True)[:3]:
+            log(f"        {dev_time(e) / steps / 1e3:8.3f} ms  "
+                f"x{e.count / steps:5.1f}  {e.key[:200]}")
+
+
+def profile_bert(torch, steps: int = 3) -> None:
+    """``--profile-bert``: where a steady full-width bf16 BERT-base train
+    step (global batch 1024 as 2 × 512, LAMB) spends its time, then the
+    same step with ``train.remat`` in turns (plain, remat, remat, plain):
+    step time, peak memory and the forward kernel's launches per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.ops import attention as attn
+    from deeplearning_cfn_tpu_torch.train.optim import (build_optimizer,
+                                                        build_schedule)
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.task import build_task
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device(DEVICE)
+    common = [f"train.global_batch={BERT_BATCH}",
+              f"train.grad_accum_steps={BERT_ACCUM}",
+              f"data.num_train_examples={BERT_BATCH * (steps + 2)}"]
+    cfgs = {"plain": bert_cfg(common, "smoke_bert_profile"),
+            "remat": bert_cfg(common + ["train.remat=true"],
+                              "smoke_bert_profile")}
+    batches = [to_device(b, dev) for _, b in zip(
+        range(steps + 2), build_pipeline(cfgs["plain"].data, BERT_BATCH,
+                                         seed=0).one_epoch())]
+    assert len(batches) == steps + 2
+
+    def setup(cfg):
+        task = build_task(cfg, dev)
+        task.init(torch.Generator(device=dev).manual_seed(0))
+        opt = build_optimizer(cfg.optimizer, build_schedule(
+            cfg.schedule, 100, BERT_BATCH), task.model)
+        return Trainer(cfg, task, dev), create_train_state(task.model, opt)
+
+    runs = {name: setup(cfg) for name, cfg in cfgs.items()}
+
+    def run(name, bs):
+        trainer, state = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bs:
+            trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for name in runs:
+        run(name, batches[:2])  # warm up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        wall = run("plain", batches[2:])
+    report_profile(prof, wall, steps, "train step")
+    profile_by_kind(prof, steps, BERT_KINDS)
+    stats = {"plain": [], "remat": []}
+    for name in ("plain", "remat", "remat", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        fwd0 = attn.flash_attention_forward.launches
+        vjp0 = attn.attention_reference_vjp.calls
+        ms = run(name, batches[2:]) / steps * 1e3
+        stats[name].append((ms, torch.cuda.max_memory_allocated() / 2**30,
+                            (attn.flash_attention_forward.launches - fwd0)
+                            / steps,
+                            (attn.attention_reference_vjp.calls - vjp0)
+                            / steps))
+    for name, rows in stats.items():
+        log(f"  {name}: step {' / '.join(f'{r[0]:.2f}' for r in rows)} ms, "
+            f"peak {' / '.join(f'{r[1]:.2f}' for r in rows)} GiB (both "
+            f"models resident), per step {rows[0][2]:.0f} forward-kernel "
+            f"launches and {rows[0][3]:.0f} reference-VJP recomputes")
 
 
 def profile_resnet(torch, steps: int = 3) -> None:
@@ -1291,21 +1701,7 @@ def profile_resnet(torch, steps: int = 3) -> None:
     log(f"  host clock without the profiler: {plain * 1e3 / steps:.2f} ms "
         f"per step ({RESNET_BATCH * steps / plain:.1f} images/s)")
     report_profile(prof, wall, steps, "train step")
-    by_kind = {}
-    for e in kernel_rows(prof):
-        kind = kernel_kind(e.key)
-        t, n, rows = by_kind.get(kind, (0.0, 0, []))
-        by_kind[kind] = (t + dev_time(e), n + e.count, rows + [e])
-    busy = sum(t for t, _, _ in by_kind.values())
-    log("  device time by kind (the top 3 kernels of each, names cut at "
-        "200 characters):")
-    for kind, (t, n, rows) in sorted(by_kind.items(),
-                                      key=lambda kv: -kv[1][0]):
-        log(f"    {t / steps / 1e3:9.3f} ms/step  {t / busy:6.1%}  "
-            f"x{n / steps:6.1f}  {kind}")
-        for e in sorted(rows, key=dev_time, reverse=True)[:3]:
-            log(f"        {dev_time(e) / steps / 1e3:8.3f} ms  "
-                f"x{e.count / steps:5.1f}  {e.key[:200]}")
+    profile_by_kind(prof, steps, KINDS)
 
 
 def profile_serving(torch, ticks: int = 16) -> None:
@@ -1335,7 +1731,8 @@ def profile_serving(torch, ticks: int = 16) -> None:
 def main() -> int:
     profiles = {"--profile": profile_serving,
                 "--profile-train": profile_training,
-                "--profile-resnet": profile_resnet}
+                "--profile-resnet": profile_resnet,
+                "--profile-bert": profile_bert}
     wanted = [a for a in sys.argv[1:] if a in profiles]
     if wanted:
         import torch
@@ -1409,9 +1806,16 @@ def main() -> int:
     phase("12. f32 cifar10_resnet20 (full width, batch 128): card vs CPU")
     cifar = cifar_parity(torch)
 
-    # The forward kernel serves both paths: its numbers cover the three
-    # serving shapes and the training shape (one call at each).
-    rows = rows + [train_rows["flash_attn_fwd"]]
+    phase("13. train bert_base_wikipedia (full width, bf16, batch 1024)")
+    bert = train_bert(torch, attn)
+    bert_row = time_bert_kernel(torch, attn, BERT_BATCH // BERT_ACCUM)
+
+    phase("14. checkpoint and resume on the card (BERT, 2 layers, f32)")
+    resumed = resume_on_card(torch)
+
+    # The forward kernel serves every path: its numbers cover the three
+    # serving shapes, the NMT training shape and BERT's (one call at each).
+    rows = rows + [train_rows["flash_attn_fwd"], bert_row]
     timings = ("kernel_ms_before", "device_ms", "device_ms_strided",
                "device_ms_before", "plain_ms", "bound_ms", "library_ms",
                "library_device_ms")
@@ -1421,16 +1825,19 @@ def main() -> int:
         "source": "deeplearning_cfn_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "deeplearning_cfn_tpu/ops/attention.py:96 "
                     "(_flash_kernel, launched by _flash_forward at :291)",
-        "launches": served["launches"] + trained["launches"]["fwd"],
+        "launches": served["launches"] + trained["launches"]["fwd"]
+        + bert["launches_with_eval"]["fwd"],
         "launches_serve": served["launches"],
         "launches_train": trained["launches"]["fwd"],
+        "launches_bert": bert["launches_with_eval"]["fwd"],
         "variant_launches": {
             v: served["variant_launches"][v]
             + trained["variant_launches"]["fwd"][v]
+            + bert["variant_launches"]["fwd"][v]
             for v in served["variant_launches"]},
-        "max_abs_err": max(errs.values()),
+        "max_abs_err": max(max(errs.values()), bert_row["max_abs_err"]),
         "max_abs_err_f32": errs["float32"],
-        "max_abs_err_bf16": errs["bfloat16"],
+        "max_abs_err_bf16": max(errs["bfloat16"], bert_row["max_abs_err"]),
         "ms": sum(r["kernel_ms"] for r in rows),
         **{key: sum(r[key] for r in rows) for key in timings},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
@@ -1470,6 +1877,8 @@ def main() -> int:
         "f32_grad_parity": parity,
         "resnet50_train": resnet,
         "resnet20_f32_card_vs_cpu": cifar,
+        "bert_base_train": bert,
+        "bert_resume": resumed,
     }
     log(json.dumps({"summary": summary}))
     log(card)

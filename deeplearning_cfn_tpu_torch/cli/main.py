@@ -1,15 +1,21 @@
-"""The port's command line: the ``train`` and ``serve`` verbs.
+"""The port's command line: the ``train``, ``eval``, ``serve`` and ``ckpt``
+verbs.
 
     python -m deeplearning_cfn_tpu_torch.cli train --preset transformer_nmt_wmt \\
         [--max-steps N] [overrides ...]
-    python -m deeplearning_cfn_tpu_torch.cli train --preset imagenet_resnet50
+    python -m deeplearning_cfn_tpu_torch.cli train --preset bert_base_wikipedia
+    python -m deeplearning_cfn_tpu_torch.cli eval --preset bert_base_wikipedia \\
+        [--step N] workdir=...
     python -m deeplearning_cfn_tpu_torch.cli serve --preset transformer_nmt_wmt \\
         --allow-init --requests reqs.jsonl [overrides ...]
+    python -m deeplearning_cfn_tpu_torch.cli ckpt list <ckpt dir>
+    python -m deeplearning_cfn_tpu_torch.cli ckpt rollback <ckpt dir> --step N
 
 Same flags, defaults, result lines and stderr summary as the JAX package's
-``dlcfn-tpu train``/``serve`` for the options these slices port (``train``
-runs on this host only: no ``--stack``). ``--accelerator`` takes ``gpu``
-(the default — the CUDA card, raising without one) or ``cpu``. Serve
+``dlcfn-tpu train``/``eval``/``serve``/``ckpt`` for the options these slices
+port (``train`` runs on this host only: no ``--stack``; a rerun resumes from
+the latest committed checkpoint). ``--accelerator`` takes ``gpu`` (the
+default — the CUDA card, raising without one) or ``cpu``. Serve
 requests are JSONL lines ``{"src_ids": [...]}`` with optional ``id``,
 ``max_new_tokens``, ``beam_size`` and ``deadline_s``; text requests need
 the BPE tokenizer, which is not ported yet.
@@ -19,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -42,6 +49,72 @@ def _cmd_train(args) -> int:
     final = run_experiment(cfg, max_steps=args.max_steps, device=device)
     print(f"[dlcfn-tpu] final metrics: "
           f"{ {k: round(v, 4) for k, v in final.items()} }")
+    return 0
+
+
+def _cmd_eval(args) -> int:
+    """Evaluate a committed checkpoint (the latest, or ``--step``) without
+    training and print the metrics as one JSON line."""
+    from ..runtime.platform import resolve_device
+    from ..train.run import run_eval
+
+    cfg = apply_overrides(get_preset(args.preset), args.overrides)
+    cfg.stack.accelerator = args.accelerator
+    try:
+        device = resolve_device(args.accelerator)
+    except RuntimeError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    try:
+        metrics = run_eval(cfg, step=args.step, device=device)
+    except FileNotFoundError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({k: round(v, 6) if isinstance(v, float) else v
+                      for k, v in metrics.items()}))
+    return 0
+
+
+def _cli_store(args):
+    """The ckpt verbs' store; ``--retry-attempts`` > 1 wraps it in the retry
+    policy training uses. A local directory that does not exist is an
+    error."""
+    from ..ckpt import RetryPolicy, open_store
+
+    if not args.dir.startswith("gs://") and not os.path.isdir(args.dir):
+        raise FileNotFoundError(f"no such checkpoint directory: {args.dir}")
+    retry = None
+    if args.retry_attempts > 1:
+        retry = RetryPolicy(max_attempts=args.retry_attempts,
+                            backoff_s=args.retry_backoff)
+    return open_store(args.dir, retry=retry)
+
+
+def _cmd_ckpt_list(args) -> int:
+    from ..ckpt import committed_steps
+
+    try:
+        store = _cli_store(args)
+        steps = committed_steps(store)
+    except FileNotFoundError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"directory": args.dir, "committed_steps": steps,
+                      "store_retries": getattr(store, "retries_total", 0)}))
+    return 0
+
+
+def _cmd_ckpt_rollback(args) -> int:
+    from ..ckpt import rollback_checkpoints
+
+    try:
+        deleted = rollback_checkpoints(_cli_store(args), args.step)
+    except FileNotFoundError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(f"[dlcfn-tpu] rolled back to step {args.step}; deleted "
+          f"{len(deleted)} later checkpoint(s): {deleted}. The next "
+          f"training launch will auto-resume from step {args.step}.")
     return 0
 
 
@@ -152,7 +225,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
         description="PyTorch/CUDA port of dlcfn-tpu (serve the NMT; train "
-                    "the NMT and the ResNets)")
+                    "and evaluate the NMT, the ResNets and BERT)")
     sub = parser.add_subparsers(dest="command", required=True)
     tr = sub.add_parser("train", help="train a preset on this host")
     tr.add_argument("--preset", required=True)
@@ -161,6 +234,18 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("overrides", nargs="*",
                     help="config overrides, e.g. train.global_batch=256")
     tr.set_defaults(fn=_cmd_train)
+    ev = sub.add_parser(
+        "eval",
+        help="evaluate a trained checkpoint (full weighted eval + the "
+             "workload's acceptance metric) without training")
+    ev.add_argument("--preset", required=True)
+    ev.add_argument("--accelerator", default="gpu", choices=["gpu", "cpu"])
+    ev.add_argument("--step", type=int, default=0,
+                    help="committed checkpoint step (0 = latest)")
+    ev.add_argument("overrides", nargs="*",
+                    help="config overrides — at least the workdir the "
+                         "training run used")
+    ev.set_defaults(fn=_cmd_eval)
     sv = sub.add_parser(
         "serve",
         help="continuous-batching inference over an NMT checkpoint "
@@ -206,6 +291,32 @@ def build_parser() -> argparse.ArgumentParser:
                     help="config overrides — at least the workdir the "
                          "training run used")
     sv.set_defaults(fn=_cmd_serve)
+
+    ck = sub.add_parser("ckpt", help="checkpoint inspection / rollback")
+    cksub = ck.add_subparsers(dest="ckpt_cmd", required=True)
+
+    def add_retry_flags(p):
+        p.add_argument("--retry-attempts", type=int, default=1,
+                       help="total store-I/O tries per operation; >1 "
+                            "enables transient-fault retries with "
+                            "exponential backoff (default 1 = off)")
+        p.add_argument("--retry-backoff", type=float, default=0.5,
+                       help="base backoff seconds between retries "
+                            "(default 0.5)")
+
+    ckl = cksub.add_parser("list", help="list committed checkpoint steps")
+    ckl.add_argument("dir", help="checkpoint directory (or gs:// url)")
+    add_retry_flags(ckl)
+    ckl.set_defaults(fn=_cmd_ckpt_list)
+    ckr = cksub.add_parser(
+        "rollback",
+        help="delete every checkpoint past STEP so the next training "
+             "launch auto-resumes from STEP (one-shot, irreversible)")
+    ckr.add_argument("dir", help="checkpoint directory (or gs:// url)")
+    ckr.add_argument("--step", type=int, required=True,
+                     help="committed step to roll back to")
+    add_retry_flags(ckr)
+    ckr.set_defaults(fn=_cmd_ckpt_rollback)
     return parser
 
 

@@ -19,28 +19,40 @@ params (the leaf names the JAX checkpoint manifest uses) and returns a
   ``conv_init_s2d``, ``norm_init``, ``conv_proj``, ``norm_proj`` and
   ``head`` keep their names).
 
-``load_flax_checkpoint`` reads a committed single-process JAX checkpoint
-(``step_<N>/{manifest.json, manifest_p0.json, shards_p0.npz, COMMIT}``,
-arrays stored as ``<leaf name>::<i>`` shards with their global index ranges)
-with numpy only — no JAX, no Flax.
+- BERT's setup-free auto-names ``layer_3`` become ``layer.3``, and its
+  ``embed``, ``mlm_transform``, ``mlm_norm``, ``mlm_bias``, ``pooler`` and
+  ``nsp_head`` keep their names.
+
+``flax_layout`` is the inverse: every parameter and BatchNorm buffer of a
+port model with its Flax leaf name (``params/...``, ``batch_stats/...``)
+and the layout change between the two (``to_flax``/``from_flax``). The
+checkpoint bridge (``train/state.py``) names the port's leaves with it.
+
+``load_flax_checkpoint`` reads the ``params`` and ``batch_stats`` leaves of a
+committed JAX checkpoint (``step_<N>/{manifest.json, manifest_p<K>.json,
+shards_p<K>.npz, COMMIT}``) through ``ckpt/checkpoint.py`` — numpy only, no
+JAX, no Flax.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^(enc|dec)_(\d+)$")
+from . import ckpt
+
+_LAYER = re.compile(r"^(enc|dec|layer)_(\d+)$")
+_LISTS = {"enc", "dec", "layer"}
 _RESNET = {"BottleneckBlock": "blocks", "BasicBlock": "blocks",
            "Conv": "convs", "BatchNorm": "norms"}
 _AUTO_NAME = re.compile(r"^(%s)_(\d+)$" % "|".join(_RESNET))
 _STATS = {"mean": "running_mean", "var": "running_var"}
-_STEP = re.compile(r"^step_(\d+)$")
+_KERNEL_MODULES = ("Dense", "Conv")
+_SCALE_MODULES = ("LayerNorm", "BatchNorm")
 
 
 def _torch_key(flax_key: str) -> Tuple[str, bool]:
@@ -87,15 +99,80 @@ def params_from_flax(flat: Dict[str, np.ndarray],
         key, transpose = _torch_key(name)
         arr = np.array(value, dtype=np.float32)
         if transpose:
-            if arr.ndim == 2:    # Dense [in, out] → [out, in]
-                arr = arr.T
-            elif arr.ndim == 4:  # Conv HWIO → OIHW
-                arr = arr.transpose(3, 2, 0, 1)
-            else:
+            if arr.ndim not in (2, 4):
                 raise ValueError(f"{name}: a kernel must be 2-D (Dense) or "
                                  f"4-D (Conv), got {arr.shape}")
+            arr = from_flax(arr, "dense" if arr.ndim == 2 else "conv")
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def to_flax(value: np.ndarray, kind: str) -> np.ndarray:
+    """A port leaf in Flax's layout (``kind`` from :func:`flax_layout`)."""
+    if kind == "dense":
+        return value.T  # [out, in] → [in, out]
+    if kind == "conv":
+        return value.transpose(2, 3, 1, 0)  # OIHW → HWIO
+    return value
+
+
+def from_flax(value: np.ndarray, kind: str) -> np.ndarray:
+    """A Flax leaf in the port's layout (the inverse of :func:`to_flax`)."""
+    if kind == "dense":
+        return value.T  # [in, out] → [out, in]
+    if kind == "conv":
+        return value.transpose(3, 2, 0, 1)  # HWIO → OIHW
+    return value
+
+
+def _flax_module_path(model: torch.nn.Module, mod_name: str) -> List[str]:
+    parts = mod_name.split(".") if mod_name else []
+    out: List[str] = []
+    for i, p in enumerate(parts):
+        if not p.isdigit():
+            out.append(p)
+            continue
+        owner = parts[i - 1]
+        if owner in _LISTS:
+            out[-1] = f"{owner}_{p}"
+        elif owner == "blocks":
+            block = model.get_submodule(".".join(parts[:i + 1]))
+            out[-1] = f"{type(block).__name__}_{p}"
+        elif owner in ("convs", "norms"):
+            out[-1] = f"{'Conv' if owner == 'convs' else 'BatchNorm'}_{p}"
+        else:
+            raise ValueError(f"{mod_name}: no Flax name for list {owner!r}")
+    return out
+
+
+def flax_layout(model: torch.nn.Module
+                ) -> List[Tuple[str, str, torch.Tensor, str]]:
+    """``(flax name, port state_dict key, tensor, kind)`` for every
+    parameter and BatchNorm running statistic of ``model``, in the model's
+    order. ``kind`` is ``"dense"``/``"conv"`` for kernels (transposed
+    between the layouts) and ``"none"`` otherwise."""
+    out = []
+    for mod_name, mod in model.named_modules():
+        path = _flax_module_path(model, mod_name)
+        cls = type(mod).__name__
+        own = list(mod.named_parameters(recurse=False)) + \
+            list(mod.named_buffers(recurse=False))
+        for name, t in own:
+            key = f"{mod_name}.{name}" if mod_name else name
+            kind, collection = "none", "params"
+            if name in ("running_mean", "running_var"):
+                collection = "batch_stats"
+                leaf = "mean" if name == "running_mean" else "var"
+            elif name == "weight" and cls in _KERNEL_MODULES:
+                leaf, kind = "kernel", "dense" if t.ndim == 2 else "conv"
+            elif name == "weight" and cls in _SCALE_MODULES:
+                leaf = "scale"
+            elif name == "weight" and isinstance(mod, torch.nn.Embedding):
+                leaf = "embedding"
+            else:
+                leaf = name
+            out.append(("/".join([collection, *path, leaf]), key, t, kind))
+    return out
 
 
 def committed_steps(ckpt_dir: str):
@@ -103,12 +180,7 @@ def committed_steps(ckpt_dir: str):
     directory does not exist)."""
     if not os.path.isdir(ckpt_dir):
         return []
-    steps = []
-    for name in os.listdir(ckpt_dir):
-        m = _STEP.match(name)
-        if m and os.path.exists(os.path.join(ckpt_dir, name, "COMMIT")):
-            steps.append(int(m.group(1)))
-    return sorted(steps)
+    return ckpt.committed_steps(ckpt_dir)
 
 
 def load_flax_checkpoint(ckpt_dir: str, step: Optional[int] = None
@@ -128,30 +200,11 @@ def load_flax_checkpoint(ckpt_dir: str, step: Optional[int] = None
                 f"(committed: {steps})")
     else:
         step = steps[-1]
-    root = os.path.join(ckpt_dir, f"step_{step:08d}")
-    with open(os.path.join(root, "manifest.json")) as fh:
-        manifest = json.load(fh)
-    if int(manifest.get("processes", 1)) > 1:
-        raise ValueError(
-            f"checkpoint {root} was written by {manifest['processes']} "
-            f"processes; the port reads single-process checkpoints only "
-            f"(restore it with the JAX package and save it from one "
-            f"process first)")
-    with open(os.path.join(root, "manifest_p0.json")) as fh:
-        shard_index = json.load(fh)["leaves"]
-    flat = {}
-    with np.load(os.path.join(root, "shards_p0.npz")) as npz:
-        for name, meta in manifest["leaves"].items():
-            if meta.get("kind") != "array" or not name.startswith(
-                    ("params/", "batch_stats/")):
-                continue
-            out = np.empty(tuple(meta["shape"]), dtype=np.dtype(meta["dtype"]))
-            for entry in shard_index[name]:
-                region = tuple(slice(a, b) for a, b in entry["index"])
-                out[region] = npz[entry["key"]]
-            key = name[len("params/"):] if name.startswith("params/") \
-                else name
-            flat[key] = out
+    leaves = ckpt.read_leaves(ckpt_dir, step, lambda n: n.startswith(
+        ("params/", "batch_stats/")))
+    flat = {(n[len("params/"):] if n.startswith("params/") else n): v
+            for n, v in leaves.items() if v is not None}
     if not any(not k.startswith("batch_stats/") for k in flat):
-        raise ValueError(f"checkpoint {root} holds no params/ leaves")
+        raise ValueError(f"checkpoint {ckpt_dir} step {step} holds no "
+                         f"params/ leaves")
     return flat, step

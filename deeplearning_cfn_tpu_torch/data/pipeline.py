@@ -24,9 +24,9 @@
 - :class:`DevicePrefetcher`: stages ``depth`` batches to the card ahead of
   the step loop, from pinned host memory with non-blocking copies on a side
   stream, so the host→device transfer overlaps the previous step's compute.
-- :func:`build_pipeline`: ``cifar10``, ``imagenet`` and ``wmt_en_de``; the
-  other datasets raise ``NotImplementedError`` naming the ROADMAP item
-  that ports them.
+- :func:`build_pipeline`: ``cifar10``, ``imagenet``, ``wmt_en_de`` and
+  ``wikipedia_mlm``; the other datasets raise ``NotImplementedError``
+  naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -192,10 +192,12 @@ class DataPipeline:
                                             nthreads=self.num_workers)
         return out
 
-    def _epoch_batches(self, epoch: int) -> Iterator[Batch]:
+    def _epoch_batches(self, epoch: int, start_batch: int = 0
+                       ) -> Iterator[Batch]:
         rng = np.random.RandomState((self.seed + 1) * 7919 + epoch * 31)
         idx = self._epoch_indices(epoch)
-        for start in range(0, self.steps_per_epoch * self.local_batch,
+        for start in range(start_batch * self.local_batch,
+                           self.steps_per_epoch * self.local_batch,
                            self.local_batch):
             batch_idx = idx[start:start + self.local_batch]
             eval_mask = None
@@ -224,14 +226,19 @@ class DataPipeline:
                 batch = {**batch, "eval_mask": eval_mask}
             yield batch
 
-    def epochs(self) -> Iterator[Batch]:
-        """Infinite stream across epochs from epoch 0, optionally prefetched
-        on a thread. (Resuming mid-epoch comes with the port's checkpoints,
-        ROADMAP A.5 ckpt.)"""
+    def epochs(self, start_epoch: int = 0, skip_batches: int = 0
+               ) -> Iterator[Batch]:
+        """Infinite stream across epochs, optionally prefetched on a thread.
+
+        ``skip_batches`` fast-forwards within the first epoch (mid-epoch
+        checkpoint resume: the stream continues where training stopped
+        instead of replaying the epoch's head)."""
         def gen():
-            epoch = 0
+            epoch = start_epoch
+            skip = skip_batches
             while True:
-                yield from self._epoch_batches(epoch)
+                yield from self._epoch_batches(epoch, start_batch=skip)
+                skip = 0
                 epoch += 1
 
         if self.prefetch > 0:
@@ -396,7 +403,6 @@ class DevicePrefetcher:
 
 
 _NOT_PORTED = {
-    "wikipedia_mlm": "A.9 (BERT)",
     "lm_text": "A.9 (the GPT family)",
     "coco": "A.11 (detection)",
 }
@@ -441,7 +447,7 @@ def build_pipeline(cfg: DataConfig, local_batch: int, num_classes: int = 0,
         augment = augment_crop_flip if name == "cifar10" and train \
             else None
         return DataPipeline(source, local_batch, augment=augment, **common)
-    if name != "wmt_en_de":
+    if name not in ("wmt_en_de", "wikipedia_mlm"):
         raise KeyError(f"unknown dataset {name!r}")
     from .text import build_text_source
 

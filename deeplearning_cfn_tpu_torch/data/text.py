@@ -1,28 +1,132 @@
-"""NMT text source — the part of ``deeplearning_cfn_tpu/data/text.py`` the
-NMT training slice needs, copied (numpy only) so the port never imports the
-JAX package.
+"""Text sources — the NMT and BERT (MLM+NSP) parts of
+``deeplearning_cfn_tpu/data/text.py``, copied (numpy only) so the port never
+imports the JAX package.
 
-- **Real data**: ``<data_dir>/{train,eval}.npz`` holding the NMT arrays
-  (``src_ids``, ``src_mask``, ``tgt_in_ids``, ``tgt_out_ids``,
-  ``tgt_mask``) — the files the JAX package's ``prepare_nmt_text`` writes.
-- **Synthetic**: a deterministic, *learnable* seq2seq task (the target is the
-  reversed source plus a fixed offset), the same arrays from the same seeds
-  as the JAX package, so both packages train on identical batches.
+- **Real data**: ``<data_dir>/{train,eval}.npz`` holding the arrays of the
+  dataset — for ``wmt_en_de`` ``src_ids``, ``src_mask``, ``tgt_in_ids``,
+  ``tgt_out_ids``, ``tgt_mask`` (the files the JAX package's
+  ``prepare_nmt_text`` writes), for ``wikipedia_mlm`` the MLM contract below.
+- **Synthetic**: deterministic, *learnable* generators, the same arrays from
+  the same seeds as the JAX package, so both packages train on identical
+  batches: a seq2seq task (the target is the reversed source plus a fixed
+  offset) and pre-masked MLM+NSP examples over a fixed Markov chain.
 
-Special ids: 0=[PAD], 1=[BOS], 2=[EOS]. The MLM and LM sources belong to the
-slices that port BERT and the GPT family (ROADMAP A.9).
+NMT ids: 0=[PAD], 1=[BOS], 2=[EOS]. MLM ids: 0=[PAD], 1=[CLS], 2=[SEP],
+3=[MASK]; the MLM batch is ``input_ids``, ``input_mask``, ``segment_ids``
+[N, S], ``mlm_positions``, ``mlm_ids``, ``mlm_weights`` [N, P] with
+P = 0.2·S, and ``nsp_label`` [N]. The LM source belongs to the GPT slice
+(ROADMAP A.9b).
 """
 
 from __future__ import annotations
 
 import os
+from typing import Dict
 
 import numpy as np
 
 from ..config import DataConfig
 from .pipeline import ArraySource
 
+_MLM_KEYS = ("input_ids", "input_mask", "segment_ids", "mlm_positions",
+             "mlm_ids", "mlm_weights", "nsp_label")
 _NMT_KEYS = ("src_ids", "src_mask", "tgt_in_ids", "tgt_out_ids", "tgt_mask")
+
+MASK_RATE = 0.15
+MAX_PRED_FRACTION = 0.2  # max_predictions_per_seq = fraction * seq_len
+
+
+def _markov_tokens(rng: np.random.RandomState, n: int, seq_len: int,
+                   vocab: int, reserved: int = 4) -> np.ndarray:
+    """Token sequences from a sparse, fixed-transition Markov chain over the
+    non-reserved vocab — structured enough that an MLM head can beat unigram
+    entropy within a few hundred CPU steps."""
+    usable = vocab - reserved
+    # Each state deterministically prefers 2 successors (chosen per-seed).
+    succ = np.stack([
+        (np.arange(usable) * 7 + 3) % usable,
+        (np.arange(usable) * 11 + 5) % usable,
+    ], axis=1)
+    tokens = np.empty((n, seq_len), np.int32)
+    state = rng.randint(0, usable, n)
+    for t in range(seq_len):
+        tokens[:, t] = state + reserved
+        pick = succ[state, rng.randint(0, 2, n)]
+        noise = rng.rand(n) < 0.05
+        state = np.where(noise, rng.randint(0, usable, n), pick)
+    return tokens
+
+
+def _build_mlm_examples(tokens: np.ndarray, vocab_size: int,
+                        rng: np.random.RandomState) -> Dict[str, np.ndarray]:
+    """Frame content token windows ``[N, seq_len-2]`` into the pre-masked
+    MLM+NSP example contract (shared by the synthetic Markov source and the
+    real-corpus BPE converter).
+
+    Special ids: 0=[PAD], 1=[CLS], 2=[SEP], 3=[MASK].
+    """
+    num_examples, content = tokens.shape
+    seq_len = content + 2
+    max_pred = max(1, int(seq_len * MAX_PRED_FRACTION))
+
+    input_ids = np.zeros((num_examples, seq_len), np.int32)
+    input_ids[:, 0] = 1  # [CLS]
+    input_ids[:, 1:-1] = tokens
+    input_ids[:, -1] = 2  # [SEP]
+    input_mask = np.ones((num_examples, seq_len), np.int32)
+    # Two "segments" split at a random midpoint; NSP label = whether the
+    # second half was swapped with another example's (learnable because
+    # swapped halves break the Markov transitions at the boundary).
+    split = seq_len // 2
+    segment_ids = np.zeros((num_examples, seq_len), np.int32)
+    segment_ids[:, split:] = 1
+    nsp_label = rng.randint(0, 2, num_examples).astype(np.int32)
+    swap = np.where(nsp_label == 1)[0]
+    if len(swap) > 1:
+        input_ids[swap[:, None], np.arange(split, seq_len)[None, :]] = \
+            input_ids[np.roll(swap, 1)[:, None],
+                      np.arange(split, seq_len)[None, :]]
+    else:
+        # A lone positive can't swap with anyone — relabel it negative
+        # rather than train NSP on a contiguous "swapped" example.
+        nsp_label[swap] = 0
+
+    mlm_positions = np.zeros((num_examples, max_pred), np.int32)
+    mlm_ids = np.zeros((num_examples, max_pred), np.int32)
+    mlm_weights = np.zeros((num_examples, max_pred), np.float32)
+    n_mask = max(1, int((seq_len - 2) * MASK_RATE))
+    n_mask = min(n_mask, max_pred)
+    for i in range(num_examples):
+        pos = rng.choice(np.arange(1, seq_len - 1), n_mask, replace=False)
+        pos.sort()
+        mlm_positions[i, :n_mask] = pos
+        mlm_ids[i, :n_mask] = input_ids[i, pos]
+        mlm_weights[i, :n_mask] = 1.0
+        # 80% [MASK], 10% random, 10% keep — the BERT masking recipe.
+        r = rng.rand(n_mask)
+        masked = input_ids[i, pos].copy()
+        masked[r < 0.8] = 3
+        rand_sel = (r >= 0.8) & (r < 0.9)
+        masked[rand_sel] = rng.randint(4, vocab_size, rand_sel.sum())
+        input_ids[i, pos] = masked
+
+    return {
+        "input_ids": input_ids, "input_mask": input_mask,
+        "segment_ids": segment_ids, "mlm_positions": mlm_positions,
+        "mlm_ids": mlm_ids, "mlm_weights": mlm_weights,
+        "nsp_label": nsp_label,
+    }
+
+
+def make_mlm_source(num_examples: int, seq_len: int, vocab_size: int,
+                    seed: int) -> ArraySource:
+    """Pre-masked MLM+NSP examples (the reference pipeline also pre-masked
+    offline via create_pretraining_data.py), from the synthetic Markov
+    chain. Framing/masking shared with the real-corpus path
+    (``_build_mlm_examples``)."""
+    rng = np.random.RandomState(seed)
+    tokens = _markov_tokens(rng, num_examples, seq_len - 2, vocab_size)
+    return ArraySource(_build_mlm_examples(tokens, vocab_size, rng))
 
 
 def make_nmt_source(num_examples: int, seq_len: int, vocab_size: int,
@@ -73,18 +177,21 @@ def _load_npz_dir(data_dir: str, split: str, keys) -> ArraySource:
 
 
 def build_text_source(cfg: DataConfig, train: bool) -> ArraySource:
-    """The ``wmt_en_de`` source of one split: the npz files under
-    ``data.data_dir`` or, without one, the synthetic task (4096 train
-    examples and max(256, n/8) eval examples unless overridden)."""
-    if cfg.name != "wmt_en_de":
+    """The ``wmt_en_de`` or ``wikipedia_mlm`` source of one split: the npz
+    files under ``data.data_dir`` or, without one, the synthetic data (4096
+    train examples and max(256, n/8) eval examples unless overridden)."""
+    keys = {"wikipedia_mlm": _MLM_KEYS, "wmt_en_de": _NMT_KEYS}.get(cfg.name)
+    if keys is None:
         raise NotImplementedError(
-            f"text dataset {cfg.name!r} is not ported yet (ROADMAP A.9: "
-            f"BERT and the GPT family bring wikipedia_mlm and lm_text)")
+            f"text dataset {cfg.name!r} is not ported yet (ROADMAP A.9b: "
+            f"the GPT family brings lm_text)")
     split = "train" if train else "eval"
     if cfg.data_dir and not cfg.synthetic:
-        return _load_npz_dir(cfg.data_dir, split, _NMT_KEYS)
+        return _load_npz_dir(cfg.data_dir, split, keys)
     n = cfg.num_train_examples or 4096
     if not train:
         n = cfg.num_eval_examples or max(256, n // 8)
     seed = 41 if train else 43
+    if cfg.name == "wikipedia_mlm":
+        return make_mlm_source(n, cfg.seq_len, cfg.vocab_size, seed)
     return make_nmt_source(n, cfg.seq_len, cfg.vocab_size, seed)

@@ -104,6 +104,9 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        # Set while ``train.task.remat`` recomputes a forward: the batch
+        # statistics are used again, the running ones not moved twice.
+        self.freeze_stats = False
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
@@ -111,10 +114,12 @@ class BatchNorm(nn.Module):
             mean = xf.mean((0, 2, 3))
             var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
                               min=0.0)
-            with torch.no_grad():
+            if not self.freeze_stats:
                 m = self.momentum
-                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
-                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+                with torch.no_grad():
+                    self.running_mean.mul_(m).add_(mean.detach(),
+                                                   alpha=1 - m)
+                    self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight

@@ -1,4 +1,5 @@
-"""Shared transformer building blocks (the NMT encoder-decoder's layers).
+"""Shared transformer building blocks (the NMT encoder-decoder's and the
+BERT encoder's layers, and BERT's ``Embed``).
 
 The port of ``deeplearning_cfn_tpu/models/transformer.py``. Numerics follow
 the Flax modules exactly:
@@ -264,3 +265,34 @@ class TransformerLayer(nn.Module):
                 self.cross_attn_norm)
         return self._residual(x, lambda y: self.mlp(y, generator),
                               self.mlp_norm)
+
+
+class Embed(nn.Module):
+    """Token + learned-position (+ optional segment) embeddings — Flax's
+    ``Embed`` of ``models/transformer.py``: the sum in f32, cast to the
+    compute dtype, LayerNorm (``norm``), then dropout. ``forward`` returns
+    the activations and the token table, which the MLM decoder attends
+    with (tied output embedding)."""
+
+    def __init__(self, vocab_size: int, hidden_size: int, max_len: int,
+                 num_segments: int = 0, dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.0):
+        super().__init__()
+        self.dtype = dtype
+        self.dropout_rate = dropout_rate
+        self.token = nn.Embedding(vocab_size, hidden_size)
+        self.position = nn.Parameter(torch.empty(max_len, hidden_size))
+        self.segment = nn.Embedding(num_segments, hidden_size) \
+            if num_segments else None
+        self.norm = LayerNorm(hidden_size, dtype)
+
+    def forward(self, ids: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.token(ids) + self.position[None, :ids.shape[1], :]
+        if self.segment is not None and segment_ids is not None:
+            x = x + self.segment(segment_ids)
+        x = dropout(self.norm(x.to(self.dtype)), self.dropout_rate,
+                    generator)
+        return x, self.token.weight

@@ -23,14 +23,20 @@ semantics around it:
 ``adam``, ``sgd`` and ``momentum`` take decay as an L2 term added to the
 gradient after clipping, as ``optax.add_decayed_weights`` does before them.
 ``lars`` is :class:`Lars`, ``optax.lars`` step for step (the trust ratio and
-the learning rate come BEFORE the momentum trace; see its docstring).
+the learning rate come BEFORE the momentum trace; see its docstring), and
+``lamb`` is :class:`Lamb`, ``optax.lamb`` step for step.
+
+Checkpoints carry the optimizer's slots under the names of the optax state
+of the same chain (:meth:`Optimizer.named_slots`, :meth:`Optimizer.load_slots`;
+``_OPTAX_STATE`` is the layout), so either package resumes the other's run.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -111,9 +117,27 @@ def _decays(p: torch.Tensor) -> bool:
 
 
 _NOT_PORTED = {
-    "lamb": "A.9 (BERT)",
     "adafactor": "A.9 (the other model families)",
 }
+
+# The optax state of each optimizer's transform (the chain element after the
+# clip and the sgd/momentum/adam weight decay): the chain-relative paths of
+# its update counts (int32 scalars), and of each per-parameter slot with the
+# torch state key that holds it. Masked transforms (weight decay, the LARS
+# trust ratio) and the clip carry no leaves.
+_OPTAX_STATE: Dict[str, Tuple[Tuple[str, ...], Dict[str, str]]] = {
+    "sgd": (("1/count",), {}),
+    "momentum": (("1/count",), {"0/trace": "momentum_buffer"}),
+    "adam": (("0/count", "1/count"),
+             {"0/mu": "exp_avg", "0/nu": "exp_avg_sq"}),
+    "adamw": (("0/count", "2/count"),
+              {"0/mu": "exp_avg", "0/nu": "exp_avg_sq"}),
+    "lars": (("2/count",), {"3/trace": "trace"}),
+    "lamb": (("0/count", "3/count"),
+             {"0/mu": "exp_avg", "0/nu": "exp_avg_sq"}),
+}
+# Optimizers whose torch state counts its own steps (a float tensor).
+_STEP_STATE = ("adam", "adamw", "lamb")
 
 
 class Lars(torch.optim.Optimizer):
@@ -176,6 +200,67 @@ class Lars(torch.optim.Optimizer):
                 torch._foreach_add_(params, traces)
 
 
+class Lamb(torch.optim.Optimizer):
+    """``optax.lamb``: per update ``t`` (counted from 1), for each parameter
+    ``p`` with gradient ``g``:
+
+    1. ``scale_by_adam``: ``m = b1·m + (1 − b1)·g``,
+       ``v = b2·v + (1 − b2)·g²``, ``u = m̂ / (√v̂ + eps)`` with the bias
+       corrections ``m̂ = m / (1 − b1^t)``, ``v̂ = v / (1 − b2^t)``;
+    2. ``u = u + wd·p`` (``add_decayed_weights``) where the group decays
+       (the trainer gives decay to params with ``ndim > 1`` only);
+    3. ``u = u · ‖p‖ / ‖u‖`` (``scale_by_trust_ratio``, on EVERY parameter,
+       no mask) — replaced by 1 where either norm is 0;
+    4. ``p = p − lr · u``.
+
+    The slots are torch Adam's: ``exp_avg`` (optax's ``mu``), ``exp_avg_sq``
+    (``nu``) and the float ``step`` tensor."""
+
+    def __init__(self, groups, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-6):
+        super().__init__(groups, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=0.0))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        del closure
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            mus, nus = [], []
+            for p in params:
+                state = self.state[p]
+                if "step" not in state:
+                    state["step"] = torch.tensor(0.0, dtype=torch.float32)
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                state["step"] += 1
+                mus.append(state["exp_avg"])
+                nus.append(state["exp_avg_sq"])
+            t = float(self.state[params[0]]["step"])
+            grads = [p.grad for p in params]
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+            mu_hat = torch._foreach_div(mus, 1.0 - b1 ** t)
+            nu_hat = torch._foreach_div(nus, 1.0 - b2 ** t)
+            denom = torch._foreach_sqrt(nu_hat)
+            torch._foreach_add_(denom, group["eps"])
+            updates = torch._foreach_div(mu_hat, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(updates, params,
+                                    alpha=group["weight_decay"])
+            p_norm = torch.stack(torch._foreach_norm(params))
+            u_norm = torch.stack(torch._foreach_norm(updates))
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(p_norm), p_norm / u_norm)
+            torch._foreach_mul_(updates, list(ratio.unbind()))
+            torch._foreach_add_(params, updates, alpha=-group["lr"])
+
+
 class Optimizer:
     """A ``torch.optim`` optimizer driven with optax's chain semantics (see
     the module docstring). ``count`` is the number of updates applied."""
@@ -214,11 +299,20 @@ class Optimizer:
             self.inner = Lars(groups, lr=lr0, momentum=cfg.momentum,
                               nesterov=cfg.nesterov,
                               trust_coefficient=cfg.trust_coefficient)
+        elif name == "lamb":
+            self.inner = Lamb(groups, lr=lr0, betas=(cfg.b1, cfg.b2),
+                              eps=cfg.eps)
         else:
             raise ValueError(f"unknown optimizer {cfg.name!r}")
+        self.name = name
         self.schedule = schedule
         self.grad_clip_norm = cfg.grad_clip_norm
         self.count = 0
+        # The optax chain's leading elements: the clip, then (for sgd,
+        # momentum and adam) the weight decay; this optimizer's state sits
+        # at the next index.
+        self._chain_index = int(cfg.grad_clip_norm > 0) + int(
+            cfg.weight_decay > 0 and name in ("sgd", "momentum", "adam"))
 
     def grads(self) -> List[torch.Tensor]:
         return [p.grad for p in self.params if p.grad is not None]
@@ -242,6 +336,47 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
+
+    # -- checkpoint slots (optax's names) -----------------------------------
+
+    def named_slots(self, named_params: Sequence[Tuple[str, torch.Tensor,
+                                                       Callable]]):
+        """``(opt_state/... name, value)`` for every leaf of the optax state
+        of this chain. ``named_params`` gives each parameter's Flax path
+        (under ``params/``), the parameter, and the function that puts a
+        tensor of its shape into Flax's layout. Slots not created yet (no
+        update applied) are zeros, as optax's init makes them."""
+        counts, slots = _OPTAX_STATE[self.name]
+        prefix = f"opt_state/{self._chain_index}/"
+        out = [(prefix + c, np.asarray(self.count, np.int32))
+               for c in counts]
+        for field, key in slots.items():
+            for path, p, to_flax in named_params:
+                value = self.inner.state.get(p, {}).get(key)
+                if value is None:
+                    value = torch.zeros_like(p)
+                out.append((f"{prefix}{field}/{path}", to_flax(value)))
+        return out
+
+    def load_slots(self, leaves: Dict[str, np.ndarray],
+                   named_params: Sequence[Tuple[str, torch.Tensor,
+                                                Callable]]) -> None:
+        """Set the update count and every slot from optax-named ``leaves``
+        (as :meth:`named_slots` names them); ``named_params`` gives each
+        parameter's Flax path, the parameter, and the function that puts a
+        Flax-layout array into its layout."""
+        counts, slots = _OPTAX_STATE[self.name]
+        prefix = f"opt_state/{self._chain_index}/"
+        self.count = int(leaves[prefix + counts[-1]])
+        for path, p, from_flax in named_params:
+            state = self.inner.state[p]
+            for field, key in slots.items():
+                value = from_flax(leaves[f"{prefix}{field}/{path}"])
+                state[key] = torch.as_tensor(np.ascontiguousarray(value),
+                                             dtype=p.dtype).to(p.device)
+            if self.name in _STEP_STATE:
+                state["step"] = torch.tensor(float(self.count),
+                                             dtype=torch.float32)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -2,24 +2,33 @@
 ``deeplearning_cfn_tpu/train/run.py`` for one device.
 
 ``run_experiment`` builds the task (model on the device, seeded init), the
-train and eval pipelines, the schedule and optimizer, the train state, runs
-``Trainer.fit`` and then the weighted full-set eval (for the ResNets: loss,
-top-1 and top-5 accuracy) plus the task's own acceptance metric where it
-has one (BLEU for NMT). Records go to
+train and eval pipelines, the schedule and optimizer, the train state, and
+the :class:`~..ckpt.CheckpointManager` (``<workdir>/<preset>/ckpt`` unless
+``checkpoint.directory`` says otherwise; every ``checkpoint.every_steps``
+steps or once per epoch, ``keep``, ``async_write``, the store's retry
+policy). With ``checkpoint.resume`` it first sweeps torn step directories,
+then restores the latest committed checkpoint — the port's own or the JAX
+package's — and the pipeline starts at the restored step's batch. It runs
+``Trainer.fit`` (checkpoint hook, ``train.profile_steps`` trace into
+``<workdir>/<preset>/profile``, ``train.hang_timeout_s`` watchdog), forces a
+final save and waits for it, then the weighted full-set eval plus the task's
+own acceptance metric where it has one (BLEU for NMT). Records go to
 ``<workdir>/<preset>/metrics.jsonl`` and stdout, as in the JAX package.
 
-Not in this slice: checkpoint writing and resume (the port's ``ckpt/``,
-ROADMAP A.5), the mesh and multi-process runs (A.10), the profiler trace and
-the hang watchdog.
+``run_eval`` evaluates a committed checkpoint without training.
+
+Not in this slice: the mesh and multi-process runs (ROADMAP A.10).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..ckpt import CheckpointManager, latest_checkpoint, \
+    retry_policy_from_config
 from ..config import ExperimentConfig
 from ..data.pipeline import build_pipeline
 from ..metrics.jsonl import MetricsWriter
@@ -30,9 +39,12 @@ from .task import build_task
 from .trainer import Trainer
 
 
-def _workdir(cfg: ExperimentConfig) -> str:
-    """The experiment's directory, as in the JAX package's layout."""
-    return os.path.join(cfg.workdir, cfg.preset or cfg.model.name)
+def _workdir_and_ckpt_dir(cfg: ExperimentConfig) -> Tuple[str, str]:
+    """The one definition of the experiment's on-disk layout (the JAX
+    package's)."""
+    workdir = os.path.join(cfg.workdir, cfg.preset or cfg.model.name)
+    ckpt_dir = cfg.checkpoint.directory or os.path.join(workdir, "ckpt")
+    return workdir, ckpt_dir
 
 
 def _describe(device: torch.device) -> str:
@@ -42,22 +54,64 @@ def _describe(device: torch.device) -> str:
     return "one device: cpu"
 
 
+def _eval_pipe(cfg: ExperimentConfig, task):
+    eval_batch = cfg.train.eval_batch or cfg.train.global_batch
+    return build_pipeline(cfg.data, eval_batch, cfg.model.num_classes,
+                          seed=cfg.train.seed, train=False,
+                          drop_remainder=not task.exact_eval)
+
+
+def _final_eval(cfg, task, trainer, state, eval_pipe) -> Dict[str, float]:
+    """Weighted full-set eval + the workload's own acceptance metric."""
+    final = trainer.evaluate(state, eval_pipe.one_epoch())
+    final_eval = getattr(task, "final_eval", None)
+    if final_eval is not None and cfg.eval.enabled:
+        final.update(final_eval(state, lambda: eval_pipe.one_epoch()))
+    return final
+
+
+def run_eval(cfg: ExperimentConfig, step: int = 0,
+             device: Union[str, torch.device] = "gpu") -> Dict[str, float]:
+    """Evaluate the latest committed checkpoint (or the exact ``step``) on
+    ``device`` without taking a training step: the weighted full-set eval
+    plus the task's acceptance metric, with ``checkpoint_step``. Only the
+    step, params, batch stats and EMA are read, so a checkpoint of any
+    optimizer (and of either package) evaluates."""
+    _, ckpt_dir = _workdir_and_ckpt_dir(cfg)
+    # Fail on a wrong workdir or preset before building anything.
+    if latest_checkpoint(ckpt_dir) is None:
+        raise FileNotFoundError(
+            f"no committed checkpoint to evaluate in {ckpt_dir}")
+    dev = resolve_device(device)
+    task = build_task(cfg, dev)
+    eval_pipe = _eval_pipe(cfg, task)
+    state = create_train_state(task.model, None,
+                               ema=cfg.train.ema_decay > 0)
+    manager = CheckpointManager(ckpt_dir,
+                                retry=retry_policy_from_config(cfg.checkpoint))
+    leaves, at_step = manager.restore_or_none(state, step=step)
+    state.load_named(leaves)
+    print(f"[dlcfn-tpu] evaluating checkpoint step {at_step} "
+          f"({_describe(dev)})")
+    metrics = _final_eval(cfg, task, Trainer(cfg, task, dev), state,
+                          eval_pipe)
+    metrics["checkpoint_step"] = int(at_step)
+    return metrics
+
+
 def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
                    device: Union[str, torch.device] = "gpu",
                    hooks: Sequence[Callable] = ()) -> Dict[str, float]:
-    """Train the experiment from a seeded init on ``device`` (``"gpu"``, the
+    """Train (or resume) the experiment on ``device`` (``"gpu"``, the
     default, raises without a card; ``"cpu"`` runs the plain versions of the
     kernels) and return the final eval metrics. ``hooks`` run after every
-    step as ``hook(step, state, last_record)``."""
+    step, after the checkpoint hook, as ``hook(step, state, last_record)``."""
     dev = resolve_device(device)
     task = build_task(cfg, dev)
-    eval_batch = cfg.train.eval_batch or cfg.train.global_batch
     train_pipe = build_pipeline(cfg.data, cfg.train.global_batch,
                                 cfg.model.num_classes, seed=cfg.train.seed,
                                 train=True)
-    eval_pipe = build_pipeline(cfg.data, eval_batch, cfg.model.num_classes,
-                               seed=cfg.train.seed, train=False,
-                               drop_remainder=not task.exact_eval)
+    eval_pipe = _eval_pipe(cfg, task)
 
     steps_per_epoch = max(train_pipe.steps_per_epoch, 1)
     total_steps = (cfg.train.steps if cfg.train.steps > 0
@@ -73,29 +127,58 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     optimizer = build_optimizer(cfg.optimizer, schedule, task.model)
     state = create_train_state(task.model, optimizer,
                                ema=cfg.train.ema_decay > 0)
+
+    workdir, ckpt_dir = _workdir_and_ckpt_dir(cfg)
+    ckpt_every = cfg.checkpoint.every_steps or steps_per_epoch
+    manager = CheckpointManager(ckpt_dir, every_steps=ckpt_every,
+                                keep=cfg.checkpoint.keep,
+                                async_write=cfg.checkpoint.async_write,
+                                retry=retry_policy_from_config(cfg.checkpoint))
+    if cfg.checkpoint.resume:
+        # Sweep torn step directories of a dead attempt before anything
+        # else touches the store: no save is in flight yet, and a re-save
+        # of a swept step must start from an empty directory.
+        orphans = manager.sweep_orphans()
+        if orphans:
+            print(f"[dlcfn-tpu] swept {len(orphans)} uncommitted checkpoint "
+                  f"dir(s): steps {orphans}")
+        leaves, at_step = manager.restore_or_none(state)
+        if leaves is not None:
+            state.load_named(leaves)
+            print(f"[dlcfn-tpu] resumed from step {at_step}")
     trainer = Trainer(cfg, task, dev)
 
-    workdir = _workdir(cfg)
     writer = MetricsWriter(os.path.join(workdir, "metrics.jsonl"))
     print(f"[dlcfn-tpu] {_describe(dev)}")
     print(f"[dlcfn-tpu] total_steps={total_steps} "
           f"steps_per_epoch={steps_per_epoch} "
           f"global_batch={cfg.train.global_batch}")
-    print("[dlcfn-tpu] no checkpoint is written: the port's ckpt/ is not "
-          "ported yet (ROADMAP A.5)")
+
+    def ckpt_hook(step, st, _record):
+        manager.save(step, st)
+
     eval_every = cfg.train.eval_every_steps or steps_per_epoch
     try:
         state = trainer.fit(
-            state, train_pipe.epochs(), num_steps=total_steps,
+            state,
+            train_pipe.epochs(start_epoch=state.step // steps_per_epoch,
+                              skip_batches=state.step % steps_per_epoch),
+            num_steps=total_steps,
             eval_iter_fn=lambda: eval_pipe.one_epoch(),
-            eval_every=eval_every, hooks=tuple(hooks),
-            log_every=cfg.train.log_every_steps, metrics_writer=writer)
-        final = trainer.evaluate(state, eval_pipe.one_epoch())
-        final_eval = getattr(task, "final_eval", None)
-        if final_eval is not None and cfg.eval.enabled:
-            final.update(final_eval(state, lambda: eval_pipe.one_epoch()))
+            eval_every=eval_every, hooks=(ckpt_hook, *hooks),
+            log_every=cfg.train.log_every_steps, metrics_writer=writer,
+            trace_dir=os.path.join(workdir, "profile")
+            if cfg.train.profile_steps > 0 else None,
+            trace_steps=cfg.train.profile_steps)
+        manager.save(state.step, state, force=True)
+        manager.wait()
+        final = _final_eval(cfg, task, trainer, state, eval_pipe)
         writer.write({"step": state.step,
+                      "ckpt_store_retries": manager.store_retries(),
                       **{f"final_eval_{k}": v for k, v in final.items()}})
     finally:
+        # A save still in flight when the loop raised finishes before the
+        # caller (a retry, a resume in this process) touches the store.
+        manager.wait()
         writer.close()
     return final

@@ -10,17 +10,29 @@ sharding: ZeRO-1 and the mesh belong to ROADMAP A.10. The JAX state's
 ``batch_stats`` (BatchNorm running statistics) are the model's buffers
 here: a train-mode forward updates them in place, they are not parameters,
 and the EMA does not cover them, as in the JAX package.
+
+Checkpoints: :meth:`TrainState.named_leaves` names every leaf as
+``utils/trees.py:flatten_with_names`` names the JAX ``TrainState`` of the
+same preset — ``step`` (int32), ``params/...`` and ``batch_stats/...`` (in
+Flax's layout, through ``convert.flax_layout``), ``opt_state/...`` (the
+optax state of the same chain, ``Optimizer.named_slots``) and
+``ema_params/...`` — so the JAX restore, which requires every leaf of its
+target, reads a port checkpoint, and :meth:`TrainState.load_named` loads a
+JAX one. A state built for evaluation only has no optimizer and names no
+``opt_state`` leaves (the JAX ``run_eval`` template has none either).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..convert import flax_layout, from_flax, to_flax
 from .optim import Optimizer
 
 
@@ -28,12 +40,66 @@ from .optim import Optimizer
 class TrainState:
     step: int
     model: nn.Module
-    optimizer: Optimizer
+    optimizer: Optional[Optimizer]
     ema_params: Optional[List[torch.Tensor]] = None
 
     @property
     def params(self) -> List[nn.Parameter]:
-        return self.optimizer.params
+        """The trained parameters (the optimizer's), in model order."""
+        return [p for p in self.model.parameters() if p.requires_grad]
+
+    # -- checkpoint leaves (the JAX TrainState's names) ---------------------
+
+    def _layout(self) -> Tuple[List[tuple], List[tuple]]:
+        """(params, batch stats) of :func:`convert.flax_layout`, the params
+        in :attr:`params` order."""
+        layout = flax_layout(self.model)
+        by_id = {id(row[2]): row for row in layout}
+        params = [by_id[id(p)] for p in self.params]
+        stats = [row for row in layout if row[0].startswith("batch_stats/")]
+        return params, stats
+
+    def named_leaves(self) -> List[Tuple[str, object]]:
+        """``(flax name, host array)`` for every leaf, copied off the
+        device now (into fresh host memory, also from a CPU tensor)."""
+        params, stats = self._layout()
+        host = lambda t, kind: to_flax(
+            t.detach().to("cpu", copy=True).numpy(), kind)
+        out = [("step", np.asarray(self.step, np.int32))]
+        out += [(name, host(t, kind)) for name, _, t, kind in params]
+        out += [(name, host(t, kind)) for name, _, t, kind in stats]
+        if self.optimizer is not None:
+            out += self.optimizer.named_slots(
+                [(name[len("params/"):], t,
+                  lambda v, kind=kind: host(v, kind))
+                 for name, _, t, kind in params])
+        if self.ema_params is not None:
+            out += [("ema_params/" + name[len("params/"):], host(e, kind))
+                    for (name, _, _, kind), e in zip(params,
+                                                     self.ema_params)]
+        return out
+
+    @torch.no_grad()
+    def load_named(self, leaves: Dict[str, np.ndarray]) -> None:
+        """Load leaves named as :meth:`named_leaves` names them (a restored
+        checkpoint of either package) into the live tensors."""
+        params, stats = self._layout()
+
+        def put(dst: torch.Tensor, value: np.ndarray, kind: str) -> None:
+            src = np.ascontiguousarray(from_flax(np.asarray(value), kind))
+            dst.copy_(torch.from_numpy(src).to(dst.dtype))
+
+        self.step = int(leaves["step"])
+        for name, _, t, kind in params + stats:
+            put(t, leaves[name], kind)
+        if self.optimizer is not None:
+            self.optimizer.load_slots(
+                leaves, [(name[len("params/"):], t,
+                          lambda v, kind=kind: from_flax(v, kind))
+                         for name, _, t, kind in params])
+        if self.ema_params is not None:
+            for (name, _, _, kind), e in zip(params, self.ema_params):
+                put(e, leaves["ema_params/" + name[len("params/"):]], kind)
 
     def apply_gradients(self, ema_decay: float = 0.0,
                         grad_norm: Optional[torch.Tensor] = None) -> None:
@@ -67,11 +133,11 @@ class TrainState:
                     p.copy_(saved)
 
 
-def create_train_state(model: nn.Module, optimizer: Optimizer,
+def create_train_state(model: nn.Module, optimizer: Optional[Optimizer],
                        ema: bool = False) -> TrainState:
     """Step 0 over an initialized model; ``ema`` starts the EMA at the
     initial parameters, as the JAX state does."""
-    ema_params = [p.detach().clone() for p in optimizer.params] if ema \
-        else None
+    ema_params = [p.detach().clone() for p in model.parameters()
+                  if p.requires_grad] if ema else None
     return TrainState(step=0, model=model, optimizer=optimizer,
                       ema_params=ema_params)

@@ -1,20 +1,25 @@
 """Task definitions: glue a model into the Trainer's loss_fn contract — the
-port of ``deeplearning_cfn_tpu/train/task.py`` for the NMT and ResNet
+port of ``deeplearning_cfn_tpu/train/task.py`` for the NMT, ResNet and BERT
 workloads.
 
 A task owns its model and gives the trainer
 ``loss_fn(batch, train, generator) -> (loss, aux)``: a global-batch mean loss
-and a dict of scalar metrics (on eval, ``eval_weight`` too). The other
-families' tasks (ViT classification, MLM, causal LM, detection) belong to
-ROADMAP A.9 and A.11.
+and a dict of scalar metrics (on eval, ``eval_weight`` and per-metric
+``<name>__weight`` too). The other families' tasks (ViT classification,
+causal LM, detection) belong to ROADMAP A.9b and A.11.
+
+``train.remat`` recomputes the train forward in the backward, where the JAX
+tasks wrap it in ``jax.checkpoint`` (:func:`remat`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import ExperimentConfig
 from ..models import build_model
@@ -49,6 +54,44 @@ def example_mask(batch: Batch, n: int) -> torch.Tensor:
     return mask.float()
 
 
+def remat(model: nn.Module, fn: Callable, generator: Optional[torch.Generator],
+          *args):
+    """``jax.checkpoint`` of a train forward: ``fn(*args)`` keeps only its
+    inputs for the backward, which runs it again (``torch.utils.checkpoint``,
+    non-reentrant). The recompute must be the same function of the same
+    inputs, so its context (1) sets the explicit dropout ``generator`` back
+    to its state at entry — the stock recompute restores only the global
+    RNGs, and would draw other masks — and afterwards gives it back the
+    state the recompute found, and (2) holds every module with a
+    ``freeze_stats`` flag (the port's BatchNorm) to its running statistics,
+    which the forward already moved once, as the JAX step returns them once.
+    """
+    from torch.utils.checkpoint import checkpoint
+
+    entry = None if generator is None else generator.get_state()
+
+    @contextlib.contextmanager
+    def recompute():
+        later = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(entry)
+        frozen = [m for m in model.modules() if hasattr(m, "freeze_stats")]
+        for m in frozen:
+            m.freeze_stats = True
+        try:
+            yield
+        finally:
+            for m in frozen:
+                m.freeze_stats = False
+            if generator is not None:
+                generator.set_state(later)
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recompute()))
+
+
 class Seq2SeqTask:
     """Transformer NMT (reference: Sockeye MXNet, dist_device_sync).
 
@@ -71,6 +114,7 @@ class Seq2SeqTask:
             kwargs["attention_impl"] = attention_impl
         self.model = build_model(cfg.model.name, 0, dtype, device=device,
                                  **kwargs)
+        self.remat = cfg.train.remat
 
     def init(self, generator: torch.Generator) -> None:
         """Seeded init with Flax's distributions, on the model's device."""
@@ -81,9 +125,11 @@ class Seq2SeqTask:
     def loss_fn(self, batch: Batch, train: bool,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits = self.model(batch["src_ids"], batch["src_mask"],
-                            batch["tgt_in_ids"], train=train,
-                            generator=generator)
+        apply = lambda *ids: self.model(*ids, train=train,
+                                        generator=generator)
+        ids = (batch["src_ids"], batch["src_mask"], batch["tgt_in_ids"])
+        logits = remat(self.model, apply, generator, *ids) \
+            if train and self.remat else apply(*ids)
         ex_mask = example_mask(batch, batch["src_ids"].shape[0])
         mask = batch["tgt_mask"].float() * ex_mask[:, None]
         ce = cross_entropy(logits, batch["tgt_out_ids"],
@@ -164,6 +210,7 @@ class ClassificationTask:
             else torch.float32
         self.model = build_model(cfg.model.name, cfg.model.num_classes,
                                  dtype, device=device, **cfg.model.kwargs)
+        self.remat = cfg.train.remat
 
     def init(self, generator: torch.Generator) -> None:
         """Seeded init with Flax's distributions, on the model's device."""
@@ -175,7 +222,9 @@ class ClassificationTask:
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         del generator  # no dropout in the ResNets
-        logits = self.model(batch["image"], train=train)
+        apply = lambda images: self.model(images, train=train)
+        logits = remat(self.model, apply, None, batch["image"]) \
+            if train and self.remat else apply(batch["image"])
         labels = batch["label"]
         mask = example_mask(batch, logits.shape[0])
         denom = torch.clamp(mask.sum(), min=1e-6)
@@ -193,15 +242,84 @@ class ClassificationTask:
         return loss, aux
 
 
+class MlmTask:
+    """BERT MLM+NSP pretraining (reference: TF+Horovod BERT scripts).
+
+    Loss = the masked-LM cross-entropy, a weighted mean over the real
+    predictions (``mlm_weights``), plus the next-sentence cross-entropy, an
+    example mean. Eval metrics carry their own weights: the MLM ones by
+    token (``mlm_loss__weight``, ``mlm_accuracy__weight``), the rest by
+    example (``eval_weight``).
+    """
+
+    exact_eval = True
+
+    def __init__(self, cfg: ExperimentConfig, device: torch.device,
+                 attention_impl: Optional[str] = None):
+        self.cfg = cfg
+        self.device = device
+        if cfg.model.name in ("bert_pipelined", "bert_long"):
+            raise NotImplementedError(
+                f"model {cfg.model.name!r} runs over a device mesh, not "
+                f"ported yet (ROADMAP A.10)")
+        dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
+            else torch.float32
+        kwargs = dict(cfg.model.kwargs)
+        kwargs.setdefault("vocab_size", cfg.data.vocab_size)
+        kwargs.setdefault("max_len", max(cfg.data.seq_len, 128))
+        if attention_impl is not None:
+            kwargs["attention_impl"] = attention_impl
+        self.model = build_model(cfg.model.name, cfg.model.num_classes,
+                                 dtype, device=device, **kwargs)
+        self.remat = cfg.train.remat
+
+    def init(self, generator: torch.Generator) -> None:
+        """Seeded init with Flax's distributions, on the model's device."""
+        from ..models.bert import init_weights
+
+        init_weights(self.model, generator)
+
+    def loss_fn(self, batch: Batch, train: bool,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        apply = lambda *xs: self.model(*xs, train=train, generator=generator)
+        xs = (batch["input_ids"], batch["input_mask"], batch["segment_ids"],
+              batch["mlm_positions"])
+        out = remat(self.model, apply, generator, *xs) \
+            if train and self.remat else apply(*xs)
+        mask = example_mask(batch, batch["input_ids"].shape[0])
+        weights = batch["mlm_weights"].float() * mask[:, None]
+        mlm_ce = cross_entropy(out["mlm_logits"], batch["mlm_ids"])
+        token_denom = torch.clamp(weights.sum(), min=1e-6)
+        mlm_loss = (mlm_ce * weights).sum() / token_denom
+        example_denom = torch.clamp(mask.sum(), min=1e-6)
+        nsp_ce = cross_entropy(out["nsp_logits"], batch["nsp_label"])
+        nsp_loss = (nsp_ce * mask).sum() / example_denom
+        mlm_hits = (torch.argmax(out["mlm_logits"], -1)
+                    == batch["mlm_ids"]).float()
+        nsp_hits = (torch.argmax(out["nsp_logits"], -1)
+                    == batch["nsp_label"]).float()
+        aux = {"mlm_loss": mlm_loss, "nsp_loss": nsp_loss,
+               "mlm_accuracy": (mlm_hits * weights).sum() / token_denom,
+               "nsp_accuracy": (nsp_hits * mask).sum() / example_denom}
+        if not train:
+            aux["eval_weight"] = mask.sum()
+            aux["mlm_loss__weight"] = weights.sum()
+            aux["mlm_accuracy__weight"] = weights.sum()
+        return mlm_loss + nsp_loss, aux
+
+
 def build_task(cfg: ExperimentConfig, device: torch.device,
                attention_impl: Optional[str] = None):
-    """Task registry keyed by model family (the NMT and ResNet families are
-    ported)."""
+    """Task registry keyed by model family (the NMT, ResNet and BERT
+    families are ported)."""
     name = cfg.model.name
     if name.startswith("transformer_nmt"):
         return Seq2SeqTask(cfg, device, attention_impl)
     if name.startswith(("resnet", "vit")):
         return ClassificationTask(cfg, device)
+    if name.startswith("bert"):
+        return MlmTask(cfg, device, attention_impl)
     raise NotImplementedError(
-        f"no task for model {name!r} in the port yet (ROADMAP A.9: "
-        f"BERT/GPT/ViT, A.11: Mask R-CNN)")
+        f"no task for model {name!r} in the port yet (ROADMAP A.9b: "
+        f"GPT/ViT, A.11: Mask R-CNN)")

@@ -22,17 +22,23 @@ in-place update. What carries over exactly:
   advance microbatch by microbatch in order, as the JAX scan threads them;
 - an f32 ``train.dtype`` computes in f32 on the card: TF32 is switched off
   for cuDNN convolutions (on by default in PyTorch) and matmuls, in one
-  place, when the trainer is built for such a run.
+  place, when the trainer is built for such a run;
+- ``train.hang_timeout_s > 0`` arms a :class:`~..runtime.watchdog.StepWatchdog`
+  (exit code 89 when the beats stop), beaten where the JAX loop beats it:
+  at the first sync, at every realized log boundary, after a hook that took
+  over a second, after an eval, and after every eval batch;
+- ``trace_dir`` + ``trace_steps`` (``train.profile_steps``) trace that many
+  steps after the first with ``torch.profiler``, the card synchronised before
+  the trace stops.
 
-Not ported in this slice: ``train.step_window > 1`` (fused multi-step
-windows; on the card that is CUDA graphs, ROADMAP A.5 step_window) and
-``train.remat`` (``torch.utils.checkpoint`` restores only the global RNG,
-so with the explicit dropout generator its recompute would draw different
-masks; ROADMAP A.5 remat). Both raise.
+``train.remat`` is the task's (``train/task.py:remat``). Not ported in this
+slice: ``train.step_window > 1`` (fused multi-step windows; on the card that
+is CUDA graphs, ROADMAP A.5b step_window), which raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
@@ -76,12 +82,6 @@ class Trainer:
             raise NotImplementedError(
                 "train.step_window > 1 is not ported yet (ROADMAP A.5 "
                 "step_window: CUDA graphs over fused steps)")
-        if cfg.train.remat:
-            raise NotImplementedError(
-                "train.remat is not ported yet (ROADMAP A.5 remat: "
-                "torch.utils.checkpoint restores only the global RNG, so its "
-                "recompute would draw other dropout masks than the explicit "
-                "generator did)")
         if cfg.train.device_prefetch < 0:
             raise ValueError(
                 f"train.device_prefetch must be >= 0, got "
@@ -147,15 +147,34 @@ class Trainer:
             hooks: Tuple[Callable[[int, TrainState,
                                    Optional[Dict[str, float]]], None],
                          ...] = (),
-            log_every: int = 50, metrics_writer=None) -> TrainState:
+            log_every: int = 50, metrics_writer=None,
+            trace_dir: Optional[str] = None,
+            trace_steps: int = 0) -> TrainState:
         """The step loop. Syncs with the card only at ``log_every``
         boundaries (and after the first step), so the host runs ahead
         enqueueing work; host batches are staged to the device
         ``train.device_prefetch`` deep on a background thread. Records carry
         ``examples_per_sec``, ``step_time_s`` and
         ``target_tokens_per_sec`` over the window since the last record.
-        Hooks run after every step with ``(step, state, last record)``."""
+        Hooks run after every step with ``(step, state, last record)``.
+        ``trace_dir`` + ``trace_steps``: a profiler trace of that many steps,
+        skipping the first (its kernel builds and allocations)."""
+        from ..runtime.profiling import trace_steps as profiler_trace
+
+        watchdog = None
+        if self.cfg.train.hang_timeout_s > 0:
+            from ..runtime.watchdog import StepWatchdog
+
+            # The first step builds kernels inside the first sync window:
+            # it gets the same budget again on top.
+            watchdog = StepWatchdog(
+                self.cfg.train.hang_timeout_s,
+                first_beat_grace_s=self.cfg.train.hang_timeout_s)
         step = state.step
+        trace_start = step + 1 if trace_dir and trace_steps > 0 else -1
+        trace_stop = trace_start + trace_steps
+        trace_stack = contextlib.ExitStack()
+        tracing = False
         gb = self.cfg.train.global_batch
         depth = self.cfg.train.device_prefetch
         if depth > 0:
@@ -170,10 +189,18 @@ class Trainer:
         last_realized: Optional[Dict[str, float]] = None
         try:
             while step < num_steps:
+                if step == trace_start:
+                    trace_stack.enter_context(profiler_trace(
+                        trace_dir, cuda=self.device.type == "cuda"))
+                    tracing = True
                 batch = next(batch_iter)
                 with span("train.dispatch", step=step, k=1):
                     metrics = self.train_step(state, batch)
                 step += 1
+                if tracing and step >= trace_stop:
+                    self._sync()
+                    trace_stack.close()
+                    tracing = False
                 window_examples += gb
                 if "tgt_mask" in batch:
                     tokens = batch["tgt_mask"].sum()
@@ -186,6 +213,8 @@ class Trainer:
                     window_examples = 0
                     window_tokens = None
                     first_sync_done = True
+                    if watchdog is not None:
+                        watchdog.beat()
                 if step % max(log_every, 1) == 0 or step >= num_steps:
                     with span("train.realize", step=step):
                         realized = {k: float(v) for k, v in metrics.items()}
@@ -212,18 +241,34 @@ class Trainer:
                     if metrics_writer is not None:
                         metrics_writer.write(realized)
                     last_realized = realized
+                    if watchdog is not None:
+                        watchdog.beat()  # the values above came off the card
+                t_hooks = time.perf_counter()
                 for hook in hooks:
                     hook(step, state, last_realized)
+                if watchdog is not None and \
+                        time.perf_counter() - t_hooks > 1.0:
+                    # A hook that did real host work (a slow checkpoint
+                    # write) and finished is progress; ordinary sub-ms hooks
+                    # must not beat, or a device hang behind async launches
+                    # would go unseen.
+                    watchdog.beat()
                 if eval_iter_fn is not None and eval_every > 0 \
                         and step % eval_every == 0:
                     with span("train.eval", step=step):
-                        eval_metrics = self.evaluate(state, eval_iter_fn())
+                        eval_metrics = self.evaluate(state, eval_iter_fn(),
+                                                     watchdog=watchdog)
                     if metrics_writer is not None:
                         metrics_writer.write(
                             {"step": step, **{f"eval_{k}": v for k, v in
                                               eval_metrics.items()}})
+                    if watchdog is not None:
+                        watchdog.beat()
             return state
         finally:
+            if watchdog is not None:
+                watchdog.stop()
+            trace_stack.close()  # a no-op unless the loop left mid-trace
             # Stop the staging thread (it closes train_iter) or close the
             # host iterator, so no prefetch worker outlives the loop.
             if isinstance(batch_iter, DevicePrefetcher):
@@ -235,11 +280,12 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def evaluate(self, state: TrainState,
-                 eval_iter: Iterator) -> Dict[str, float]:
+    def evaluate(self, state: TrainState, eval_iter: Iterator,
+                 watchdog=None) -> Dict[str, float]:
         """Weighted cross-batch aggregation: each batch's metrics carry
         their normalizer (``eval_weight``, or a per-metric
-        ``<name>__weight``), so the result is the exact full-set metric."""
+        ``<name>__weight``), so the result is the exact full-set metric.
+        ``watchdog`` is beaten after every realized batch."""
         totals: Dict[str, float] = {}
         wsums: Dict[str, float] = {}
         examples = 0.0
@@ -247,6 +293,8 @@ class Trainer:
         for batch in eval_iter:
             metrics = {k: float(v) for k, v in self.eval_step(
                 state, to_device(batch, self.device)).items()}
+            if watchdog is not None:
+                watchdog.beat()
             default_w = metrics.pop("eval_weight", float(eb))
             examples += default_w
             for k, v in metrics.items():

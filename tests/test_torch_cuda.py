@@ -6,8 +6,10 @@ ResNet, which launches none of them, against itself on the CPU), at the
 serving and training paths' shapes and at the edges the kernels must mask
 (ragged lengths, causal, broadcast biases, all-masked rows, rows that saw
 no key, head dims 16 to 128), and the autograd Function against autograd of
-the plain attention. This file imports no JAX, so it runs on a machine that
-has only PyTorch and the CUDA toolkit:
+the plain attention; BERT's padded self-attention path (kernel #1, then the
+reference-VJP recompute) against the CPU, and ``train.remat`` with a card
+generator. This file imports no JAX, so it runs on a machine that has only
+PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -391,3 +393,92 @@ def test_resnet_bf16_on_card_is_channels_last_and_close_to_cpu(cuda):
     scale = ref.abs().max()
     assert ((out.detach().cpu() - ref.detach()).abs().max() / scale) < 5e-2
     assert all(torch.isfinite(p.grad).all() for p in card.parameters())
+
+
+# -- BERT on the card (kernel #1 with a padding bias; reference-VJP backward) -
+
+
+def _bert_task(cuda, dtype, extra=()):
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.train.task import MlmTask
+
+    cfg = apply_overrides(get_preset("bert_base_wikipedia"), [
+        "model.name=bert_tiny", "model.kwargs.hidden_size=128",
+        "model.kwargs.num_layers=2", "model.kwargs.num_heads=2",
+        "model.kwargs.mlp_dim=256", "model.kwargs.dropout_rate=0.0",
+        "data.vocab_size=256", "data.seq_len=64", "train.global_batch=8",
+        f"train.dtype={dtype}", *extra])
+    cpu = MlmTask(cfg, torch.device("cpu"))
+    cpu.init(torch.Generator().manual_seed(0))
+    card = MlmTask(cfg, cuda)
+    card.model.load_state_dict(cpu.model.state_dict())
+    return cfg, cpu, card
+
+
+def _mlm_batch(cfg, device):
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+
+    b = next(iter(build_pipeline(cfg.data, 8, seed=0).one_epoch()))
+    b["input_mask"][1, 40:] = 0  # a padded row: the bias matters
+    b["input_ids"][1, 40:] = 0
+    return to_device(b, device)
+
+
+def test_bert_f32_on_card_matches_cpu(cuda):
+    cfg, cpu, card = _bert_task(cuda, "float32")
+    fwd0 = attn.flash_attention_forward.launches
+    vjp0 = attn.attention_reference_vjp.calls
+    bwd0 = attn.flash_attn_bwd_dkdv.launches + attn.flash_attn_bwd_dq.launches
+    ref, _ = cpu.loss_fn(_mlm_batch(cfg, torch.device("cpu")), True)
+    ref.backward()
+    vjp_cpu = attn.attention_reference_vjp.calls - vjp0
+    got, _ = card.loss_fn(_mlm_batch(cfg, cuda), True)
+    got.backward()
+    assert attn.flash_attention_forward.launches - fwd0 == 2  # 2 layers
+    assert attn.attention_reference_vjp.calls - vjp0 == 2 * vjp_cpu == 4
+    assert attn.flash_attn_bwd_dkdv.launches + \
+        attn.flash_attn_bwd_dq.launches == bwd0
+    assert abs(float(got) - float(ref)) <= 1e-5 * abs(float(ref))
+    for (name, p), (_, r) in zip(card.model.named_parameters(),
+                                 cpu.model.named_parameters()):
+        err = (p.grad.cpu() - r.grad).norm() / r.grad.norm().clamp_min(1e-6)
+        assert err <= 1e-4 or name.endswith("key.bias"), \
+            f"{name}: {err:.2e} of its norm"
+
+
+def test_bert_bf16_self_attention_takes_tc(cuda):
+    cfg, _, card = _bert_task(cuda, "bfloat16")
+    tc0 = attn.flash_attention_forward.variant_launches["tc"]
+    loss, _ = card.loss_fn(_mlm_batch(cfg, cuda), True)
+    loss.backward()
+    assert attn.flash_attention_forward.variant_launches["tc"] - tc0 == 2
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(p.grad).all()
+               for p in card.model.parameters())
+
+
+def test_remat_with_a_card_generator_matches_no_remat(cuda):
+    from deeplearning_cfn_tpu_torch.train import optim
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    runs = []
+    for remat in ("false", "true"):
+        cfg, _, card = _bert_task(cuda, "float32", [
+            "model.kwargs.dropout_rate=0.3", "train.grad_accum_steps=2",
+            f"train.remat={remat}"])
+        state = create_train_state(card.model, optim.build_optimizer(
+            cfg.optimizer, optim.build_schedule(cfg.schedule, 4, 8),
+            card.model))
+        metrics = Trainer(cfg, card, cuda).train_step(state,
+                                                      _mlm_batch(cfg, cuda))
+        runs.append((float(metrics["loss"]),
+                     {n: p.grad.detach().clone()
+                      for n, p in card.model.named_parameters()}))
+    (l0, g0), (l1, g1) = runs
+    assert abs(l1 - l0) <= 1e-6 * abs(l0)
+    for name in g0:  # the embedding backward's atomics reorder additions
+        err = (g1[name] - g0[name]).norm() / g0[name].norm().clamp_min(1e-6)
+        assert err <= 1e-5 or name.endswith("key.bias"), name

@@ -337,7 +337,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "deeplearning_cfn_tpu_torch.metrics.bleu",
             "deeplearning_cfn_tpu_torch.models.resnet",
             "deeplearning_cfn_tpu_torch.data.imagenet",
-            "deeplearning_cfn_tpu_torch.dataio"} <= set(modules)
+            "deeplearning_cfn_tpu_torch.dataio",
+            "deeplearning_cfn_tpu_torch.ckpt.checkpoint",
+            "deeplearning_cfn_tpu_torch.ckpt.store",
+            "deeplearning_cfn_tpu_torch.runtime.watchdog",
+            "deeplearning_cfn_tpu_torch.runtime.profiling",
+            "deeplearning_cfn_tpu_torch.models.bert"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -146,10 +146,10 @@ def test_optimizer_updates_match_optax(spec):
 
 def test_unported_optimizers_name_their_roadmap_item():
     p = [torch.nn.Parameter(torch.zeros(2, 2))]
-    # lars is ported (tests/test_torch_classification.py); the rest raise.
-    for name in ("lamb", "adafactor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            toptim.Optimizer(OptimizerConfig(name=name), lambda s: 0.1, p)
+    # lars (tests/test_torch_classification.py) and lamb
+    # (tests/test_torch_mlm.py) are ported; adafactor raises.
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        toptim.Optimizer(OptimizerConfig(name="adafactor"), lambda s: 0.1, p)
 
 
 # -- data ---------------------------------------------------------------------
@@ -265,11 +265,15 @@ def test_training_trajectory_matches_jax(accum):
 def test_trainer_refuses_what_this_slice_leaves_out():
     base = apply_overrides(get_preset("transformer_nmt_wmt"), TINY)
     task = Seq2SeqTask(base, torch.device("cpu"))
-    for over, item in ((["train.step_window=4"], "step_window"),
-                       (["train.remat=true"], "remat")):
-        cfg = apply_overrides(get_preset("transformer_nmt_wmt"), TINY + over)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP A.5 {item}"):
-            Trainer(cfg, task, torch.device("cpu"))
+    cfg = apply_overrides(get_preset("transformer_nmt_wmt"),
+                          TINY + ["train.step_window=4"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5 step_window"):
+        Trainer(cfg, task, torch.device("cpu"))
+    # train.remat is ported (tests/test_torch_runtime.py).
+    remat = apply_overrides(get_preset("transformer_nmt_wmt"),
+                            TINY + ["train.remat=true"])
+    Trainer(remat, Seq2SeqTask(remat, torch.device("cpu")),
+            torch.device("cpu"))
 
 
 # -- dropout ------------------------------------------------------------------
