@@ -122,17 +122,46 @@ order; a failing phase raises, so the exit code is nonzero:
    card's order of additions vary), the trace file must exist, and the
    ``ckpt list``, ``eval --step`` and ``ckpt rollback`` verbs run on the
    checkpoint directory.
+15. train ``maskrcnn_coco`` at full width in bf16 through
+   ``train.run.run_experiment`` (1024² images, ResNet-50-FPN P2–P6, 91
+   classes, 261,888 anchors, ``pre_nms_topk`` 1024, ``post_nms_topk`` 256
+   plus the 100 GT slots, 64 mask RoIs, momentum with weight decay 1e-4
+   and the clip at 10, the step schedule) on the synthetic COCO source:
+   global batch 8 in one microbatch, 2 warm-up steps then 10 timed, each
+   synced. Cuts, printed by the phase (``MRCNN_CUTS``). It prints the step
+   time p50 and images/s p50 (host clock), the MFU share (images/s × 3 ×
+   the forward FLOPs counted from the model's shapes at 356 box RoIs and
+   64 mask RoIs, over 989 TFLOP/s), the peak memory, the five losses and
+   proposal recall first to last, the final eval's box and mask mAP (16
+   images, ``detect_topk`` 100) and the device-busy share of two profiled
+   steady steps; it asserts every loss finite, the total falling (first-3
+   against last-3 mean), every mAP key in [0, 1], every parameter and
+   buffer on the card, and that no attention kernel launched;
+16. the tiny f32 Mask R-CNN (``tests/test_detection.py``'s config: 64², 7
+   classes, batch 4) on the card against the CPU from the same seeded
+   weights and batch (TF32 off): the chosen proposals (anchor indices and
+   keep flags) equal, the five losses and proposal recall within 1e-5
+   relative, every gradient within 1e-3 of the global norm (the loss is
+   piecewise smooth: an input change of 1e-7 relative moves its gradients
+   by up to 5.7e-4 of the norm on the CPU alone) and the running
+   statistics within 1e-5 (the ROI-align gather's backward is an
+   ``index_add`` with atomics on the card, so not bit for bit), and
+   ``predict_fn``'s classes equal, its boxes, scores and masks within 1e-4
+   of the largest value.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
 ``--profile-resnet`` steady full-width bf16 ResNet-50 train steps (batch
 256), ``--profile-bert`` steady full-width bf16 BERT-base train steps
-(batch 1024 as 2 × 512): host time against device-busy time, device ops per
-step, kernels ranked and, for the ResNet and BERT, device time by kind
-(convolutions forward / data-gradient / weight-gradient, elementwise and
-reductions — BatchNorm's share —, copies and casts, the optimizer; for
-BERT the bf16 and f32 GEMMs, the forward kernel, softmax, layer norm and
-dropout), and for BERT the same step with ``train.remat`` in turns (step
+(batch 1024 as 2 × 512), ``--profile-maskrcnn`` steady full-width bf16
+Mask R-CNN train steps (batch 8): host time against device-busy time,
+device ops per step, kernels ranked and, for the ResNet, BERT and Mask
+R-CNN, device time by kind (convolutions forward / data-gradient /
+weight-gradient, elementwise and reductions — BatchNorm's share —, copies
+and casts, the optimizer; for BERT the bf16 and f32 GEMMs, the forward
+kernel, softmax, layer norm and dropout; for Mask R-CNN the ROI-align
+gathers and their ``index_add`` backward, the sorts, NMS's bool masks and
+the targets' gathers), and for BERT the same step with ``train.remat`` in turns (step
 time, peak memory, forward-kernel launches); none prints a result line.
 
 Every ``run_experiment`` phase trains in a fresh workdir under
@@ -199,6 +228,39 @@ BERT_CUTS = ["train.grad_accum_steps=2 (the preset's global batch 1024 as "
 # 2 layers, f32, batch 32: a run to 2k steps against a run killed after k
 # and resumed.
 RESUME_K, RESUME_BATCH, RESUME_TOL = 3, 32, 1e-4
+# Phase 15: Mask R-CNN (maskrcnn_coco) at full width, bf16. No kernel of
+# ours is on this path: the attention counts must not move.
+MRCNN_BATCH, MRCNN_ACCUM, MRCNN_WARMUP, MRCNN_STEPS = 8, 1, 2, 10
+MRCNN_EXAMPLES, MRCNN_EVAL, MRCNN_LR = 96, 16, 0.01
+MRCNN_ROIS, MRCNN_MASK_ROIS = 256 + 100, 64  # post_nms_topk + max_boxes
+MRCNN_CUTS = ["train.global_batch=8 (one card's share of the preset's 64), "
+              "in one microbatch",
+              "schedule.base_lr=0.01 (the preset's 0.08 at batch 64, scaled "
+              "linearly to batch 8)",
+              "data.num_train_examples=96 (the default 512 would be 6.4 GB "
+              "of f32 host images)",
+              "train.steps=12 (preset 24 epochs: 2 warm-up steps, 10 timed)",
+              "schedule.warmup_steps=2 (preset 500, scaled to the step "
+              "count; the step boundaries stay at 0.66 and 0.88 of the run)",
+              "eval on 16 images (batch 8) with eval.detect_topk=100",
+              "mesh data=-1, spatial=2 ignored: one card (A.10)",
+              "one checkpoint, the final forced save"]
+MRCNN_LOSSES = ("rpn_cls_loss", "rpn_box_loss", "roi_cls_loss",
+                "roi_box_loss", "mask_loss", "proposal_recall")
+# Phase 16: the tiny f32 Mask R-CNN (tests/test_detection.py's config) on
+# the card against the CPU. The gather's backward is an index_add with
+# atomics on the card, so the two agree to a tolerance, not bit for bit.
+# The gradients' tolerance is the loss's own: it is piecewise smooth (ReLU
+# and max-pool kinks, the top-k and NMS choices), and on the CPU alone an
+# input change of 1e-7 relative moves its gradients by up to 5.7e-4 of the
+# global norm (tests/test_torch_cuda.py::
+# test_detection_loss_on_card_matches_cpu).
+MRCNN_TINY = ["model.num_classes=7", "model.kwargs.image_size=64",
+              "model.kwargs.pre_nms_topk=64", "model.kwargs.post_nms_topk=16",
+              "model.kwargs.num_mask_rois=4", "model.kwargs.anchor_scale=4.0",
+              "data.image_size=64", "data.max_boxes=4",
+              "train.global_batch=4", "train.dtype=float32"]
+MRCNN_LOSS_TOL, MRCNN_GRAD_TOL, MRCNN_VALUE_TOL = 1e-5, 1e-3, 1e-4
 
 
 def log(msg: str) -> None:
@@ -1531,6 +1593,309 @@ def resume_on_card(torch):
                 eval_at_k=evaluated[0])
 
 
+# -- Mask R-CNN (no kernel of ours: cuDNN convs, eager BatchNorm, gathers) --
+
+
+def maskrcnn_cfg(overrides, workdir_name):
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    return apply_overrides(get_preset("maskrcnn_coco"), [
+        f"workdir={fresh_workdir(workdir_name)}", "train.seed=0",
+        *overrides])
+
+
+def train_maskrcnn(torch, attn):
+    """Phase 15: maskrcnn_coco at full width in bf16 through
+    run_experiment, on the synthetic COCO source."""
+    from deeplearning_cfn_tpu_torch.models.maskrcnn import forward_flops
+    from deeplearning_cfn_tpu_torch.train.run import run_experiment
+
+    steps = MRCNN_WARMUP + MRCNN_STEPS
+    cfg = maskrcnn_cfg([
+        f"train.global_batch={MRCNN_BATCH}",
+        f"train.grad_accum_steps={MRCNN_ACCUM}", f"train.steps={steps}",
+        "train.log_every_steps=1", "train.eval_every_steps=1000000",
+        f"schedule.base_lr={MRCNN_LR}", "schedule.warmup_steps=2",
+        f"data.num_train_examples={MRCNN_EXAMPLES}",
+        f"data.num_eval_examples={MRCNN_EVAL}",
+        f"train.eval_batch={MRCNN_BATCH}", "eval.detect_topk=100",
+        "checkpoint.every_steps=1000000"], "smoke_maskrcnn")
+    for cut in MRCNN_CUTS:
+        log(f"  cut: {cut}")
+    records, seen = [], {}
+
+    def hook(step, state, record):
+        records.append(record)
+        if step == steps:
+            seen["model"] = state.model
+
+    before = counts(attn)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = run_experiment(cfg, device=DEVICE, hooks=(hook,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if counts(attn) != before:
+        raise AssertionError("the Mask R-CNN path launched an attention "
+                             "kernel")
+    model = seen.pop("model")
+    losses = [r["loss"] for r in records]
+    if len(losses) != steps or not all(
+            math.isfinite(r[k]) for r in records
+            for k in ("loss",) + MRCNN_LOSSES):
+        raise AssertionError(f"bad losses: {records}")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    for k in MRCNN_LOSSES:
+        log(f"    {k}: {records[0][k]:.4f} -> {records[-1][k]:.4f}")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first-3 mean {first}, "
+                             f"last-3 mean {last}")
+    off = [n for n, t in [*model.named_parameters(), *model.named_buffers()]
+           if t.device.type != torch.device(DEVICE).type]
+    if off:
+        raise AssertionError(f"{len(off)} tensors not on the card, e.g. "
+                             f"{off[:3]}")
+    maps = {k: final[k] for k in ("map", "map50", "mask_map", "mask_map50")}
+    if not all(0.0 <= v <= 1.0 for v in maps.values()):
+        raise AssertionError(f"mAP keys out of [0, 1]: {maps}")
+    timed = [r for r in records[MRCNN_WARMUP:] if "step_time_s" in r]
+    step_s = sorted(r["step_time_s"] for r in timed)
+    img_s = sorted(r["examples_per_sec"] for r in timed)
+    p50 = lambda xs: xs[len(xs) // 2]
+    flops = forward_flops(model, cfg.data.image_size, MRCNN_ROIS,
+                          MRCNN_MASK_ROIS)
+    mfu = p50(img_s) * 3 * flops / BF16_FLOP_PER_S
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    out = dict(steps=steps, timed_steps=len(timed),
+               global_batch=MRCNN_BATCH, grad_accum_steps=MRCNN_ACCUM,
+               image_size=cfg.data.image_size,
+               num_classes=cfg.model.num_classes, params=n_params,
+               forward_gflop_per_image=flops / 1e9,
+               losses=losses, first3_loss=first, last3_loss=last,
+               first_last={k: [records[0][k], records[-1][k]]
+                           for k in MRCNN_LOSSES},
+               step_time_p50_s=p50(step_s), images_per_s_p50=p50(img_s),
+               mfu_share=mfu, first_step_s=records[0]["compile_s"],
+               max_memory_allocated_bytes=peak, wall_s=wall,
+               final_eval_loss=final["loss"], **maps,
+               final_eval_examples=final["examples"], cuts=MRCNN_CUTS)
+    log(f"  model: Mask R-CNN ResNet-50-FPN, {n_params} parameters, "
+        f"{out['forward_gflop_per_image']:.1f} GFLOP forward per "
+        f"{cfg.data.image_size}² image (counted from the conv/Dense shapes "
+        f"at {MRCNN_ROIS} box RoIs and {MRCNN_MASK_ROIS} mask RoIs)")
+    log(f"  step time p50 {out['step_time_p50_s'] * 1e3:.2f} ms, images/s "
+        f"p50 {out['images_per_s_p50']:.2f}, MFU share {mfu:.4f} (of 989 "
+        f"TFLOP/s dense bf16), first step {out['first_step_s']:.2f} s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; eval on "
+        f"{final['examples']:.0f}: loss {final['loss']:.4f}, map "
+        f"{maps['map']:.4f}, map50 {maps['map50']:.4f}, mask_map "
+        f"{maps['mask_map']:.4f}; run {wall:.1f} s")
+    out["device_busy"] = profile_maskrcnn(torch, steps=2, by_kind=False)
+    return out
+
+
+def conditioned_weights(torch, model, seed):
+    """Seeded random weights with a spread (the tests' recipe): kernels at
+    1/√fan_in, biases N(0, 0.1), BatchNorm scales in [0.5, 1.5] except each
+    block's last in [0.1, 0.3] (the trunk near the identity, as Flax's
+    zero init starts it, so f32 rounding stays small), random running
+    statistics. Class scores spread out, so no two detections tie."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            shape = t.shape
+            if name.endswith("running_mean"):
+                v = torch.randn(shape, generator=g) * 0.5
+            elif name.endswith("running_var"):
+                v = torch.rand(shape, generator=g) * 1.5 + 0.5
+            elif ".norms.2.weight" in name:
+                v = torch.rand(shape, generator=g) * 0.2 + 0.1
+            elif "norm" in name and name.endswith("weight"):
+                v = torch.rand(shape, generator=g) + 0.5
+            elif name.endswith("bias"):
+                v = torch.randn(shape, generator=g) * 0.1
+            else:
+                v = torch.randn(shape, generator=g) / math.sqrt(
+                    t[0].numel())
+            t.copy_(v)
+
+
+def maskrcnn_parity(torch):
+    """Phase 16: the tiny f32 Mask R-CNN on the card against the CPU from
+    the same weights and batch: the chosen proposals, the five losses and
+    proposal recall, every gradient, the batch statistics, and predict_fn's
+    outputs."""
+    from deeplearning_cfn_tpu_torch.data.detection import \
+        make_detection_source
+    from deeplearning_cfn_tpu_torch.data.pipeline import to_device
+    from deeplearning_cfn_tpu_torch.train.optim import global_norm
+    from deeplearning_cfn_tpu_torch.train.task import build_task
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    cfg = maskrcnn_cfg(MRCNN_TINY, "smoke_maskrcnn_parity")
+    host = make_detection_source(4, 64, 7, 4, seed=11).arrays
+    runs, init = {}, None
+    for name in ("cpu", DEVICE):
+        dev = torch.device(name)
+        task = build_task(cfg, dev)
+        if init is None:
+            conditioned_weights(torch, task.model, seed=0)
+            init = {k: v.clone() for k, v in task.model.state_dict().items()}
+        else:
+            task.model.load_state_dict(init)
+        Trainer(cfg, task, dev)  # TF32 off for an f32 run
+        batch = to_device(host, dev)
+        model = task.model
+        with torch.no_grad():
+            out = model(batch["image"], train=True)
+            _, keep, idx = task._proposals_infer(out["rpn_logits"],
+                                                 out["rpn_deltas"])
+        model.load_state_dict(init)
+        loss, aux = task.loss_fn(batch, True)
+        loss.backward()
+        pred = task.predict_fn(8, 0.05, 0.5)(batch["image"])
+        runs[name] = dict(
+            idx=idx.cpu(), keep=keep.cpu(),
+            losses={k: float(v) for k, v in
+                    (("loss", loss.detach()),
+                     *((k, aux[k].detach()) for k in MRCNN_LOSSES))},
+            grads={n: p.grad.detach().cpu()
+                   for n, p in model.named_parameters()},
+            stats={n: b.detach().cpu() for n, b in model.named_buffers()},
+            pred={k: v.cpu() for k, v in pred.items()})
+    cpu, card = runs["cpu"], runs[DEVICE]
+    same_idx = bool(torch.equal(cpu["idx"], card["idx"]) and
+                    torch.equal(cpu["keep"], card["keep"]))
+    loss_rel = max(abs(card["losses"][k] - v) / abs(v)
+                   for k, v in cpu["losses"].items())
+    gnorm = float(global_norm(list(cpu["grads"].values())))
+    by_leaf = sorted(((float((card["grads"][n] - g).norm()) / gnorm, n)
+                      for n, g in cpu["grads"].items()), reverse=True)
+    grad_rel = by_leaf[0][0]
+    log("  worst gradient leaves (of the global norm): " + ", ".join(
+        f"{n} {e:.2e}" for e, n in by_leaf[:4]))
+    stat_err = max(float((card["stats"][n] - s).abs().max()
+                         / max(float(s.abs().max()), 1.0))
+                   for n, s in cpu["stats"].items())
+    same_classes = bool(torch.equal(cpu["pred"]["classes"],
+                                    card["pred"]["classes"]))
+    pred_err = max(float((card["pred"][k] - cpu["pred"][k]).abs().max()
+                         / max(float(cpu["pred"][k].abs().max()), 1e-30))
+                   for k in ("boxes", "scores", "masks"))
+    log(f"  losses card {card['losses']} vs CPU {cpu['losses']} (worst rel "
+        f"{loss_rel:.2e}); chosen proposals equal: {same_idx} "
+        f"({int(cpu['keep'].sum())} kept of {cpu['keep'].numel()}); "
+        f"{len(cpu['grads'])} gradients, worst {grad_rel:.2e} of the global "
+        f"norm {gnorm:.4f}; {len(cpu['stats'])} running statistics, worst "
+        f"{stat_err:.2e}; predict: classes equal {same_classes}, boxes/"
+        f"scores/masks worst {pred_err:.2e} of the largest "
+        f"({int((cpu['pred']['classes'] > 0).sum())} detections)")
+    if not (same_idx and same_classes and loss_rel <= MRCNN_LOSS_TOL
+            and grad_rel <= MRCNN_GRAD_TOL and stat_err <= MRCNN_LOSS_TOL
+            and pred_err <= MRCNN_VALUE_TOL):
+        raise AssertionError(
+            f"card vs CPU: proposals {same_idx}, classes {same_classes}, "
+            f"losses {loss_rel}, gradients {grad_rel}, statistics "
+            f"{stat_err}, predictions {pred_err}")
+    return dict(global_batch=4, image_size=64, losses_card=card["losses"],
+                losses_cpu=cpu["losses"], loss_rel_diff=loss_rel,
+                chosen_proposals_equal=same_idx,
+                grad_rel_to_global_norm=grad_rel, running_stat_err=stat_err,
+                predict_classes_equal=same_classes,
+                predict_rel_err=pred_err,
+                tolerances=dict(loss=MRCNN_LOSS_TOL, grad=MRCNN_GRAD_TOL,
+                                stats=MRCNN_LOSS_TOL,
+                                predict=MRCNN_VALUE_TOL),
+                tf32=[torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32])
+
+
+# Device-time kinds of a Mask R-CNN step, by kernel name, first match
+# wins: the ROI-align gathers (index_select) and their backward
+# (index_add, atomics), the targets' and NMS's sorts and bool masks,
+# casts, BatchNorm's reductions and elementwise work, convolutions.
+MRCNN_KINDS = (("ROI-align backward (index_add)",
+                ("indexFunc", "index_add")),
+               ("ROI-align gather (index_select)", ("indexSelect",
+                                                    "vectorized_gather")),
+               ("sort / top-k (stable radix sort)", ("sort", "Sort",
+                                                     "radix")),
+               ("NMS loop and masks (bool elementwise)", ("<bool",
+                                                          "bool>")),
+               ("gather / scatter (targets, take_rows)",
+                ("gather", "scatter")),
+               ("copy / cast", ("copy_kernel",)),
+               ("reduction (BN statistics, IoU max, losses)",
+                ("reduce_kernel",)),
+               ("optimizer (foreach)", ("multi_tensor",)),
+               ("max-pool / upsample", ("max_pool", "upsample")),
+               ("elementwise (BN, ReLU, box math, losses)",
+                ("at::native",)),
+               ("conv wgrad", ("wgrad",)),
+               ("conv dgrad", ("dgrad",)),
+               ("conv fprop", ("fprop",)),
+               ("conv / gemm, other cuDNN and cuBLAS kernels",
+                ("xmma", "gemm", "conv", "cudnn", "cutlass", "sm90",
+                 "nvjet")))
+
+
+def profile_maskrcnn(torch, steps: int = 3, by_kind: bool = True) -> float:
+    """``--profile-maskrcnn`` (and phase 15's device-busy share): steady
+    full-width bf16 Mask R-CNN train steps (batch 8, momentum) on one
+    synthetic COCO batch: host clock against device-busy time, device ops
+    per step, kernels ranked and, with ``by_kind``, device time by kind.
+    Returns the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning_cfn_tpu_torch.data.detection import \
+        make_detection_source
+    from deeplearning_cfn_tpu_torch.data.pipeline import to_device
+    from deeplearning_cfn_tpu_torch.train.optim import (build_optimizer,
+                                                        build_schedule)
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.task import build_task
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    cfg = maskrcnn_cfg([f"train.global_batch={MRCNN_BATCH}",
+                        f"schedule.base_lr={MRCNN_LR}"],
+                       "smoke_maskrcnn_profile")
+    dev = torch.device(DEVICE)
+    batch = to_device(make_detection_source(
+        MRCNN_BATCH, cfg.data.image_size, cfg.model.num_classes,
+        cfg.data.max_boxes, seed=5).arrays, dev)
+    task = build_task(cfg, dev)
+    task.init(torch.Generator(device=dev).manual_seed(0))
+    opt = build_optimizer(cfg.optimizer, build_schedule(
+        cfg.schedule, 100, MRCNN_BATCH, 12), task.model)
+    trainer, state = Trainer(cfg, task, dev), create_train_state(task.model,
+                                                                 opt)
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(2)  # warm up
+    plain = run(steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        wall = run(steps)
+    busy_us = sum(dev_time(e) for e in kernel_rows(prof))
+    log(f"  host clock without the profiler: {plain * 1e3 / steps:.2f} ms "
+        f"per step ({MRCNN_BATCH * steps / plain:.2f} images/s)")
+    report_profile(prof, wall, steps, "train step")
+    if by_kind:
+        profile_by_kind(prof, steps, MRCNN_KINDS)
+    return busy_us / (wall * 1e6)
+
+
 # Device-time kinds of a ResNet step, by kernel name, first match wins.
 # PyTorch's own kernels (at::native) are copies and casts, reductions,
 # the optimizer's foreach ops, max-pool or elementwise; the rest are
@@ -1732,7 +2097,8 @@ def main() -> int:
     profiles = {"--profile": profile_serving,
                 "--profile-train": profile_training,
                 "--profile-resnet": profile_resnet,
-                "--profile-bert": profile_bert}
+                "--profile-bert": profile_bert,
+                "--profile-maskrcnn": profile_maskrcnn}
     wanted = [a for a in sys.argv[1:] if a in profiles]
     if wanted:
         import torch
@@ -1813,6 +2179,12 @@ def main() -> int:
     phase("14. checkpoint and resume on the card (BERT, 2 layers, f32)")
     resumed = resume_on_card(torch)
 
+    phase("15. train maskrcnn_coco (full width, bf16, 1024², batch 8)")
+    maskrcnn = train_maskrcnn(torch, attn)
+
+    phase("16. f32 tiny Mask R-CNN: card vs CPU")
+    maskrcnn_f32 = maskrcnn_parity(torch)
+
     # The forward kernel serves every path: its numbers cover the three
     # serving shapes, the NMT training shape and BERT's (one call at each).
     rows = rows + [train_rows["flash_attn_fwd"], bert_row]
@@ -1879,6 +2251,8 @@ def main() -> int:
         "resnet20_f32_card_vs_cpu": cifar,
         "bert_base_train": bert,
         "bert_resume": resumed,
+        "maskrcnn_train": maskrcnn,
+        "maskrcnn_f32_card_vs_cpu": maskrcnn_f32,
     }
     log(json.dumps({"summary": summary}))
     log(card)

@@ -10,6 +10,7 @@ verbs.
         --allow-init --requests reqs.jsonl [overrides ...]
     python -m deeplearning_cfn_tpu_torch.cli ckpt list <ckpt dir>
     python -m deeplearning_cfn_tpu_torch.cli ckpt rollback <ckpt dir> --step N
+    python -m deeplearning_cfn_tpu_torch.cli train --preset maskrcnn_coco
 
 Same flags, defaults, result lines and stderr summary as the JAX package's
 ``dlcfn-tpu train``/``eval``/``serve``/``ckpt`` for the options these slices
@@ -18,7 +19,9 @@ the latest committed checkpoint). ``--accelerator`` takes ``gpu`` (the
 default — the CUDA card, raising without one) or ``cpu``. Serve
 requests are JSONL lines ``{"src_ids": [...]}`` with optional ``id``,
 ``max_new_tokens``, ``beam_size`` and ``deadline_s``; text requests need
-the BPE tokenizer, which is not ported yet.
+the BPE tokenizer, which is not ported yet. The ``data`` verbs
+(``data prepare-coco`` and the rest) are not ported yet and raise, naming
+ROADMAP A.13; ``data/coco.py:prepare_coco`` converts COCO from Python.
 """
 
 from __future__ import annotations
@@ -50,6 +53,13 @@ def _cmd_train(args) -> int:
     print(f"[dlcfn-tpu] final metrics: "
           f"{ {k: round(v, 4) for k, v in final.items()} }")
     return 0
+
+
+def _cmd_data(args) -> int:
+    raise NotImplementedError(
+        f"cli data {args.verb} is not ported yet (ROADMAP A.13); "
+        f"deeplearning_cfn_tpu_torch.data.coco.prepare_coco converts COCO "
+        f"from Python")
 
 
 def _cmd_eval(args) -> int:
@@ -225,7 +235,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
         description="PyTorch/CUDA port of dlcfn-tpu (serve the NMT; train "
-                    "and evaluate the NMT, the ResNets and BERT)")
+                    "and evaluate the NMT, the ResNets, BERT and Mask "
+                    "R-CNN)")
     sub = parser.add_subparsers(dest="command", required=True)
     tr = sub.add_parser("train", help="train a preset on this host")
     tr.add_argument("--preset", required=True)
@@ -291,6 +302,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="config overrides — at least the workdir the "
                          "training run used")
     sv.set_defaults(fn=_cmd_serve)
+
+    dt = sub.add_parser("data", help="dataset preparation (not ported "
+                                     "yet: ROADMAP A.13)")
+    dt.add_argument("verb", help="e.g. prepare-coco")
+    dt.add_argument("args", nargs=argparse.REMAINDER)
+    dt.set_defaults(fn=_cmd_data)
 
     ck = sub.add_parser("ckpt", help="checkpoint inspection / rollback")
     cksub = ck.add_subparsers(dest="ckpt_cmd", required=True)

@@ -24,9 +24,9 @@
 - :class:`DevicePrefetcher`: stages ``depth`` batches to the card ahead of
   the step loop, from pinned host memory with non-blocking copies on a side
   stream, so the host→device transfer overlaps the previous step's compute.
-- :func:`build_pipeline`: ``cifar10``, ``imagenet``, ``wmt_en_de`` and
-  ``wikipedia_mlm``; the other datasets raise ``NotImplementedError``
-  naming the ROADMAP item that ports them.
+- :func:`build_pipeline`: ``cifar10``, ``imagenet``, ``wmt_en_de``,
+  ``wikipedia_mlm`` and ``coco`` (``data/detection.py``); ``lm_text``
+  raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -404,7 +404,6 @@ class DevicePrefetcher:
 
 _NOT_PORTED = {
     "lm_text": "A.9 (the GPT family)",
-    "coco": "A.11 (detection)",
 }
 
 
@@ -414,7 +413,8 @@ def build_pipeline(cfg: DataConfig, local_batch: int, num_classes: int = 0,
     """The dataset's pipeline, with the JAX package's sources, seeds and
     defaults: real CIFAR-10 batches or ImageNet shards under
     ``data.data_dir`` (unless ``data.synthetic``), else the synthetic
-    images (train seeds 17 / 29, eval 23 / 31)."""
+    images (train seeds 17 / 29, eval 23 / 31); ``coco`` reads
+    ``<data_dir>/{train,eval}.npz`` or makes synthetic scenes (47 / 53)."""
     name = cfg.name
     if name in _NOT_PORTED:
         raise NotImplementedError(
@@ -447,6 +447,12 @@ def build_pipeline(cfg: DataConfig, local_batch: int, num_classes: int = 0,
         augment = augment_crop_flip if name == "cifar10" and train \
             else None
         return DataPipeline(source, local_batch, augment=augment, **common)
+    if name == "coco":
+        from .detection import build_detection_source
+
+        source = build_detection_source(cfg, train, num_classes=num_classes,
+                                        max_boxes=cfg.max_boxes)
+        return DataPipeline(source, local_batch, **common)
     if name not in ("wmt_en_de", "wikipedia_mlm"):
         raise KeyError(f"unknown dataset {name!r}")
     from .text import build_text_source

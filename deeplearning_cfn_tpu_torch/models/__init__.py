@@ -1,5 +1,5 @@
 """Model zoo of the port — the NMT family (slices 1–2), the ResNets
-(slice 5) and BERT (slice 6).
+(slice 5), BERT (slice 6) and Mask R-CNN (slice 7).
 
 Registry maps ModelConfig.name → constructor, as in the JAX package.
 """
@@ -20,7 +20,7 @@ def register_model(name: str):
 
 
 def build_model(name: str, num_classes: int, dtype, **kwargs):
-    from . import bert, resnet, transformer_nmt  # noqa: F401
+    from . import bert, maskrcnn, resnet, transformer_nmt  # noqa: F401
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
@@ -28,6 +28,6 @@ def build_model(name: str, num_classes: int, dtype, **kwargs):
 
 
 def list_models():
-    from . import bert, resnet, transformer_nmt  # noqa: F401
+    from . import bert, maskrcnn, resnet, transformer_nmt  # noqa: F401
 
     return sorted(_REGISTRY)

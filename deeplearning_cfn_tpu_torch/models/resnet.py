@@ -66,18 +66,24 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int,
 
 
 class Conv(nn.Module):
-    """Flax ``nn.Conv(use_bias=False, padding="SAME", dtype=dtype)``: f32
-    weight (OIHW), cast to ``dtype`` at every call."""
+    """Flax ``nn.Conv(use_bias=bias, padding="SAME", dtype=dtype)``: f32
+    weight (OIHW) and bias, the input, weight and bias cast to ``dtype`` at
+    every call (Flax's ``promote_dtype``)."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
-                 stride: int = 1, dtype: torch.dtype = torch.bfloat16):
+                 stride: int = 1, dtype: torch.dtype = torch.bfloat16,
+                 bias: bool = False):
         super().__init__()
         self.kernel, self.stride, self.dtype = kernel, stride, dtype
         self.weight = nn.Parameter(
             torch.empty(features, in_features, kernel, kernel))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(features)) if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         w = self.weight.to(self.dtype, memory_format=torch.channels_last)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         if self.kernel == 1 and self.stride > 1:
             # A strided 1×1 conv (SAME pads it by 0) reads every s-th
             # pixel: slice, then a stride-1 conv. The same numbers, and it
@@ -85,9 +91,9 @@ class Conv(nn.Module):
             # on a channels_last input, which corrupts the heap (torch
             # 2.13).
             s = self.stride
-            return F.conv2d(x[:, :, ::s, ::s], w)
+            return F.conv2d(x[:, :, ::s, ::s], w, b)
         x, pad = _pad_same(x, self.kernel, self.stride)
-        return F.conv2d(x, w, stride=self.stride, padding=pad)
+        return F.conv2d(x, w, b, stride=self.stride, padding=pad)
 
 
 class BatchNorm(nn.Module):

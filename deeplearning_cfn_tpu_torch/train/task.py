@@ -5,8 +5,9 @@ workloads.
 A task owns its model and gives the trainer
 ``loss_fn(batch, train, generator) -> (loss, aux)``: a global-batch mean loss
 and a dict of scalar metrics (on eval, ``eval_weight`` and per-metric
-``<name>__weight`` too). The other families' tasks (ViT classification,
-causal LM, detection) belong to ROADMAP A.9b and A.11.
+``<name>__weight`` too). Detection (Mask R-CNN) is
+``train/detection_task.py``; the other families' tasks (ViT
+classification, causal LM) belong to ROADMAP A.9b.
 
 ``train.remat`` recomputes the train forward in the backward, where the JAX
 tasks wrap it in ``jax.checkpoint`` (:func:`remat`).
@@ -311,8 +312,8 @@ class MlmTask:
 
 def build_task(cfg: ExperimentConfig, device: torch.device,
                attention_impl: Optional[str] = None):
-    """Task registry keyed by model family (the NMT, ResNet and BERT
-    families are ported)."""
+    """Task registry keyed by model family (the NMT, ResNet, BERT and
+    Mask R-CNN families are ported)."""
     name = cfg.model.name
     if name.startswith("transformer_nmt"):
         return Seq2SeqTask(cfg, device, attention_impl)
@@ -320,6 +321,10 @@ def build_task(cfg: ExperimentConfig, device: torch.device,
         return ClassificationTask(cfg, device)
     if name.startswith("bert"):
         return MlmTask(cfg, device, attention_impl)
+    if name.startswith("maskrcnn"):
+        from .detection_task import DetectionTask
+
+        return DetectionTask(cfg, device)
     raise NotImplementedError(
         f"no task for model {name!r} in the port yet (ROADMAP A.9b: "
-        f"GPT/ViT, A.11: Mask R-CNN)")
+        f"GPT/ViT)")

@@ -7,8 +7,10 @@ serving and training paths' shapes and at the edges the kernels must mask
 (ragged lengths, causal, broadcast biases, all-masked rows, rows that saw
 no key, head dims 16 to 128), and the autograd Function against autograd of
 the plain attention; BERT's padded self-attention path (kernel #1, then the
-reference-VJP recompute) against the CPU, and ``train.remat`` with a card
-generator. This file imports no JAX, so it runs on a machine that has only
+reference-VJP recompute) against the CPU, ``train.remat`` with a card
+generator, and Mask R-CNN's plain-PyTorch path (``nms_static``,
+``multilevel_roi_align`` forward and backward, the tiny ``DetectionTask``
+loss) against the CPU. This file imports no JAX, so it runs on a machine that has only
 PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -482,3 +484,137 @@ def test_remat_with_a_card_generator_matches_no_remat(cuda):
     for name in g0:  # the embedding backward's atomics reorder additions
         err = (g1[name] - g0[name]).norm() / g0[name].norm().clamp_min(1e-6)
         assert err <= 1e-5 or name.endswith("key.bias"), name
+
+
+# -- Mask R-CNN on the card (plain PyTorch: NMS loop, ROI-align gathers) -----
+
+
+def _nms_inputs(rng, lead, n):
+    y0, x0 = rng.uniform(0, 40, lead + (n,)), rng.uniform(0, 40, lead + (n,))
+    h, w = rng.uniform(6, 20, lead + (n,)), rng.uniform(6, 20, lead + (n,))
+    boxes = np.stack([y0, x0, y0 + h, x0 + w], -1).astype(np.float32)
+    scores = np.round(rng.uniform(0, 1, lead + (n,)) * 8) / 8  # ties
+    scores[..., -5:] = -1e30  # padding sentinels
+    valid = rng.uniform(0, 1, lead + (n,)) > 0.2
+    return (torch.from_numpy(boxes), torch.from_numpy(
+        scores.astype(np.float32)), torch.from_numpy(valid))
+
+
+def test_nms_static_on_card_matches_cpu(cuda):
+    from deeplearning_cfn_tpu_torch.ops.detection import nms_static
+
+    boxes, scores, valid = _nms_inputs(np.random.default_rng(0), (4, 6), 300)
+    for k, v in ((256, None), (100, valid)):
+        ref = nms_static(boxes, scores, 0.5, k, v)
+        got = nms_static(boxes.to(cuda), scores.to(cuda), 0.5, k,
+                         None if v is None else v.to(cuda))
+        assert torch.equal(got[0].cpu(), ref[0])
+        assert torch.equal(got[1].cpu(), ref[1])
+        assert 0 < int(ref[1].sum()) < ref[1].numel()
+
+
+def test_multilevel_roi_align_on_card_matches_cpu(cuda):
+    """Forward and the gradient into the features (an index_add with
+    atomics on the card) against the CPU in f32: within 1e-5 of the largest
+    value. bf16 features (gathered in bf16, weighted in f32, the output
+    and the accumulated gradient rounded to bf16, the gradient's adds in
+    bf16 in an atomic order) against the same f32 reference: within 2e-2
+    of its norm."""
+    from deeplearning_cfn_tpu_torch.ops.detection import multilevel_roi_align
+
+    rng = np.random.default_rng(1)
+    strides = {2: 4, 3: 8, 4: 16, 5: 32, 6: 64}
+    b, n, c = 2, 64, 16
+    feats = {l: torch.from_numpy(rng.standard_normal(
+        (b, 512 // s, 512 // s, c)).astype(np.float32)).permute(0, 3, 1, 2)
+        for l, s in strides.items()}
+    y0, x0 = rng.uniform(-20, 500, (b, n)), rng.uniform(-20, 500, (b, n))
+    side = np.exp(rng.uniform(np.log(4), np.log(1100), (b, n)))
+    boxes = torch.from_numpy(np.stack([y0, x0, y0 + side, x0 + side], -1)
+                             .astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((b, n, 7, 7, c)).astype(
+        np.float32))
+
+    def run(dev, dtype):
+        fs = {l: f.detach().to(dev, dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+            for l, f in feats.items()}
+        out = multilevel_roi_align(fs, boxes.to(dev), 7, strides)
+        assert out.dtype == dtype
+        out.backward(ct.to(dev, dtype))
+        return out.detach().float().cpu(), {l: f.grad.float().cpu()
+                                            for l, f in fs.items()}
+
+    ref, ref_g = run(torch.device("cpu"), torch.float32)
+    got, got_g = run(cuda, torch.float32)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    for l in ref_g:
+        assert (got_g[l] - ref_g[l]).abs().max() <= \
+            1e-5 * ref_g[l].abs().max(), l
+    got, got_g = run(cuda, torch.bfloat16)
+    err = float((got - ref).norm() / ref.norm())
+    assert err <= 2e-2, err
+    for l in ref_g:
+        err = float((got_g[l] - ref_g[l]).norm() / ref_g[l].norm())
+        assert err <= 2e-2, (l, err)
+
+
+def test_detection_loss_on_card_matches_cpu(cuda):
+    """The tiny f32 Mask R-CNN's loss_fn (tests/test_detection.py's config)
+    from one seeded init and batch: the chosen proposals equal, the five
+    losses and proposal recall within 1e-5 relative, every gradient within
+    1e-3 of the global norm, the running statistics within 1e-5. f32 with
+    TF32 off (the trainer's rule for f32 runs).
+
+    The gradient tolerance is the loss's own: it is piecewise smooth
+    (ReLU and max-pool kinks, the top-k and NMS choices), and on the CPU
+    alone an input change of 1e-7 relative moves these gradients by up to
+    5.7e-4 of the global norm, so two devices' f32 roundings cannot agree
+    closer. The losses and forward values do (3.8e-7 in chip_smoke.py
+    phase 16)."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.data.detection import \
+        make_detection_source
+    from deeplearning_cfn_tpu_torch.data.pipeline import to_device
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.train.detection_task import DetectionTask
+
+    cfg = apply_overrides(get_preset("maskrcnn_coco"), [
+        "model.num_classes=7", "model.kwargs.image_size=64",
+        "model.kwargs.pre_nms_topk=64", "model.kwargs.post_nms_topk=16",
+        "model.kwargs.num_mask_rois=4", "model.kwargs.anchor_scale=4.0",
+        "data.image_size=64", "data.max_boxes=4", "train.global_batch=4",
+        "train.dtype=float32"])
+    torch.backends.cudnn.allow_tf32 = False
+    host = make_detection_source(4, 64, 7, 4, seed=11).arrays
+    runs, init = [], None
+    for dev in (torch.device("cpu"), cuda):
+        task = DetectionTask(cfg, dev)
+        if init is None:
+            task.init(torch.Generator().manual_seed(0))
+            init = {k: v.clone() for k, v in task.model.state_dict().items()}
+        else:
+            task.model.load_state_dict(init)
+        batch = to_device(host, dev)
+        with torch.no_grad():
+            out = task.model(batch["image"], train=True)
+            _, keep, idx = task._proposals_infer(out["rpn_logits"],
+                                                 out["rpn_deltas"])
+        task.model.load_state_dict(init)
+        loss, aux = task.loss_fn(batch, True)
+        loss.backward()
+        runs.append((idx.cpu(), keep.cpu(),
+                     {k: float(v.detach()) for k, v in aux.items()},
+                     {n: p.grad.cpu() for n, p in
+                      task.model.named_parameters()},
+                     {n: b.cpu() for n, b in task.model.named_buffers()}))
+    (i0, k0, l0, g0, s0), (i1, k1, l1, g1, s1) = runs
+    assert torch.equal(i0, i1) and torch.equal(k0, k1)
+    for key, v in l0.items():
+        assert abs(l1[key] - v) <= 1e-5 * abs(v), key
+    norm = torch.sqrt(sum((g * g).sum() for g in g0.values()))
+    for name, g in g0.items():
+        assert (g1[name] - g).norm() <= 1e-3 * norm, name
+    for name, s in s0.items():
+        assert (s1[name] - s).abs().max() <= 1e-5 * s.abs().max().clamp_min(
+            1.0), name

@@ -330,7 +330,8 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter starts without jax; importing every port module
     must leave it (and the JAX package) unloaded — and PIL, which the card's
-    machine does not have (only ``prepare_imagenet`` imports it, inside)."""
+    machine does not have (only ``prepare_imagenet`` and ``prepare_coco``
+    import it, inside)."""
     modules = _port_modules()
     assert {"deeplearning_cfn_tpu_torch.train.trainer",
             "deeplearning_cfn_tpu_torch.data.pipeline",
@@ -342,7 +343,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "deeplearning_cfn_tpu_torch.ckpt.store",
             "deeplearning_cfn_tpu_torch.runtime.watchdog",
             "deeplearning_cfn_tpu_torch.runtime.profiling",
-            "deeplearning_cfn_tpu_torch.models.bert"} <= set(modules)
+            "deeplearning_cfn_tpu_torch.models.bert",
+            "deeplearning_cfn_tpu_torch.models.maskrcnn",
+            "deeplearning_cfn_tpu_torch.ops.detection",
+            "deeplearning_cfn_tpu_torch.train.detection_task",
+            "deeplearning_cfn_tpu_torch.data.detection",
+            "deeplearning_cfn_tpu_torch.data.coco",
+            "deeplearning_cfn_tpu_torch.metrics.coco_map"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
