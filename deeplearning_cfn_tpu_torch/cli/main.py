@@ -1,11 +1,15 @@
-"""The port's command line: the ``train``, ``eval``, ``serve`` and ``ckpt``
-verbs.
+"""The port's command line: the ``train``, ``eval``, ``generate``, ``serve``
+and ``ckpt`` verbs.
 
     python -m deeplearning_cfn_tpu_torch.cli train --preset transformer_nmt_wmt \\
         [--max-steps N] [overrides ...]
     python -m deeplearning_cfn_tpu_torch.cli train --preset bert_base_wikipedia
     python -m deeplearning_cfn_tpu_torch.cli eval --preset bert_base_wikipedia \\
         [--step N] workdir=...
+    python -m deeplearning_cfn_tpu_torch.cli train --preset gpt_small_lm
+    python -m deeplearning_cfn_tpu_torch.cli generate --preset gpt_small_lm \\
+        --prompt "..." [--max-new-tokens N] [--temperature T --top-k K] \\
+        [--vocab vocab.json] [--step N] workdir=...
     python -m deeplearning_cfn_tpu_torch.cli serve --preset transformer_nmt_wmt \\
         --allow-init --requests reqs.jsonl [overrides ...]
     python -m deeplearning_cfn_tpu_torch.cli ckpt list <ckpt dir>
@@ -13,13 +17,15 @@ verbs.
     python -m deeplearning_cfn_tpu_torch.cli train --preset maskrcnn_coco
 
 Same flags, defaults, result lines and stderr summary as the JAX package's
-``dlcfn-tpu train``/``eval``/``serve``/``ckpt`` for the options these slices
-port (``train`` runs on this host only: no ``--stack``; a rerun resumes from
-the latest committed checkpoint). ``--accelerator`` takes ``gpu`` (the
+``dlcfn-tpu train``/``eval``/``generate``/``serve``/``ckpt`` for the options
+these slices port (``train`` runs on this host only: no ``--stack``; a rerun
+resumes from the latest committed checkpoint). ``--accelerator`` takes ``gpu`` (the
 default — the CUDA card, raising without one) or ``cpu``. Serve
 requests are JSONL lines ``{"src_ids": [...]}`` with optional ``id``,
-``max_new_tokens``, ``beam_size`` and ``deadline_s``; text requests need
-the BPE tokenizer, which is not ported yet. The ``data`` verbs
+``max_new_tokens``, ``beam_size`` and ``deadline_s``; text requests
+(``swap_variables`` and the tokenizer on the serving side) belong to
+ROADMAP A.6. ``generate`` takes a byte-level prompt (byte + 4), or a BPE
+one with ``--vocab`` (``data/bpe.py``). The ``data`` verbs
 (``data prepare-coco`` and the rest) are not ported yet and raise, naming
 ROADMAP A.13; ``data/coco.py:prepare_coco`` converts COCO from Python.
 """
@@ -82,6 +88,78 @@ def _cmd_eval(args) -> int:
         return 1
     print(json.dumps({k: round(v, 6) if isinstance(v, float) else v
                       for k, v in metrics.items()}))
+    return 0
+
+
+def _cmd_generate(args) -> int:
+    """Prompt → continuation from a trained causal-LM checkpoint (params
+    only, the latest or ``--step``): the byte tokenizer of ``lm_text``
+    (byte values shifted past the 4 reserved ids), or BPE with
+    ``--vocab``; greedy at ``--temperature 0``, else seeded sampling."""
+    import torch
+
+    from ..ckpt import CheckpointManager, latest_checkpoint
+    from ..models.decoding import lm_generate
+    from ..runtime.platform import resolve_device
+    from ..train.run import _workdir_and_ckpt_dir
+    from ..train.state import create_train_state
+    from ..train.task import CausalLmTask, build_task
+
+    cfg = apply_overrides(get_preset(args.preset), args.overrides)
+    cfg.stack.accelerator = args.accelerator
+    try:
+        device = resolve_device(args.accelerator)
+    except RuntimeError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    _, ckpt_dir = _workdir_and_ckpt_dir(cfg)
+    if latest_checkpoint(ckpt_dir) is None:
+        print(f"[dlcfn-tpu] ERROR: no committed checkpoint in {ckpt_dir}",
+              file=sys.stderr)
+        return 1
+    task = build_task(cfg, device)
+    if not isinstance(task, CausalLmTask):
+        print(f"[dlcfn-tpu] ERROR: model {cfg.model.name!r} is not a "
+              f"causal LM (generate needs the gpt family)", file=sys.stderr)
+        return 1
+    state = create_train_state(task.model, None)
+    try:
+        leaves, at_step = CheckpointManager(ckpt_dir).restore_or_none(
+            state, step=args.step)
+        state.load_named(leaves)
+        bpe = None
+        if args.vocab:
+            from ..data.bpe import Bpe
+
+            bpe = Bpe.load(args.vocab)
+            prompt_ids = bpe.encode(args.prompt)
+            if not prompt_ids:
+                print("[dlcfn-tpu] ERROR: prompt encodes to zero tokens",
+                      file=sys.stderr)
+                return 1
+        else:
+            prompt_ids = [b + 4 for b in args.prompt.encode()]
+        prompt = torch.tensor([prompt_ids], dtype=torch.long, device=device)
+        generator = None
+        if args.temperature > 0:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(args.seed)
+        out = lm_generate(task.model, prompt, args.max_new_tokens,
+                          temperature=args.temperature, top_k=args.top_k,
+                          generator=generator)[0].tolist()
+    except (FileNotFoundError, ValueError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    if bpe is not None:
+        text = bpe.decode(out)
+    else:
+        # Ids outside the byte range print as '?': 0-3 are the specials, and
+        # ids >= 260 exist whenever the vocab is larger than the byte
+        # tokenizer's (gpt_small_lm's 32768).
+        text = bytes(t - 4 if 4 <= t < 260 else 0x3F for t in out) \
+            .decode(errors="replace")
+    print(f"[dlcfn-tpu] checkpoint step {at_step}:")
+    print(text)
     return 0
 
 
@@ -235,8 +313,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
         description="PyTorch/CUDA port of dlcfn-tpu (serve the NMT; train "
-                    "and evaluate the NMT, the ResNets, BERT and Mask "
-                    "R-CNN)")
+                    "and evaluate the NMT, the ResNets, BERT, GPT and Mask "
+                    "R-CNN; generate with GPT)")
     sub = parser.add_subparsers(dest="command", required=True)
     tr = sub.add_parser("train", help="train a preset on this host")
     tr.add_argument("--preset", required=True)
@@ -257,6 +335,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="config overrides — at least the workdir the "
                          "training run used")
     ev.set_defaults(fn=_cmd_eval)
+    gen = sub.add_parser(
+        "generate",
+        help="generate text from a trained causal-LM checkpoint "
+             "(byte-level prompt in, KV-cached decoding out)")
+    gen.add_argument("--preset", default="gpt_small_lm")
+    gen.add_argument("--accelerator", default="gpu", choices=["gpu", "cpu"])
+    gen.add_argument("--prompt", required=True,
+                     help="prompt text (byte-level tokenized)")
+    gen.add_argument("--max-new-tokens", type=int, default=128)
+    gen.add_argument("--temperature", type=float, default=0.0,
+                     help="0 = greedy")
+    gen.add_argument("--top-k", type=int, default=0)
+    gen.add_argument("--seed", type=int, default=0)
+    gen.add_argument("--vocab", default="",
+                     help="BPE vocab.json; default is the byte tokenizer")
+    gen.add_argument("--step", type=int, default=0,
+                     help="committed checkpoint step (0 = latest)")
+    gen.add_argument("overrides", nargs="*",
+                     help="config overrides — at least the workdir the "
+                          "training run used")
+    gen.set_defaults(fn=_cmd_generate)
     sv = sub.add_parser(
         "serve",
         help="continuous-batching inference over an NMT checkpoint "

@@ -22,6 +22,10 @@ params (the leaf names the JAX checkpoint manifest uses) and returns a
 - BERT's setup-free auto-names ``layer_3`` become ``layer.3``, and its
   ``embed``, ``mlm_transform``, ``mlm_norm``, ``mlm_bias``, ``pooler`` and
   ``nsp_head`` keep their names.
+- The causal LM's ``layer_3`` becomes ``layer.3`` too; its tied
+  ``token/embedding`` becomes ``token.weight`` (one parameter for the
+  lookup and the logits), and ``position`` (a raw [max_len, hidden] table),
+  ``embed_norm`` and ``final_norm`` keep their names.
 
 ``flax_layout`` is the inverse: every parameter and BatchNorm buffer of a
 port model with its Flax leaf name (``params/...``, ``batch_stats/...``)

@@ -25,8 +25,8 @@
   the step loop, from pinned host memory with non-blocking copies on a side
   stream, so the host→device transfer overlaps the previous step's compute.
 - :func:`build_pipeline`: ``cifar10``, ``imagenet``, ``wmt_en_de``,
-  ``wikipedia_mlm`` and ``coco`` (``data/detection.py``); ``lm_text``
-  raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+  ``wikipedia_mlm``, ``lm_text`` (``data/text.py``) and ``coco``
+  (``data/detection.py``).
 """
 
 from __future__ import annotations
@@ -402,11 +402,6 @@ class DevicePrefetcher:
         self._stop.set()
 
 
-_NOT_PORTED = {
-    "lm_text": "A.9 (the GPT family)",
-}
-
-
 def build_pipeline(cfg: DataConfig, local_batch: int, num_classes: int = 0,
                    seed: int = 0, train: bool = True,
                    drop_remainder: bool = True) -> DataPipeline:
@@ -416,10 +411,6 @@ def build_pipeline(cfg: DataConfig, local_batch: int, num_classes: int = 0,
     images (train seeds 17 / 29, eval 23 / 31); ``coco`` reads
     ``<data_dir>/{train,eval}.npz`` or makes synthetic scenes (47 / 53)."""
     name = cfg.name
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[name]})")
     common = dict(seed=seed, shuffle=train, prefetch=cfg.prefetch,
                   native=cfg.use_native_loader, num_workers=cfg.num_workers,
                   drop_remainder=drop_remainder)
@@ -453,7 +444,7 @@ def build_pipeline(cfg: DataConfig, local_batch: int, num_classes: int = 0,
         source = build_detection_source(cfg, train, num_classes=num_classes,
                                         max_boxes=cfg.max_boxes)
         return DataPipeline(source, local_batch, **common)
-    if name not in ("wmt_en_de", "wikipedia_mlm"):
+    if name not in ("wmt_en_de", "wikipedia_mlm", "lm_text"):
         raise KeyError(f"unknown dataset {name!r}")
     from .text import build_text_source
 

@@ -1,21 +1,25 @@
-"""Text sources — the NMT and BERT (MLM+NSP) parts of
+"""Text sources — the NMT, BERT (MLM+NSP) and causal-LM parts of
 ``deeplearning_cfn_tpu/data/text.py``, copied (numpy only) so the port never
 imports the JAX package.
 
 - **Real data**: ``<data_dir>/{train,eval}.npz`` holding the arrays of the
   dataset — for ``wmt_en_de`` ``src_ids``, ``src_mask``, ``tgt_in_ids``,
   ``tgt_out_ids``, ``tgt_mask`` (the files the JAX package's
-  ``prepare_nmt_text`` writes), for ``wikipedia_mlm`` the MLM contract below.
+  ``prepare_nmt_text`` writes), for ``wikipedia_mlm`` the MLM contract below,
+  for ``lm_text`` ``tokens`` and ``loss_mask`` (the files
+  :func:`prepare_lm_text` writes).
 - **Synthetic**: deterministic, *learnable* generators, the same arrays from
   the same seeds as the JAX package, so both packages train on identical
   batches: a seq2seq task (the target is the reversed source plus a fixed
-  offset) and pre-masked MLM+NSP examples over a fixed Markov chain.
+  offset), pre-masked MLM+NSP examples and next-token sequences over a fixed
+  Markov chain.
 
 NMT ids: 0=[PAD], 1=[BOS], 2=[EOS]. MLM ids: 0=[PAD], 1=[CLS], 2=[SEP],
 3=[MASK]; the MLM batch is ``input_ids``, ``input_mask``, ``segment_ids``
 [N, S], ``mlm_positions``, ``mlm_ids``, ``mlm_weights`` [N, P] with
-P = 0.2·S, and ``nsp_label`` [N]. The LM source belongs to the GPT slice
-(ROADMAP A.9b).
+P = 0.2·S, and ``nsp_label`` [N]. The LM batch is ``tokens`` [N, S+1] and
+``loss_mask`` [N, S]; the byte tokenizer shifts byte values past 4
+reserved ids.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from .pipeline import ArraySource
 _MLM_KEYS = ("input_ids", "input_mask", "segment_ids", "mlm_positions",
              "mlm_ids", "mlm_weights", "nsp_label")
 _NMT_KEYS = ("src_ids", "src_mask", "tgt_in_ids", "tgt_out_ids", "tgt_mask")
+_LM_KEYS = ("tokens", "loss_mask")
 
 MASK_RATE = 0.15
 MAX_PRED_FRACTION = 0.2  # max_predictions_per_seq = fraction * seq_len
@@ -162,6 +167,49 @@ def make_nmt_source(num_examples: int, seq_len: int, vocab_size: int,
     })
 
 
+def make_lm_source(num_examples: int, seq_len: int, vocab_size: int,
+                   seed: int) -> ArraySource:
+    """Causal-LM examples: ``tokens [N, seq_len+1]`` (the model reads
+    tokens[:, :-1] and predicts tokens[:, 1:]) and ``loss_mask [N, seq_len]``
+    over the predicted positions. The tokens follow the MLM source's fixed
+    Markov chain, so next-token loss falls fast below unigram entropy."""
+    rng = np.random.RandomState(seed)
+    tokens = _markov_tokens(rng, num_examples, seq_len + 1, vocab_size)
+    return ArraySource({
+        "tokens": tokens.astype(np.int32),
+        "loss_mask": np.ones((num_examples, seq_len), np.float32),
+    })
+
+
+def prepare_lm_text(src_path: str, out_dir: str, seq_len: int,
+                    eval_fraction: float = 0.05) -> Dict[str, int]:
+    """Tokenize a raw text/bytes file into the ``lm_text`` npz files: byte
+    values shifted past the 4 reserved ids (``data.vocab_size=260``), cut
+    into non-overlapping ``seq_len + 1`` windows, the last
+    ``eval_fraction`` of them (at least one) as ``eval.npz`` and the rest
+    as ``train.npz`` under ``out_dir``. Returns the counts."""
+    if not 0.0 < eval_fraction < 1.0:
+        raise ValueError(
+            f"eval_fraction must be in (0, 1), got {eval_fraction}")
+    with open(src_path, "rb") as f:
+        raw = np.frombuffer(f.read(), np.uint8)
+    window = seq_len + 1
+    n = len(raw) // window
+    if n < 2:
+        raise ValueError(
+            f"{src_path}: need at least {2 * window} bytes for one train "
+            f"and one eval window of seq_len+1={window}, got {len(raw)}")
+    tokens = raw[:n * window].reshape(n, window).astype(np.int32) + 4
+    n_eval = min(max(1, int(n * eval_fraction)), n - 1)
+    os.makedirs(out_dir, exist_ok=True)
+    splits = {"train": tokens[:-n_eval], "eval": tokens[-n_eval:]}
+    for split, toks in splits.items():
+        np.savez(os.path.join(out_dir, f"{split}.npz"), tokens=toks,
+                 loss_mask=np.ones((len(toks), seq_len), np.float32))
+    return {"train_examples": n - n_eval, "eval_examples": n_eval,
+            "vocab_size": 260, "seq_len": seq_len}
+
+
 def _load_npz_dir(data_dir: str, split: str, keys) -> ArraySource:
     """Real-data path: ``<data_dir>/<split>.npz`` holding the listed keys."""
     path = os.path.join(data_dir, f"{split}.npz")
@@ -177,14 +225,14 @@ def _load_npz_dir(data_dir: str, split: str, keys) -> ArraySource:
 
 
 def build_text_source(cfg: DataConfig, train: bool) -> ArraySource:
-    """The ``wmt_en_de`` or ``wikipedia_mlm`` source of one split: the npz
-    files under ``data.data_dir`` or, without one, the synthetic data (4096
-    train examples and max(256, n/8) eval examples unless overridden)."""
-    keys = {"wikipedia_mlm": _MLM_KEYS, "wmt_en_de": _NMT_KEYS}.get(cfg.name)
+    """The ``wmt_en_de``, ``wikipedia_mlm`` or ``lm_text`` source of one
+    split: the npz files under ``data.data_dir`` or, without one, the
+    synthetic data (4096 train examples and max(256, n/8) eval examples
+    unless overridden; seeds 41 and 43)."""
+    keys = {"wikipedia_mlm": _MLM_KEYS, "wmt_en_de": _NMT_KEYS,
+            "lm_text": _LM_KEYS}.get(cfg.name)
     if keys is None:
-        raise NotImplementedError(
-            f"text dataset {cfg.name!r} is not ported yet (ROADMAP A.9b: "
-            f"the GPT family brings lm_text)")
+        raise KeyError(f"unknown text dataset {cfg.name!r}")
     split = "train" if train else "eval"
     if cfg.data_dir and not cfg.synthetic:
         return _load_npz_dir(cfg.data_dir, split, keys)
@@ -194,4 +242,6 @@ def build_text_source(cfg: DataConfig, train: bool) -> ArraySource:
     seed = 41 if train else 43
     if cfg.name == "wikipedia_mlm":
         return make_mlm_source(n, cfg.seq_len, cfg.vocab_size, seed)
+    if cfg.name == "lm_text":
+        return make_lm_source(n, cfg.seq_len, cfg.vocab_size, seed)
     return make_nmt_source(n, cfg.seq_len, cfg.vocab_size, seed)

@@ -1,5 +1,7 @@
 """Model zoo of the port — the NMT family (slices 1–2), the ResNets
-(slice 5), BERT (slice 6) and Mask R-CNN (slice 7).
+(slice 5), BERT (slice 6), Mask R-CNN (slice 7) and the GPT family
+(slice 8). ViT belongs to ROADMAP A.9b; ``gpt_long`` is registered and
+raises, naming A.10.
 
 Registry maps ModelConfig.name → constructor, as in the JAX package.
 """
@@ -20,7 +22,7 @@ def register_model(name: str):
 
 
 def build_model(name: str, num_classes: int, dtype, **kwargs):
-    from . import bert, maskrcnn, resnet, transformer_nmt  # noqa: F401
+    from . import bert, lm, maskrcnn, resnet, transformer_nmt  # noqa: F401
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
@@ -28,6 +30,6 @@ def build_model(name: str, num_classes: int, dtype, **kwargs):
 
 
 def list_models():
-    from . import bert, maskrcnn, resnet, transformer_nmt  # noqa: F401
+    from . import bert, lm, maskrcnn, resnet, transformer_nmt  # noqa: F401
 
     return sorted(_REGISTRY)

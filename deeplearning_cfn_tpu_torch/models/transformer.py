@@ -267,6 +267,27 @@ class TransformerLayer(nn.Module):
                               self.mlp_norm)
 
 
+def init_flax_defaults(model: nn.Module, generator: torch.Generator,
+                       tables) -> None:
+    """The Flax init of the encoder-decoder and decoder-only families:
+    xavier-uniform ``Dense`` kernels, zero biases, ``LayerNorm`` ones/zeros,
+    and ``normal(0.02)`` for each tensor of ``tables`` (token tables,
+    position tables). Runs on the model's device with ``generator`` (which
+    must live there too)."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Dense):
+                fan_out, fan_in = mod.weight.shape
+                limit = (6.0 / (fan_in + fan_out)) ** 0.5
+                mod.weight.uniform_(-limit, limit, generator=generator)
+                mod.bias.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        for t in tables:
+            t.normal_(0.0, 0.02, generator=generator)
+
+
 class Embed(nn.Module):
     """Token + learned-position (+ optional segment) embeddings — Flax's
     ``Embed`` of ``models/transformer.py``: the sum in f32, cast to the

@@ -31,7 +31,7 @@ from torch import nn
 
 from . import register_model
 from .transformer import (KvCache, LayerNorm, TransformerLayer, dropout,
-                          padding_bias)
+                          init_flax_defaults, padding_bias)
 
 
 class NmtEmbeddings(nn.Module):
@@ -237,22 +237,9 @@ def transformer_nmt_tiny(num_classes: int = 0, dtype=torch.float32, **kw):
 
 
 def init_weights(model: TransformerNMT, generator: torch.Generator) -> None:
-    """Seeded init with Flax's distributions: xavier-uniform Dense kernels,
-    zero biases, ``normal(0.02)`` token table and positions, LayerNorm
-    ones/zeros. Runs on the model's device with ``generator`` (which must
-    live there too)."""
-    from .transformer import Dense, LayerNorm
-
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, Dense):
-                fan_out, fan_in = mod.weight.shape
-                limit = (6.0 / (fan_in + fan_out)) ** 0.5
-                mod.weight.uniform_(-limit, limit, generator=generator)
-                mod.bias.zero_()
-            elif isinstance(mod, LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-        emb = model.embed
-        for t in (emb.token.weight, emb.src_position, emb.tgt_position):
-            t.normal_(0.0, 0.02, generator=generator)
+    """Seeded init with Flax's distributions (``init_flax_defaults``): the
+    token table and both position tables ``normal(0.02)``."""
+    emb = model.embed
+    init_flax_defaults(model, generator,
+                       (emb.token.weight, emb.src_position,
+                        emb.tgt_position))

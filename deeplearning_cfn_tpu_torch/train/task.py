@@ -1,13 +1,15 @@
 """Task definitions: glue a model into the Trainer's loss_fn contract — the
-port of ``deeplearning_cfn_tpu/train/task.py`` for the NMT, ResNet and BERT
-workloads.
+port of ``deeplearning_cfn_tpu/train/task.py`` for the NMT, ResNet, BERT and
+GPT workloads.
 
 A task owns its model and gives the trainer
 ``loss_fn(batch, train, generator) -> (loss, aux)``: a global-batch mean loss
 and a dict of scalar metrics (on eval, ``eval_weight`` and per-metric
-``<name>__weight`` too). Detection (Mask R-CNN) is
-``train/detection_task.py``; the other families' tasks (ViT
-classification, causal LM) belong to ROADMAP A.9b.
+``<name>__weight`` too). A task's ``eval_derived`` maps a metric name to a
+function of the aggregated eval metrics (the trainer adds it after the
+cross-batch aggregation). Detection (Mask R-CNN) is
+``train/detection_task.py``; ViT's stats-free classification belongs to
+ROADMAP A.9b.
 
 ``train.remat`` recomputes the train forward in the backward, where the JAX
 tasks wrap it in ``jax.checkpoint`` (:func:`remat`).
@@ -146,37 +148,37 @@ class Seq2SeqTask:
 
     def final_eval(self, state, eval_iter_fn: Callable[[], Iterator]
                    ) -> Dict[str, float]:
-        """Decode the eval set with the KV-cached beam (or greedy,
-        ``beam_size <= 1``) searcher and score corpus BLEU — the Sockeye
+        """Decode the eval set with the beam (or greedy, ``beam_size <=
+        1``) searcher — KV-cached, or recomputing the decoder each step with
+        ``eval.use_kv_cache=false`` — and score corpus BLEU, the Sockeye
         workload's acceptance metric."""
         from ..data.pipeline import to_device
         from ..metrics.bleu import corpus_bleu
-        from ..models.decoding import (beam_decode_cached,
-                                       greedy_decode_cached, strip_special)
+        from ..models import decoding
+        from ..models.decoding import strip_special
 
         ev = self.cfg.eval
         if not ev.enabled:
             return {}
-        if not ev.use_kv_cache:
-            raise NotImplementedError(
-                "eval.use_kv_cache=false needs the recompute-mode searchers, "
-                "not ported yet (ROADMAP A.4)")
         max_len = ev.max_decode_len or self.cfg.data.seq_len
         if max_len > self.model.max_len:
             raise ValueError(
                 f"eval decode length {max_len} exceeds the model's "
                 f"max_len {self.model.max_len}")
+        greedy = decoding.greedy_decode_cached if ev.use_kv_cache \
+            else decoding.greedy_decode
+        beam = decoding.beam_decode_cached if ev.use_kv_cache \
+            else decoding.beam_decode
         hyps, refs = [], []
         with state.eval_weights() as model:
             for batch in eval_iter_fn():
                 dev = to_device(batch, self.device)
                 if ev.beam_size <= 1:
-                    out = greedy_decode_cached(model, dev["src_ids"],
-                                               dev["src_mask"], max_len)
+                    out = greedy(model, dev["src_ids"], dev["src_mask"],
+                                 max_len)
                 else:
-                    out, _ = beam_decode_cached(
-                        model, dev["src_ids"], dev["src_mask"], max_len,
-                        ev.beam_size, ev.length_penalty)
+                    out, _ = beam(model, dev["src_ids"], dev["src_mask"],
+                                  max_len, ev.beam_size, ev.length_penalty)
                 out = out.cpu().numpy()
                 tgt = np.asarray(batch["tgt_out_ids"])
                 emask = batch.get("eval_mask")
@@ -206,7 +208,7 @@ class ClassificationTask:
         if cfg.model.name.startswith("vit"):
             raise NotImplementedError(
                 f"model {cfg.model.name!r}: ViT's stats-free classification "
-                f"path is not ported yet (ROADMAP A.9)")
+                f"path is not ported yet (ROADMAP A.9b)")
         dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
             else torch.float32
         self.model = build_model(cfg.model.name, cfg.model.num_classes,
@@ -310,21 +312,83 @@ class MlmTask:
         return mlm_loss + nsp_loss, aux
 
 
+class CausalLmTask:
+    """Decoder-only next-token pretraining (the GPT family).
+
+    Loss = the token-weighted mean cross-entropy of ``tokens[:, 1:]`` given
+    ``tokens[:, :-1]``, weighted by ``loss_mask`` × the example mask. Train
+    metrics: ``token_accuracy`` and this step's ``perplexity`` (exp of its
+    CE, clipped at 20 against a random init's overflow); eval metrics are
+    token-weighted (``eval_weight`` is the batch's real token count) and
+    include ``ce_loss``, from which ``eval_derived`` makes the exact
+    perplexity after aggregation — a mean of per-batch exp(CE) is not one.
+    Batch contract: ``data/text.py:make_lm_source``.
+    """
+
+    exact_eval = True
+    eval_derived = {
+        "perplexity": lambda m: float(np.exp(min(m["ce_loss"], 20.0))),
+    }
+
+    def __init__(self, cfg: ExperimentConfig, device: torch.device,
+                 attention_impl: Optional[str] = None):
+        self.cfg = cfg
+        self.device = device
+        dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
+            else torch.float32
+        kwargs = dict(cfg.model.kwargs)
+        kwargs.setdefault("vocab_size", cfg.data.vocab_size)
+        kwargs.setdefault("max_len", max(cfg.data.seq_len, 128))
+        if attention_impl is not None:
+            kwargs["attention_impl"] = attention_impl
+        self.model = build_model(cfg.model.name, 0, dtype, device=device,
+                                 **kwargs)
+        self.remat = cfg.train.remat
+
+    def init(self, generator: torch.Generator) -> None:
+        """Seeded init with Flax's distributions, on the model's device."""
+        from ..models.lm import init_weights
+
+        init_weights(self.model, generator)
+
+    def loss_fn(self, batch: Batch, train: bool,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        apply = lambda ids: self.model(ids, train=train, generator=generator)
+        inputs = batch["tokens"][:, :-1]
+        targets = batch["tokens"][:, 1:]
+        logits = remat(self.model, apply, generator, inputs) \
+            if train and self.remat else apply(inputs)
+        mask = example_mask(batch, inputs.shape[0])
+        weights = batch["loss_mask"].float() * mask[:, None]
+        ce = cross_entropy(logits, targets)
+        denom = torch.clamp(weights.sum(), min=1e-6)
+        ce_loss = (ce * weights).sum() / denom
+        hits = (torch.argmax(logits, -1) == targets).float()
+        aux = {"token_accuracy": (hits * weights).sum() / denom}
+        if train:
+            aux["perplexity"] = torch.exp(torch.clamp(ce_loss, max=20.0))
+        else:
+            aux["ce_loss"] = ce_loss
+            aux["eval_weight"] = weights.sum()
+        return ce_loss, aux
+
+
 def build_task(cfg: ExperimentConfig, device: torch.device,
                attention_impl: Optional[str] = None):
-    """Task registry keyed by model family (the NMT, ResNet, BERT and
-    Mask R-CNN families are ported)."""
+    """Task registry keyed by model family (the NMT, ResNet, BERT, GPT and
+    Mask R-CNN families are ported; ViT raises in ``ClassificationTask``)."""
     name = cfg.model.name
     if name.startswith("transformer_nmt"):
         return Seq2SeqTask(cfg, device, attention_impl)
     if name.startswith(("resnet", "vit")):
         return ClassificationTask(cfg, device)
+    if name.startswith("gpt"):
+        return CausalLmTask(cfg, device, attention_impl)
     if name.startswith("bert"):
         return MlmTask(cfg, device, attention_impl)
     if name.startswith("maskrcnn"):
         from .detection_task import DetectionTask
 
         return DetectionTask(cfg, device)
-    raise NotImplementedError(
-        f"no task for model {name!r} in the port yet (ROADMAP A.9b: "
-        f"GPT/ViT)")
+    raise KeyError(f"no task for model {name!r}")

@@ -16,7 +16,9 @@ in-place update. What carries over exactly:
   (whose time, kernel builds included, is reported as ``compile_s`` and
   kept out of the throughput window), and writes the same JSONL records;
 - ``evaluate`` aggregates by each batch's ``eval_weight``, so metrics are
-  exact over the full eval set.
+  exact over the full eval set, then adds the task's ``eval_derived``
+  metrics (functions of the aggregates: perplexity = exp(mean CE) is not
+  the mean of per-batch exp(CE));
 - BatchNorm running statistics (the JAX step's ``batch_stats``) are model
   buffers that each train-mode forward updates, so under accumulation they
   advance microbatch by microbatch in order, as the JAX scan threads them;
@@ -69,6 +71,7 @@ class Trainer:
         self.cfg = cfg
         self.task = task
         self.device = torch.device(device)
+        self.eval_derived = dict(getattr(task, "eval_derived", None) or {})
         accum = cfg.train.grad_accum_steps
         if accum < 1 or cfg.train.global_batch % accum != 0:
             raise ValueError(
@@ -305,4 +308,6 @@ class Trainer:
                 wsums[k] = wsums.get(k, 0.0) + w
         out = {k: totals[k] / max(wsums[k], 1e-9) for k in totals}
         out["examples"] = examples
+        for name, fn in self.eval_derived.items():
+            out[name] = float(fn(out))
         return out

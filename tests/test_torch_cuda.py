@@ -10,8 +10,11 @@ the plain attention; BERT's padded self-attention path (kernel #1, then the
 reference-VJP recompute) against the CPU, ``train.remat`` with a card
 generator, and Mask R-CNN's plain-PyTorch path (``nms_static``,
 ``multilevel_roi_align`` forward and backward, the tiny ``DetectionTask``
-loss) against the CPU. This file imports no JAX, so it runs on a machine that has only
-PyTorch and the CUDA toolkit:
+loss) against the CPU, and GPT's path: the three kernels at 1023, 1024 and
+1025 causal keys, the decode variant over a 1024-slot cache with the step
+bias at batch 1 and 8, and the tiny f32 ``CausalLmTask`` against the CPU.
+This file imports no JAX, so it runs on a machine that has only PyTorch and
+the CUDA toolkit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -22,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import scaled_error
 from deeplearning_cfn_tpu_torch.ops import attention as attn
 
 pytestmark = pytest.mark.cuda
@@ -205,6 +209,7 @@ BWD_CASES = [
 def _close(a, b, tol):
     a, b = a.float(), b.float()
     return bool(((a - b).abs() <= tol + tol * b.abs()).all())
+
 
 
 def _bwd_inputs(rng, case, dtype, device):
@@ -618,3 +623,102 @@ def test_detection_loss_on_card_matches_cpu(cuda):
     for name, s in s0.items():
         assert (s1[name] - s).abs().max() <= 1e-5 * s.abs().max().clamp_min(
             1.0), name
+
+
+# -- GPT on the card (all three kernels at sequence 1024; decode steps) ------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1023, 1024, 1025])
+def test_long_causal_rows_match_plain_versions(cuda, s, dtype):
+    """GPT's sequence: 16 KV tiles of 64 keys, off the tile on both sides,
+    the causal tile skip and the online softmax across them, and the
+    16-step loops of dK/dV and dQ, in the model's strided layout."""
+    rng = np.random.default_rng(s)
+    case = (2, 3, s, s, 64, True, True)
+    args = _bwd_inputs(rng, case, dtype, cuda)
+    q, k, v = args[:3]
+    variant = attn.forward_variant(dtype, s, 64)
+    n = attn.flash_attention_forward.variant_launches[variant]
+    out = attn.flash_attention_forward(q, k, v, causal=True)
+    assert attn.flash_attention_forward.variant_launches[variant] == n + 1
+    ref = attn.attention_reference(q, k, v, causal=True)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert scaled_error(out, ref)["ok"], scaled_error(out, ref)
+    dk, dv = attn.flash_attn_bwd_dkdv(*args)
+    dq = attn.flash_attn_bwd_dq(*args)
+    rk, rv = attn.flash_bwd_dkdv_reference(*args)
+    rq = attn.flash_bwd_dq_reference(*args)
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert torch.isfinite(got).all(), name
+        assert _close(got, want, BWD_TOL[dtype]), \
+            (name, (got.float() - want.float()).abs().max().item())
+        assert scaled_error(got, want)["ok"], (name, scaled_error(got, want))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_gpt_decode_step_over_a_1024_slot_cache(cuda, batch):
+    """The decode variant at GPT's generation shape: one query per row
+    against the [B, 12, 1024, 64] cache, the [B, 1, 1, 1024] step bias of
+    ``models/transformer.py:step_bias`` (rows at different positions)."""
+    from deeplearning_cfn_tpu_torch.models.transformer import step_bias
+
+    rng = np.random.default_rng(batch)
+    q, _, _ = _qkv(rng, batch, 12, 1, 1, 64, torch.bfloat16, cuda,
+                   strided=True)
+    _, k, v = _qkv(rng, batch, 12, 1, 1024, 64, torch.bfloat16, cuda)
+    pos = torch.from_numpy(rng.integers(0, 1024, batch)).to(cuda)
+    pos[0] = 1023 if batch > 1 else 700
+    bias = step_bias(pos, 1024)
+    n = attn.flash_attention_forward.variant_launches["decode"]
+    out = attn.flash_attention_forward(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert attn.flash_attention_forward.variant_launches["decode"] == n + 1
+    ref = attn.attention_reference(q, k, v, bias)
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        TOL[torch.bfloat16]
+    assert scaled_error(out, ref)["ok"], scaled_error(out, ref)
+
+
+def test_gpt_tiny_f32_on_card_matches_cpu(cuda):
+    """``gpt_tiny`` through ``CausalLmTask`` on the card against the CPU,
+    one seeded init and batch, TF32 off: the loss within 1e-5 relative,
+    every gradient within 1e-4 of the global gradient norm; the forward,
+    dK/dV and dQ kernels launched once per layer, the reference VJP
+    never."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.train.task import CausalLmTask
+
+    cfg = apply_overrides(get_preset("gpt_small_lm"), [
+        "model.name=gpt_tiny", "model.kwargs.max_len=64",
+        "model.kwargs.dropout_rate=0.0", "data.vocab_size=512",
+        "data.seq_len=64", "train.dtype=float32",
+        "data.num_train_examples=16"])
+    cpu = CausalLmTask(cfg, torch.device("cpu"))
+    cpu.init(torch.Generator().manual_seed(0))
+    card = CausalLmTask(cfg, cuda)
+    card.model.load_state_dict(cpu.model.state_dict())
+    batch = next(iter(build_pipeline(cfg.data, 8, seed=0).one_epoch()))
+    ref, _ = cpu.loss_fn(to_device(batch, torch.device("cpu")), True)
+    ref.backward()
+    before = (attn.flash_attention_forward.launches,
+              attn.flash_attn_bwd_dkdv.launches,
+              attn.flash_attn_bwd_dq.launches,
+              attn.attention_reference_vjp.calls)
+    got, _ = card.loss_fn(to_device(batch, cuda), True)
+    got.backward()
+    torch.cuda.synchronize()
+    after = (attn.flash_attention_forward.launches,
+             attn.flash_attn_bwd_dkdv.launches,
+             attn.flash_attn_bwd_dq.launches,
+             attn.attention_reference_vjp.calls)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 0]
+    assert abs(float(got) - float(ref)) <= 1e-5 * abs(float(ref))
+    norm = torch.sqrt(sum((p.grad ** 2).sum()
+                          for p in cpu.model.parameters()))
+    for (name, p), (_, r) in zip(card.model.named_parameters(),
+                                 cpu.model.named_parameters()):
+        assert (p.grad.cpu() - r.grad).norm() <= 1e-4 * norm, name

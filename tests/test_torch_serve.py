@@ -349,7 +349,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "deeplearning_cfn_tpu_torch.train.detection_task",
             "deeplearning_cfn_tpu_torch.data.detection",
             "deeplearning_cfn_tpu_torch.data.coco",
-            "deeplearning_cfn_tpu_torch.metrics.coco_map"} <= set(modules)
+            "deeplearning_cfn_tpu_torch.metrics.coco_map",
+            "deeplearning_cfn_tpu_torch.models.lm",
+            "deeplearning_cfn_tpu_torch.models.decoding",
+            "deeplearning_cfn_tpu_torch.data.bpe",
+            "deeplearning_cfn_tpu_torch.data.text"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
