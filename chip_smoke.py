@@ -19,7 +19,11 @@ order; a failing phase raises, so the exit code is nonzero:
    output on its own scale as well (``scaled_error``: relative norm error
    <= 1e-2, largest error <= 2e-2 of the largest |ref|); each bf16
    call must take the variant ``forward_variant`` names (tc or decode on
-   the main path's shapes);
+   the main path's shapes); with them the speculative verify spans, Sq 2,
+   5 and 9 (γ 1, 4, 8) at 8 slots against 128 cache slots, dense and as
+   the paged gather (null-block entries filled with values the bias must
+   hide), with the model's span bias at per-row positions whose last
+   spans run past max_len (bf16 on ``decode``);
 4. time each of the three shapes: the kernel, the first port's kernel
    body on the same inputs (the ``simt`` variant, the CUDA-core kernel
    before the tensor-core redesign: ``*_before``), the plain version and one
@@ -187,6 +191,37 @@ order; a failing phase raises, so the exit code is nonzero:
    forward kernel timed at the decode shape (q [1, 12, 1, 64] against the
    1024-slot cache with the step bias) as phase 4 times the serving
    shapes.
+19. speculative serving: phase 5's engine and 24 requests (beams
+   included; they fall back to the host step) with γ = 4, in three runs —
+   (a) self-draft on the host path, (b) self-draft on the device chain
+   (decode window 4), (c) a seeded 2+2-layer draft (same vocab and
+   max_len), so that proposals are rejected. Each run: every request done,
+   the kernel's launches equal to the engine's tally (6 per target encode,
+   12 per decoder and verify step, the draft's own depth for its encodes
+   and steps), none on ``simt``; it prints accepted / proposed, verify
+   steps per emitted token, host syncs per speculative token, tokens/s and
+   the decode-step p50. Then in f32 (TF32 off) the greedy requests through
+   plain greedy, the host path and the chain: the token-identical count,
+   and every request that differs must first differ where the plain run's
+   top two logits lie within 1e-4 of each other; the first verify's
+   logits (dense and paged) within 1e-4 of the largest logit of γ+1
+   sequential steps. Then the forward kernel at the verify shape (q [8, 8,
+   5, 64], span bias, the 128-slot cache and the paged span) timed as
+   phase 4 times the serving shapes.
+20. the radix cache, chunked prefill (32-token chunks) and QoS in one run
+   of 48 requests: 24 sources (a quarter of the requests 120 tokens long),
+   each served twice, in four waves — 16 batch-class originals (tenant
+   ``t-batch``: preemptible, 64/s rate limit; an overload is waited out
+   and resubmitted in the same class), 8 latency-class originals that find
+   every slot busy, then the repeats at budgets the cache covers (instant
+   completes) or exceeds (resumes). Every request done; radix instant
+   completes and resumes > 0; preemptions > 0 with no token lost; the
+   launches equal the tally (partial encodes included); and the tokens
+   against a plain engine's (no radix, no chunks, untagged) on the same
+   weights: the identical count, and a request that differs must first
+   differ at a near-tie of the plain run's top two logits (within 2e-2 of
+   the largest). It prints queue-wait p50 / p95 per class, TTFT p50,
+   tokens/s and the radix block count.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -377,6 +412,48 @@ def make_inputs(torch, seed, b, h, sq, sk, d, dtype, bias_kind,
     return q, k, v, bias
 
 
+# Phase 3's speculative verify cases: γ = 1, 4, 8 (Sq = γ+1) at 8 slots
+# against 128 cache slots, each row at its own position; the last rows'
+# spans run past max_len (128), where every key is visible.
+VERIFY_GAMMAS = (1, 4, 8)
+VERIFY_POS = (0, 9, 40, 77, 118, 123, 126, 127)
+SPEC_GAMMA = 4
+
+
+def span_inputs(torch, seed, sq, dtype, paged):
+    """q [8, 8, sq, 64] in the model's strided layout against a 128-slot
+    cache — the dense row table, or (``paged``) the span gathered through
+    block tables of 16-slot blocks, entries past a row's span pointing at
+    the null block 0 (filled with large values the bias must hide) — and
+    the model's own span bias [8, 1, sq, 128] from ``VERIFY_POS``."""
+    from deeplearning_cfn_tpu_torch.models.transformer import span_bias
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    b, h, d, span, bs = SLOTS, HEADS, HEAD_DIM, SRC_LEN, 16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE,
+                           dtype=torch.float32).to(dtype)
+
+    q = randn(b, sq, h, d).transpose(1, 2)
+    pos = torch.tensor(VERIFY_POS, device=DEVICE)
+    if paged:
+        mb = span // bs
+        pools = [randn(b * mb + 1, h, bs, d) for _ in range(2)]
+        for pool in pools:
+            pool[0] = 100.0
+        tables = (torch.randperm(b * mb, generator=g, device=DEVICE) + 1) \
+            .view(b, mb)
+        bound = (torch.clamp(pos + sq, max=span) + bs - 1) // bs
+        tables = torch.where(torch.arange(mb, device=DEVICE)[None, :]
+                             < bound[:, None], tables, 0)
+        k, v = (pool[tables].transpose(1, 2).reshape(b, h, span, d)
+                for pool in pools)
+    else:
+        k, v = randn(b, h, span, d), randn(b, h, span, d)
+    return q, k, v, span_bias(pos, sq, span)
+
+
 def check_kernel(torch, attn):
     """Phase 3: kernel vs plain version on the card. Returns max errors."""
     errs = {"float32": 0.0, "bfloat16": 0.0}
@@ -401,13 +478,26 @@ def check_kernel(torch, attn):
               ("long_1024_strided", 1, 2, 1024, 1024, 64, True, False, True),
               ("long_1025", 1, 2, 1025, 1025, 64, True, False, False),
               ("decode_1024", 8, 12, 1, 1024, 64, False, True, True)]
+    # The speculative verify spans (dense cache and paged gather).
+    cases += [(f"verify_g{gm}{'_paged' if paged else ''}", SLOTS, HEADS,
+               gm + 1, SRC_LEN, HEAD_DIM, False,
+               "span_paged" if paged else "span", True)
+              for gm in VERIFY_GAMMAS for paged in (False, True)]
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         for i, (name, b, h, sq, sk, d, causal, bias_kind, strided) in \
                 enumerate(cases):
-            q, k, v, bias = make_inputs(torch, 100 + i, b, h, sq, sk, d,
-                                        dtype, bias_kind, causal, strided)
+            if str(bias_kind).startswith("span"):
+                q, k, v, bias = span_inputs(torch, 100 + i, sq, dtype,
+                                            bias_kind == "span_paged")
+            else:
+                q, k, v, bias = make_inputs(torch, 100 + i, b, h, sq, sk, d,
+                                            dtype, bias_kind, causal,
+                                            strided)
             variant = attn.forward_variant(dtype, sq, d)
+            if name.startswith("verify") and dtype == torch.bfloat16 \
+                    and variant != "decode":
+                raise AssertionError(f"{name}: bf16 verify takes {variant}")
             before = attn.flash_attention_forward.variant_launches[variant]
             out, lse = attn.flash_attention_forward(q, k, v, bias, causal,
                                                     return_lse=True)
@@ -609,13 +699,15 @@ def smoke_cfg(dtype: str):
                             "train.seed=0"])
 
 
-def build_engine(cfg, attention_impl=None):
+def build_engine(cfg, **kw):
+    """Phase 5's engine (8 slots, paged blocks of 16, prefix cache 32,
+    decode window 4, seeded init) with the loader options ``kw``."""
     from deeplearning_cfn_tpu_torch.serve.loader import load_engine
 
+    kw.setdefault("decode_window", 4)
     engine, _, at_step = load_engine(
-        cfg, capacity=SLOTS, max_src_len=SRC_LEN, decode_window=4,
-        kv_block_size=16, prefix_cache_size=32, allow_init=True,
-        device="gpu", attention_impl=attention_impl)
+        cfg, capacity=SLOTS, max_src_len=SRC_LEN, kv_block_size=16,
+        prefix_cache_size=32, allow_init=True, device="gpu", **kw)
     assert at_step == -1
     return engine
 
@@ -682,7 +774,7 @@ def f32_parity(torch, reqs):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = smoke_cfg("float32")
-    engines = {impl: build_engine(cfg, impl)
+    engines = {impl: build_engine(cfg, attention_impl=impl)
                for impl in ("kernel", "reference")}
     greedy = [r for r in reqs if r[3] == 1]
     src = torch.zeros((SLOTS, SRC_LEN), dtype=torch.long, device="cuda")
@@ -2251,6 +2343,466 @@ def gpt_generate_parity(torch, attn):
                 decode=steps)
 
 
+# -- serving features: speculation, radix cache, chunked prefill, QoS -------
+
+# Phase 19: a seeded 2+2-layer draft beside the 6+6-layer target; the f32
+# limits (the plain run's top-two logit gap where a speculative run first
+# differs from it, and the verify against sequential steps), both 1e-4.
+SPEC_DRAFT_LAYERS, SPEC_F32_TOL = 2, 1e-4
+# Phase 20: 24 sources, each served twice (48 requests in four waves),
+# 32-token chunks, and the bf16 near-tie limit: 2e-2 of the largest logit.
+FEATURE_SOURCES, FEATURE_CHUNK, FEATURE_BF16_TIE = 24, 32, 2e-2
+
+
+def serve_tally(engine):
+    """Flash kernel launches the engine's device calls make on the card:
+    one per encoder layer per full or partial encode (the distinct draft's
+    at its own depth), two per decoder layer per decoder, verify or draft
+    step."""
+    n_layers = engine.model.num_layers
+    n = n_layers * (engine.encoder_forwards + engine.partial_encodes) \
+        + 2 * n_layers * (engine.decoder_steps + engine.verify_steps)
+    if engine.draft_model is not None:
+        d_layers = engine.draft_model.num_layers
+        n += d_layers * engine.draft_encoder_forwards \
+            + 2 * d_layers * engine.draft_steps
+    return n
+
+
+def serve_main_path(torch, attn, label, make_engine, drive):
+    """One main-path run: every launch count set to 0, the engine built
+    (its warmup encodes are in the tally too) and driven by ``drive``
+    (which returns the request ids), the counts read. Every request must be
+    done with in-vocabulary tokens, the kernel's launches must equal the
+    engine's tally, and every bf16 launch must be on ``tc`` or ``decode``."""
+    set_counts(attn, 0)
+    engine = make_engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = drive(engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd = attn.flash_attention_forward
+    launches, variants = fwd.launches, dict(fwd.variant_launches)
+    reqs = {rid: engine.poll(rid) for rid in rids}
+    bad = {r: q.state.value for r, q in reqs.items()
+           if q.state.value != "done"}
+    if bad:
+        raise AssertionError(f"{label}: requests not done: {bad}")
+    tokens = {rid: list(q.tokens) for rid, q in reqs.items()}
+    vocab = engine.model.vocab_size
+    for rid, toks in tokens.items():
+        if not toks or any(not 0 <= t < vocab for t in toks):
+            raise AssertionError(f"{label}: {rid}: bad tokens {toks}")
+    expect = serve_tally(engine)
+    log(f"  {label}: {len(rids)} requests done in {wall:.3f} s; encodes "
+        f"{engine.encoder_forwards} (+{engine.partial_encodes} partial, "
+        f"{engine.draft_encoder_forwards} draft), decoder steps "
+        f"{engine.decoder_steps}, verify steps {engine.verify_steps}, draft "
+        f"steps {engine.draft_steps}; flash launches {launches} (tally "
+        f"{expect}), by variant {variants}")
+    if launches <= 0 or launches != expect:
+        raise AssertionError(f"{label}: flash launches {launches} != tally "
+                             f"{expect}")
+    if variants["simt"] or variants["tc"] + variants["decode"] != launches:
+        raise AssertionError(f"{label}: bf16 launches off the tc/decode "
+                             f"variants: {variants}")
+    snap = engine.metrics.snapshot()
+    generated = sum(len(t) for t in tokens.values())
+    return engine, tokens, snap, dict(
+        launches=launches, variant_launches=variants, wall_s=wall,
+        tokens=generated, tokens_per_s=generated / wall,
+        ttft_p50_s=snap["serve_ttft_p50_s"],
+        decode_step_p50_ms=snap["serve_step_latency_p50_s"] * 1e3,
+        encoder_forwards=engine.encoder_forwards,
+        partial_encodes=engine.partial_encodes,
+        decoder_steps=engine.decoder_steps,
+        verify_steps=engine.verify_steps, draft_steps=engine.draft_steps,
+        draft_encoder_forwards=engine.draft_encoder_forwards)
+
+
+def submit_all(reqs):
+    """A drive function: submit (id, src, budget, beam) requests, drain."""
+    def drive(engine):
+        for rid, src, budget, beam in reqs:
+            engine.submit(src, max_new_tokens=budget, beam_size=beam,
+                          request_id=rid)
+        engine.run_until_drained()
+        return [r[0] for r in reqs]
+    return drive
+
+
+def first_divergence(a, b):
+    """The first index where two token lists differ (None if equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def plain_top2(torch, model, items):
+    """The plain run's logits where a compared run first differs from it,
+    replayed through the single-position step at the engine's batch of
+    ``SLOTS`` rows (the engine's GEMM shapes): ``items`` are (src, plain
+    tokens, position t); returns each one's (largest logit, gap to the
+    second largest)."""
+    from deeplearning_cfn_tpu_torch.models.decoding import BOS_ID
+
+    out = []
+    for at in range(0, len(items), SLOTS):
+        chunk = items[at:at + SLOTS]
+        src = torch.zeros((SLOTS, SRC_LEN), dtype=torch.long, device=DEVICE)
+        for i, (ids, _, _) in enumerate(chunk):
+            src[i, :len(ids)] = torch.tensor(ids, device=DEVICE)
+        mask = (src != 0).long()
+        cache = model.init_cache(SLOTS)
+        prev = torch.full((SLOTS,), BOS_ID, dtype=torch.long, device=DEVICE)
+        found = {}
+        with torch.no_grad():
+            enc = model.encode(src, mask)
+            for t in range(max(t for _, _, t in chunk) + 1):
+                pos = torch.full((SLOTS,), t, dtype=torch.long,
+                                 device=DEVICE)
+                logits = model.decode_step_at(prev[:, None], enc, mask, pos,
+                                              cache)[:, 0].float()
+                for i, (_, toks, ti) in enumerate(chunk):
+                    if ti == t:
+                        top = logits[i].topk(2).values
+                        found[i] = (top[0].item(), (top[0] - top[1]).item())
+                prev = torch.tensor([toks[t] if t < len(toks) else 0
+                                     for _, toks, _ in chunk]
+                                    + [0] * (SLOTS - len(chunk)),
+                                    device=DEVICE)
+        out += [found[i] for i in range(len(chunk))]
+    return out
+
+
+def near_tie_check(torch, label, model, srcs, plain, other, limit, rel):
+    """Requests whose tokens differ from the plain run's must first differ
+    where the plain run's top two logits lie within ``limit`` of each other
+    (times the largest logit's magnitude when ``rel``). Returns the count
+    of token-identical requests."""
+    diff = [(rid, first_divergence(plain[rid], other[rid])) for rid in plain]
+    diff = [(rid, t) for rid, t in diff if t is not None]
+    same = len(plain) - len(diff)
+    log(f"  {label}: {same}/{len(plain)} requests token-identical")
+    if not diff:
+        return same
+    tops = plain_top2(torch, model, [(srcs[rid], plain[rid], t)
+                                     for rid, t in diff])
+    for (rid, t), (top, gap) in zip(diff, tops):
+        bound = limit * abs(top) if rel else limit
+        log(f"    {rid} first differs at token {t}: the plain run's top two "
+            f"logits {gap:.3e} apart (limit {bound:.3e})")
+        if not gap <= bound:
+            raise AssertionError(f"{label}: {rid} differs at token {t} "
+                                 f"where the plain run has no near-tie "
+                                 f"(gap {gap} > {bound})")
+    return same
+
+
+def verify_vs_sequential(torch, model, srcs, tokens):
+    """The first verify (positions 0..γ: BOS and four greedy tokens per row)
+    against γ+1 sequential single-position steps, over the paged pool and
+    the dense cache: the largest logit difference over the largest
+    |logit|, per layout."""
+    from deeplearning_cfn_tpu_torch.models.decoding import BOS_ID
+
+    src = torch.zeros((SLOTS, SRC_LEN), dtype=torch.long, device=DEVICE)
+    tgt = torch.zeros((SLOTS, SPEC_GAMMA + 1), dtype=torch.long,
+                      device=DEVICE)
+    for i, (ids, toks) in enumerate(zip(srcs, tokens)):
+        src[i, :len(ids)] = torch.tensor(ids, device=DEVICE)
+        row = [BOS_ID] + list(toks[:SPEC_GAMMA])
+        tgt[i, :len(row)] = torch.tensor(row, device=DEVICE)
+    mask = (src != 0).long()
+    mb = model.max_len // 16
+    tables = torch.arange(1, SLOTS * mb + 1, device=DEVICE).view(SLOTS, mb)
+    zero = torch.zeros((SLOTS,), dtype=torch.long, device=DEVICE)
+    errs = {}
+    with torch.no_grad():
+        enc = model.encode(src, mask)
+        for layout in ("paged", "dense"):
+            paged = layout == "paged"
+            c1, c2 = ((model.init_paged_cache(SLOTS * mb + 1, 16) if paged
+                       else model.init_cache(SLOTS)) for _ in range(2))
+            if paged:
+                span = model.decode_span_paged(tgt, enc, mask, zero, tables,
+                                               c1)
+                seq = [model.decode_step_paged(tgt[:, j:j + 1], enc, mask,
+                                               zero + j, tables, c2)
+                       for j in range(SPEC_GAMMA + 1)]
+            else:
+                span = model.decode_span_at(tgt, enc, mask, zero, c1)
+                seq = [model.decode_step_at(tgt[:, j:j + 1], enc, mask,
+                                            zero + j, c2)
+                       for j in range(SPEC_GAMMA + 1)]
+            seq = torch.cat(seq, dim=1)
+            errs[layout] = ((span - seq).abs().max()
+                            / seq.abs().max()).item()
+    return errs
+
+
+def serve_speculative(torch, attn, reqs):
+    """Phase 19: speculative serving at full width, bf16, γ = 4 — three
+    main-path runs of phase 5's requests (beams fall back to the host
+    step), then the f32 token identity against plain greedy."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+
+    draft_cfg = apply_overrides(smoke_cfg("bfloat16"), [
+        f"model.kwargs.num_layers={SPEC_DRAFT_LAYERS}", "train.seed=1"])
+    runs = (("a_self_draft_host", dict()),
+            ("b_self_draft_device_chain", dict(speculate_device=True)),
+            ("c_shrunk_draft_host", dict(draft_cfg=draft_cfg)))
+    out, toks = {}, {}
+    for name, kw in runs:
+        engine, toks[name], snap, row = serve_main_path(
+            torch, attn, name,
+            lambda kw=kw: build_engine(smoke_cfg("bfloat16"),
+                                         speculate_gamma=SPEC_GAMMA, **kw),
+            submit_all(reqs))
+        row.update(
+            accepted=snap["serve_spec_accepted"],
+            proposed=snap["serve_spec_proposed"],
+            accept_rate=snap["serve_spec_accept_rate"],
+            tokens_per_target_step=snap["serve_spec_tokens_per_target_step"],
+            verify_steps_per_token=engine.verify_steps / row["tokens"],
+            host_syncs_per_token=snap["serve_spec_host_syncs_per_token"],
+            windows_per_chain=snap["serve_spec_windows_per_chain"])
+        log(f"  {name}: accepted/proposed {row['accepted']}/"
+            f"{row['proposed']} ({row['accept_rate']}), tokens per target "
+            f"row-step {row['tokens_per_target_step']}, verify steps per "
+            f"emitted token {row['verify_steps_per_token']:.4f}, host syncs "
+            f"per speculative token {row['host_syncs_per_token']} "
+            f"(windows per chain {row['windows_per_chain']}), tokens/s "
+            f"{row['tokens_per_s']:.1f}, decode-step p50 "
+            f"{row['decode_step_p50_ms']:.3f} ms")
+        out[name] = row
+        del engine
+    a, b, c = (toks[n] for n, _ in runs)
+    same_b = sum(a[r] == b[r] for r in a)
+    same_c = sum(a[r] == c[r] for r in a)
+    log(f"  bf16 requests token-identical to run a: b {same_b}/{len(a)}, c "
+        f"{same_c}/{len(a)}")
+    if not out["c_shrunk_draft_host"]["accepted"] \
+            < out["c_shrunk_draft_host"]["proposed"]:
+        raise AssertionError("the shrunk draft's proposals were all accepted")
+    # f32 (TF32 off; f32 takes the exact simt variant): plain greedy against
+    # the host path and the device chain, then the first verify against
+    # sequential steps. Comparison launches, not the main path's.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    greedy = [r for r in reqs if r[3] == 1]
+    srcs = {r[0]: r[1] for r in greedy}
+    f32, syncs = {}, {}
+    for name, kw in (("plain", dict()),
+                     ("spec_host", dict(speculate_gamma=SPEC_GAMMA)),
+                     ("spec_device", dict(speculate_gamma=SPEC_GAMMA,
+                                          speculate_device=True))):
+        engine = build_engine(smoke_cfg("float32"), **kw)
+        submit_all(greedy)(engine)
+        f32[name] = {r[0]: list(engine.poll(r[0]).tokens) for r in greedy}
+        if name == "plain":
+            model = engine.model
+        else:
+            syncs[name] = engine.metrics.spec_host_syncs_per_token
+        del engine
+    # Greedy-only traffic lets the chain run windows back to back once the
+    # queue is drained (beams send every tick of their run to the host).
+    log(f"  f32 greedy-only host syncs per speculative token: host path "
+        f"{syncs['spec_host']}, device chain {syncs['spec_device']}")
+    same = {name: near_tie_check(torch, f"f32 {name} vs plain", model, srcs,
+                                 f32["plain"], f32[name], SPEC_F32_TOL,
+                                 rel=False)
+            for name in ("spec_host", "spec_device")}
+    errs = verify_vs_sequential(torch, model,
+                                [r[1] for r in greedy[:SLOTS]],
+                                [f32["plain"][r[0]] for r in greedy[:SLOTS]])
+    log(f"  f32 first verify vs {SPEC_GAMMA + 1} sequential steps: max "
+        f"|diff| / max |logit| paged {errs['paged']:.3e}, dense "
+        f"{errs['dense']:.3e} (limit {SPEC_F32_TOL:.0e})")
+    if not max(errs.values()) <= SPEC_F32_TOL:
+        raise AssertionError(f"verify vs sequential logits: {errs}")
+    return dict(runs=out, bf16_token_identical_to_a={
+        "b": f"{same_b}/{len(a)}", "c": f"{same_c}/{len(a)}"},
+        f32_token_identical={k: f"{v}/{len(greedy)}"
+                             for k, v in same.items()},
+        f32_host_syncs_per_token=syncs,
+        f32_verify_vs_sequential=errs)
+
+
+def time_verify_shapes(torch, attn):
+    """Kernel #1 at the verify shape, γ = 4: q [8, 8, 5, 64] with the span
+    bias against the 128-slot dense cache and against the paged span
+    gathered through block tables (``span_inputs``), held against its plain
+    version on both scales and timed as phase 4 times the serving shapes
+    (``device_ms_strided``: q in the model's strided layout)."""
+    F = torch.nn.functional
+    sq, rows = SPEC_GAMMA + 1, []
+    for i, paged in enumerate((False, True)):
+        name = f"verify_{'paged' if paged else 'dense'}_g{SPEC_GAMMA}"
+        qs, k, v, bias = span_inputs(torch, 400 + i, sq, torch.bfloat16,
+                                     paged)
+        q = qs.contiguous()
+        out = attn.flash_attention_forward(q, k, v, bias)
+        ref = attn.attention_reference(q, k, v, bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        scaled = scaled_error(out, ref)
+        log(f"  {name}: max_abs_err={err:.3e} {scaled_line(scaled)}")
+        if err > TOL["bfloat16"] or not scaled["ok"]:
+            raise AssertionError(f"{name}: kernel vs plain {err} {scaled}")
+        lib_mask = bias.to(torch.bfloat16)
+        t = time_row(
+            torch, lambda: attn.flash_attention_forward(q, k, v, bias),
+            lambda: attn.flash_attention_forward(qs, k, v, bias),
+            lambda: attn._launch(q, k, v, bias, False, HEAD_DIM ** -0.5,
+                                 False, "simt"),
+            lambda: attn.attention_reference(q, k, v, bias),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   attn_mask=lib_mask),
+            200, 20, 200, 20)
+        b_ms, by, nbytes, flops = bound_ms(SLOTS, HEADS, sq, SRC_LEN,
+                                           HEAD_DIM, 2, bias)
+        row = dict(shape=name, q=[SLOTS, HEADS, sq, HEAD_DIM],
+                   kv=[SLOTS, HEADS, SRC_LEN, HEAD_DIM], dtype="bfloat16",
+                   variant=attn.forward_variant(torch.bfloat16, sq,
+                                                HEAD_DIM),
+                   **t, bound_ms=b_ms, bound_by=by, bytes=nbytes,
+                   flops=flops, max_abs_err=err)
+        log_times(name, row)
+        rows.append(row)
+    return rows
+
+
+def feature_waves(seed=1, vocab=32000):
+    """Phase 20's traffic: 24 sources (every fourth 120 tokens long, the
+    rest 8 to 64), then a repeat of each at budget 24 (the cached stream
+    covers it: an instant complete) or 48 (a resume at the block
+    boundary). Four waves: 16 batch-class originals, 8 latency-class
+    originals (which find every row busy), the 16 batch repeats, the 8
+    latency repeats. Items: (id, src, budget, tenant, class)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    srcs = []
+    for i in range(FEATURE_SOURCES):
+        length = SRC_LEN - 8 if i % 4 == 0 else int(rng.randint(8, 65))
+        srcs.append([int(t) for t in rng.randint(3, vocab, size=length - 1)]
+                    + [2])
+    tag = [("t-batch", "batch") if i < 16 else ("t-latency", "latency")
+           for i in range(FEATURE_SOURCES)]
+    orig = [(f"o{i}", srcs[i], 32, *tag[i]) for i in range(FEATURE_SOURCES)]
+    rep = [(f"r{i}", srcs[i], 24 if i % 2 else 48, *tag[i])
+           for i in range(FEATURE_SOURCES)]
+    return [orig[:16], orig[16:], rep[:16], rep[16:]]
+
+
+def serve_features(torch, attn):
+    """Phase 20: the radix cache, chunked prefill and QoS at full width,
+    bf16, in one main-path run, then a plain engine (no radix, no chunks,
+    untagged) on the same weights and requests for the tokens."""
+    from deeplearning_cfn_tpu_torch.serve import OverloadError
+
+    waves = feature_waves()
+    items = [it for wave in waves for it in wave]
+    waits, submitted, resubmits = {}, [], [0]
+
+    def tick(engine):
+        engine.step()
+        for rid in submitted:  # the first admission's queue wait
+            req = engine.poll(rid)
+            if rid not in waits and req.admitted_at is not None:
+                waits[rid] = req.admitted_at - req.submitted_at
+
+    def drive(engine):
+        for wave, ticks in zip(waves, (4, None, 2, None)):
+            for rid, src, budget, tenant, cls in wave:
+                while True:
+                    try:
+                        engine.submit(src, max_new_tokens=budget,
+                                      request_id=rid, tenant=tenant,
+                                      qos_class=cls)
+                        break
+                    except OverloadError as e:
+                        # A class rate limit or a full queue: step through
+                        # the hint, then submit again in the same class.
+                        resubmits[0] += 1
+                        until = time.monotonic() + (e.retry_after_s or 0.0)
+                        tick(engine)
+                        while time.monotonic() < until:
+                            tick(engine)
+                submitted.append(rid)
+            if ticks is None:
+                while engine.queue.depth or engine.active_requests:
+                    tick(engine)
+            else:
+                for _ in range(ticks):
+                    tick(engine)
+        return list(submitted)
+
+    engine, tokens, snap, row = serve_main_path(
+        torch, attn, "radix + chunked prefill + QoS",
+        lambda: build_engine(smoke_cfg("bfloat16"), radix_cache=True,
+                               prefill_chunk=FEATURE_CHUNK), drive)
+    m = engine.metrics
+    instant = snap["serve_radix_instant_completes"]
+    resumed = snap["serve_radix_hits"] - instant
+    reqs = {rid: engine.poll(rid) for rid, *_ in items}
+    preempted = [rid for rid, q in reqs.items() if q.preemptions > 0]
+    lost = [rid for rid in preempted if reqs[rid].tokens[
+        :len(reqs[rid].parked_tokens)] != reqs[rid].parked_tokens]
+    by_cls = {}
+    for rid, _, _, _, cls in items:
+        by_cls.setdefault(cls, []).append(waits[rid])
+    qw = {cls: dict(p50_s=sorted(w)[len(w) // 2],
+                    p95_s=sorted(w)[min(len(w) - 1, int(0.95 * len(w)))])
+          for cls, w in by_cls.items()}
+    log(f"  radix: hits {snap['serve_radix_hits']} ({instant} instant, "
+        f"{resumed} resumed, {snap['serve_radix_hit_tokens']} tokens), "
+        f"misses {snap['serve_radix_misses']}, evictions "
+        f"{snap['serve_radix_evictions_by_cause']}, blocks held "
+        f"{snap['serve_radix_blocks']}; chunk ticks "
+        f"{snap['serve_chunk_ticks']}, chunk tokens "
+        f"{snap['serve_chunk_tokens']}; preemptions {m.preemptions} "
+        f"({len(preempted)} requests), tokens replayed "
+        f"{m.preempted_tokens_replayed}, lost {m.qos_token_loss}; "
+        f"resubmits after an overload hint {resubmits[0]}")
+    for cls, w in sorted(qw.items()):
+        log(f"  queue wait {cls}: p50 {w['p50_s'] * 1e3:.2f} ms, p95 "
+            f"{w['p95_s'] * 1e3:.2f} ms")
+    log(f"  TTFT p50 {row['ttft_p50_s'] * 1e3:.2f} ms, tokens/s "
+        f"{row['tokens_per_s']:.1f}, decode-step p50 "
+        f"{row['decode_step_p50_ms']:.3f} ms")
+    if not (instant > 0 and resumed > 0):
+        raise AssertionError(f"radix hits: {instant} instant, {resumed} "
+                             f"resumed (both must be > 0)")
+    if not m.preemptions > 0:
+        raise AssertionError("no preemption")
+    if m.qos_token_loss or lost:
+        raise AssertionError(f"zero-loss audit: {m.qos_token_loss} tokens "
+                             f"lost, requests {lost}")
+    del engine
+    plain = build_engine(smoke_cfg("bfloat16"))
+    submit_all([(rid, src, budget, 1) for rid, src, budget, _, _ in items])(
+        plain)
+    plain_tokens = {rid: list(plain.poll(rid).tokens) for rid, *_ in items}
+    same = near_tie_check(torch, "bf16 vs the plain engine", plain.model,
+                          {it[0]: it[1] for it in items}, plain_tokens,
+                          tokens, FEATURE_BF16_TIE, rel=True)
+    row.update(radix_hits=snap["serve_radix_hits"],
+               radix_instant=instant, radix_resumed=resumed,
+               radix_hit_tokens=snap["serve_radix_hit_tokens"],
+               radix_blocks=snap["serve_radix_blocks"],
+               radix_evictions=snap["serve_radix_evictions_by_cause"],
+               chunk_ticks=snap["serve_chunk_ticks"],
+               preemptions=m.preemptions,
+               preempted_requests=len(preempted),
+               tokens_replayed=m.preempted_tokens_replayed,
+               queue_wait=qw, resubmits=resubmits[0],
+               token_identical=f"{same}/{len(items)}")
+    return row
+
+
 # Device-time kinds of a Mask R-CNN step, by kernel name, first match
 # wins: the ROI-align gathers (index_select) and their backward
 # (index_add, atomics), the targets' and NMS's sorts and bool masks,
@@ -2721,11 +3273,19 @@ def main() -> int:
     decode_row = time_forward_shape(torch, attn, "gpt_decode", 1, GPT_HEADS,
                                     1, GPT_SEQ, 600, (200, 20, 100, 10))
 
+    phase("19. speculative serving (full width, bf16, gamma 4)")
+    spec = serve_speculative(torch, attn, make_requests())
+    verify_rows = time_verify_shapes(torch, attn)
+
+    phase("20. radix cache, chunked prefill and QoS (full width, bf16)")
+    features = serve_features(torch, attn)
+
     # The forward kernel serves every path: its numbers cover the three
-    # serving shapes, the NMT training shape, BERT's, GPT's train shape and
-    # GPT's decode step (one call at each).
+    # serving shapes, the NMT training shape, BERT's, GPT's train shape,
+    # GPT's decode step and the verify span over the dense cache and the
+    # paged span (one call at each).
     rows = rows + [train_rows["flash_attn_fwd"], bert_row,
-                   gpt_rows["flash_attn_fwd"], decode_row]
+                   gpt_rows["flash_attn_fwd"], decode_row] + verify_rows
     timings = ("kernel_ms_before", "device_ms", "device_ms_strided",
                "device_ms_before", "plain_ms", "bound_ms", "library_ms",
                "library_device_ms")
@@ -2737,7 +3297,12 @@ def main() -> int:
                  "gpt_train": (gpt["launches_with_eval"]["fwd"],
                                gpt["variant_launches_with_eval"]["fwd"]),
                  "gpt_generate": (generated["launches"],
-                                  generated["variant_launches"])}
+                                  generated["variant_launches"]),
+                 "features": (features["launches"],
+                              features["variant_launches"])}
+    for name, run in spec["runs"].items():
+        fwd_paths[f"spec_{name[0]}"] = (run["launches"],
+                                        run["variant_launches"])
     fwd = {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -2751,11 +3316,13 @@ def main() -> int:
             for v in served["variant_launches"]},
         "max_abs_err": max(max(errs.values()), bert_row["max_abs_err"],
                            gpt_rows["flash_attn_fwd"]["max_abs_err"],
-                           decode_row["max_abs_err"]),
+                           decode_row["max_abs_err"],
+                           *(r["max_abs_err"] for r in verify_rows)),
         "max_abs_err_f32": errs["float32"],
         "max_abs_err_bf16": max(errs["bfloat16"], bert_row["max_abs_err"],
                                 gpt_rows["flash_attn_fwd"]["max_abs_err"],
-                                decode_row["max_abs_err"]),
+                                decode_row["max_abs_err"],
+                                *(r["max_abs_err"] for r in verify_rows)),
         "ms": sum(r["kernel_ms"] for r in rows),
         **{key: sum(r[key] for r in rows) for key in timings},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
@@ -2817,6 +3384,8 @@ def main() -> int:
         "gpt_small_train": gpt,
         "gpt_small_generate": generated,
         "gpt_small_f32_generate_parity": gpt_parity,
+        "spec_serve": spec,
+        "radix_chunk_qos_serve": features,
     }
     log(json.dumps({"summary": summary}))
     log(card)

@@ -11,7 +11,9 @@ and ``ckpt`` verbs.
         --prompt "..." [--max-new-tokens N] [--temperature T --top-k K] \\
         [--vocab vocab.json] [--step N] workdir=...
     python -m deeplearning_cfn_tpu_torch.cli serve --preset transformer_nmt_wmt \\
-        --allow-init --requests reqs.jsonl [overrides ...]
+        --allow-init --requests reqs.jsonl [--speculate G [--speculate-device] \\
+        [--draft tiny-distilled]] [--radix-cache] [--prefill-chunk N] \\
+        [overrides ...]
     python -m deeplearning_cfn_tpu_torch.cli ckpt list <ckpt dir>
     python -m deeplearning_cfn_tpu_torch.cli ckpt rollback <ckpt dir> --step N
     python -m deeplearning_cfn_tpu_torch.cli train --preset maskrcnn_coco
@@ -22,8 +24,8 @@ these slices port (``train`` runs on this host only: no ``--stack``; a rerun
 resumes from the latest committed checkpoint). ``--accelerator`` takes ``gpu`` (the
 default — the CUDA card, raising without one) or ``cpu``. Serve
 requests are JSONL lines ``{"src_ids": [...]}`` with optional ``id``,
-``max_new_tokens``, ``beam_size`` and ``deadline_s``; text requests
-(``swap_variables`` and the tokenizer on the serving side) belong to
+``max_new_tokens``, ``beam_size``, ``deadline_s``, ``tenant`` and
+``qos_class``; text requests (the tokenizer on the serving side) belong to
 ROADMAP A.6. ``generate`` takes a byte-level prompt (byte + 4), or a BPE
 one with ``--vocab`` (``data/bpe.py``). The ``data`` verbs
 (``data prepare-coco`` and the rest) are not ported yet and raise, naming
@@ -223,6 +225,11 @@ def _cmd_serve(args) -> int:
             decode_window=args.decode_window,
             kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
             prefix_cache_size=args.prefix_cache,
+            speculate_gamma=args.speculate,
+            speculate_device=args.speculate_device,
+            draft_cfg=args.draft or None,
+            radix_cache=args.radix_cache,
+            prefill_chunk=args.prefill_chunk,
             step=args.step, allow_init=args.allow_init,
             device=args.accelerator)
     except (FileNotFoundError, ValueError, RuntimeError) as e:
@@ -270,6 +277,10 @@ def _cmd_serve(args) -> int:
         )
         if rec.get("deadline_s") is not None:
             kwargs["deadline_s"] = float(rec["deadline_s"])
+        # Optional multi-tenant QoS tags; untagged lines keep QoS off.
+        for key in ("tenant", "qos_class"):
+            if rec.get(key) is not None:
+                kwargs[key] = str(rec[key])
         while True:
             try:
                 submitted.append(engine.submit(src_ids, **kwargs).id)
@@ -365,7 +376,8 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--requests", required=True,
                     help="JSONL request trace path, or - for stdin; each "
                          "line {\"src_ids\": [...]} plus optional "
-                         "id/max_new_tokens/beam_size/deadline_s")
+                         "id/max_new_tokens/beam_size/deadline_s/tenant/"
+                         "qos_class")
     sv.add_argument("--slots", type=int, default=4,
                     help="slot-table capacity (concurrent KV-cache rows)")
     sv.add_argument("--queue-depth", type=int, default=64,
@@ -388,6 +400,25 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--prefix-cache", type=int, default=32,
                     help="encoder prefix-cache entries, keyed on the "
                          "unpadded source tokens (0 = disabled)")
+    sv.add_argument("--radix-cache", action="store_true",
+                    help="radix token-prefix KV cache: finished greedy "
+                         "streams' blocks are kept and shared with later "
+                         "identical-source requests; needs "
+                         "--kv-block-size > 0")
+    sv.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: admission encodes this many "
+                         "source tokens per engine tick (0 = one-shot "
+                         "prefill; tokens unchanged)")
+    sv.add_argument("--speculate", type=int, default=0,
+                    help="speculative decoding: draft tokens proposed per "
+                         "verify step (0 = off); self-draft unless --draft "
+                         "— greedy output is token-identical either way")
+    sv.add_argument("--speculate-device", action="store_true",
+                    help="chain speculative windows on the device (one "
+                         "host sync per chain; needs --speculate > 0)")
+    sv.add_argument("--draft", default="",
+                    help="committed distilled-draft preset for --speculate "
+                         "(e.g. tiny-distilled; empty = self-draft)")
     sv.add_argument("--step", type=int, default=0,
                     help="committed checkpoint step (0 = latest)")
     sv.add_argument("--allow-init", action="store_true",

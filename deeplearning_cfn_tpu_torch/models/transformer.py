@@ -22,8 +22,10 @@ serving slice uses: dense (full sequences), the per-row ``decode_pos``
 cache [B, H, max_len, D], and the paged block pool
 [num_blocks, H, block_size, D] with a null block 0. Caches are tensors the
 caller owns and are updated in place (the JAX engine donates them to the
-same effect). The multi-position (speculative) writes and the int8 KV pool
-are not ported yet.
+same effect). Both cached modes take S >= 1 positions per row (the
+speculative verify span): the S K/V vectors are written before the S
+queries attend, under a span bias that keeps query j causal. The int8 KV
+pool is not ported yet.
 """
 
 from __future__ import annotations
@@ -100,6 +102,24 @@ def step_bias(pos: torch.Tensor, span: int) -> torch.Tensor:
     return torch.where(live, zero, neg)[:, None, None, :]
 
 
+def span_bias(pos: torch.Tensor, s: int, span: int) -> torch.Tensor:
+    """Multi-position decode bias [B, 1, s, span]: query j of row b (at
+    position ``pos[b] + j``) sees positions <= ``pos[b] + j``."""
+    keys = torch.arange(span, device=pos.device)
+    last = pos[:, None] + torch.arange(s, device=pos.device)  # [B, s]
+    live = keys[None, None, :] <= last[:, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    neg = torch.full((), _NEG_INF, dtype=torch.float32, device=pos.device)
+    return torch.where(live, zero, neg)[:, None, :, :]
+
+
+def _span_positions(pos: torch.Tensor, s: int, limit: int):
+    """Row b's write positions ``pos[b] .. pos[b]+s-1`` [B, s] and which of
+    them lie below ``limit`` (the cache's span)."""
+    pos_mat = pos[:, None] + torch.arange(s, device=pos.device)
+    return pos_mat, pos_mat < limit
+
+
 class MultiHeadAttention(nn.Module):
     """Self- or cross-attention over [B, S, H*D] activations."""
 
@@ -145,48 +165,83 @@ class MultiHeadAttention(nn.Module):
 
     def decode_at(self, x: torch.Tensor, cache: KvCache,
                   pos: torch.Tensor) -> torch.Tensor:
-        """Single-position self-attention against a per-row cache
-        [B, H, max_len, D]: row b's K/V land at ``pos[b]`` (in place) and
-        row b attends to positions ``<= pos[b]``."""
+        """Self-attention of S >= 1 positions per row against a per-row
+        cache [B, H, max_len, D]: row b's S K/V vectors land at ``pos[b]``
+        .. ``pos[b]+S-1`` (in place, before the attend) and query j attends
+        to positions ``<= pos[b]+j``. Positions ``>= max_len`` are dropped,
+        as the JAX scatter drops them; ``pos[b]`` itself must be below
+        ``max_len``."""
         ck, cv = cache
         q = self._split(self.query(x))
         k = self._split(self.key(x))
         v = self._split(self.value(x))
-        rows = torch.arange(q.shape[0], device=q.device)
-        ck[rows, :, pos, :] = k[:, :, 0, :].to(ck.dtype)
-        cv[rows, :, pos, :] = v[:, :, 0, :].to(cv.dtype)
-        out = self._attend(q, ck, cv, step_bias(pos, ck.shape[2]), False)
-        return self._merge(out)
+        b, _, s, _ = q.shape
+        rows = torch.arange(b, device=q.device)
+        if s == 1:
+            ck[rows, :, pos, :] = k[:, :, 0, :].to(ck.dtype)
+            cv[rows, :, pos, :] = v[:, :, 0, :].to(cv.dtype)
+            bias = step_bias(pos, ck.shape[2])
+        else:
+            # index_put has no drop mode, and a clamped index would let a
+            # dropped entry overwrite position max_len - 1. So a dropped
+            # entry repeats the row's last in-range entry, index AND value:
+            # each in-range position is written with its own K/V only, and
+            # no host sync is needed to count the dropped entries.
+            pos_mat, valid = _span_positions(pos, s, ck.shape[2])
+            last = valid.long().sum(1, keepdim=True) - 1  # [B, 1]
+            j = torch.minimum(torch.arange(s, device=q.device)[None, :],
+                              last)  # [B, S]
+            at = pos[:, None] + j
+            r = rows[:, None].expand(b, s)
+            ck[r, :, at, :] = k.transpose(1, 2)[r, j].to(ck.dtype)
+            cv[r, :, at, :] = v.transpose(1, 2)[r, j].to(cv.dtype)
+            bias = span_bias(pos, s, ck.shape[2])
+        return self._merge(self._attend(q, ck, cv, bias, False))
 
     def decode_paged(self, x: torch.Tensor, cache: KvCache,
                      pos: torch.Tensor,
                      block_tables: torch.Tensor) -> torch.Tensor:
-        """Single-position self-attention against a shared block pool
+        """:meth:`decode_at` against a shared block pool
         [num_blocks, H, block_size, D]: row b's logical position p lives in
         block ``block_tables[b, p // block_size]`` at offset
         ``p % block_size``. Unbound table entries point at the null block
-        0 (writes from idle rows land there; the step bias hides it). With
-        ``max_blocks * block_size == max_len`` the gathered span equals the
-        dense row, so the output is bit-identical to :meth:`decode_at`."""
+        0 (writes from idle rows land there; the bias hides it), and so do
+        positions past the table's span. With ``max_blocks * block_size ==
+        max_len`` the gathered span equals the dense row, so the output is
+        bit-identical to :meth:`decode_at`."""
         pk, pv = cache
         bs = pk.shape[2]
         q = self._split(self.query(x))
         k = self._split(self.key(x))
         v = self._split(self.value(x))
-        b = q.shape[0]
+        b, _, s, _ = q.shape
         rows = torch.arange(b, device=q.device)
-        blk = block_tables[rows, pos // bs]
-        off = pos % bs
-        pk[blk, :, off, :] = k[:, :, 0, :].to(pk.dtype)
-        pv[blk, :, off, :] = v[:, :, 0, :].to(pv.dtype)
-        span = block_tables.shape[1] * bs
+        mb = block_tables.shape[1]
+        span = mb * bs
+        if s == 1:
+            blk = block_tables[rows, pos // bs]
+            off = pos % bs
+            pk[blk, :, off, :] = k[:, :, 0, :].to(pk.dtype)
+            pv[blk, :, off, :] = v[:, :, 0, :].to(pv.dtype)
+            bias = step_bias(pos, span)
+        else:
+            # Positions past the span go to the null block 0 at offset 0,
+            # never through a clamped table index (that would overwrite the
+            # row's real last block).
+            pos_mat, valid = _span_positions(pos, s, span)
+            entry = torch.clamp(pos_mat // bs, max=mb - 1)
+            blk = torch.where(valid, block_tables[rows[:, None], entry], 0)
+            off = torch.where(valid, pos_mat % bs, 0)
+            # Advanced indices at dims 0 and 2 put [B, S] first.
+            pk[blk, :, off, :] = k.transpose(1, 2).to(pk.dtype)
+            pv[blk, :, off, :] = v.transpose(1, 2).to(pv.dtype)
+            bias = span_bias(pos, s, span)
 
         def gathered(pool):  # [B, MB, H, bs, D] -> [B, H, span, D]
             return pool[block_tables].transpose(1, 2).reshape(
                 b, self.num_heads, span, self.head_dim)
 
-        out = self._attend(q, gathered(pk), gathered(pv),
-                           step_bias(pos, span), False)
+        out = self._attend(q, gathered(pk), gathered(pv), bias, False)
         return self._merge(out)
 
 

@@ -4,10 +4,13 @@
 Pre-LN transformer-base with one token table tied three ways (source,
 target and output projection) plus learned source/target positions. The
 methods the serving engine and the offline decoders call are here:
-``encode``, ``decode`` (teacher-forced), ``decode_step`` (one shared
-position, for the offline oracles), ``decode_step_at`` (per-row positions
-over a dense cache), ``decode_step_paged`` (per-row positions over a block
-pool), and the fused-argmax ``greedy_step_at``/``greedy_step_paged``.
+``encode`` (and ``encode_partial``, the chunked-prefill encode), ``decode``
+(teacher-forced), ``decode_step`` (one shared position, for the offline
+oracles), ``decode_step_at`` (per-row positions over a dense cache),
+``decode_step_paged`` (per-row positions over a block pool), the
+fused-argmax ``greedy_step_at``/``greedy_step_paged``, and the speculative
+verify spans ``decode_span_at``/``decode_span_paged`` (S positions per row
+in one call).
 
 Decoder KV caches are explicit: :meth:`TransformerNMT.init_cache` returns a
 list of per-layer ``(k, v)`` tensors [B, H, max_len, D] and
@@ -66,8 +69,18 @@ class NmtEmbeddings(nn.Module):
 
     def embed_tgt_at(self, ids: torch.Tensor, pos: torch.Tensor
                      ) -> torch.Tensor:
-        """[B, 1] ids at per-row positions ``pos`` [B]."""
-        y = self.token(ids) + self.tgt_position[pos][:, None, :]
+        """[B, S] ids at per-row positions ``pos`` [B] .. ``pos + S - 1``,
+        each clamped to the last position-table row (as JAX clamps; the
+        engine never emits from a clamped position)."""
+        s = ids.shape[1]
+        if s == 1:
+            pos_emb = self.tgt_position[pos][:, None, :]
+        else:
+            pos_mat = torch.clamp(
+                pos[:, None] + torch.arange(s, device=pos.device),
+                max=self.tgt_position.shape[0] - 1)
+            pos_emb = self.tgt_position[pos_mat]
+        y = self.token(ids) + pos_emb
         return self.tgt_norm(y.to(self.dtype))
 
     def logits(self, y: torch.Tensor) -> torch.Tensor:
@@ -133,6 +146,16 @@ class TransformerNMT(nn.Module):
             x = lyr(x, self_bias=enc_bias, generator=generator)
         return self.enc_norm(x)
 
+    def encode_partial(self, src_ids: torch.Tensor, src_mask: torch.Tensor
+                       ) -> torch.Tensor:
+        """Chunked-prefill partial encode: the same computation as
+        :meth:`encode` over a prefix-truncated source (PAD past the chunk
+        cursor, mask to match). The rows are provisional — the engine runs
+        the full-source :meth:`encode` at chunk completion, which keeps
+        chunked prefill token-identical to the one-shot path. A method of
+        its own so that the launch audit and traces count chunk work."""
+        return self.encode(src_ids, src_mask)
+
     def decode(self, tgt_in_ids: torch.Tensor, enc: torch.Tensor,
                src_mask: torch.Tensor,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -177,6 +200,27 @@ class TransformerNMT(nn.Module):
         pools; ``block_tables`` [B, max_blocks] maps row b's position p to
         pool block ``block_tables[b, p // block_size]``."""
         return self._step(tgt_id, enc, src_mask, pos, cache, block_tables)
+
+    def decode_span_at(self, tgt_ids: torch.Tensor, enc: torch.Tensor,
+                       src_mask: torch.Tensor, pos: torch.Tensor,
+                       cache: List[KvCache]) -> torch.Tensor:
+        """Speculative verify: score S positions per row in one call.
+        ``tgt_ids`` [B, S] are the tokens at positions ``pos[b]`` ..
+        ``pos[b]+S-1``; logits [B, S, V] slice j is the distribution for
+        position ``pos[b]+j+1``. Every decoder layer writes the S K/V
+        vectors before attending, and the span bias keeps query j causal,
+        so slice j equals what S sequential :meth:`decode_step_at` calls
+        give. Positions past ``max_len`` are dropped from the cache and
+        their logits are garbage; the engine never emits from them."""
+        return self._step(tgt_ids, enc, src_mask, pos, cache)
+
+    def decode_span_paged(self, tgt_ids: torch.Tensor, enc: torch.Tensor,
+                          src_mask: torch.Tensor, pos: torch.Tensor,
+                          block_tables: torch.Tensor,
+                          cache: List[KvCache]) -> torch.Tensor:
+        """Paged-KV form of :meth:`decode_span_at` (positions past the
+        table's span are written to the null block 0)."""
+        return self._step(tgt_ids, enc, src_mask, pos, cache, block_tables)
 
     def greedy_step_at(self, tgt_id, enc, src_mask, pos, cache
                        ) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Continuous-batching NMT serving — the port of the JAX package's serve/.
 
-``queue``, ``blockpool``, ``prefix`` and ``metrics`` are copies of the JAX
-package's jax-free host modules; ``engine`` and ``loader`` are ports.
+``queue``, ``blockpool``, ``prefix``, ``radix`` and ``metrics`` are copies of
+the JAX package's jax-free host modules; ``engine`` and ``loader`` are
+ports.
 """
 
 from .blockpool import BlockAllocator, BlockPoolExhausted  # noqa: F401
@@ -9,9 +10,14 @@ from .engine import Engine  # noqa: F401
 from .metrics import ServeMetrics, percentile  # noqa: F401
 from .prefix import PrefixCache  # noqa: F401
 from .queue import (  # noqa: F401
+    DEFAULT_QOS_CLASS,
     DeadlineExceededError,
     OverloadError,
+    QosSpec,
+    RateLimitError,
     Request,
     RequestQueue,
     RequestState,
+    default_qos_classes,
 )
+from .radix import RadixCache, RadixNode  # noqa: F401

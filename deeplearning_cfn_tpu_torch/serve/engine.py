@@ -1,13 +1,13 @@
 """Continuous-batching inference engine over the KV-cache decoder.
 
-The port of ``deeplearning_cfn_tpu/serve/engine.py``, restricted to what
-slice 1 serves. A fixed-capacity **slot table** of KV-cache rows is driven
-by decode steps against per-row positions (``decode_step_at`` /
-``greedy_step_at`` of models/transformer_nmt.py): queued requests are
-admitted into free rows mid-flight, rows are evicted the moment their
-request hits EOS / budget / deadline, and recycled without stalling their
-neighbours. Row recycling needs no cache zeroing: the per-row step bias
-only exposes positions ``<= pos[row]``.
+The port of ``deeplearning_cfn_tpu/serve/engine.py``. A fixed-capacity
+**slot table** of KV-cache rows is driven by decode steps against per-row
+positions (``decode_step_at`` / ``greedy_step_at`` of
+models/transformer_nmt.py): queued requests are admitted into free rows
+mid-flight, rows are evicted the moment their request hits EOS / budget /
+deadline, and recycled without stalling their neighbours. Row recycling
+needs no cache zeroing: the per-row step bias only exposes positions
+``<= pos[row]``.
 
 What is ported:
 
@@ -22,25 +22,48 @@ What is ported:
 - dense per-row KV rows or the paged block pool (block 0 = null sentinel,
   token-budget admission, copy-on-write beam forks) — bit-identical to each
   other when the block size divides ``max_len``;
-- the encoder prefix cache, cancel, deadlines and overload backpressure.
+- the encoder prefix cache, cancel, deadlines and overload backpressure;
+- speculative decoding (``speculate_gamma``): a draft model — the target
+  itself unless ``draft_model`` is given — proposes γ tokens per row, the
+  target scores all γ+1 positions in one ``decode_span_*`` call, and the
+  accept-prefix rule keeps the output token-identical to plain greedy. The
+  host path surfaces [capacity, 2γ+1] ids per window; with
+  ``speculate_device`` windows are chained on the device (accept and
+  advance included) with one host sync per chain. Beams and deadlines take
+  the plain paths, tick by tick;
+- the radix token-prefix KV cache (``radix_cache``, paged engines): finished
+  greedy streams donate their full decoder blocks to a per-source tree
+  (serve/radix.py) and a later same-source request completes from it or
+  resumes at the block boundary;
+- chunked prefill (``prefill_chunk``): admission encodes ``prefill_chunk``
+  source tokens per tick (provisional partial encodes), then the
+  full-source encode at completion, so tokens equal the one-shot path's;
+- multi-tenant QoS (``qos_classes``, ``tenant`` / ``qos_class`` on submit):
+  weighted fair share in the queue, and a blocked higher-priority head
+  preempts a best-effort group, which restarts from scratch later (the
+  tokens it had emitted are kept for the zero-loss audit).
 
-The KV cache, the encoder table and the source-mask table are updated in
+The KV caches, the encoder tables and the source-mask table are updated in
 place (the JAX engine donates them into each device call for the same
 effect). Constructor arguments of later slices raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them.
+naming the ROADMAP.md item that ports them. The draft model carries its
+own weights (the JAX engine's ``draft_variables``).
 
 Every device call is counted for the launch audit: ``encoder_forwards``
-(encoder applications, the constructor's warmup included) and
-``decoder_steps`` (decode-step applications). On the card each encoder
-forward launches the flash kernel once per encoder layer and each decoder
-step twice per decoder layer.
+(target encoder applications, the constructor's warmup included),
+``partial_encodes`` (chunked-prefill encodes), ``decoder_steps``
+(single-position decode steps), ``verify_steps`` (speculative verify spans),
+``draft_steps`` and ``draft_encoder_forwards`` (the distinct draft's own
+encoder). On the card every encode launches the flash kernel once per
+encoder layer, and every decoder, verify or draft step twice per decoder
+layer of its model.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -51,20 +74,15 @@ from ..obs.trace import span
 from .blockpool import BlockAllocator
 from .metrics import ServeMetrics
 from .prefix import PrefixCache, unpadded_key
-from .queue import OverloadError, Request, RequestQueue, RequestState
+from .queue import OverloadError, QosSpec, Request, RequestQueue, \
+    RequestState
+from .radix import RadixCache
 
 # Out-of-slice options → the ROADMAP.md item that ports them.
 _LATER = {
-    "radix_cache": "A.6b (radix token-prefix KV cache)",
-    "speculate_gamma": "A.6a (speculative decoding)",
-    "speculate_device": "A.6a (speculative decoding)",
-    "draft_model": "A.6a (speculative decoding)",
-    "draft_variables": "A.6a (speculative decoding)",
-    "prefill_chunk": "A.6c (chunked prefill)",
     "phase": "A.6d (disaggregated prefill/decode handoff)",
     "quantize": "A.6e (int8 weights and KV)",
     "kv_quant": "A.6e (int8 weights and KV)",
-    "qos_classes": "A.6f (multi-tenant QoS and preemption)",
 }
 
 
@@ -92,17 +110,27 @@ class _Group:
     beam_tokens: Optional[np.ndarray] = None
     # Paged mode: worst-case KV blocks reserved at admission.
     committed_blocks: int = 0
+    # Radix cache: tokens resumed from cached blocks (never decoded here,
+    # so not goodput) and how many bound blocks came shared from the tree.
+    radix_hit_tokens: int = 0
+    radix_shared_blocks: int = 0
+    # Chunked prefill: source tokens the chunk quota has covered and chunk
+    # ticks taken. The group waits in ``_prefilling`` until the cursor
+    # covers its source.
+    prefill_cursor: int = 0
+    chunk_ticks: int = 0
 
 
 class Engine:
     """Continuous-batching serving engine for the NMT encoder-decoder.
 
     ``model`` is a :class:`~..models.transformer_nmt.TransformerNMT` with
-    its weights, on the device the engine runs on. ``capacity`` is the
-    number of KV-cache rows; ``max_src_len`` the fixed source padding every
-    request is encoded at. :meth:`step` runs one decode window over all
-    rows with admission/eviction around it; :meth:`run_until_drained` loops
-    it.
+    its weights, on the device the engine runs on; ``draft_model`` (same
+    vocab, ``max_len`` at least the target's, same device) drafts for
+    speculation. ``capacity`` is the number of KV-cache rows; ``max_src_len``
+    the fixed source padding every request is encoded at. :meth:`step` runs
+    one decode window over all rows with admission/eviction around it;
+    :meth:`run_until_drained` loops it.
     """
 
     def __init__(self, model, capacity: int = 4, max_src_len: int = 0,
@@ -114,7 +142,6 @@ class Engine:
                  speculate_gamma: int = 0,
                  speculate_device: bool = False,
                  draft_model=None,
-                 draft_variables=None,
                  quantize: str = "",
                  kv_quant: str = "",
                  phase: str = "both",
@@ -122,15 +149,9 @@ class Engine:
                  metrics: Optional[ServeMetrics] = None,
                  retry_after_floor_s: Optional[float]
                  = RequestQueue.DEFAULT_RETRY_AFTER_FLOOR_S,
-                 qos_classes=None,
+                 qos_classes: Optional[Dict[str, QosSpec]] = None,
                  prefill_chunk: int = 0):
-        later = dict(radix_cache=radix_cache, speculate_gamma=speculate_gamma,
-                     speculate_device=speculate_device,
-                     draft_model=draft_model,
-                     draft_variables=draft_variables,
-                     prefill_chunk=prefill_chunk, quantize=quantize,
-                     kv_quant=kv_quant, qos_classes=qos_classes)
-        for name, value in later.items():
+        for name, value in (("quantize", quantize), ("kv_quant", kv_quant)):
             if value:
                 raise _not_ported(name)
         if (phase or "both") != "both":
@@ -140,6 +161,17 @@ class Engine:
         if decode_window <= 0:
             raise ValueError(
                 f"decode_window must be positive, got {decode_window}")
+        if speculate_gamma < 0:
+            raise ValueError(
+                f"speculate_gamma must be >= 0, got {speculate_gamma}")
+        if speculate_device and speculate_gamma <= 0:
+            raise ValueError(
+                "speculate_device requires speculate_gamma > 0 — there "
+                "is no speculative loop to move on-device")
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {prefill_chunk}")
         self.model = model
         self.device = model.device
         self.capacity = capacity
@@ -156,10 +188,51 @@ class Engine:
         self.length_penalty = length_penalty
         self._clock = clock
         self.queue = RequestQueue(max_depth=queue_depth, clock=clock,
-                                  retry_after_floor_s=retry_after_floor_s)
+                                  retry_after_floor_s=retry_after_floor_s,
+                                  qos_classes=qos_classes)
         self.metrics = metrics if metrics is not None \
             else ServeMetrics(capacity, clock=clock)
         self.metrics.configure_request_ledger()
+        if self.prefill_chunk > 0:
+            self.metrics.configure_chunked_prefill(self.prefill_chunk)
+            # The overload hint stretches by the queued prompt-token
+            # backlog over this quota.
+            self.queue.configure_prefill_chunk(self.prefill_chunk)
+        # The QoS metrics appear at construction for an explicit policy,
+        # else at the first tenant-tagged submit.
+        if self.queue.qos_active:
+            self.metrics.configure_qos()
+
+        # Speculative decoding: without a draft_model the target drafts for
+        # itself (acceptance is then total: the γ+1 tokens-per-verify
+        # ceiling).
+        self.speculate_gamma = int(speculate_gamma)
+        self.speculate_device = bool(speculate_device)
+        self._self_draft = draft_model is None
+        self.draft_model = None
+        if self.speculate_gamma > 0:
+            self.draft_model = self.model if draft_model is None \
+                else draft_model
+            draft_max_len = int(getattr(self.draft_model, "max_len", 0)
+                                or 0)
+            if draft_max_len < self.model_max_len:
+                raise ValueError(
+                    f"draft max_len {draft_max_len} is shorter than the "
+                    f"target's {self.model_max_len} — the draft must be "
+                    f"able to reach every target position")
+            draft_vocab = int(getattr(self.draft_model, "vocab_size", 0)
+                              or 0)
+            tgt_vocab = int(getattr(model, "vocab_size", 0) or 0)
+            if draft_vocab != tgt_vocab:
+                raise ValueError(
+                    f"draft vocab_size {draft_vocab} != target's "
+                    f"{tgt_vocab} — proposals would not be comparable")
+            if self.draft_model.device != self.device:
+                raise ValueError(
+                    f"draft model is on {self.draft_model.device}, the "
+                    f"target on {self.device}")
+            self.metrics.configure_speculation(self.speculate_gamma)
+            self.metrics.configure_spec_chain(self.speculate_device)
 
         # Paged KV: the gathered span (max_blocks * block_size) must equal
         # max_len — the paged-vs-dense bit-identity condition.
@@ -194,11 +267,25 @@ class Engine:
             if prefix_cache_size > 0 else None
         if self._prefix is not None:
             self.metrics.configure_prefix_cache(prefix_cache_size)
+        if radix_cache:
+            if not self.paged:
+                raise ValueError(
+                    "radix_cache requires the paged KV path "
+                    "(kv_block_size > 0) — cached prefixes are shared "
+                    "pool blocks")
+            self.radix = RadixCache(self.kv_block_size)
+            self.metrics.configure_radix()
+        else:
+            self.radix = None
         # Logical source encodes (one per admitted request that missed the
         # prefix cache) and the device-call tallies of the launch audit.
         self.encoder_invocations = 0
         self.encoder_forwards = 0
+        self.partial_encodes = 0
         self.decoder_steps = 0
+        self.verify_steps = 0
+        self.draft_steps = 0
+        self.draft_encoder_forwards = 0
 
         # Device state. One warmup encode at the admission batch shape
         # fixes the encoder table's width and dtype.
@@ -207,6 +294,22 @@ class Engine:
             zeros = torch.zeros((cap, s), dtype=torch.long,
                                 device=self.device)
             enc1 = self._encode(zeros, zeros)
+            # The draft cache follows the target's layout (the same block
+            # tables index its own pools). Self-draft reads the target's
+            # encoder table; a distinct draft has its own, refreshed by the
+            # same admission prefill.
+            self._enc_d = None
+            self._draft_cache = None
+            if self.speculate_gamma > 0:
+                if not self._self_draft:
+                    enc1d = self._encode_draft(zeros, zeros)
+                    self._enc_d = torch.zeros(
+                        (cap, s, enc1d.shape[-1]), dtype=enc1d.dtype,
+                        device=self.device)
+                dm = self.draft_model
+                self._draft_cache = dm.init_paged_cache(
+                    self.kv_blocks, self.kv_block_size) if self.paged \
+                    else dm.init_cache(cap)
         self._enc = torch.zeros((cap, s, enc1.shape[-1]), dtype=enc1.dtype,
                                 device=self.device)
         self._src_mask = torch.zeros((cap, s), dtype=torch.long,
@@ -222,6 +325,10 @@ class Engine:
         self._pos = np.zeros((cap,), np.int64)
         self._row_owner: List[Optional[str]] = [None] * cap
         self._groups: List[_Group] = []
+        # Chunked prefill: admitted groups (rows owned, block commit held)
+        # whose source encode is still in progress; no decode path runs
+        # them until the full-source encode at completion.
+        self._prefilling: List[_Group] = []
 
     # -- client surface ----------------------------------------------------
 
@@ -232,10 +339,9 @@ class Engine:
                trace_id: Optional[str] = None,
                tenant: Optional[str] = None,
                qos_class: Optional[str] = None) -> Request:
-        """Validate + enqueue. Raises OverloadError when the queue is full,
+        """Validate + enqueue. Raises OverloadError when the queue is full
+        (RateLimitError when a class's per-tenant rate limit rejects),
         ValueError on requests the engine could never place."""
-        if tenant is not None or qos_class is not None:
-            raise _not_ported("qos_classes")
         if not src_ids:
             raise ValueError("src_ids must be non-empty")
         if len(src_ids) > self.max_src_len:
@@ -259,10 +365,15 @@ class Engine:
             req = self.queue.submit(src_ids, budget, beam_size=beam_size,
                                     deadline_s=deadline_s,
                                     request_id=request_id,
-                                    trace_id=trace_id)
+                                    trace_id=trace_id,
+                                    tenant=tenant, qos_class=qos_class)
         except OverloadError as e:
+            if self.queue.qos_active:
+                self.metrics.configure_qos()
             self.metrics.record_reject(e.retry_after_s)
             raise
+        if self.queue.qos_active:
+            self.metrics.configure_qos()
         self.metrics.record_submit()
         return req
 
@@ -276,9 +387,24 @@ class Engine:
         """Row → owning request id (None = free). For tests/diagnostics."""
         return list(self._row_owner)
 
+    def reset_radix_cache(self) -> int:
+        """Drop every radix-cached block. Returns blocks released; 0 when
+        radix is off."""
+        if self.radix is None:
+            return 0
+        dropped = self.radix.reset(self.allocator)
+        self.metrics.record_radix_evictions("reset", dropped)
+        self._radix_sync_gauges()
+        return dropped
+
+    def _radix_sync_gauges(self) -> None:
+        if self.radix is not None:
+            self.metrics.set_radix_size(self.radix.node_count,
+                                        self.radix.block_count)
+
     @property
     def active_requests(self) -> int:
-        return len(self._groups)
+        return len(self._groups) + len(self._prefilling)
 
     @property
     def active_rows(self) -> int:
@@ -289,6 +415,16 @@ class Engine:
     def _encode(self, src: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         self.encoder_forwards += 1
         return self.model.encode(src, mask)
+
+    def _encode_partial(self, src: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+        self.partial_encodes += 1
+        return self.model.encode_partial(src, mask)
+
+    def _encode_draft(self, src: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+        self.draft_encoder_forwards += 1
+        return self.draft_model.encode(src, mask)
 
     def _tables(self) -> Optional[torch.Tensor]:
         if not self.paged:
@@ -313,6 +449,45 @@ class Engine:
         return self.model.greedy_step_at(prev[:, None], self._enc,
                                          self._src_mask, pos, self.cache)
 
+    def _draft_step(self, prev, pos, tables) -> torch.Tensor:
+        self.draft_steps += 1
+        enc = self._enc if self._enc_d is None else self._enc_d
+        if self.paged:
+            return self.draft_model.greedy_step_paged(
+                prev[:, None], enc, self._src_mask, pos, tables,
+                self._draft_cache)
+        return self.draft_model.greedy_step_at(
+            prev[:, None], enc, self._src_mask, pos, self._draft_cache)
+
+    def _verify(self, tgt_in, pos, tables) -> torch.Tensor:
+        """The target's argmax at each of the span's γ+1 positions."""
+        self.verify_steps += 1
+        if self.paged:
+            logits = self.model.decode_span_paged(
+                tgt_in, self._enc, self._src_mask, pos, tables, self.cache)
+        else:
+            logits = self.model.decode_span_at(
+                tgt_in, self._enc, self._src_mask, pos, self.cache)
+        return torch.argmax(logits.float(), dim=-1)
+
+    def _draft_propose(self, prev, pos, active, tables) -> torch.Tensor:
+        """γ proposals per row [capacity, γ]. The draft runs γ+1 steps: it
+        feeds ``prev`` then each of its own proposals, so its cache holds
+        K/V at every position ``pos .. pos+γ`` — the bonus position of a
+        fully accepted window included — and the next window's first write
+        overwrites the one position whose token the target corrected. Only
+        the last step's output is discarded."""
+        max_len = self.model_max_len
+        pad = torch.full_like(prev, PAD_ID)
+        dprev, dpos = prev, pos
+        props = []
+        for _ in range(self.speculate_gamma + 1):
+            nxt = self._draft_step(dprev, dpos, tables)
+            dprev = torch.where(active, nxt, pad)
+            dpos = torch.clamp(dpos + active.long(), max=max_len - 1)
+            props.append(dprev)
+        return torch.stack(props[:self.speculate_gamma], dim=1)
+
     # -- scheduler ---------------------------------------------------------
 
     def _free_rows(self) -> List[int]:
@@ -328,8 +503,9 @@ class Engine:
 
     def _bind_rows(self, k: int) -> None:
         """Bind pool blocks to every active row to cover the next ``k``
-        decode steps, drawing on the group's admission-time reservation (so
-        :meth:`BlockAllocator.alloc` cannot fail here)."""
+        decode positions, drawing on the group's admission-time reservation
+        (so :meth:`BlockAllocator.alloc` cannot fail here). Writes past the
+        bound span land in the null block (table entries default 0)."""
         for g in self._groups:
             span_ = min(g.steps + k, g.budget)
             need = min(self.allocator.blocks_for_tokens(span_),
@@ -398,20 +574,80 @@ class Engine:
             self.allocator.uncommit(group.committed_blocks)
             group.committed_blocks = 0
 
+    def _radix_instant_complete(self, req: Request, tokens: List[int],
+                                now: float) -> None:
+        """A cached stream covers this request's whole response: admit and
+        release at once, with no rows and no blocks. The ledger sees no
+        decode work."""
+        group = _Group(req=req, rows=[], budget=req.max_new_tokens)
+        group.radix_hit_tokens = len(tokens)
+        req.state = RequestState.RUNNING
+        req.admitted_at = now
+        if req.preempted_at is not None:
+            req.preempted_s += now - req.preempted_at
+            req.preempted_at = None
+        else:
+            self.metrics.record_admit(now - req.submitted_at)
+        req.tokens = list(tokens)
+        if req.first_token_at is None:
+            req.first_token_at = now
+            self.metrics.record_first_token(req.ttft_s)
+        self.metrics.record_radix_lookup("instant", len(tokens))
+        self._release(group, RequestState.DONE, now)
+
+    def _radix_retire(self, group: _Group, state: RequestState,
+                      now: float) -> None:
+        """On release, before the blocks go back to the pool: a DONE greedy
+        stream donates its fully-written blocks to the tree (each new node
+        takes its own reference). Partial tail blocks are never donated."""
+        if not group.rows or group.req.beam_size > 1:
+            return
+        r = group.rows[0]
+        self.metrics.record_radix_blocks(group.radix_shared_blocks,
+                                         len(self._blocks_bound[r]))
+        if state is not RequestState.DONE:
+            return
+        bs = self.kv_block_size
+        full = len(group.req.tokens) // bs
+        if full <= 0:
+            return
+        self.radix.insert(
+            unpadded_key(group.req.src_ids, PAD_ID),
+            group.req.tokens[:full * bs], self._blocks_bound[r][:full],
+            self.allocator, now, tenant=group.req.tenant)
+        self._radix_sync_gauges()
+
     def _release(self, group: _Group, state: RequestState,
                  now: float) -> None:
+        if self.radix is not None:
+            self._radix_retire(group, state, now)
         self._free_group_resources(group)
         req = group.req
         req.state = state
         req.finished_at = now
-        self._groups.remove(group)
+        if group in self._groups:
+            self._groups.remove(group)
+        elif group in self._prefilling:
+            self._prefilling.remove(group)  # cancelled/expired mid-chunking
         self.metrics.record_finish(state.value, req.latency_s)
-        # Goodput/waste ledger: every decoded row-step is attributed once.
-        kept = len(req.tokens)
+        # Goodput/waste ledger: every decoded row-step is attributed once;
+        # tokens resumed from the radix tree were never decoded here.
+        kept = max(0, len(req.tokens) - group.radix_hit_tokens)
         if state is RequestState.DONE:
             self.metrics.record_ledger(
                 goodput=kept, wasted=max(0, group.decoded - kept),
                 reason="beam_discard")
+            self.metrics.record_qos_finish(req.qos_class, req.latency_s)
+            if req.parked_tokens:
+                # Zero-token-loss audit: the resumed stream must reproduce
+                # every token it emitted before its preemption.
+                matched = 0
+                for a, b in zip(req.parked_tokens, req.tokens):
+                    if a != b:
+                        break
+                    matched += 1
+                self.metrics.record_preempt_resume_audit(
+                    replayed=matched, lost=len(req.parked_tokens) - matched)
         else:
             reason = ("deadline" if state is RequestState.EXPIRED
                       else "preempted")
@@ -433,9 +669,9 @@ class Engine:
         group.req.tokens = [int(t) for t in gen[best]]
 
     def _reap(self, now: float) -> None:
-        """Evict cancelled/expired running requests — their rows are free
-        for this very step's admission."""
-        for g in list(self._groups):
+        """Evict cancelled/expired running or mid-chunked-prefill requests —
+        their rows are free for this very step's admission."""
+        for g in list(self._groups) + list(self._prefilling):
             if g.req.cancel_requested:
                 state = RequestState.CANCELLED
             elif g.req.deadline is not None and now >= g.req.deadline:
@@ -446,54 +682,186 @@ class Engine:
                 self._finalize_beam(g)
             self._release(g, state, now)
 
+    def _preempt(self, group: _Group, now: float) -> None:
+        """Evict a preemptible group so a higher-priority request can place:
+        ledger its decode work as preempted waste, free its rows and blocks,
+        park its emitted tokens for the zero-loss audit and reinstate it at
+        the front of its class. Not a release: the request goes on."""
+        self.metrics.record_ledger(wasted=group.decoded, reason="preempted")
+        self._free_group_resources(group)
+        if group in self._groups:
+            self._groups.remove(group)
+        else:
+            # Half-prefilled: no decode work sunk; the resumed attempt
+            # re-chunks from cursor 0 in a fresh group.
+            self._prefilling.remove(group)
+            if self.prefill_chunk > 0:
+                self.queue.note_prefill_backlog(
+                    self._chunk_backlog_tokens())
+        req = group.req
+        if len(req.tokens) > len(req.parked_tokens):
+            req.parked_tokens = list(req.tokens)
+        req.tokens = []
+        req.prefill_s = None
+        req.preemptions += 1
+        req.preempted_at = now
+        self.metrics.record_preemption()
+        self.queue.reinstate(req)
+
+    def _pick_victim(self, now: float) -> Optional[_Group]:
+        """The group a blocked higher-priority head may evict: among groups
+        whose class is preemptible and strictly outranked by the head's,
+        the lowest-ranked class, then the least sunk decode work, then the
+        most recent admission."""
+        head = self.queue.peek_priority_head(now)
+        if head is None:
+            return None
+        head_prio = self.queue.qos_spec(head.qos_class).priority
+        candidates = []
+        for g in self._groups + self._prefilling:
+            spec = self.queue.qos_spec(g.req.qos_class)
+            if spec.preemptible and spec.priority > head_prio:
+                candidates.append((spec.priority, -g.decoded,
+                                   g.req.admitted_at or 0.0, g))
+        if not candidates:
+            return None
+        candidates.sort(key=lambda c: (-c[0], c[1], -c[2]))
+        return candidates[0][3]
+
     def _admit(self, now: float) -> None:
-        """Admit every queued request that fits (FIFO; a beam group that
-        does not fit blocks later requests), then prefill them all in one
-        padded encode."""
+        """Admit every queued request that fits (in queue order; a beam
+        group that does not fit blocks later requests of its class), then
+        prefill them all in one padded encode — or, under chunked prefill,
+        hold their rows and blocks and leave the encode to the chunk ticks.
+        With QoS active, a higher-priority head that still cannot place
+        preempts best-effort groups one at a time."""
         free = self._free_rows()
         admits: List[_Group] = []
         can_place = None
         if self.paged:
             # Token-budget admission: the head is admissible only while the
-            # pool can cover its worst-case block reservation.
+            # pool can cover its worst-case block reservation. ``free`` is
+            # read through the closure, so it tracks this loop's hand-outs.
             def can_place(req):
                 if req.beam_size > len(free):
                     return False
-                return self.allocator.can_commit(
-                    self._peak_blocks(req.beam_size, req.max_new_tokens))
-        while free:
-            req = self.queue.pop_ready(now, can_place=can_place)
-            if req is None:
+                peak = self._peak_blocks(req.beam_size, req.max_new_tokens)
+                if self.radix is not None:
+                    # Tree-held blocks back no commitment: evict cold
+                    # leaves until this reservation fits, touching the
+                    # head's own chain first so it is evicted last.
+                    self.radix.lookup(unpadded_key(req.src_ids, PAD_ID),
+                                      now)
+                    evs = self.radix.ensure_free(
+                        self.allocator, peak, tenant=req.tenant)
+                    for cause, n in evs.items():
+                        self.metrics.record_radix_evictions(cause, n)
+                    if evs:
+                        self._radix_sync_gauges()
+                return self.allocator.can_commit(peak)
+        while True:
+            while free:
+                req = self.queue.pop_ready(now, can_place=can_place)
+                if req is None:
+                    break
+                w = req.beam_size
+                if w > len(free):
+                    self.queue.requeue_front(req)
+                    break
+                # Radix walk (greedy only). Greedy decoding is
+                # deterministic, so a cached stream for the same unpadded
+                # source is what this request would generate: complete at
+                # once if it covers the response, else resume at the last
+                # cached block boundary.
+                hit_tokens: List[int] = []
+                hit_blocks: List[int] = []
+                if self.radix is not None and w == 1:
+                    hit_tokens, hit_blocks = self.radix.lookup(
+                        unpadded_key(req.src_ids, PAD_ID), now)
+                    lim = min(len(hit_tokens), req.max_new_tokens)
+                    eos = next((i for i in range(lim)
+                                if hit_tokens[i] == EOS_ID), -1)
+                    if eos >= 0 or (lim and lim == req.max_new_tokens):
+                        self._radix_instant_complete(
+                            req, hit_tokens[:eos + 1] if eos >= 0
+                            else hit_tokens[:lim], now)
+                        continue
+                rows, free = free[:w], free[w:]
+                resumed = req.preempted_at is not None
+                for r in rows:
+                    if self._row_owner[r] is not None:
+                        raise RuntimeError(f"admit into occupied row {r}")
+                    self._prev[r] = BOS_ID
+                    self._pos[r] = 0
+                    self._row_owner[r] = req.id
+                group = _Group(req=req, rows=rows, budget=req.max_new_tokens)
+                if self.paged:
+                    peak = self._peak_blocks(w, group.budget)
+                    self.allocator.commit(peak)
+                    group.committed_blocks = peak
+                if w > 1:
+                    group.scores = np.full((w,), -1e9, np.float32)
+                    group.scores[0] = 0.0
+                    group.beam_done = np.zeros((w,), bool)
+                    group.beam_tokens = np.full((w, group.budget + 1),
+                                                PAD_ID, np.int64)
+                    group.beam_tokens[:, 0] = BOS_ID
+                admits.append(group)
+                self._groups.append(group)
+                req.state = RequestState.RUNNING
+                req.admitted_at = now
+                if resumed:
+                    # A preempted stream restarts from scratch (determinism
+                    # regenerates its parked prefix); the parked time goes
+                    # to the ledger's preempted phase, not the queue wait.
+                    req.preempted_s += now - req.preempted_at
+                    req.preempted_at = None
+                    req.tokens = []
+                else:
+                    self.metrics.record_admit(now - req.submitted_at)
+                if hit_tokens:
+                    # Resume from the cached prefix: share the matched full
+                    # blocks by refcount and restart at position m. The
+                    # next write lands in a fresh tail block (_bind_rows
+                    # appends after the shared entries), so shared blocks
+                    # are never written.
+                    m = len(hit_tokens)
+                    r = rows[0]
+                    for b in hit_blocks:
+                        self.allocator.ref(b)
+                    self._blocks_bound[r] = list(hit_blocks)
+                    self._block_tables[r, :len(hit_blocks)] = hit_blocks
+                    req.tokens = list(hit_tokens)
+                    group.steps = m
+                    group.radix_hit_tokens = m
+                    group.radix_shared_blocks = len(hit_blocks)
+                    self._prev[r] = hit_tokens[-1]
+                    self._pos[r] = m
+                    if req.first_token_at is None:
+                        req.first_token_at = now
+                        self.metrics.record_first_token(req.ttft_s)
+                    self.metrics.record_radix_lookup("hit", m)
+                elif self.radix is not None and w == 1:
+                    self.metrics.record_radix_lookup("miss", 0)
+            if not self.queue.qos_active:
                 break
-            w = req.beam_size
-            if w > len(free):
-                self.queue.requeue_front(req)
+            victim = self._pick_victim(now)
+            if victim is None or victim in admits:
                 break
-            rows, free = free[:w], free[w:]
-            for r in rows:
-                assert self._row_owner[r] is None, \
-                    f"admit into occupied row {r}"
-                self._prev[r] = BOS_ID
-                self._pos[r] = 0
-                self._row_owner[r] = req.id
-            group = _Group(req=req, rows=rows, budget=req.max_new_tokens)
-            if self.paged:
-                peak = self._peak_blocks(w, group.budget)
-                self.allocator.commit(peak)
-                group.committed_blocks = peak
-            if w > 1:
-                group.scores = np.full((w,), -1e9, np.float32)
-                group.scores[0] = 0.0
-                group.beam_done = np.zeros((w,), bool)
-                group.beam_tokens = np.full((w, group.budget + 1), PAD_ID,
-                                            np.int64)
-                group.beam_tokens[:, 0] = BOS_ID
-            admits.append(group)
-            self._groups.append(group)
-            req.state = RequestState.RUNNING
-            req.admitted_at = now
-            self.metrics.record_admit(now - req.submitted_at)
+            self._preempt(victim, now)
+            free = self._free_rows()
         if not admits:
+            return
+        self.metrics.set_qos_fair_share(self.queue.fair_share_violation_max())
+        if self.prefill_chunk > 0:
+            # Rows and the block commit are held from now; the encode runs
+            # in per-tick chunks and prefill_s accumulates across them.
+            self._groups = [g for g in self._groups if g not in admits]
+            for group in admits:
+                group.req.state = RequestState.PREFILLING
+                group.req.prefill_s = 0.0
+                self._prefilling.append(group)
+            self.queue.note_prefill_backlog(self._chunk_backlog_tokens())
             return
         t_prefill = self._clock()
         try:
@@ -505,26 +873,37 @@ class Engine:
             for group in admits:
                 group.req.prefill_s = dt
 
-    def _prefill(self, admits: List[_Group]) -> None:
-        """Batched prefill: the encode batch is always [capacity, S]; slot j
-        encodes the source for row ``row_targets[j]``, and unused slots
-        stay all-PAD. A beam group's source occupies one slot per row."""
+    def _admit_batch(self, groups: List[_Group], cursor: bool = False):
+        """The [capacity, S] source batch of ``groups`` (slot j encodes the
+        source of row ``targets[j]``; a beam group takes one slot per row;
+        unused slots stay all-PAD), each source cut at its chunk cursor when
+        ``cursor``. Returns the host sources, their unpadded keys, the
+        device source and mask, the target rows and the slot count."""
         cap, s = self.capacity, self.max_src_len
         src = np.full((cap, s), PAD_ID, np.int64)
         row_targets: List[int] = []
-        group_keys: List[tuple] = []
-        for group in admits:
+        keys: List[tuple] = []
+        for group in groups:
+            ids = group.req.src_ids
+            if cursor:
+                ids = ids[:group.prefill_cursor]
             row_src = np.full((s,), PAD_ID, np.int64)
-            row_src[:len(group.req.src_ids)] = group.req.src_ids
-            group_keys.append(unpadded_key(row_src, PAD_ID))
+            row_src[:len(ids)] = ids
+            keys.append(unpadded_key(row_src, PAD_ID))
             for r in group.rows:
                 src[len(row_targets)] = row_src
                 row_targets.append(r)
-        n = len(row_targets)
         mask = (src != PAD_ID).astype(np.int64)
-        src_t = torch.as_tensor(src, device=self.device)
-        mask_t = torch.as_tensor(mask, device=self.device)
-        targets = torch.as_tensor(row_targets, device=self.device)
+        return (keys, torch.as_tensor(src, device=self.device),
+                torch.as_tensor(mask, device=self.device),
+                torch.as_tensor(row_targets, device=self.device),
+                len(row_targets))
+
+    def _prefill(self, admits: List[_Group]) -> None:
+        """Batched prefill into the encoder and source-mask tables, through
+        the prefix cache when there is one, then the distinct draft's own
+        encoder table."""
+        group_keys, src_t, mask_t, targets, n = self._admit_batch(admits)
         if self._prefix is None:
             self.encoder_invocations += len(admits)
             enc_new = self._encode(src_t, mask_t)[:n]
@@ -551,6 +930,94 @@ class Engine:
             enc_new = torch.stack(rows_out)
         self._enc[targets] = enc_new
         self._src_mask[targets] = mask_t[:n]
+        if self._enc_d is not None:
+            # Never prefix-cached: caching buys target-encoder work only.
+            self._enc_d[targets] = self._encode_draft(src_t, mask_t)[:n]
+
+    # -- chunked prefill ---------------------------------------------------
+
+    def _chunk_backlog_tokens(self) -> int:
+        """Source tokens still awaiting a chunk across PREFILLING groups —
+        the backlog term of the queue's retry-after hint."""
+        return sum(len(g.req.src_ids) - g.prefill_cursor
+                   for g in self._prefilling)
+
+    def _chunk_tick(self) -> int:
+        """Spend the per-tick quota (``prefill_chunk`` source tokens) across
+        the PREFILLING groups' cursors — QoS priority first, admission
+        order within a class — then run one partial encode over the
+        advanced but incomplete groups and the full-width :meth:`_prefill`
+        over those whose cursor now covers their source. Returns the number
+        of groups advanced."""
+        if not self._prefilling:
+            return 0
+        had_decode = bool(self._groups)
+        order = sorted(
+            self._prefilling,
+            key=lambda g: (
+                self.queue.qos_spec(g.req.qos_class).priority
+                if self.queue.qos_active else 0,
+                g.req.admitted_at or 0.0))
+        quota = self.prefill_chunk
+        used = 0
+        advanced: List[_Group] = []
+        for g in order:
+            if quota <= 0:
+                break
+            take = min(quota, len(g.req.src_ids) - g.prefill_cursor)
+            if take <= 0:
+                continue
+            g.prefill_cursor += take
+            quota -= take
+            used += take
+            g.chunk_ticks += 1
+            g.req.prefill_chunks += 1
+            advanced.append(g)
+        if not advanced:
+            return 0
+        completing = [g for g in advanced
+                      if g.prefill_cursor >= len(g.req.src_ids)]
+        partial = [g for g in advanced
+                   if g.prefill_cursor < len(g.req.src_ids)]
+        t0 = self._clock()
+        if partial:
+            self._partial_encode(partial)
+        if completing:
+            for g in completing:
+                self._prefilling.remove(g)
+                g.req.state = RequestState.RUNNING
+                # Fused windows run meanwhile set this row's _prev mirror
+                # to PAD: restore BOS, or the radix-resume tail token,
+                # before the first decode step reads it.
+                if g.steps > 0:
+                    self._prev[g.rows[0]] = g.req.tokens[-1]
+                    self._pos[g.rows[0]] = g.steps
+                else:
+                    for r in g.rows:
+                        self._prev[r] = BOS_ID
+                        self._pos[r] = 0
+                self._groups.append(g)
+            self._prefill(completing)
+        # Each advanced group spent this whole tick in its prefill phase.
+        dt = self._clock() - t0
+        for g in advanced:
+            g.req.prefill_s = (g.req.prefill_s or 0.0) + dt
+        for g in completing:
+            self.metrics.record_chunk_prefill_done(g.chunk_ticks)
+        self.metrics.record_chunk_tick(
+            chunks=len(advanced), tokens=used,
+            partial_rows=len(self._prefilling), decode_active=had_decode)
+        self.queue.note_prefill_backlog(self._chunk_backlog_tokens())
+        return len(advanced)
+
+    def _partial_encode(self, groups: List[_Group]) -> None:
+        """Encode the groups' chunk-covered source prefixes at the admission
+        shape into the encoder tables. The rows are provisional: no decode
+        step attends a PREFILLING row, and the completion's full-source
+        encode overwrites them. The draft's table is refreshed only then."""
+        _, src_t, mask_t, targets, n = self._admit_batch(groups, cursor=True)
+        self._enc[targets] = self._encode_partial(src_t, mask_t)[:n]
+        self._src_mask[targets] = mask_t[:n]
 
     def _beam_select(self, logits_rows: np.ndarray, scores: np.ndarray,
                      done: np.ndarray):
@@ -568,11 +1035,14 @@ class Engine:
                 (top_flat % v).numpy())
 
     def _plan_window(self) -> int:
-        """How many fused steps the next tick may run. Windows > 1 only
-        when the scheduler provably has nothing to do at intermediate
-        steps: greedy-only traffic, no running deadlines, and no admissible
-        queued work."""
+        """How many fused steps (or chained speculative windows) the next
+        tick may run. More than one only when the scheduler provably has
+        nothing to do in between: no chunked prefill in progress,
+        greedy-only traffic, no running deadlines, no admissible queued
+        work, and no pending request that outranks a preemptible group."""
         if self.decode_window <= 1:
+            return 1
+        if self._prefilling:
             return 1
         if any(g.req.beam_size > 1 for g in self._groups):
             return 1
@@ -580,31 +1050,57 @@ class Engine:
             return 1
         if self.queue.depth > 0 and any(o is None for o in self._row_owner):
             return 1
+        if self.queue.qos_active:
+            pend = self.queue.min_pending_priority()
+            if pend is not None:
+                for g in self._groups:
+                    spec = self.queue.qos_spec(g.req.qos_class)
+                    if spec.preemptible and spec.priority > pend:
+                        return 1
         return self.decode_window
 
     # -- the step ----------------------------------------------------------
 
     @torch.no_grad()
     def step(self) -> int:
-        """One engine tick: reap → admit (batched prefill) → one decode
-        window over all running rows → per-group bookkeeping → evict
-        finished. Returns the number of decode steps run (0 = idle). Ticks
-        with a beam group take the single-step logits path."""
+        """One engine tick: reap → admit → one chunk tick over the
+        PREFILLING groups → one decode window over all running rows →
+        per-group bookkeeping → evict finished. Returns the number of
+        decode steps run (0 = idle; a chunk-only tick reports 1). Ticks
+        with a beam group take the single-step logits path; speculation
+        runs only on pure-greedy ticks without deadlines."""
         now = self._clock()
         self._reap(now)
         with span("serve.admit", queued=self.queue.depth) as sp:
-            before = len(self._groups)
+            before_g = len(self._groups)
+            before_p = len(self._prefilling)
             self._admit(now)
-            admitted = self._groups[before:]
+            admitted = self._groups[before_g:] + self._prefilling[before_p:]
             if admitted:
                 sp.annotate(request_ids=[g.req.id for g in admitted])
+        chunked = 0
+        if self._prefilling:
+            with span("serve.chunk_prefill",
+                      rows=len(self._prefilling)) as sp:
+                chunked = self._chunk_tick()
+                sp.annotate(advanced=chunked)
         if not self._groups:
-            return 0
+            return 1 if chunked else 0
         active_ids = [g.req.id for g in self._groups]
         if any(g.req.beam_size > 1 for g in self._groups):
             with span("serve.decode", path="host", k=1,
                       request_ids=active_ids):
                 return self._host_step()
+        if self.speculate_gamma > 0 and not any(
+                g.req.deadline is not None for g in self._groups):
+            if self.speculate_device:
+                k = self._plan_window()
+                with span("serve.decode", path="spec-device", k=k,
+                          request_ids=active_ids):
+                    return self._spec_chain_step(k)
+            with span("serve.decode", path="spec", k=self.speculate_gamma,
+                      request_ids=active_ids):
+                return self._spec_step()
         k = self._plan_window()
         with span("serve.decode", path="fused", k=k, request_ids=active_ids):
             return self._fused_step(k)
@@ -675,6 +1171,168 @@ class Engine:
             active_row_steps, self.queue.depth, new_tokens, dt, steps=k,
             kv_blocks_in_use=kv_in_use)
         return k
+
+    def _emit(self, g: _Group, r: int, tok: int, now: float) -> bool:
+        """Emit one speculative token into group ``g`` (row ``r``) with the
+        fused window's termination rules; True when the request is done."""
+        g.req.tokens.append(tok)
+        g.steps += 1
+        g.decoded += 1
+        if g.req.first_token_at is None:
+            g.req.first_token_at = now
+            self.metrics.record_first_token(g.req.ttft_s)
+        new_pos = int(self._pos[r]) + 1
+        exhausted = new_pos >= self.model_max_len
+        self._pos[r] = min(new_pos, self.model_max_len - 1)
+        self._prev[r] = tok
+        return tok == EOS_ID or g.steps >= g.budget or exhausted
+
+    def _spec_step(self) -> int:
+        """One speculative tick on the host path: the draft proposes γ, the
+        target verifies the γ+1 positions in one call, and the host emits
+        the longest accepted prefix plus the target's next token, with EOS,
+        budget and cache exhaustion enforced token by token."""
+        cap = self.capacity
+        gamma = self.speculate_gamma
+        active = np.zeros((cap,), bool)
+        for g in self._groups:
+            active[g.rows[0]] = True
+        if self.paged:
+            # The verify writes positions pos .. pos+γ (clamped to each
+            # row's budget; past it, writes land in the null block).
+            self._bind_rows(gamma + 1)
+        kv_in_use = self.allocator.blocks_in_use if self.paged else None
+        t0 = self._clock()
+        dev = self.device
+        tables = self._tables()
+        prev = torch.as_tensor(self._prev, device=dev)
+        pos = torch.as_tensor(self._pos, device=dev)
+        act = torch.as_tensor(active, device=dev)
+        props = self._draft_propose(prev, pos, act, tables)
+        tgt = self._verify(torch.cat([prev[:, None], props], dim=1), pos,
+                           tables)
+        # Host traffic: [capacity, 2γ+1] ids — γ proposals and γ+1 target
+        # tokens per row.
+        ids = torch.cat([props, tgt], dim=1).cpu().numpy()
+        props, tgt = ids[:, :gamma], ids[:, gamma:]
+        dt = self._clock() - t0
+        self.queue.note_decode_window(dt)
+        now = self._clock()
+        new_tokens = 0
+        rows_active = 0
+        accepted_total = 0
+        rates: List[float] = []
+        for g in list(self._groups):
+            r = g.rows[0]
+            rows_active += 1
+            a = 0
+            while a < gamma and props[r, a] == tgt[r, a]:
+                a += 1
+            accepted_total += a
+            rates.append(a / gamma)
+            for j in range(a + 1):
+                new_tokens += 1
+                if self._emit(g, r, int(tgt[r, j]), now):
+                    self._release(g, RequestState.DONE, now)
+                    break
+        self.metrics.record_step(
+            rows_active, self.queue.depth, new_tokens, dt, steps=1,
+            kv_blocks_in_use=kv_in_use)
+        self.metrics.record_spec(
+            proposed=gamma * rows_active, accepted=accepted_total,
+            target_row_steps=rows_active, emitted=new_tokens, rates=rates)
+        # One device→host sync per window, counted as the chain path counts
+        # them so that host syncs per token compare across the two.
+        self.metrics.record_spec_chain(windows=1, syncs=1,
+                                       emitted=new_tokens)
+        return 1
+
+    def _spec_chain_step(self, chain: int) -> int:
+        """One device-resident speculative tick: ``chain`` windows of
+        propose → verify → accept → advance, chained on the device with no
+        host sync between them, then one transfer of the [chain, capacity,
+        γ+1] target ids and [chain, capacity] accept counts. The host
+        replays emission under the rules the device applied, so its mirrors
+        land where the device left prev/pos."""
+        cap = self.capacity
+        gamma = self.speculate_gamma
+        max_len = self.model_max_len
+        active = np.zeros((cap,), bool)
+        steps_left = np.zeros((cap,), np.int64)
+        for g in self._groups:
+            r = g.rows[0]
+            active[r] = True
+            steps_left[r] = g.budget - g.steps
+        if self.paged:
+            # Worst case every window accepts everything.
+            self._bind_rows(chain * (gamma + 1))
+        kv_in_use = self.allocator.blocks_in_use if self.paged else None
+        t0 = self._clock()
+        dev = self.device
+        tables = self._tables()
+        prev = torch.as_tensor(self._prev, device=dev)
+        pos = torch.as_tensor(self._pos, device=dev)
+        left = torch.as_tensor(steps_left, device=dev)
+        act = torch.as_tensor(active, device=dev)
+        pad = torch.full_like(prev, PAD_ID)
+        windows = []
+        for _ in range(chain):
+            props = self._draft_propose(prev, pos, act, tables)
+            tgt = self._verify(torch.cat([prev[:, None], props], dim=1),
+                               pos, tables)
+            # Accept-prefix length per row: the cumulative product stops at
+            # the first disagreement.
+            acc = (props == tgt[:, :gamma]).long().cumprod(dim=1).sum(dim=1)
+            # Emit positions j = 0..acc with the fused window's rules: an
+            # EOS mid-window ends the row for every later window too.
+            for j in range(gamma + 1):
+                can = act & (acc >= j)
+                tok = torch.where(can, tgt[:, j], pad)
+                left = left - can.long()
+                new_pos = pos + can.long()
+                done_now = can & ((tok == EOS_ID) | (left <= 0)
+                                  | (new_pos >= max_len))
+                act = act & ~done_now
+                prev = torch.where(can, tok, prev)
+                pos = torch.clamp(new_pos, max=max_len - 1)
+            windows.append(torch.cat([tgt, acc[:, None]], dim=1))
+        # The one host sync of the chain.
+        out = torch.stack(windows).cpu().numpy()  # [chain, cap, γ+2]
+        tgts, accs = out[:, :, :gamma + 1], out[:, :, gamma + 1]
+        dt = self._clock() - t0
+        self.queue.note_decode_window(dt)
+        now = self._clock()
+        new_tokens = 0
+        active_row_steps = 0
+        accepted_total = 0
+        rates: List[float] = []
+        for g in list(self._groups):
+            r = g.rows[0]
+            done = False
+            for w in range(chain):
+                a = int(accs[w, r])
+                active_row_steps += 1
+                accepted_total += a
+                rates.append(a / gamma)
+                for j in range(a + 1):
+                    new_tokens += 1
+                    if self._emit(g, r, int(tgts[w, r, j]), now):
+                        done = True
+                        break
+                if done:
+                    break
+            if done:
+                self._release(g, RequestState.DONE, now)
+        self.metrics.record_step(
+            active_row_steps, self.queue.depth, new_tokens, dt,
+            steps=chain, kv_blocks_in_use=kv_in_use)
+        self.metrics.record_spec(
+            proposed=gamma * active_row_steps, accepted=accepted_total,
+            target_row_steps=active_row_steps, emitted=new_tokens,
+            rates=rates)
+        self.metrics.record_spec_chain(windows=chain, syncs=1,
+                                       emitted=new_tokens)
+        return chain
 
     def _host_step(self) -> int:
         """Logits-returning path for ticks with beam rows: beam candidate
@@ -768,7 +1426,8 @@ class Engine:
         Optionally emits a metrics record every ``emit_every`` ticks and a
         final one on drain. Returns the number of engine ticks taken."""
         steps = 0
-        while (self.queue.depth > 0 or self._groups) and steps < max_steps:
+        while (self.queue.depth > 0 or self._groups or self._prefilling) \
+                and steps < max_steps:
             self.step()
             steps += 1
             if writer is not None and emit_every > 0 \

@@ -12,7 +12,10 @@ generator, and Mask R-CNN's plain-PyTorch path (``nms_static``,
 ``multilevel_roi_align`` forward and backward, the tiny ``DetectionTask``
 loss) against the CPU, and GPT's path: the three kernels at 1023, 1024 and
 1025 causal keys, the decode variant over a 1024-slot cache with the step
-bias at batch 1 and 8, and the tiny f32 ``CausalLmTask`` against the CPU.
+bias at batch 1 and 8, and the tiny f32 ``CausalLmTask`` against the CPU;
+and speculative serving: the verify span (γ = 1, 4, 8, dense and paged)
+against the plain version, and a tiny f32 speculative engine on the card
+against the CPU.
 This file imports no JAX, so it runs on a machine that has only PyTorch and
 the CUDA toolkit:
 
@@ -722,3 +725,78 @@ def test_gpt_tiny_f32_on_card_matches_cpu(cuda):
     for (name, p), (_, r) in zip(card.model.named_parameters(),
                                  cpu.model.named_parameters()):
         assert (p.grad.cpu() - r.grad).norm() <= 1e-4 * norm, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("gamma", [1, 4, 8])
+def test_verify_span_matches_plain_version(cuda, gamma, paged, dtype):
+    """The speculative verify span: q [8, 8, γ+1, 64] in the model's strided
+    layout with the span bias of ``models/transformer.py:span_bias`` (rows
+    at their own positions, the last spans past max_len) against the
+    128-slot cache or the paged gather (``chip_smoke.span_inputs``); bf16
+    on ``decode``."""
+    from chip_smoke import span_inputs
+
+    q, k, v, bias = span_inputs(torch, gamma, gamma + 1, dtype, paged)
+    variant = attn.forward_variant(dtype, gamma + 1, 64)
+    assert variant == ("decode" if dtype == torch.bfloat16 else "simt")
+    n = attn.flash_attention_forward.variant_launches[variant]
+    out = attn.flash_attention_forward(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert attn.flash_attention_forward.variant_launches[variant] == n + 1
+    ref = attn.attention_reference(q, k, v, bias)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert scaled_error(out, ref)["ok"], scaled_error(out, ref)
+
+
+def test_spec_engine_tiny_f32_on_card_matches_cpu(cuda):
+    """A tiny f32 speculative engine (paged, γ = 3, the device chain, a
+    shrunk distinct draft) on the card against the same engine on the CPU,
+    from one seeded init with the Dense weights scaled ×3 (so that greedy
+    choices are clear of ties): identical tokens, and the first verify's
+    logits within 1e-4 of the largest."""
+    from deeplearning_cfn_tpu_torch.models.transformer import Dense
+    from deeplearning_cfn_tpu_torch.models.transformer_nmt import (
+        init_weights, transformer_nmt_tiny)
+    from deeplearning_cfn_tpu_torch.serve import Engine
+
+    def pair(seed, **kw):
+        cpu = transformer_nmt_tiny(vocab_size=64, max_len=32, **kw)
+        init_weights(cpu, torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            for mod in cpu.modules():
+                if isinstance(mod, Dense):
+                    mod.weight.mul_(3.0)
+        card = transformer_nmt_tiny(vocab_size=64, max_len=32,
+                                    device=cuda, **kw)
+        card.load_state_dict(cpu.state_dict())
+        return cpu.requires_grad_(False), card.requires_grad_(False)
+
+    target, draft = pair(0), pair(1, hidden_size=32, num_layers=1,
+                                  num_heads=2)
+    rng = np.random.default_rng(0)
+    srcs = [[int(t) for t in rng.integers(3, 64, 2 + i % 6)] + [2]
+            for i in range(8)]
+    tokens, first = [], []
+    for i in range(2):
+        eng = Engine(target[i], capacity=4, max_src_len=8, kv_block_size=8,
+                     decode_window=4, speculate_gamma=3,
+                     speculate_device=True, draft_model=draft[i])
+        ids = [eng.submit(s, max_new_tokens=6 + 2 * j).id
+               for j, s in enumerate(srcs)]
+        eng.run_until_drained()
+        tokens.append([list(eng.poll(r).tokens) for r in ids])
+        m = target[i]
+        src = torch.tensor([s + [0] * (8 - len(s)) for s in srcs[:4]],
+                           device=m.device)
+        mask = (src != 0).long()
+        tgt = torch.tensor([[1, 5, 9, 13]] * 4, device=m.device)
+        with torch.no_grad():
+            first.append(m.decode_span_at(
+                tgt, m.encode(src, mask), mask,
+                torch.tensor([0, 3, 28, 30], device=m.device),
+                m.init_cache(4)).cpu())
+    assert tokens[0] == tokens[1]
+    assert len({tuple(t) for t in tokens[0]}) > 1
+    assert (first[1] - first[0]).abs().max() <= 1e-4 * first[0].abs().max()

@@ -77,6 +77,17 @@ MIXED = [GREEDY[0], BEAM[0], GREEDY[1], GREEDY[2], BEAM[1], GREEDY[3],
 TRAFFIC = {"greedy": GREEDY, "beam": BEAM, "mixed": MIXED}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One worker's share of the cores (torch would start a thread per core
+    in every pytest-xdist worker)."""
+    before = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def weights():
     jm = jax_tiny(**MODEL_KW)
@@ -247,7 +258,6 @@ def test_deadline_expires_running_request_within_one_step(weights):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("speculate_gamma", 2), ("radix_cache", True), ("prefill_chunk", 4),
     ("quantize", "int8"), ("kv_quant", "int8"), ("phase", "prefill"),
 ])
 def test_out_of_slice_options_name_their_roadmap_item(weights, option,
@@ -353,7 +363,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "deeplearning_cfn_tpu_torch.models.lm",
             "deeplearning_cfn_tpu_torch.models.decoding",
             "deeplearning_cfn_tpu_torch.data.bpe",
-            "deeplearning_cfn_tpu_torch.data.text"} <= set(modules)
+            "deeplearning_cfn_tpu_torch.data.text",
+            "deeplearning_cfn_tpu_torch.serve.radix"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
