@@ -222,6 +222,40 @@ order; a failing phase raises, so the exit code is nonzero:
    differ at a near-tie of the plain run's top two logits (within 2e-2 of
    the largest). It prints queue-wait p50 / p95 per class, TTFT p50,
    tokens/s and the radix block count.
+21. train ``imagenet_vit_s16`` at full width in bf16 through
+   ``train.run.run_experiment`` (224² images, patch 16: 196 tokens, hidden
+   384, 12 layers, 6 heads of 64, MLP 1536, dropout 0.1, label smoothing
+   0.1, AdamW with weight decay 0.05 behind the 1.0 clip, cosine) on
+   synthetic ImageNet: global batch 1024 as 4 microbatches of 256, 2
+   warm-up steps then 20 timed, each synced. Cuts, printed by the phase
+   (``VIT_CUTS``). It prints the step time p50 and images/s p50 (host
+   clock), the MFU share (images/s × 3 × the forward FLOPs counted from
+   the shapes, over 989 TFLOP/s), the peak memory, the first-5 and last-5
+   mean losses (finite and falling) and the eval's top-1 and top-5. Over
+   the run the forward, dK/dV and dQ kernels must each have launched on
+   ``tc`` 12 times per microbatch, the forward 12 more per eval batch, the
+   reference VJP never: ViT is the first train path whose backward kernels
+   run without causality and without a bias. It then times the three
+   kernels at [256, 6, 196, 64] bf16, non-causal, as phase 8 does and
+   holds O, lse, dK, dV and dQ against their plain versions there (196
+   keys: every row ends in a partial 64-key tile, and the last Q tile
+   holds 4 rows); then the tiny f32 ViT on the card against the CPU
+   (logits, loss, gradients; TF32 off) and 5 Adafactor steps of it on
+   each (``vit_parity``);
+22. train ``bert_moe_wikipedia`` at full width in bf16 (BERT-base with 8
+   experts in every other layer, top-2, capacity factor 1.25: 40 slots per
+   expert; LAMB) as phase 13 trains BERT-base: batch 1024 as 2 × 512, 22
+   steps. It prints phase 13's figures (the MFU share counting the expert
+   einsums at every capacity slot they execute), and ``moe_load_balance``
+   and ``moe_router_z`` at every step, which must be finite; the launch
+   checks are phase 13's. Then the tiny f32 BERT-MoE and GPT-MoE on the
+   card against the CPU: dispatch masks equal, loss and gradients within
+   tolerance, GPT-MoE's greedy ``lm_generate`` rows token-identical
+   (``moe_parity``);
+23. train ``bert_pipelined_wikipedia`` at full width on one card (the
+   stacked trunk as the plain layer scan; the preset's 8 microbatches and
+   4-way pipe axis are ignored and printed) in bf16, as phase 13: batch
+   1024 as 2 × 512, 22 steps, phase 13's figures and launch checks.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -229,7 +263,9 @@ ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
 256), ``--profile-bert`` steady full-width bf16 BERT-base train steps
 (batch 1024 as 2 × 512), ``--profile-maskrcnn`` steady full-width bf16
 Mask R-CNN train steps (batch 8), ``--profile-gpt`` steady full-width bf16
-GPT-2-small train steps (batch 16 at 1024): host time against device-busy time,
+GPT-2-small train steps (batch 16 at 1024), ``--profile-vit`` steady
+full-width bf16 ViT-S/16 train steps (batch 1024 as 4 × 256): host time
+against device-busy time,
 device ops per step, kernels ranked and, for the ResNet, BERT and Mask
 R-CNN, device time by kind (convolutions forward / data-gradient /
 weight-gradient, elementwise and reductions — BatchNorm's share —, copies
@@ -237,7 +273,9 @@ and casts, the optimizer; for BERT the bf16 and f32 GEMMs, the forward
 kernel, softmax, layer norm and dropout; for Mask R-CNN the ROI-align
 gathers and their ``index_add`` backward, the sorts, NMS's bool masks and
 the targets' gathers; for GPT the three kernels, the bf16 GEMMs, the f32
-tied logits, the log-softmax, layer norm, dropout and AdamW), and for BERT
+tied logits, the log-softmax, layer norm, dropout and AdamW; for ViT the
+three kernels, the patch convolution, the bf16 GEMMs, layer norm, dropout
+and AdamW), and for BERT
 and GPT the same step with ``train.remat`` in turns (step time, peak
 memory, kernel launches); none prints a result line.
 
@@ -246,7 +284,8 @@ Every ``run_experiment`` phase trains in a fresh workdir under
 end (the save cadence is set past the run), so the timed steps hold no
 save.
 
-The line before the last is the kernels JSON line; the last line is
+The whole script's seconds are printed before the card line. The line
+before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
 it exits nonzero and prints no result.
 """
@@ -358,6 +397,60 @@ GPT_CUTS = ["train.global_batch=16 in one microbatch (the preset's 512 is a "
             "the end",
             "one checkpoint, the final forced save (every_steps past the "
             "run), so no save lands among the timed steps"]
+
+# Phase 21: ViT-S/16 (imagenet_vit_s16) at full width, bf16. Its 12
+# self-attentions carry neither a bias nor causality (196 tokens: 3 full
+# 64-key tiles and 4 keys): per microbatch the forward, dK/dV and dQ
+# kernels 12 times each (tc), the reference VJP never; per eval batch 12
+# forwards.
+VIT_BATCH, VIT_ACCUM, VIT_WARMUP, VIT_STEPS = 1024, 4, 2, 20
+VIT_LAYERS, VIT_HEADS, VIT_TOKENS = 12, 6, 196
+VIT_TRAIN_EXAMPLES, VIT_EVAL, VIT_EVAL_BATCH = 1024, 512, 256
+VIT_SHAPE = (VIT_BATCH // VIT_ACCUM, VIT_HEADS, VIT_TOKENS, VIT_TOKENS,
+             HEAD_DIM)
+VIT_PER_STEP = {"fwd": 12, "dkdv": 12, "dq": 12, "vjp": 0}
+VIT_CUTS = ["train.grad_accum_steps=4 (the preset's global batch 1024 as 4 "
+            "microbatches of 256)",
+            "train.steps=22 (preset 300 epochs: 2 warm-up steps, 20 timed)",
+            "schedule.warmup_steps=2 (the preset's 5 of 300 epochs, scaled "
+            "to the step count)",
+            "data.num_train_examples=1024 (synthetic ImageNet, 616 MB of "
+            "f32 on the host: one epoch per step)",
+            "eval on 512 examples at batch 256, once, at the end",
+            "train.shard_opt_state ignored (ZeRO-1 over one device is the "
+            "unsharded update)",
+            "one checkpoint, the final forced save (every_steps past the "
+            "run)"]
+# Phase 21's tiny f32 ViT (tests/test_torch_vit.py's config), card vs CPU.
+VIT_TINY = ["model.name=vit_tiny", "model.num_classes=10",
+            "model.kwargs.dropout_rate=0.0", "data.image_size=16",
+            "train.dtype=float32", "data.num_train_examples=80",
+            "train.global_batch=16", "schedule.warmup_steps=2",
+            "schedule.warmup_epochs=0", "schedule.base_lr=3e-3"]
+# Phase 22: BERT-base with Mixture-of-Experts FFNs (bert_moe_wikipedia): 8
+# experts in every other layer, top-2, capacity factor 1.25 (40 slots per
+# expert at sequence 128). Its attention calls are BERT-base's.
+MOE_CUTS = BERT_CUTS + [
+    "mesh.expert=8 ignored (one device holds every expert; the expert "
+    "axis is ROADMAP A.10)"]
+# Phase 22's tiny f32 MoE models (tests/test_torch_moe.py's configs).
+MOE_TINY = ["model.kwargs.num_experts=4", "model.kwargs.moe_every=2",
+            "model.kwargs.moe_top_k=2", "model.kwargs.moe_capacity_factor=0.5",
+            "model.kwargs.dropout_rate=0.0", "train.dtype=float32"]
+MOE_BERT_TINY = ["model.name=bert_tiny", "model.kwargs.hidden_size=32",
+                 "model.kwargs.num_layers=2", "model.kwargs.num_heads=2",
+                 "model.kwargs.mlp_dim=64", "model.kwargs.max_len=32",
+                 "data.vocab_size=64", "data.seq_len=16",
+                 "data.num_train_examples=16"] + MOE_TINY
+MOE_GPT_TINY = ["model.name=gpt_tiny", "model.kwargs.max_len=64",
+                "data.vocab_size=512", "data.seq_len=16"] + MOE_TINY
+# Phase 23: the pipelined BERT trunk (bert_pipelined_wikipedia) on one card:
+# the plain layer scan of its stacked parameters; BERT-base's attention
+# calls.
+PIPE_CUTS = BERT_CUTS + [
+    "model.kwargs.n_microbatches=8 and mesh.pipe=4 ignored (one device "
+    "runs the plain layer scan; the GPipe schedule across devices is "
+    "ROADMAP A.10)"]
 
 
 def log(msg: str) -> None:
@@ -1006,26 +1099,27 @@ def train_bounds(b, h, sq, sk, d, causal, elem_bytes=2):
 
 
 def time_training_kernels(torch, attn, shape=TRAIN_SHAPE,
-                          label="train_decoder_self", iters=(50, 5, 20, 3)):
-    """Phase 8 (and 17): kernel / plain / library times of the three
-    kernels at a causal training shape (bf16). ``iters``: events and
-    profiler iterations and warm-ups of the kernels, then of the plain
-    versions."""
+                          label="train_decoder_self", iters=(50, 5, 20, 3),
+                          causal=True):
+    """Phase 8 (and 17, 21): kernel / plain / library times of the three
+    kernels at a bias-free training shape (bf16), causal or not.
+    ``iters``: events and profiler iterations and warm-ups of the kernels,
+    then of the plain versions."""
     F = torch.nn.functional
-    args = bwd_inputs(torch, attn, 500, *shape, torch.bfloat16, True)
+    args = bwd_inputs(torch, attn, 500, *shape, torch.bfloat16, causal)
     q, k, v, do, lse, delta, causal, scale = args
     # The same call in the model's layout: q/k/v and dO as transposed views.
-    sargs = bwd_inputs(torch, attn, 500, *shape, torch.bfloat16, True,
+    sargs = bwd_inputs(torch, attn, 500, *shape, torch.bfloat16, causal,
                        strided=True)
     strided = {
         "flash_attn_fwd": lambda: attn.flash_attention_forward(
-            *sargs[:3], causal=True, return_lse=True),
+            *sargs[:3], causal=causal, return_lse=True),
         "flash_attn_bwd_dkdv": lambda: attn.flash_attn_bwd_dkdv(*sargs),
         "flash_attn_bwd_dq": lambda: attn.flash_attn_bwd_dq(*sargs),
     }
     kernel = {
         "flash_attn_fwd": lambda: attn.flash_attention_forward(
-            q, k, v, causal=True, return_lse=True),
+            q, k, v, causal=causal, return_lse=True),
         "flash_attn_bwd_dkdv": lambda: attn.flash_attn_bwd_dkdv(*args),
         "flash_attn_bwd_dq": lambda: attn.flash_attn_bwd_dq(*args),
     }
@@ -1033,7 +1127,7 @@ def time_training_kernels(torch, attn, shape=TRAIN_SHAPE,
     # inputs.
     dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
     before = {
-        "flash_attn_fwd": lambda: attn._launch(q, k, v, None, True, scale,
+        "flash_attn_fwd": lambda: attn._launch(q, k, v, None, causal, scale,
                                                True, "simt"),
         "flash_attn_bwd_dkdv": lambda: attn._launch_bwd(
             "flash_attn_bwd_dkdv", *args, (dk, dv), "simt",
@@ -1044,23 +1138,23 @@ def time_training_kernels(torch, attn, shape=TRAIN_SHAPE,
     }
     plain = {
         "flash_attn_fwd": lambda: (
-            attn.attention_reference(q, k, v, causal=True),
-            attn._reference_lse(q, k, None, True, scale)),
+            attn.attention_reference(q, k, v, causal=causal),
+            attn._reference_lse(q, k, None, causal, scale)),
         "flash_attn_bwd_dkdv": lambda: attn.flash_bwd_dkdv_reference(*args),
         "flash_attn_bwd_dq": lambda: attn.flash_bwd_dq_reference(*args),
     }
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     library = {
         "flash_attn_fwd": lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True),
+            q, k, v, is_causal=causal),
         # One call computes dq, dk and dv together; it stands beside both
         # backward kernels.
         "flash_attn_bwd_dkdv": lambda: torch.autograd.grad(
             sdpa_out, (qg, kg, vg), do, retain_graph=True),
     }
     library["flash_attn_bwd_dq"] = library["flash_attn_bwd_dkdv"]
-    bounds = train_bounds(*shape, True)
+    bounds = train_bounds(*shape, causal)
     rows = {}
     # (Launches made here and in phase 7 are comparisons, not the main
     # path's: every count is set to 0 before phase 9.)
@@ -1072,7 +1166,7 @@ def time_training_kernels(torch, attn, shape=TRAIN_SHAPE,
         t = time_row(torch, kernel[name], strided[name], before[name],
                      plain[name], library[name], *iters)
         rows[name] = dict(shape=label, q=list(q.shape),
-                          kv=list(k.shape), dtype="bfloat16", causal=True,
+                          kv=list(k.shape), dtype="bfloat16", causal=causal,
                           variant=variant[name], **t, **bounds[name])
         log_times(name, rows[name])
     return rows
@@ -1575,11 +1669,11 @@ def cifar_parity(torch):
 # -- BERT-base (kernel #1 with a padding bias; the reference-VJP backward) --
 
 
-def bert_cfg(overrides, workdir_name):
+def bert_cfg(overrides, workdir_name, preset="bert_base_wikipedia"):
     from deeplearning_cfn_tpu_torch.config import apply_overrides
     from deeplearning_cfn_tpu_torch.presets import get_preset
 
-    return apply_overrides(get_preset("bert_base_wikipedia"), [
+    return apply_overrides(get_preset(preset), [
         f"workdir={fresh_workdir(workdir_name)}", "train.seed=0",
         "train.log_every_steps=1", *overrides])
 
@@ -1606,10 +1700,13 @@ def tied_decoder_ms(torch, rows, vocab):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def train_bert(torch, attn):
-    """Phase 13: BERT-base at full width in bf16 through run_experiment,
-    with every count set to 0 first."""
-    from deeplearning_cfn_tpu_torch.models.bert import forward_flops
+def train_bert(torch, attn, preset="bert_base_wikipedia",
+               workdir_name="smoke_bert", cuts=BERT_CUTS):
+    """Phase 13 (and 22, 23): a BERT-base preset at full width in bf16
+    through run_experiment, with every count set to 0 first. The forward
+    FLOPs are counted by the model's own module (``bert.forward_flops``
+    counts a MoE layer's expert einsums at every capacity slot); a MoE
+    trunk's aux losses must be finite at every step."""
     from deeplearning_cfn_tpu_torch.train.run import run_experiment
 
     steps = BERT_WARMUP + BERT_STEPS
@@ -1617,8 +1714,8 @@ def train_bert(torch, attn):
                     f"train.grad_accum_steps={BERT_ACCUM}",
                     f"train.steps={steps}", "schedule.warmup_steps=2",
                     "train.eval_every_steps=1000000",
-                    "checkpoint.every_steps=1000000"], "smoke_bert")
-    for cut in BERT_CUTS:
+                    "checkpoint.every_steps=1000000"], workdir_name, preset)
+    for cut in cuts:
         log(f"  cut: {cut}")
     records, at_end, by_variant, seen = [], {}, {}, {}
 
@@ -1663,10 +1760,20 @@ def train_bert(torch, attn):
         raise AssertionError(f"bf16 BERT launches off the tc variant: "
                              f"{by_variant}, with the eval "
                              f"{by_variant_eval}")
+    moe = {}
+    if getattr(model, "num_experts", 0):
+        for key in ("moe_load_balance", "moe_router_z"):
+            vals = [r[key] for r in records]
+            if not all(math.isfinite(x) for x in vals):
+                raise AssertionError(f"{key}: non-finite {vals}")
+            moe[key] = vals
+        for key, vals in moe.items():
+            log(f"  {key}: {' '.join(f'{x:.4f}' for x in vals)}")
     timed = [r for r in records[BERT_WARMUP:] if "step_time_s" in r]
     step_s = sorted(r["step_time_s"] for r in timed)
     seq_s = sorted(r["examples_per_sec"] for r in timed)
     p50 = lambda xs: xs[len(xs) // 2]
+    forward_flops = sys.modules[type(model).__module__].forward_flops
     flops = forward_flops(model, BERT_SEQ, BERT_PRED)
     mfu = p50(seq_s) * 3 * flops / BF16_FLOP_PER_S
     bound_step_s = BERT_BATCH * 3 * flops / BF16_FLOP_PER_S
@@ -1685,8 +1792,9 @@ def train_bert(torch, attn):
                final_eval={k: v for k, v in final.items()},
                launches=at_end, launches_with_eval=after_eval,
                variant_launches=by_variant,
-               variant_launches_with_eval=by_variant_eval, cuts=BERT_CUTS)
-    log(f"  model: BERT-base, {out['params']} parameters, "
+               variant_launches_with_eval=by_variant_eval, cuts=cuts,
+               preset=preset, **moe)
+    log(f"  model: {preset}, {out['params']} parameters, "
         f"{out['forward_mflop_per_token']:.1f} MFLOP forward per token "
         f"(counted from the shapes, MLM head at {BERT_PRED} of "
         f"{BERT_SEQ} positions); tensor-core bound of a step "
@@ -2161,18 +2269,19 @@ def train_gpt(torch, attn):
     return out
 
 
-def check_gpt_kernels(torch, attn, rows):
-    """The three kernels against their plain versions at GPT's train shape
-    (the inputs phase 17's timing used). Every output (O, lse, dK, dV, dQ)
-    on its own scale (``scaled_error``; most of GPT's dK/dV entries are far
-    below phase 7's absolute limit), the lse within 1e-3 relative as phase
-    3 holds it, and the forward within phase 3's absolute 2e-2 as well."""
-    args = bwd_inputs(torch, attn, 500, *GPT_SHAPE, torch.bfloat16, True)
+def check_train_kernels(torch, attn, rows, shape=GPT_SHAPE, causal=True):
+    """The three kernels against their plain versions at a training shape
+    (the inputs phase 17's or 21's timing used: GPT's causal rows, ViT's
+    non-causal 196 keys). Every output (O, lse, dK, dV, dQ) on its own
+    scale (``scaled_error``; most of GPT's dK/dV entries are far below
+    phase 7's absolute limit), the lse within 1e-3 relative as phase 3
+    holds it, and the forward within phase 3's absolute 2e-2 as well."""
+    args = bwd_inputs(torch, attn, 500, *shape, torch.bfloat16, causal)
     q, k, v, do, lse, delta, causal, scale = args
-    out, got_lse = attn.flash_attention_forward(q, k, v, causal=True,
+    out, got_lse = attn.flash_attention_forward(q, k, v, causal=causal,
                                                 return_lse=True)
-    ref = attn.attention_reference(q, k, v, causal=True)
-    ref_lse = attn._reference_lse(q, k, None, True, scale)
+    ref = attn.attention_reference(q, k, v, causal=causal)
+    ref_lse = attn._reference_lse(q, k, None, causal, scale)
     lse_err = ((got_lse - ref_lse).abs()
                / ref_lse.abs().clamp_min(1.0)).max().item()
     checked = {"out": scaled_error(out, ref)}
@@ -2184,7 +2293,7 @@ def check_gpt_kernels(torch, attn, rows):
         checked[name] = scaled_error(a, b)
     del got, want
     for name, e in checked.items():
-        log(f"  {name:3s} at {list(GPT_SHAPE)}: {scaled_line(e)}")
+        log(f"  {name:3s} at {list(shape)}: {scaled_line(e)}")
     log(f"  lse rel err {lse_err:.3e} (<= 1e-3)")
     errs = {"flash_attn_fwd": checked["out"]["max_abs_err"],
             "flash_attn_bwd_dkdv": max(checked["dk"]["max_abs_err"],
@@ -2193,7 +2302,7 @@ def check_gpt_kernels(torch, attn, rows):
     bad = [n for n, e in checked.items() if not e["ok"]]
     if bad or not lse_err <= 1e-3 \
             or not errs["flash_attn_fwd"] <= TOL["bfloat16"]:
-        raise AssertionError(f"GPT shape: kernels vs plain {bad} "
+        raise AssertionError(f"{list(shape)}: kernels vs plain {bad} "
                              f"{checked} lse {lse_err}")
     for name, err in errs.items():
         rows[name]["max_abs_err"] = err
@@ -2803,6 +2912,339 @@ def serve_features(torch, attn):
     return row
 
 
+# -- slice 10: ViT-S/16, BERT with MoE FFNs, the pipelined BERT trunk -------
+
+
+def vit_cfg(overrides, workdir_name):
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    return apply_overrides(get_preset("imagenet_vit_s16"), [
+        f"workdir={fresh_workdir(workdir_name)}", "train.seed=0",
+        "train.log_every_steps=1", *overrides])
+
+
+def train_vit(torch, attn):
+    """Phase 21: imagenet_vit_s16 at full width in bf16 through
+    run_experiment on synthetic ImageNet, with every count set to 0
+    first."""
+    from deeplearning_cfn_tpu_torch.models.vit import forward_flops
+    from deeplearning_cfn_tpu_torch.train.run import run_experiment
+
+    steps = VIT_WARMUP + VIT_STEPS
+    cfg = vit_cfg([f"train.global_batch={VIT_BATCH}",
+                   f"train.grad_accum_steps={VIT_ACCUM}",
+                   f"train.steps={steps}", "schedule.warmup_steps=2",
+                   f"data.num_train_examples={VIT_TRAIN_EXAMPLES}",
+                   f"data.num_eval_examples={VIT_EVAL}",
+                   f"train.eval_batch={VIT_EVAL_BATCH}",
+                   "train.eval_every_steps=1000000",
+                   "checkpoint.every_steps=1000000"], "smoke_vit")
+    for cut in VIT_CUTS:
+        log(f"  cut: {cut}")
+    records, at_end, by_variant, seen = [], {}, {}, {}
+
+    def hook(step, state, record):
+        records.append(record)
+        if step == steps:
+            at_end.update(counts(attn))  # before the eval's forwards
+            by_variant.update(variant_counts(attn))
+            seen["model"] = state.model
+
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(attn, 0)
+    t0 = time.perf_counter()
+    final = run_experiment(cfg, device=DEVICE, hooks=(hook,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after_eval, by_variant_eval = counts(attn), variant_counts(attn)
+    peak = torch.cuda.max_memory_allocated()
+    model = seen.pop("model")
+    losses = [r["loss"] for r in records]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bad losses: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first-5 mean {first}, "
+                             f"last-5 mean {last}")
+    micro = steps * VIT_ACCUM
+    expect = {k: v * micro for k, v in VIT_PER_STEP.items()}
+    eval_batches = math.ceil(VIT_EVAL / VIT_EVAL_BATCH)
+    log(f"  launches over {steps} steps (accum {VIT_ACCUM}): {at_end} "
+        f"(expected {expect}); after the eval's {eval_batches} batches: "
+        f"{after_eval}; by variant {by_variant}")
+    if at_end != expect:
+        raise AssertionError(f"launch counts {at_end} != {expect}")
+    if after_eval != {**expect, "fwd": expect["fwd"]
+                      + VIT_LAYERS * eval_batches}:
+        raise AssertionError(f"eval launches {after_eval} != 12 per eval "
+                             f"batch on top of {expect}")
+    if any(by[key]["tc"] != n[key] for by, n in
+           ((by_variant, at_end), (by_variant_eval, after_eval))
+           for key in ("fwd", "dkdv", "dq")):
+        raise AssertionError(f"bf16 ViT launches off the tc variant: "
+                             f"{by_variant}, with the eval "
+                             f"{by_variant_eval}")
+    timed = [r for r in records[VIT_WARMUP:] if "step_time_s" in r]
+    step_s = sorted(r["step_time_s"] for r in timed)
+    img_s = sorted(r["examples_per_sec"] for r in timed)
+    p50 = lambda xs: xs[len(xs) // 2]
+    flops = forward_flops(model)
+    mfu = p50(img_s) * 3 * flops / BF16_FLOP_PER_S
+    bound_step_s = VIT_BATCH * 3 * flops / BF16_FLOP_PER_S
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    out = dict(steps=steps, timed_steps=len(timed), global_batch=VIT_BATCH,
+               grad_accum_steps=VIT_ACCUM, image_size=cfg.data.image_size,
+               tokens=VIT_TOKENS, params=n_params,
+               forward_gflop_per_image=flops / 1e9,
+               first5_loss=first, last5_loss=last, losses=losses,
+               step_time_p50_s=p50(step_s), images_per_s_p50=p50(img_s),
+               mfu_share=mfu, tensor_core_bound_step_s=bound_step_s,
+               first_step_s=records[0]["compile_s"],
+               max_memory_allocated_bytes=peak, wall_s=wall,
+               final_eval_loss=final["loss"],
+               final_eval_top1=final["accuracy"],
+               final_eval_top5=final["accuracy_top5"],
+               final_eval_examples=final["examples"],
+               launches=at_end, launches_with_eval=after_eval,
+               variant_launches=by_variant,
+               variant_launches_with_eval=by_variant_eval, cuts=VIT_CUTS)
+    log(f"  model: ViT-S/16, {n_params} parameters, "
+        f"{out['forward_gflop_per_image']:.3f} GFLOP forward per 224² image "
+        f"(counted from the shapes: patch conv, trunk GEMMs, attention over "
+        f"196² pairs, head); tensor-core bound of a step "
+        f"{bound_step_s * 1e3:.1f} ms")
+    log(f"  step time p50 {out['step_time_p50_s'] * 1e3:.2f} ms, images/s "
+        f"p50 {out['images_per_s_p50']:.1f}, MFU share {mfu:.4f} (of 989 "
+        f"TFLOP/s dense bf16), first step {out['first_step_s']:.2f} s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; eval on "
+        f"{final['examples']:.0f}: loss {final['loss']:.4f}, top-1 "
+        f"{final['accuracy']:.4f}, top-5 {final['accuracy_top5']:.4f}; run "
+        f"{wall:.1f} s")
+    return out
+
+
+def _card_and_cpu(torch, task_cls, cfg, times=(), normal=()):
+    """The same seeded init on the CPU and on the card (TF32 off): a task
+    of ``task_cls`` on each, the CPU one initialised with seed 0, then
+    every parameter whose name ends with a suffix in ``times`` multiplied
+    by 3 and every one ending with a suffix in ``normal`` redrawn from
+    ``normal(0, 0.5)``; the card one loads its weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = task_cls(cfg, torch.device("cpu"))
+    cpu.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in cpu.model.named_parameters():
+            if name.endswith(tuple(times)):
+                p.mul_(3.0)
+            if name.endswith(tuple(normal)):
+                p.normal_(0.0, 0.5, generator=g)
+    card = task_cls(cfg, torch.device(DEVICE))
+    card.model.load_state_dict(cpu.model.state_dict())
+    return cpu, card
+
+
+def _grad_check(label, cpu_model, card_model, tol=1e-4):
+    """Every parameter's gradient on the card within ``tol`` of the CPU's
+    global gradient norm; returns the largest error over that norm."""
+    import torch
+
+    norm = torch.sqrt(sum((p.grad ** 2).sum()
+                          for p in cpu_model.parameters()))
+    worst = 0.0
+    for (name, p), (_, r) in zip(card_model.named_parameters(),
+                                 cpu_model.named_parameters()):
+        err = ((p.grad.cpu() - r.grad).norm() / norm).item()
+        worst = max(worst, err)
+        if not err <= tol:
+            raise AssertionError(f"{label}: gradient of {name} off by "
+                                 f"{err:.3e} of the norm")
+    return worst
+
+
+def vit_parity(torch, attn):
+    """Phase 21, last part: the tiny f32 ViT (tests/test_torch_vit.py's
+    config, a random head so the trunk's gradients are nonzero) on the card
+    against the CPU, TF32 off: logits within 1e-4 of the largest, the loss
+    within 1e-5 relative, every gradient within 1e-4 of the global norm,
+    the kernels launched once per layer (simt: f32) and the reference VJP
+    never; then 5 Adafactor steps (``optimizer.name=adafactor``, optax's
+    defaults behind the 1.0 clip) on each: losses within 1e-4 relative
+    and the final parameters within 1e-3 of their norm (Adafactor's first
+    update is sign-like, so an element whose true gradient is ~0 — the key
+    biases — may step either way on either device; no output depends on
+    the key biases)."""
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.train.optim import (build_optimizer,
+                                                        build_schedule)
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.task import ClassificationTask
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    cfg = vit_cfg(VIT_TINY, "smoke_vit_tiny")
+    cpu, card = _card_and_cpu(torch, ClassificationTask, cfg,
+                              normal=("head.weight",))
+    batches = [b for _, b in zip(range(5), build_pipeline(
+        cfg.data, 16, 10, seed=0).one_epoch())]
+    host, dev = torch.device("cpu"), torch.device(DEVICE)
+    with torch.no_grad():
+        want = cpu.model(to_device(batches[0], host)["image"], train=False)
+        got = card.model(to_device(batches[0], dev)["image"], train=False)
+    logit_err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    ref, _ = cpu.loss_fn(to_device(batches[0], host), True)
+    ref.backward()
+    before = counts(attn)
+    loss, _ = card.loss_fn(to_device(batches[0], dev), True)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in counts(attn).items()}
+    loss_err = abs(loss.item() - ref.item()) / abs(ref.item())
+    grad_err = _grad_check("tiny ViT", cpu.model, card.model)
+    log(f"  tiny f32 ViT, card vs CPU: logits {logit_err:.3e} of the "
+        f"largest (<= 1e-4), loss {loss_err:.3e} relative (<= 1e-5), "
+        f"gradients {grad_err:.3e} of the norm (<= 1e-4); launches "
+        f"{launched}")
+    if not (logit_err <= 1e-4 and loss_err <= 1e-5):
+        raise AssertionError(f"tiny ViT: logits {logit_err}, loss "
+                             f"{loss_err}")
+    if launched != {"fwd": 2, "dkdv": 2, "dq": 2, "vjp": 0}:
+        raise AssertionError(f"tiny ViT launches {launched}")
+
+    ada = vit_cfg(VIT_TINY + ["optimizer.name=adafactor"], "smoke_vit_tiny")
+    losses = {}
+    finals = {}
+    for name, task in (("cpu", cpu), ("card", card)):
+        task.cfg = ada
+        task.model.zero_grad(set_to_none=True)
+        opt = build_optimizer(ada.optimizer, build_schedule(
+            ada.schedule, 5, 16), task.model)
+        state = create_train_state(task.model, opt)
+        trainer = Trainer(ada, task, task.device)
+        losses[name] = [float(trainer.train_step(
+            state, to_device(b, task.device))["loss"]) for b in batches]
+        finals[name] = torch.cat([p.detach().cpu().flatten()
+                                  for p in task.model.parameters()])
+    step_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(losses["card"], losses["cpu"]))
+    param_err = ((finals["card"] - finals["cpu"]).norm()
+                 / finals["cpu"].norm()).item()
+    log(f"  tiny f32 ViT, 5 Adafactor steps: losses card "
+        f"{' '.join(f'{x:.6f}' for x in losses['card'])}, CPU "
+        f"{' '.join(f'{x:.6f}' for x in losses['cpu'])}: {step_err:.3e} "
+        f"relative (<= 1e-4); final parameters {param_err:.3e} of their "
+        f"norm (<= 1e-3)")
+    if not (step_err <= 1e-4 and param_err <= 1e-3):
+        raise AssertionError(f"tiny ViT Adafactor: {losses}, params "
+                             f"{param_err}")
+    return dict(logit_err_of_max=logit_err, loss_rel_err=loss_err,
+                grad_err_of_norm=grad_err, launches=launched,
+                adafactor_losses=losses, adafactor_loss_rel_err=step_err,
+                adafactor_param_rel_err=param_err)
+
+
+def _router_margin(torch, model, *inputs, **kw):
+    """The smallest router margin of ``model`` on ``inputs`` (top-1 minus
+    top-2 and top-2 minus top-3 of the router probabilities, over every
+    token of every MoE layer), and each MoE layer's dispatch mask."""
+    from deeplearning_cfn_tpu_torch.models.moe import MoeMlp
+
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append(mod.route(args[0])))
+        for m in model.modules() if isinstance(m, MoeMlp)]
+    try:
+        with torch.no_grad():
+            model(*inputs, **kw)
+    finally:
+        for h in hooks:
+            h.remove()
+    top = torch.cat([r[1].flatten(0, -2) for r in seen]).topk(3, -1).values
+    margin = torch.minimum(top[:, 0] - top[:, 1], top[:, 1] - top[:, 2])
+    return float(margin.min()), [r[2] for r in seen]
+
+
+def moe_parity(torch, attn):
+    """Phase 22, last part: the tiny f32 BERT-MoE and GPT-MoE
+    (tests/test_torch_moe.py's configs: 4 experts in layer 1 of 2, top-2,
+    capacity factor 0.5 so tokens are dropped; Dense kernels ×3 and the
+    routers at std 0.5, so routing margins stay far above f32 rounding) on
+    the card against the CPU, TF32 off. BERT-MoE: every MoE layer's
+    dispatch mask equal (the CPU's smallest router margin asserted above
+    1e-6 first: a closer one would be a rounding tie), the loss with the
+    aux terms within 1e-5 relative, every gradient within 1e-4 of the
+    global norm. GPT-MoE: the same, then greedy ``lm_generate`` at batch 4,
+    24 new tokens: every row token-identical."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.models.decoding import lm_generate
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.train.task import CausalLmTask, MlmTask
+
+    host, dev = torch.device("cpu"), torch.device(DEVICE)
+    out = {}
+    for label, preset, over, task_cls in (
+            ("bert_moe", "bert_moe_wikipedia", MOE_BERT_TINY, MlmTask),
+            ("gpt_moe", "gpt_small_lm", MOE_GPT_TINY, CausalLmTask)):
+        cfg = apply_overrides(get_preset(preset), over)
+        cpu, card = _card_and_cpu(
+            torch, task_cls, cfg,
+            times=("mlp_in.weight", "mlp_out.weight", "w_in", "w_out"),
+            normal=("router.weight",))
+        batch = next(iter(build_pipeline(cfg.data, 8, seed=0).one_epoch()))
+        tb, cb = to_device(batch, host), to_device(batch, dev)
+        if task_cls is MlmTask:
+            inputs = lambda b: (b["input_ids"], b["input_mask"],
+                                b["segment_ids"], b["mlm_positions"])
+            kw = {"train": False}
+        else:
+            inputs = lambda b: (b["tokens"][:, :-1],)
+            kw = {}
+        margin, want = _router_margin(torch, cpu.model, *inputs(tb), **kw)
+        _, got = _router_margin(torch, card.model, *inputs(cb), **kw)
+        if not margin > 1e-6:
+            raise AssertionError(f"{label}: router margin {margin} is a "
+                                 f"rounding tie")
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        dropped = sum(float(2 * d.shape[0] * d.shape[1] - d.sum())
+                      for d in want)
+        ref, ref_aux = cpu.loss_fn(tb, True)
+        ref.backward()
+        loss, aux = card.loss_fn(cb, True)
+        loss.backward()
+        loss_err = abs(loss.item() - ref.item()) / abs(ref.item())
+        grad_err = _grad_check(label, cpu.model, card.model)
+        log(f"  tiny f32 {label}, card vs CPU: router margin {margin:.3e} "
+            f"(> 1e-6), dispatch masks equal {same} ({dropped:.0f} choices "
+            f"dropped), loss {loss_err:.3e} relative (<= 1e-5; aux "
+            f"load_balance {aux['moe_load_balance'].item():.4f}, router_z "
+            f"{aux['moe_router_z'].item():.4f}), gradients {grad_err:.3e} "
+            f"of the norm (<= 1e-4)")
+        if not (same and loss_err <= 1e-5):
+            raise AssertionError(f"{label}: dispatch equal {same}, loss "
+                                 f"{loss_err}")
+        out[label] = dict(router_margin=margin, dispatch_equal=same,
+                          dropped_choices=dropped, loss_rel_err=loss_err,
+                          grad_err_of_norm=grad_err)
+    prompt = torch.from_numpy(batch["tokens"][:4, :8]).long()
+    with torch.no_grad():
+        want = lm_generate(cpu.model, prompt, 24)
+        got = lm_generate(card.model, prompt.to(dev), 24).cpu()
+    rows = sum(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    distinct = len(set(want[:, 8:].flatten().tolist()))
+    log(f"  tiny f32 gpt_moe greedy lm_generate, batch 4, 24 new tokens: "
+        f"{rows}/4 rows token-identical ({distinct} distinct tokens)")
+    if rows != 4:
+        raise AssertionError(f"gpt_moe generation: {rows}/4 rows identical")
+    out["gpt_moe"]["greedy_rows_identical"] = f"{rows}/4"
+    return out
+
+
 # Device-time kinds of a Mask R-CNN step, by kernel name, first match
 # wins: the ROI-align gathers (index_select) and their backward
 # (index_add, atomics), the targets' and NMS's sorts and bool masks,
@@ -3095,6 +3537,73 @@ def profile_gpt(torch, steps: int = 3) -> None:
             f"models resident), launches per step {rows[0][2]}")
 
 
+# Device-time kinds of a ViT step, by kernel name, first match wins.
+VIT_KINDS = (("flash kernels (#1 forward, #2 dK/dV, #3 dQ)", ("flash_attn",)),
+             ("patch embedding (cuDNN conv)", ("conv", "cudnn", "implicit",
+                                               "dgrad", "wgrad")),
+             ("GEMM, bf16", ("gemm", "nvjet", "xmma", "cutlass", "sm90")),
+             ("layer norm", ("layer_norm",)),
+             ("dropout masks", ("bernoulli", "distribution")),
+             ("copy / cast", ("copy_kernel",)),
+             ("reduction (GAP, LN's γ/β backward, norms)",
+              ("reduce_kernel",)),
+             ("optimizer (AdamW, foreach)", ("multi_tensor",)),
+             ("log-softmax (the cross-entropy)", ("softmax",)),
+             ("elementwise (residual, dropout scale, GELU)",
+              ("at::native",)))
+
+
+def profile_vit(torch, steps: int = 3) -> None:
+    """``--profile-vit``: where a steady full-width bf16 ViT-S/16 train
+    step (batch 1024 as 4 × 256, AdamW) spends its time: host time against
+    device-busy time, device time by kind, and the three kernels' launches
+    per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.ops import attention as attn
+    from deeplearning_cfn_tpu_torch.train.optim import (build_optimizer,
+                                                        build_schedule)
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.task import build_task
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device(DEVICE)
+    cfg = vit_cfg([f"train.global_batch={VIT_BATCH}",
+                   f"train.grad_accum_steps={VIT_ACCUM}",
+                   f"data.num_train_examples={VIT_TRAIN_EXAMPLES}"],
+                  "smoke_vit_profile")
+    batches = [to_device(b, dev) for _, b in zip(
+        range(steps + 2), build_pipeline(cfg.data, VIT_BATCH, 1000,
+                                         seed=0).epochs())]
+    task = build_task(cfg, dev)
+    task.init(torch.Generator(device=dev).manual_seed(0))
+    opt = build_optimizer(cfg.optimizer, build_schedule(
+        cfg.schedule, 100, VIT_BATCH), task.model)
+    trainer, state = Trainer(cfg, task, dev), create_train_state(task.model,
+                                                                 opt)
+
+    def run(bs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bs:
+            trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(batches[:2])  # warm up
+    before = counts(attn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        wall = run(batches[2:])
+    per_step = {k: (v - before[k]) / steps for k, v in counts(attn).items()}
+    report_profile(prof, wall, steps, "train step")
+    profile_by_kind(prof, steps, VIT_KINDS)
+    log(f"  launches per step {per_step} (expected "
+        f"{ {k: v * VIT_ACCUM for k, v in VIT_PER_STEP.items()} })")
+
+
 def profile_resnet(torch, steps: int = 3) -> None:
     """``--profile-resnet``: where a steady full-width bf16 ResNet-50 train
     step (batch 256, LARS) spends its time."""
@@ -3171,7 +3680,8 @@ def main() -> int:
                 "--profile-resnet": profile_resnet,
                 "--profile-bert": profile_bert,
                 "--profile-maskrcnn": profile_maskrcnn,
-                "--profile-gpt": profile_gpt}
+                "--profile-gpt": profile_gpt,
+                "--profile-vit": profile_vit}
     wanted = [a for a in sys.argv[1:] if a in profiles]
     if wanted:
         import torch
@@ -3201,6 +3711,7 @@ def main() -> int:
     from deeplearning_cfn_tpu_torch import kernels
     from deeplearning_cfn_tpu_torch.ops import attention as attn
 
+    script_t0 = time.perf_counter()
     t = phase("1. card")
     card = card_line()
     log(card)
@@ -3264,7 +3775,7 @@ def main() -> int:
     gpt = train_gpt(torch, attn)
     gpt_rows = time_training_kernels(torch, attn, GPT_SHAPE, "gpt_train_self",
                                      (20, 3, 5, 2))
-    check_gpt_kernels(torch, attn, gpt_rows)
+    check_train_kernels(torch, attn, gpt_rows)
 
     phase("18. generate with gpt_small_lm (cli generate; f32 kernel vs "
           "plain)")
@@ -3280,12 +3791,33 @@ def main() -> int:
     phase("20. radix cache, chunked prefill and QoS (full width, bf16)")
     features = serve_features(torch, attn)
 
+    phase("21. train imagenet_vit_s16 (full width, bf16, batch 1024 as "
+          "4 x 256)")
+    vit = train_vit(torch, attn)
+    vit_rows = time_training_kernels(torch, attn, VIT_SHAPE,
+                                     "vit_train_self", (50, 5, 10, 2),
+                                     causal=False)
+    check_train_kernels(torch, attn, vit_rows, VIT_SHAPE, causal=False)
+    vit_f32 = vit_parity(torch, attn)
+
+    phase("22. train bert_moe_wikipedia (full width, bf16, batch 1024)")
+    bert_moe = train_bert(torch, attn, "bert_moe_wikipedia",
+                          "smoke_bert_moe", MOE_CUTS)
+    moe_f32 = moe_parity(torch, attn)
+
+    phase("23. train bert_pipelined_wikipedia (full width on one card, "
+          "bf16, batch 1024)")
+    bert_pipe = train_bert(torch, attn, "bert_pipelined_wikipedia",
+                           "smoke_bert_pipelined", PIPE_CUTS)
+
     # The forward kernel serves every path: its numbers cover the three
     # serving shapes, the NMT training shape, BERT's, GPT's train shape,
-    # GPT's decode step and the verify span over the dense cache and the
-    # paged span (one call at each).
+    # GPT's decode step, the verify span over the dense cache and the
+    # paged span, and ViT's train shape (one call at each; BERT-MoE's and
+    # the pipelined trunk's attention calls are BERT's shape).
     rows = rows + [train_rows["flash_attn_fwd"], bert_row,
-                   gpt_rows["flash_attn_fwd"], decode_row] + verify_rows
+                   gpt_rows["flash_attn_fwd"], decode_row] + verify_rows \
+        + [vit_rows["flash_attn_fwd"]]
     timings = ("kernel_ms_before", "device_ms", "device_ms_strided",
                "device_ms_before", "plain_ms", "bound_ms", "library_ms",
                "library_device_ms")
@@ -3299,7 +3831,14 @@ def main() -> int:
                  "gpt_generate": (generated["launches"],
                                   generated["variant_launches"]),
                  "features": (features["launches"],
-                              features["variant_launches"])}
+                              features["variant_launches"]),
+                 "vit_train": (vit["launches_with_eval"]["fwd"],
+                               vit["variant_launches_with_eval"]["fwd"]),
+                 "bert_moe": (bert_moe["launches_with_eval"]["fwd"],
+                              bert_moe["variant_launches_with_eval"]["fwd"]),
+                 "bert_pipelined": (
+                     bert_pipe["launches_with_eval"]["fwd"],
+                     bert_pipe["variant_launches_with_eval"]["fwd"])}
     for name, run in spec["runs"].items():
         fwd_paths[f"spec_{name[0]}"] = (run["launches"],
                                         run["variant_launches"])
@@ -3317,12 +3856,14 @@ def main() -> int:
         "max_abs_err": max(max(errs.values()), bert_row["max_abs_err"],
                            gpt_rows["flash_attn_fwd"]["max_abs_err"],
                            decode_row["max_abs_err"],
-                           *(r["max_abs_err"] for r in verify_rows)),
+                           *(r["max_abs_err"] for r in verify_rows),
+                           vit_rows["flash_attn_fwd"]["max_abs_err"]),
         "max_abs_err_f32": errs["float32"],
         "max_abs_err_bf16": max(errs["bfloat16"], bert_row["max_abs_err"],
                                 gpt_rows["flash_attn_fwd"]["max_abs_err"],
                                 decode_row["max_abs_err"],
-                                *(r["max_abs_err"] for r in verify_rows)),
+                                *(r["max_abs_err"] for r in verify_rows),
+                                vit_rows["flash_attn_fwd"]["max_abs_err"]),
         "ms": sum(r["kernel_ms"] for r in rows),
         **{key: sum(r[key] for r in rows) for key in timings},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
@@ -3343,21 +3884,23 @@ def main() -> int:
     records = [fwd]
     for name, key in (("flash_attn_bwd_dkdv", "dkdv"),
                       ("flash_attn_bwd_dq", "dq")):
-        # The NMT training shape and GPT's, one call at each.
-        shapes = [train_rows[name], gpt_rows[name]]
+        # The NMT training shape, GPT's and ViT's, one call at each.
+        shapes = [train_rows[name], gpt_rows[name], vit_rows[name]]
+        paths = {"train": trained, "gpt_train": gpt, "vit_train": vit}
         records.append({
             "name": name, "route": "cuda",
             "source": f"deeplearning_cfn_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": trained["launches"][key] + gpt["launches"][key],
-            "launches_train": trained["launches"][key],
-            "launches_gpt_train": gpt["launches"][key],
+            "launches": sum(r["launches"][key] for r in paths.values()),
+            **{f"launches_{path}": r["launches"][key]
+               for path, r in paths.items()},
             "variant_launches": {
-                v: trained["variant_launches"][key][v]
-                + gpt["variant_launches"][key][v]
+                v: sum(r["variant_launches"][key][v]
+                       for r in paths.values())
                 for v in trained["variant_launches"][key]},
             "max_abs_err": max(bwd_errs[name],
-                               gpt_rows[name]["max_abs_err"]),
+                               gpt_rows[name]["max_abs_err"],
+                               vit_rows[name]["max_abs_err"]),
             "ms": sum(r["kernel_ms"] for r in shapes),
             **{t: sum(r[t] for r in shapes) for t in timings},
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
@@ -3386,8 +3929,15 @@ def main() -> int:
         "gpt_small_f32_generate_parity": gpt_parity,
         "spec_serve": spec,
         "radix_chunk_qos_serve": features,
+        "vit_s16_train": vit,
+        "vit_tiny_f32_card_vs_cpu": vit_f32,
+        "bert_moe_train": bert_moe,
+        "moe_tiny_f32_card_vs_cpu": moe_f32,
+        "bert_pipelined_train": bert_pipe,
+        "script_s": time.perf_counter() - script_t0,
     }
     log(json.dumps({"summary": summary}))
+    log(f"whole script {summary['script_s']:.1f} s")
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

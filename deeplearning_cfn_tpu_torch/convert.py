@@ -26,6 +26,15 @@ params (the leaf names the JAX checkpoint manifest uses) and returns a
   ``token/embedding`` becomes ``token.weight`` (one parameter for the
   lookup and the logits), and ``position`` (a raw [max_len, hidden] table),
   ``embed_norm`` and ``final_norm`` keep their names.
+- ViT: ``patch_embed`` is a conv (HWIO ↔ OIHW), ``head`` a Dense,
+  ``final_norm`` a LayerNorm; ``pos_embed`` (a raw [N, hidden] table) and
+  ``layer_3`` → ``layer.3`` as above.
+- A MoE layer's ``moe_mlp/router/kernel`` is a Dense kernel (transposed);
+  its stacked ``moe_mlp/w_in``, ``b_in``, ``w_out`` and ``b_out`` keep the
+  JAX layout, untransposed.
+- The pipelined BERT's ``pipe_stack/*`` leaves (every trunk kernel
+  [L, in, out], biases and LayerNorm scales [L, F]) keep the JAX layout,
+  untransposed; ``embed`` and the heads keep their names.
 
 ``flax_layout`` is the inverse: every parameter and BatchNorm buffer of a
 port model with its Flax leaf name (``params/...``, ``batch_stats/...``)

@@ -13,11 +13,16 @@ against the per-layer KV caches of :meth:`TransformerCausalLm.init_cache`
 [B, H, max_len, D], updated in place; every row sits at the same position,
 the JAX scalar ``cache_index`` contract.
 
+With ``num_experts > 0`` every ``moe_every``-th block's FFN is a
+Mixture-of-Experts FFN (``models/moe.py``) and ``forward`` returns
+``(logits, moe_aux)``, the per-layer mean of the MoE layers' aux losses, as
+the JAX module does; ``decode_step`` drops the aux (at one position each
+expert has one slot), so ``lm_generate`` drives a MoE GPT unchanged.
+
 Module names follow the Flax tree (``layer.3`` for ``layer_3``, ``token``,
 ``position``, ``embed_norm``, ``final_norm``), so ``convert.params_from_flax``
-and ``convert.flax_layout`` carry the weights both ways. Not ported: the
-Mixture-of-Experts FFNs (``num_experts > 0``, ROADMAP A.9b) and
-``gpt_long``'s sequence-parallel trunk (ROADMAP A.10); both raise.
+and ``convert.flax_layout`` carry the weights both ways. Not ported:
+``gpt_long``'s sequence-parallel trunk (ROADMAP A.10), which raises.
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ import torch
 from torch import nn
 
 from . import register_model
-from .transformer import (KvCache, LayerNorm, TransformerLayer, dropout,
-                          init_flax_defaults)
+from .transformer import (KvCache, LayerNorm, MoeAuxAccumulator,
+                          TransformerLayer, dropout, init_flax_defaults,
+                          is_moe_layer)
 
 
 class TransformerCausalLm(nn.Module):
@@ -39,8 +45,11 @@ class TransformerCausalLm(nn.Module):
                  num_layers: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, max_len: int = 1024,
                  dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.0, attention_impl: str = "auto"):
+                 dropout_rate: float = 0.0, attention_impl: str = "auto",
+                 num_experts: int = 0, moe_every: int = 2,
+                 moe_capacity_factor: float = 1.25, moe_top_k: int = 2):
         super().__init__()
+        self.num_experts = num_experts
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -55,8 +64,12 @@ class TransformerCausalLm(nn.Module):
         self.layer = nn.ModuleList([
             TransformerLayer(hidden_size, num_heads, mlp_dim, dtype,
                              prenorm=True, attention_impl=attention_impl,
-                             dropout_rate=dropout_rate)
-            for _ in range(num_layers)])
+                             dropout_rate=dropout_rate,
+                             num_experts=num_experts if is_moe_layer(
+                                 i, num_experts, moe_every) else 0,
+                             moe_capacity_factor=moe_capacity_factor,
+                             moe_top_k=moe_top_k)
+            for i in range(num_layers)])
         self.final_norm = LayerNorm(hidden_size, dtype)
 
     @property
@@ -67,11 +80,10 @@ class TransformerCausalLm(nn.Module):
         return torch.matmul(self.final_norm(x).float(), self.token.weight.t())
 
     def forward(self, tokens: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        """f32 logits [B, S, V] of ``tokens`` [B, S]. ``train`` applies
-        dropout with masks from ``generator``, which a nonzero rate then
-        requires."""
+                generator: Optional[torch.Generator] = None):
+        """f32 logits [B, S, V] of ``tokens`` [B, S] (with MoE layers:
+        ``(logits, moe_aux)``). ``train`` applies dropout with masks from
+        ``generator``, which a nonzero rate then requires."""
         if not train:
             generator = None
         elif generator is None and self.dropout_rate > 0:
@@ -81,8 +93,14 @@ class TransformerCausalLm(nn.Module):
         x = self.token(tokens) + self.position[None, :tokens.shape[1], :]
         x = dropout(self.embed_norm(x.to(self.dtype)), self.dropout_rate,
                     generator)
+        acc = MoeAuxAccumulator(x.device)
         for lyr in self.layer:
             x = lyr(x, causal=True, generator=generator)
+            if lyr.num_experts:
+                x, aux = x
+                acc.add(aux)
+        if self.num_experts > 0:
+            return self._logits(x), acc.mean()
         return self._logits(x)
 
     def init_cache(self, batch: int) -> List[KvCache]:
@@ -103,16 +121,12 @@ class TransformerCausalLm(nn.Module):
         x = self.embed_norm(x.to(self.dtype))
         for lyr, c in zip(self.layer, cache):
             x = lyr(x, cache=c, pos=pos_t)
+            if lyr.num_experts:
+                x = x[0]
         return self._logits(x)
 
 
-def _build(dtype, device, num_experts=0, **kw):
-    if num_experts:
-        raise NotImplementedError(
-            "the causal LM with Mixture-of-Experts FFNs (num_experts > 0) "
-            "is not ported yet (ROADMAP A.9b)")
-    for key in ("moe_every", "moe_capacity_factor", "moe_top_k"):
-        kw.pop(key, None)
+def _build(dtype, device, **kw):
     with torch.device(device or "cpu"):
         return TransformerCausalLm(dtype=dtype, **kw)
 

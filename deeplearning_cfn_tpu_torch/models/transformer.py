@@ -56,18 +56,21 @@ def dropout(x: torch.Tensor, rate: float,
 
 
 class Dense(nn.Module):
-    """``y = x @ W.T + b`` with f32 params, computed in ``dtype``."""
+    """``y = x @ W.T + b`` with f32 params, computed in ``dtype``
+    (``use_bias=False``: no ``b``, as the MoE router)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(out_features)) if use_bias
+            else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
 class LayerNorm(nn.Module):
@@ -267,12 +270,18 @@ class TransformerLayer(nn.Module):
     the NMT preset uses. The self-attention runs in one of three modes:
     dense (``cache=None``), per-row decode (``cache`` + ``pos``), or paged
     decode (``cache`` + ``pos`` + ``block_tables``).
+
+    ``num_experts > 0`` swaps the dense FFN for a Mixture-of-Experts FFN
+    (``moe_mlp``, ``models/moe.py``; its norm keeps the name ``mlp_norm``)
+    and makes ``forward`` return ``(x, moe_aux)``, as the JAX layer does.
     """
 
     def __init__(self, features: int, num_heads: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16, prenorm: bool = False,
                  cross_attention: bool = False,
-                 attention_impl: str = "auto", dropout_rate: float = 0.0):
+                 attention_impl: str = "auto", dropout_rate: float = 0.0,
+                 num_experts: int = 0, moe_capacity_factor: float = 1.25,
+                 moe_top_k: int = 2):
         super().__init__()
         self.prenorm = prenorm
         attn = lambda: MultiHeadAttention(features, num_heads, dtype,
@@ -284,7 +293,14 @@ class TransformerLayer(nn.Module):
         if cross_attention:
             self.cross_attn = attn()
             self.cross_attn_norm = ln()
-        self.mlp = Mlp(features, mlp_dim, dtype, dropout_rate)
+        self.num_experts = num_experts
+        if num_experts > 0:
+            from .moe import MoeMlp
+
+            self.moe_mlp = MoeMlp(features, num_experts, mlp_dim,
+                                  moe_capacity_factor, moe_top_k, dtype)
+        else:
+            self.mlp = Mlp(features, mlp_dim, dtype, dropout_rate)
         self.mlp_norm = ln()
 
     def _residual(self, x, sub, norm):
@@ -298,9 +314,10 @@ class TransformerLayer(nn.Module):
                 causal: bool = False, cache: Optional[KvCache] = None,
                 pos: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None):
         """``generator`` (dense mode only) draws the dropout masks; None
-        means not training."""
+        means not training. Returns ``x``, or ``(x, moe_aux)`` for a MoE
+        layer."""
         if cache is None:
             self_sub = lambda y: self.self_attn(y, bias=self_bias,
                                                 causal=causal,
@@ -318,29 +335,66 @@ class TransformerLayer(nn.Module):
                 x, lambda y: self.cross_attn(y, kv=enc, bias=cross_bias,
                                              generator=generator),
                 self.cross_attn_norm)
+        if self.num_experts > 0:
+            aux = {}
+
+            def moe_sub(y):
+                out, layer_aux = self.moe_mlp(y)
+                aux.update(layer_aux)
+                return out
+
+            return self._residual(x, moe_sub, self.mlp_norm), aux
         return self._residual(x, lambda y: self.mlp(y, generator),
                               self.mlp_norm)
 
 
+def is_moe_layer(i: int, num_experts: int, moe_every: int) -> bool:
+    """GShard's every-``moe_every``-th-layer convention, shared by the BERT
+    and GPT trunks."""
+    return num_experts > 0 and i % moe_every == moe_every - 1
+
+
+class MoeAuxAccumulator:
+    """Sum the MoE aux losses over a trunk's MoE layers and return their
+    per-layer mean (keys as ``MoeMlp``'s aux dict; zeros without a MoE
+    layer)."""
+
+    def __init__(self, device):
+        zero = lambda: torch.zeros((), dtype=torch.float32, device=device)
+        self.totals = {"load_balance": zero(), "router_z": zero()}
+        self.n = 0
+
+    def add(self, aux) -> None:
+        self.totals = {k: self.totals[k] + aux[k] for k in self.totals}
+        self.n += 1
+
+    def mean(self):
+        return {k: v / max(self.n, 1) for k, v in self.totals.items()}
+
+
 def init_flax_defaults(model: nn.Module, generator: torch.Generator,
                        tables) -> None:
-    """The Flax init of the encoder-decoder and decoder-only families:
+    """The Flax init of the encoder-decoder, decoder-only and ViT families:
     xavier-uniform ``Dense`` kernels, zero biases, ``LayerNorm`` ones/zeros,
-    and ``normal(0.02)`` for each tensor of ``tables`` (token tables,
-    position tables). Runs on the model's device with ``generator`` (which
-    must live there too)."""
+    ``normal(0.02)`` for each tensor of ``tables`` (token tables, position
+    tables), and the MoE layers' own init (``moe.init_moe_``). Runs on the
+    model's device with ``generator`` (which must live there too)."""
+    from .moe import init_moe_
+
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, Dense):
                 fan_out, fan_in = mod.weight.shape
                 limit = (6.0 / (fan_in + fan_out)) ** 0.5
                 mod.weight.uniform_(-limit, limit, generator=generator)
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
         for t in tables:
             t.normal_(0.0, 0.02, generator=generator)
+    init_moe_(model, generator)
 
 
 class Embed(nn.Module):

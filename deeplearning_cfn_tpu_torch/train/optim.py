@@ -23,8 +23,13 @@ semantics around it:
 ``adam``, ``sgd`` and ``momentum`` take decay as an L2 term added to the
 gradient after clipping, as ``optax.add_decayed_weights`` does before them.
 ``lars`` is :class:`Lars`, ``optax.lars`` step for step (the trust ratio and
-the learning rate come BEFORE the momentum trace; see its docstring), and
-``lamb`` is :class:`Lamb`, ``optax.lamb`` step for step.
+the learning rate come BEFORE the momentum trace; see its docstring),
+``lamb`` is :class:`Lamb`, ``optax.lamb`` step for step, and ``adafactor`` is
+:class:`Adafactor`, ``optax.adafactor(schedule)`` with optax's defaults
+(its weight decay, as for sgd/momentum/adam, goes in front of it). Adafactor
+factors a parameter's second moment by the parameter's Flax shape, so it is
+told each parameter's layout (``convert.flax_layout``'s kind) and keeps its
+statistics in Flax's layout.
 
 Checkpoints carry the optimizer's slots under the names of the optax state
 of the same chain (:meth:`Optimizer.named_slots`, :meth:`Optimizer.load_slots`;
@@ -116,10 +121,6 @@ def _decays(p: torch.Tensor) -> bool:
     return p.ndim > 1
 
 
-_NOT_PORTED = {
-    "adafactor": "A.9 (the other model families)",
-}
-
 # The optax state of each optimizer's transform (the chain element after the
 # clip and the sgd/momentum/adam weight decay): the chain-relative paths of
 # its update counts (int32 scalars), and of each per-parameter slot with the
@@ -135,9 +136,20 @@ _OPTAX_STATE: Dict[str, Tuple[Tuple[str, ...], Dict[str, str]]] = {
     "lars": (("2/count",), {"3/trace": "trace"}),
     "lamb": (("0/count", "3/count"),
              {"0/mu": "exp_avg", "0/nu": "exp_avg_sq"}),
+    # optax.adafactor: chain(scale_by_factored_rms -> FactoredState,
+    # clip_by_block_rms, scale_by_learning_rate -> ScaleByScheduleState,
+    # scale_by_param_block_rms, scale(-1)).
+    "adafactor": (("0/count", "2/count"),
+                  {"0/v_row": "v_row", "0/v_col": "v_col", "0/v": "v"}),
 }
 # Optimizers whose torch state counts its own steps (a float tensor).
-_STEP_STATE = ("adam", "adamw", "lamb")
+_STEP_STATE = ("adam", "adamw", "lamb", "adafactor")
+# Optimizers whose slots are kept in Flax's layout with shapes of their own
+# (``inner.slot(p, key)`` gives one, its initial value if not created yet).
+_FLAX_SLOTS = ("adafactor",)
+# Optimizers that take ``add_decayed_weights`` in front of them in the
+# optax chain (adamw, lars and lamb decay inside their own transform).
+_DECAY_IN_FRONT = ("sgd", "momentum", "adam", "adafactor")
 
 
 class Lars(torch.optim.Optimizer):
@@ -261,17 +273,131 @@ class Lamb(torch.optim.Optimizer):
             torch._foreach_add_(params, updates, alpha=-group["lr"])
 
 
+def _flax_view(t: torch.Tensor, kind: str) -> torch.Tensor:
+    """``t`` seen in Flax's layout (a view: writes reach ``t``)."""
+    if kind == "dense":
+        return t.t()
+    if kind == "conv":
+        return t.permute(2, 3, 1, 0)
+    return t
+
+
+def _factored_dims(shape: Tuple[int, ...], min_dim: int
+                   ) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: the two largest dims (second largest,
+    largest) when the second largest is at least ``min_dim``, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(lr)`` with optax's defaults: per update ``t``
+    (counted from 0), for each parameter ``p`` with gradient ``g``, both in
+    Flax's layout (``kinds[p]``):
+
+    1. ``u = g + wd·p`` where the group decays (the chain's
+       ``add_decayed_weights`` in front);
+    2. ``scale_by_factored_rms`` with the decay ``β = 1 − (t + 1)^−0.8``:
+       where ``p`` has two dims of at least 128 (the two largest, ``d1``
+       second and ``d0`` largest), ``v_row = β·v_row + (1 − β)·mean_d0(u² +
+       1e-30)`` and ``v_col`` likewise over ``d1``, and ``u`` is scaled by
+       ``(v_row / mean(v_row))^−½`` along ``d0`` and ``v_col^−½`` along
+       ``d1``; elsewhere ``v = β·v + (1 − β)·(u² + 1e-30)`` and ``u =
+       u·v^−½``;
+    3. ``clip_by_block_rms(1)``: ``u /= max(1, rms(u))``;
+    4. ``u *= lr``, then ``u *= max(rms(p), 1e-3)``
+       (``scale_by_param_block_rms``);
+    5. ``p = p − u``.
+
+    The slots ``v_row``, ``v_col`` and ``v`` hold optax's shapes in Flax's
+    layout, the placeholders (``[1]``) included; ``step`` is the count."""
+
+    def __init__(self, groups, lr: float, kinds: Dict[nn.Parameter, str],
+                 decay_rate: float = 0.8, eps: float = 1e-30,
+                 min_dim_size_to_factor: int = 128,
+                 clipping_threshold: float = 1.0, min_scale: float = 1e-3):
+        super().__init__(groups, dict(lr=lr, weight_decay=0.0))
+        self.kinds = kinds
+        self.decay_rate, self.eps = decay_rate, eps
+        self.min_dim = min_dim_size_to_factor
+        self.clipping_threshold, self.min_scale = clipping_threshold, \
+            min_scale
+
+    def _initial(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        shape = tuple(_flax_view(p, self.kinds.get(p, "none")).shape)
+        zeros = lambda s: torch.zeros(s, dtype=p.dtype, device=p.device)
+        dims = _factored_dims(shape, self.min_dim)
+        if dims is None:
+            return {"v_row": zeros((1,)), "v_col": zeros((1,)),
+                    "v": zeros(shape)}
+        d1, d0 = dims
+        return {"v_row": zeros(shape[:d0] + shape[d0 + 1:]),
+                "v_col": zeros(shape[:d1] + shape[d1 + 1:]),
+                "v": zeros((1,))}
+
+    def slot(self, p: torch.Tensor, key: str) -> torch.Tensor:
+        state = self.state.get(p, {})
+        return state[key] if key in state else self._initial(p)[key]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        del closure
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if "step" not in state:
+                    state["step"] = torch.tensor(0.0, dtype=torch.float32)
+                    state.update(self._initial(p))
+                kind = self.kinds.get(p, "none")
+                w, u = _flax_view(p, kind), _flax_view(p.grad, kind)
+                t = float(state["step"])
+                beta = 1.0 - (t + 1.0) ** -self.decay_rate
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * w
+                sq = u * u + self.eps
+                dims = _factored_dims(tuple(w.shape), self.min_dim)
+                if dims is not None:
+                    d1, d0 = dims
+                    v_row = beta * state["v_row"] + (1.0 - beta) * sq.mean(d0)
+                    v_col = beta * state["v_col"] + (1.0 - beta) * sq.mean(d1)
+                    state["v_row"], state["v_col"] = v_row, v_col
+                    reduced_d1 = d1 - 1 if d1 > d0 else d1
+                    row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+                    row_factor = (v_row / row_col_mean) ** -0.5
+                    update = u * row_factor.unsqueeze(d0) \
+                        * (v_col ** -0.5).unsqueeze(d1)
+                else:
+                    v = beta * state["v"] + (1.0 - beta) * sq
+                    state["v"] = v
+                    update = u * v ** -0.5
+                rms = update.square().mean().sqrt()
+                update = update / torch.clamp(rms / self.clipping_threshold,
+                                              min=1.0)
+                update = update * group["lr"]
+                p_rms = w.square().mean().sqrt()
+                update = update * torch.where(
+                    p_rms <= self.min_scale,
+                    torch.full_like(p_rms, self.min_scale), p_rms)
+                w.sub_(update)
+                state["step"] += 1
+
+
 class Optimizer:
     """A ``torch.optim`` optimizer driven with optax's chain semantics (see
-    the module docstring). ``count`` is the number of updates applied."""
+    the module docstring). ``count`` is the number of updates applied.
+    ``kinds`` gives each parameter's Flax layout (``"dense"``, ``"conv"`` or
+    ``"none"``, default ``"none"``); only Adafactor reads it."""
 
     def __init__(self, cfg: OptimizerConfig, schedule: Schedule,
-                 params: List[nn.Parameter]):
+                 params: List[nn.Parameter],
+                 kinds: Optional[Dict[nn.Parameter, str]] = None):
         name = cfg.name.lower()
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"optimizer {cfg.name!r} is not ported yet (ROADMAP "
-                f"{_NOT_PORTED[name]})")
         self.params = [p for p in params if p.requires_grad]
         groups = [
             {"params": [p for p in self.params if _decays(p)],
@@ -302,6 +428,8 @@ class Optimizer:
         elif name == "lamb":
             self.inner = Lamb(groups, lr=lr0, betas=(cfg.b1, cfg.b2),
                               eps=cfg.eps)
+        elif name == "adafactor":
+            self.inner = Adafactor(groups, lr=lr0, kinds=kinds or {})
         else:
             raise ValueError(f"unknown optimizer {cfg.name!r}")
         self.name = name
@@ -312,7 +440,7 @@ class Optimizer:
         # momentum and adam) the weight decay; this optimizer's state sits
         # at the next index.
         self._chain_index = int(cfg.grad_clip_norm > 0) + int(
-            cfg.weight_decay > 0 and name in ("sgd", "momentum", "adam"))
+            cfg.weight_decay > 0 and name in _DECAY_IN_FRONT)
 
     def grads(self) -> List[torch.Tensor]:
         return [p.grad for p in self.params if p.grad is not None]
@@ -345,13 +473,19 @@ class Optimizer:
         of this chain. ``named_params`` gives each parameter's Flax path
         (under ``params/``), the parameter, and the function that puts a
         tensor of its shape into Flax's layout. Slots not created yet (no
-        update applied) are zeros, as optax's init makes them."""
+        update applied) are zeros, as optax's init makes them; slots kept
+        in Flax's layout (``_FLAX_SLOTS``) are named as they are."""
         counts, slots = _OPTAX_STATE[self.name]
         prefix = f"opt_state/{self._chain_index}/"
         out = [(prefix + c, np.asarray(self.count, np.int32))
                for c in counts]
         for field, key in slots.items():
             for path, p, to_flax in named_params:
+                if self.name in _FLAX_SLOTS:
+                    value = self.inner.slot(p, key).detach().to(
+                        "cpu", copy=True).numpy()
+                    out.append((f"{prefix}{field}/{path}", value))
+                    continue
                 value = self.inner.state.get(p, {}).get(key)
                 if value is None:
                     value = torch.zeros_like(p)
@@ -371,7 +505,9 @@ class Optimizer:
         for path, p, from_flax in named_params:
             state = self.inner.state[p]
             for field, key in slots.items():
-                value = from_flax(leaves[f"{prefix}{field}/{path}"])
+                value = leaves[f"{prefix}{field}/{path}"]
+                if self.name not in _FLAX_SLOTS:
+                    value = from_flax(value)
                 state[key] = torch.as_tensor(np.ascontiguousarray(value),
                                              dtype=p.dtype).to(p.device)
             if self.name in _STEP_STATE:
@@ -388,4 +524,7 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 def build_optimizer(cfg: OptimizerConfig, schedule: Schedule,
                     model: nn.Module) -> Optimizer:
-    return Optimizer(cfg, schedule, list(model.parameters()))
+    from ..convert import flax_layout
+
+    kinds = {t: kind for _, _, t, kind in flax_layout(model)}
+    return Optimizer(cfg, schedule, list(model.parameters()), kinds)

@@ -8,8 +8,9 @@ and a dict of scalar metrics (on eval, ``eval_weight`` and per-metric
 ``<name>__weight`` too). A task's ``eval_derived`` maps a metric name to a
 function of the aggregated eval metrics (the trainer adds it after the
 cross-batch aggregation). Detection (Mask R-CNN) is
-``train/detection_task.py``; ViT's stats-free classification belongs to
-ROADMAP A.9b.
+``train/detection_task.py``. A model whose output carries MoE aux losses
+adds them to the objective at the ST-MoE weights (``MOE_LOAD_BALANCE_WEIGHT``,
+``MOE_ROUTER_Z_WEIGHT``), as the JAX tasks do.
 
 ``train.remat`` recomputes the train forward in the backward, where the JAX
 tasks wrap it in ``jax.checkpoint`` (:func:`remat`).
@@ -18,6 +19,7 @@ tasks wrap it in ``jax.checkpoint`` (:func:`remat`).
 from __future__ import annotations
 
 import contextlib
+import sys
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -28,6 +30,17 @@ from ..config import ExperimentConfig
 from ..models import build_model
 
 Batch = Dict[str, torch.Tensor]
+
+# MoE auxiliary-loss weights (ST-MoE's standard values), for models whose
+# outputs report router losses (models/moe.py).
+MOE_LOAD_BALANCE_WEIGHT = 0.01
+MOE_ROUTER_Z_WEIGHT = 0.001
+
+
+def init_model(model: nn.Module, generator: torch.Generator) -> None:
+    """The seeded Flax-distribution init of the module that defines
+    ``model``'s class (each model family owns its ``init_weights``)."""
+    sys.modules[type(model).__module__].init_weights(model, generator)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -191,13 +204,15 @@ class Seq2SeqTask:
 
 
 class ClassificationTask:
-    """Image classification (CIFAR ResNet-20, ImageNet ResNet-50).
+    """Image classification (CIFAR ResNet-20, ImageNet ResNet-50, ViT).
 
     Batch contract: ``{"image": [B,H,W,C] float32, "label": [B] int}``.
-    The model's BatchNorm running statistics are buffers, not parameters:
+    A ResNet's BatchNorm running statistics are buffers, not parameters:
     a train-mode forward updates them (in microbatch order under gradient
     accumulation, as the JAX step threads ``batch_stats``), an eval-mode
-    forward reads them, and the parameters' EMA does not cover them.
+    forward reads them, and the parameters' EMA does not cover them. A
+    stats-free model (ViT) takes a true train-mode forward, its dropout
+    drawn from the step's generator.
     """
 
     exact_eval = True  # consumes eval_mask; gets the padded full eval set
@@ -205,28 +220,32 @@ class ClassificationTask:
     def __init__(self, cfg: ExperimentConfig, device: torch.device):
         self.cfg = cfg
         self.device = device
-        if cfg.model.name.startswith("vit"):
-            raise NotImplementedError(
-                f"model {cfg.model.name!r}: ViT's stats-free classification "
-                f"path is not ported yet (ROADMAP A.9b)")
         dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
             else torch.float32
+        kwargs = dict(cfg.model.kwargs)
+        self.stats_free = cfg.model.name.startswith("vit")
+        if self.stats_free:
+            # The JAX module sizes its position table from the init's
+            # dummy image; the port's from the data config.
+            kwargs.setdefault("image_size", cfg.data.image_size)
         self.model = build_model(cfg.model.name, cfg.model.num_classes,
-                                 dtype, device=device, **cfg.model.kwargs)
+                                 dtype, device=device, **kwargs)
         self.remat = cfg.train.remat
 
     def init(self, generator: torch.Generator) -> None:
         """Seeded init with Flax's distributions, on the model's device."""
-        from ..models.resnet import init_weights
-
-        init_weights(self.model, generator)
+        init_model(self.model, generator)
 
     def loss_fn(self, batch: Batch, train: bool,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        del generator  # no dropout in the ResNets
-        apply = lambda images: self.model(images, train=train)
-        logits = remat(self.model, apply, None, batch["image"]) \
+        if self.stats_free:
+            apply = lambda images: self.model(images, train=train,
+                                              generator=generator)
+        else:
+            generator = None  # no dropout in the ResNets
+            apply = lambda images: self.model(images, train=train)
+        logits = remat(self.model, apply, generator, batch["image"]) \
             if train and self.remat else apply(batch["image"])
         labels = batch["label"]
         mask = example_mask(batch, logits.shape[0])
@@ -250,9 +269,13 @@ class MlmTask:
 
     Loss = the masked-LM cross-entropy, a weighted mean over the real
     predictions (``mlm_weights``), plus the next-sentence cross-entropy, an
-    example mean. Eval metrics carry their own weights: the MLM ones by
-    token (``mlm_loss__weight``, ``mlm_accuracy__weight``), the rest by
-    example (``eval_weight``).
+    example mean, plus, for a MoE trunk, the weighted aux losses (reported
+    as ``moe_load_balance`` and ``moe_router_z``). Eval metrics carry their
+    own weights: the MLM ones by token (``mlm_loss__weight``,
+    ``mlm_accuracy__weight``), the rest by example (``eval_weight``).
+    ``bert_pipelined`` runs its stacked trunk as the plain layer scan on
+    one device; the preset's ``n_microbatches`` and ``mesh.pipe`` are
+    printed and ignored (the schedule across devices is ROADMAP A.10).
     """
 
     exact_eval = True
@@ -261,10 +284,16 @@ class MlmTask:
                  attention_impl: Optional[str] = None):
         self.cfg = cfg
         self.device = device
-        if cfg.model.name in ("bert_pipelined", "bert_long"):
+        if cfg.model.name == "bert_long":
             raise NotImplementedError(
-                f"model {cfg.model.name!r} runs over a device mesh, not "
-                f"ported yet (ROADMAP A.10)")
+                f"model {cfg.model.name!r} runs sequence-parallel attention "
+                f"over a device mesh, not ported yet (ROADMAP A.10)")
+        if cfg.model.name == "bert_pipelined":
+            print(f"[dlcfn-tpu] bert_pipelined on one device: the plain "
+                  f"layer scan; n_microbatches="
+                  f"{cfg.model.kwargs.get('n_microbatches', 4)} and "
+                  f"mesh.pipe={cfg.mesh.pipe} are ignored (the GPipe "
+                  f"schedule across devices is ROADMAP A.10)")
         dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
             else torch.float32
         kwargs = dict(cfg.model.kwargs)
@@ -278,9 +307,7 @@ class MlmTask:
 
     def init(self, generator: torch.Generator) -> None:
         """Seeded init with Flax's distributions, on the model's device."""
-        from ..models.bert import init_weights
-
-        init_weights(self.model, generator)
+        init_model(self.model, generator)
 
     def loss_fn(self, batch: Batch, train: bool,
                 generator: Optional[torch.Generator] = None
@@ -305,18 +332,26 @@ class MlmTask:
         aux = {"mlm_loss": mlm_loss, "nsp_loss": nsp_loss,
                "mlm_accuracy": (mlm_hits * weights).sum() / token_denom,
                "nsp_accuracy": (nsp_hits * mask).sum() / example_denom}
+        loss = mlm_loss + nsp_loss
+        if "moe_load_balance" in out:
+            loss = loss + MOE_LOAD_BALANCE_WEIGHT * out["moe_load_balance"] \
+                + MOE_ROUTER_Z_WEIGHT * out["moe_router_z"]
+            aux["moe_load_balance"] = out["moe_load_balance"]
+            aux["moe_router_z"] = out["moe_router_z"]
         if not train:
             aux["eval_weight"] = mask.sum()
             aux["mlm_loss__weight"] = weights.sum()
             aux["mlm_accuracy__weight"] = weights.sum()
-        return mlm_loss + nsp_loss, aux
+        return loss, aux
 
 
 class CausalLmTask:
     """Decoder-only next-token pretraining (the GPT family).
 
     Loss = the token-weighted mean cross-entropy of ``tokens[:, 1:]`` given
-    ``tokens[:, :-1]``, weighted by ``loss_mask`` × the example mask. Train
+    ``tokens[:, :-1]``, weighted by ``loss_mask`` × the example mask, plus,
+    for a MoE trunk, the weighted aux losses (the perplexity stays on the
+    cross-entropy alone). Train
     metrics: ``token_accuracy`` and this step's ``perplexity`` (exp of its
     CE, clipped at 20 against a random init's overflow); eval metrics are
     token-weighted (``eval_weight`` is the batch's real token count) and
@@ -347,9 +382,7 @@ class CausalLmTask:
 
     def init(self, generator: torch.Generator) -> None:
         """Seeded init with Flax's distributions, on the model's device."""
-        from ..models.lm import init_weights
-
-        init_weights(self.model, generator)
+        init_model(self.model, generator)
 
     def loss_fn(self, batch: Batch, train: bool,
                 generator: Optional[torch.Generator] = None
@@ -357,8 +390,9 @@ class CausalLmTask:
         apply = lambda ids: self.model(ids, train=train, generator=generator)
         inputs = batch["tokens"][:, :-1]
         targets = batch["tokens"][:, 1:]
-        logits = remat(self.model, apply, generator, inputs) \
+        out = remat(self.model, apply, generator, inputs) \
             if train and self.remat else apply(inputs)
+        logits, moe_aux = out if isinstance(out, tuple) else (out, None)
         mask = example_mask(batch, inputs.shape[0])
         weights = batch["loss_mask"].float() * mask[:, None]
         ce = cross_entropy(logits, targets)
@@ -366,18 +400,24 @@ class CausalLmTask:
         ce_loss = (ce * weights).sum() / denom
         hits = (torch.argmax(logits, -1) == targets).float()
         aux = {"token_accuracy": (hits * weights).sum() / denom}
+        loss = ce_loss
+        if moe_aux is not None:
+            loss = loss + MOE_LOAD_BALANCE_WEIGHT * moe_aux["load_balance"] \
+                + MOE_ROUTER_Z_WEIGHT * moe_aux["router_z"]
+            aux["moe_load_balance"] = moe_aux["load_balance"]
+            aux["moe_router_z"] = moe_aux["router_z"]
         if train:
             aux["perplexity"] = torch.exp(torch.clamp(ce_loss, max=20.0))
         else:
             aux["ce_loss"] = ce_loss
             aux["eval_weight"] = weights.sum()
-        return ce_loss, aux
+        return loss, aux
 
 
 def build_task(cfg: ExperimentConfig, device: torch.device,
                attention_impl: Optional[str] = None):
-    """Task registry keyed by model family (the NMT, ResNet, BERT, GPT and
-    Mask R-CNN families are ported; ViT raises in ``ClassificationTask``)."""
+    """Task registry keyed by model family (NMT, ResNet, ViT, BERT and its
+    MoE and pipelined trunks, GPT, Mask R-CNN)."""
     name = cfg.model.name
     if name.startswith("transformer_nmt"):
         return Seq2SeqTask(cfg, device, attention_impl)

@@ -13,7 +13,9 @@ package's, on the CPU.
 - ``bert_base``: its parameter count on the ``meta`` device against
   ``jax.eval_shape`` of the Flax init, and ``convert.flax_layout`` naming
   every parameter as the Flax tree does (shapes in Flax's layout);
-- the refusals: MoE (A.9b), the pipelined and long-context trunks (A.10).
+- the BERT variants: the MoE and pipelined presets build their tasks
+  (``tests/test_torch_moe.py`` and ``tests/test_torch_pipelined.py`` hold
+  them against JAX); the long-context trunk refuses, naming A.10.
 
 Inputs are numpy arrays made from seeds and handed to both packages.
 """
@@ -154,10 +156,15 @@ def test_bert_base_shapes_and_names_match_flax():
 
 
 def test_unported_bert_variants_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-        build_task(apply_overrides(get_preset("bert_moe_wikipedia"), []),
-                   torch.device("meta"))
-    for preset in ("bert_pipelined_wikipedia", "bert_long_wikipedia"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            build_task(apply_overrides(get_preset(preset), []),
-                       torch.device("cpu"))
+    moe = build_task(apply_overrides(get_preset("bert_moe_wikipedia"), []),
+                     torch.device("meta"))
+    assert isinstance(moe, MlmTask)
+    assert [lyr.num_experts for lyr in moe.model.encoder.layer] == \
+        [0, 8] * 6
+    pipelined = build_task(
+        apply_overrides(get_preset("bert_pipelined_wikipedia"), []),
+        torch.device("meta"))
+    assert isinstance(pipelined, MlmTask)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        build_task(apply_overrides(get_preset("bert_long_wikipedia"), []),
+                   torch.device("cpu"))

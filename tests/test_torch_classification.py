@@ -14,8 +14,9 @@ with BatchNorm statistics) against the JAX package's, on the CPU.
   through the microbatches in order). Losses within 1e-4 relative, final
   running statistics within 1e-5, and the full-set eval's top-1 and top-5
   equal;
-- top-5 by the rank comparison, the eval mask, the ViT refusal, and the
-  ``train`` CLI on ``cifar10_resnet20`` on the CPU.
+- top-5 by the rank comparison, the eval mask, ViT's task on the
+  ``imagenet_vit_s16`` preset (``tests/test_torch_vit.py`` holds it against
+  JAX), and the ``train`` CLI on ``cifar10_resnet20`` on the CPU.
 """
 
 import jax
@@ -143,8 +144,9 @@ def test_top5_rank_comparison_and_eval_mask():
 
 def test_vit_names_its_roadmap_item():
     cfg = apply_overrides(get_preset("imagenet_vit_s16"), [])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        build_task(cfg, torch.device("cpu"))
+    task = build_task(cfg, torch.device("meta"))
+    assert isinstance(task, ClassificationTask) and task.stats_free
+    assert task.model.num_tokens == 196 and task.model.dropout_rate == 0.1
 
 
 def _jax_trajectory(jcfg, batches, eval_batches):

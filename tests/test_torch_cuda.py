@@ -15,7 +15,9 @@ loss) against the CPU, and GPT's path: the three kernels at 1023, 1024 and
 bias at batch 1 and 8, and the tiny f32 ``CausalLmTask`` against the CPU;
 and speculative serving: the verify span (γ = 1, 4, 8, dense and paged)
 against the plain version, and a tiny f32 speculative engine on the card
-against the CPU.
+against the CPU; ViT's attention at [256, 6, 196, 64] (neither causal nor
+biased) against the plain versions, the tiny f32 ViT (with 5 Adafactor
+steps) and the tiny f32 BERT-MoE and GPT-MoE on the card against the CPU.
 This file imports no JAX, so it runs on a machine that has only PyTorch and
 the CUDA toolkit:
 
@@ -800,3 +802,66 @@ def test_spec_engine_tiny_f32_on_card_matches_cpu(cuda):
     assert tokens[0] == tokens[1]
     assert len({tuple(t) for t in tokens[0]}) > 1
     assert (first[1] - first[0]).abs().max() <= 1e-4 * first[0].abs().max()
+
+
+# -- ViT, the MoE trunks and Adafactor on the card ---------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_shape_kernels_match_plain_versions(cuda, dtype):
+    """ViT-S/16's self-attention: [256, 6, 196, 64] (batch 16 in f32),
+    neither causal nor biased, in the model's strided layout. 196 keys end
+    every row in a partial 64-key tile and leave 4 rows in the last 64-row
+    Q tile; O, lse, dK, dV and dQ against their plain versions."""
+    b = 256 if dtype == torch.bfloat16 else 16
+    rng = np.random.default_rng(196)
+    args = _bwd_inputs(rng, (b, 6, 196, 196, 64, False, True), dtype, cuda)
+    q, k, v, _, lse, _, _, scale = args
+    variant = attn.forward_variant(dtype, 196, 64)
+    assert variant == ("tc" if dtype == torch.bfloat16 else "simt")
+    n = attn.flash_attention_forward.variant_launches[variant]
+    out = attn.flash_attention_forward(q, k, v)
+    assert attn.flash_attention_forward.variant_launches[variant] == n + 1
+    ref = attn.attention_reference(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert scaled_error(out, ref)["ok"], scaled_error(out, ref)
+    ref_lse = attn._reference_lse(q, k, None, False, scale)
+    assert ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max() \
+        <= 1e-3
+    bwd = attn.backward_variant(dtype, 64)
+    before = (attn.flash_attn_bwd_dkdv.variant_launches[bwd],
+              attn.flash_attn_bwd_dq.variant_launches[bwd])
+    dk, dv = attn.flash_attn_bwd_dkdv(*args)
+    dq = attn.flash_attn_bwd_dq(*args)
+    assert (attn.flash_attn_bwd_dkdv.variant_launches[bwd],
+            attn.flash_attn_bwd_dq.variant_launches[bwd]) == \
+        (before[0] + 1, before[1] + 1)
+    rk, rv = attn.flash_bwd_dkdv_reference(*args)
+    rq = attn.flash_bwd_dq_reference(*args)
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert torch.isfinite(got).all(), name
+        assert _close(got, want, BWD_TOL[dtype]), \
+            (name, (got.float() - want.float()).abs().max().item())
+        assert scaled_error(got, want)["ok"], (name, scaled_error(got, want))
+
+
+def test_vit_tiny_f32_and_adafactor_on_card_match_cpu(cuda):
+    """``chip_smoke.vit_parity``: the tiny f32 ViT's logits, loss and
+    gradients on the card against the CPU, then 5 Adafactor steps on
+    each."""
+    from chip_smoke import vit_parity
+
+    out = vit_parity(torch, attn)
+    assert out["launches"] == {"fwd": 2, "dkdv": 2, "dq": 2, "vjp": 0}
+
+
+def test_moe_tiny_f32_on_card_matches_cpu(cuda):
+    """``chip_smoke.moe_parity``: the tiny f32 BERT-MoE and GPT-MoE on the
+    card against the CPU — dispatch masks equal, loss and gradients, and
+    GPT-MoE's greedy generation token-identical."""
+    from chip_smoke import moe_parity
+
+    out = moe_parity(torch, attn)
+    assert out["bert_moe"]["dispatch_equal"]
+    assert out["gpt_moe"]["dispatch_equal"]
+    assert out["bert_moe"]["dropped_choices"] > 0

@@ -146,10 +146,14 @@ def test_optimizer_updates_match_optax(spec):
 
 def test_unported_optimizers_name_their_roadmap_item():
     p = [torch.nn.Parameter(torch.zeros(2, 2))]
-    # lars (tests/test_torch_classification.py) and lamb
-    # (tests/test_torch_mlm.py) are ported; adafactor raises.
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        toptim.Optimizer(OptimizerConfig(name="adafactor"), lambda s: 0.1, p)
+    # lars (tests/test_torch_classification.py), lamb
+    # (tests/test_torch_mlm.py) and adafactor (tests/test_torch_adafactor.py)
+    # are ported: every optimizer of the JAX package is.
+    opt = toptim.Optimizer(OptimizerConfig(name="adafactor"), lambda s: 0.1,
+                           p)
+    assert isinstance(opt.inner, toptim.Adafactor)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        toptim.Optimizer(OptimizerConfig(name="adagrad"), lambda s: 0.1, p)
 
 
 # -- data ---------------------------------------------------------------------
