@@ -255,7 +255,28 @@ order; a failing phase raises, so the exit code is nonzero:
 23. train ``bert_pipelined_wikipedia`` at full width on one card (the
    stacked trunk as the plain layer scan; the preset's 8 microbatches and
    4-way pipe axis are ignored and printed) in bf16, as phase 13: batch
-   1024 as 2 × 512, 22 steps, phase 13's figures and launch checks.
+   1024 as 2 × 512, 22 steps, phase 13's figures and launch checks;
+24. ``train.step_window=4`` (``train/graphs.py``): ``imagenet_vit_s16``
+   (bf16, batch 1024 as 4 × 256) and ``transformer_nmt_wmt`` (bf16, batch
+   128, dropout 0.1) each train 16 steps twice from one seed over the same
+   4 staged batches: K = 1 eager steps, then K = 4 windows whose steps
+   replay one captured CUDA graph (the first step eager). Printed: both
+   runs' per-step losses, the largest loss and weight differences, which
+   must stay within ``WINDOW_TOL`` (bit for bit where no atomics reorder
+   additions), the launches per step of each kernel, which must be equal
+   (replays counted, the capture not), the step time p50 of each (windows
+   of 4 synced at their ends, the first left out) and the device-busy
+   share: the device's span of a replayed step (CUDA events around a
+   window; the host is ahead of the card, one launch per step) over each
+   run's wall time per step. Then the other seven trainable presets as tiny
+   f32 cuts, 8 steps each, K = 1 run twice (BERT with remat, dropout and
+   two microbatches; where two eager runs drift apart, as Mask R-CNN's
+   do, the bound is ``WINDOW_RERUN_FACTOR`` times their drift). Then the
+   ViT and the NMT through ``run_experiment``
+   with ``step_window=4``, 8 steps: the steps logged (4 and 8, lagging one
+   boundary), ``compile_s`` once, and the launches (the path's, in the
+   kernels line as ``launches_vit_window`` and ``launches_nmt_window``).
+   A capture or replay that fails raises.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -451,6 +472,69 @@ PIPE_CUTS = BERT_CUTS + [
     "model.kwargs.n_microbatches=8 and mesh.pipe=4 ignored (one device "
     "runs the plain layer scan; the GPipe schedule across devices is "
     "ROADMAP A.10)"]
+# Phase 24: train.step_window=4 (ROADMAP A.5b): each run twice from one seed
+# and the same batches, K = 1 (eager steps) then K = 4 (windows whose steps
+# replay one captured CUDA graph, after the eager warm-up step). The batches
+# are WINDOW distinct ones, staged on the card once and cycled.
+WINDOW, WINDOW_STEPS, WINDOW_TINY_STEPS = 4, 16, 8
+# A replay runs the eager step's kernels on the same addresses, so the two
+# agree bit for bit where the step has no atomics. Where it has (the
+# embedding and index_add backward, cuDNN's weight gradients), the order
+# of additions changes from run to run — between two eager runs too — and
+# the losses and weights then agree to these bounds, relative to the
+# largest |value|: in f32 the resume check's 1e-4 (phase 14); in bf16 a
+# last-bit difference in an f32 weight can flip a bf16 rounding
+# downstream, 2e-3.
+WINDOW_TOL = {"float32": 1e-4, "bfloat16": 2e-3}
+# The tiny presets run K = 1 twice: where two eager runs drift apart further
+# than WINDOW_TOL (Mask R-CNN: a last-bit difference from the index_add's
+# atomics can flip a top-k or NMS choice, and the trajectories part), the
+# graphs may drift from the eager run up to this many times as far.
+WINDOW_RERUN_FACTOR = 10
+WINDOW_VIT = [f"train.global_batch={VIT_BATCH}",
+              f"train.grad_accum_steps={VIT_ACCUM}",
+              "schedule.warmup_steps=2",
+              f"data.num_train_examples={VIT_TRAIN_EXAMPLES}",
+              f"data.num_eval_examples={VIT_EVAL_BATCH}",
+              f"train.eval_batch={VIT_EVAL_BATCH}",
+              "train.eval_every_steps=1000000",
+              "checkpoint.every_steps=1000000"]
+WINDOW_CUTS = ["ViT: phase 21's cuts; NMT: phase 9's (batch 128, dropout "
+               "0.1 kept)",
+               f"{WINDOW} distinct batches, cycled over {WINDOW_STEPS} steps "
+               f"(the other presets: tiny f32 cuts, {WINDOW_TINY_STEPS} "
+               f"steps)",
+               "through run_experiment (cli train's path): 8 steps, log "
+               "every 4, eval on one batch"]
+_BERT_TINY = ["model.name=bert_tiny", "model.kwargs.hidden_size=32",
+              "model.kwargs.num_layers=2", "model.kwargs.num_heads=2",
+              "model.kwargs.mlp_dim=64", "model.kwargs.max_len=32",
+              "data.vocab_size=64", "data.seq_len=16", "train.global_batch=8",
+              "data.num_train_examples=64"]
+# The other trainable presets, as tiny f32 cuts (phases 12, 14, 16 and
+# 22's). BERT runs with the forward recomputed in the backward, dropout on
+# and two microbatches: the recompute's masks come from the twin
+# generators a capture registers (train/graphs.py).
+WINDOW_TINY = {
+    "cifar10_resnet20": ["train.global_batch=32",
+                         "data.num_train_examples=128"],
+    "imagenet_resnet50": ["model.num_classes=10", "data.image_size=64",
+                          "model.kwargs.num_filters=16",
+                          "train.global_batch=8",
+                          "data.num_train_examples=32"],
+    "bert_base_wikipedia": _BERT_TINY + ["model.kwargs.dropout_rate=0.1",
+                                         "train.remat=true",
+                                         "train.grad_accum_steps=2"],
+    "maskrcnn_coco": MRCNN_TINY + ["data.num_train_examples=16",
+                                   "schedule.name=constant",
+                                   "schedule.base_lr=0.01"],
+    "gpt_small_lm": ["model.name=gpt_tiny", "model.kwargs.max_len=64",
+                     "data.vocab_size=512", "data.seq_len=32",
+                     "train.global_batch=8", "data.num_train_examples=64"],
+    "bert_moe_wikipedia": MOE_BERT_TINY + ["train.global_batch=8"],
+    "bert_pipelined_wikipedia": _BERT_TINY[1:] + [
+        "model.kwargs.n_microbatches=2"],
+}
 
 
 def log(msg: str) -> None:
@@ -3674,6 +3758,241 @@ def profile_serving(torch, ticks: int = 16) -> None:
                    "decode step")
 
 
+def window_runs(torch, attn, cfg_of, steps, again=False):
+    """Phase 24's pair of runs of one preset: K = 1 (eager ``train_step``s)
+    and K = WINDOW (``window_step``: the first step eager, the rest replays
+    of the captured graph), each from the config's seed over the same
+    WINDOW batches, staged on the card once and cycled. ``cfg_of(k)`` gives
+    the config of each. Returns, for each K, the per-step losses, the
+    per-step launches of each window, the final parameters, the wall time
+    per step of each window (synced at its end) and its device span per
+    step (CUDA events around the window). With ``again`` the K = 1 run is
+    made twice (``runs["again"]``): how far two eager runs drift apart."""
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.train.optim import (build_optimizer,
+                                                        build_schedule)
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.task import build_task
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device(DEVICE)
+    first = cfg_of(1)
+    stream = build_pipeline(first.data, first.train.global_batch,
+                            first.model.num_classes,
+                            seed=first.train.seed).epochs()
+    staged = [to_device(next(stream), dev) for _ in range(WINDOW)]
+    stream.close()
+    runs = {}
+    for key, k in ((1, 1), *((("again", 1),) if again else ()),
+                   (WINDOW, WINDOW)):
+        cfg = cfg_of(k)
+        task = build_task(cfg, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(cfg.train.seed))
+        task.init(gen)
+        state = create_train_state(task.model, build_optimizer(
+            cfg.optimizer, build_schedule(cfg.schedule, steps,
+                                          cfg.train.global_batch),
+            task.model), ema=cfg.train.ema_decay > 0)
+        trainer = Trainer(cfg, task, dev)
+        losses, step_s, span_s, launches = [], [], [], []
+        set_counts(attn, 0)
+        t_run = time.perf_counter()
+        for _ in range(0, steps, WINDOW):
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            c0, t0 = counts(attn), time.perf_counter()
+            ev[0].record()
+            if k == 1:
+                loss = torch.stack([trainer.train_step(state, b)["loss"]
+                                    for b in staged])
+            else:
+                loss = trainer.window_step(state, staged)["loss"]
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_s.append((time.perf_counter() - t0) / WINDOW)
+            span_s.append(ev[0].elapsed_time(ev[1]) / WINDOW / 1e3)
+            c1 = counts(attn)
+            launches.append({n: (c1[n] - c0[n]) / WINDOW for n in c1})
+            losses += loss.float().tolist()
+        runs[key] = dict(losses=losses, step_s=step_s, span_s=span_s,
+                       launches=launches,
+                       weights=[p.detach().clone() for p in state.params])
+        log(f"    K={k}: {steps} steps in {time.perf_counter() - t_run:.1f} s")
+        del trainer, state, task
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _drift(ra, rb):
+    """(largest loss difference, that over the largest |loss|, the largest
+    weight difference over its tensor's largest |value|, bit for bit)."""
+    diff = max(abs(a - b) for a, b in zip(ra["losses"], rb["losses"]))
+    weight = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+                 for a, b in zip(ra["weights"], rb["weights"]))
+    same = diff == 0 and all(bool((a == b).all()) for a, b in
+                             zip(ra["weights"], rb["weights"]))
+    return diff, diff / max(abs(x) for x in ra["losses"]), weight, same
+
+
+def check_windows(name, runs, tol, kernels=False, timed=False):
+    """Phase 24's checks of one pair: finite losses, the two trajectories
+    within ``tol`` of the largest |value| — or, where the K = 1 run was made
+    twice, within WINDOW_RERUN_FACTOR times the two eager runs' own drift
+    when that is larger — (bit for bit reported), the same launches per
+    step, and with ``kernels`` all three kernels launched; with ``timed``
+    the step times and busy shares. Logs and returns the figures."""
+    r1, rk = runs[1], runs[WINDOW]
+    l1, lk = r1["losses"], rk["losses"]
+    if not all(math.isfinite(x) for x in l1 + lk):
+        raise AssertionError(f"{name}: non-finite losses {l1} {lk}")
+    loss_diff, loss_rel, weight_rel, bitwise = _drift(r1, rk)
+    log(f"  {name} K=1 losses: {' '.join(f'{x:.6f}' for x in l1)}")
+    log(f"  {name} K={WINDOW} losses: {' '.join(f'{x:.6f}' for x in lk)}")
+    loss_bound = weight_bound = tol
+    eager = None
+    if "again" in runs:
+        eager = _drift(r1, runs["again"])
+        loss_bound = max(tol, WINDOW_RERUN_FACTOR * eager[1])
+        weight_bound = max(tol, WINDOW_RERUN_FACTOR * eager[2])
+        log(f"  {name}: two eager runs drift {eager[1]:.3e} (loss) and "
+            f"{eager[2]:.3e} (weights); bitwise "
+            f"{'equal' if eager[3] else 'not equal'}")
+    log(f"  {name}: largest loss difference {loss_diff:.3e} ({loss_rel:.3e} "
+        f"of the largest loss), largest weight difference {weight_rel:.3e} "
+        f"of its tensor's largest |value|; bitwise "
+        f"{'equal' if bitwise else 'not equal'} (bounds {loss_bound:.3g}, "
+        f"{weight_bound:.3g})")
+    if loss_rel > loss_bound or weight_rel > weight_bound:
+        raise AssertionError(f"{name}: K={WINDOW} graphs left the eager "
+                             f"trajectory (loss {loss_rel:.3e} > "
+                             f"{loss_bound:.3g} or weights {weight_rel:.3e} "
+                             f"> {weight_bound:.3g})")
+    if r1["launches"] != rk["launches"]:
+        raise AssertionError(f"{name}: per-step launches under replay "
+                             f"{rk['launches']} != eager {r1['launches']}")
+    per_step = r1["launches"][0]
+    log(f"  {name}: launches per step, K=1 and K={WINDOW} alike: "
+        f"{per_step}")
+    if kernels and min(per_step[n] for n in ("fwd", "dkdv", "dq")) <= 0:
+        raise AssertionError(f"{name}: a kernel was not launched: "
+                             f"{per_step}")
+    out = dict(losses_k1=l1, losses_k4=lk, max_loss_diff=loss_diff,
+               max_loss_diff_rel=loss_rel, max_weight_diff_rel=weight_rel,
+               bitwise=bitwise, tol=tol, launches_per_step=per_step)
+    if eager is not None:
+        out.update(eager_drift_loss_rel=eager[1],
+                   eager_drift_weight_rel=eager[2], eager_bitwise=eager[3])
+    if timed:
+        p50 = lambda xs: sorted(xs)[len(xs) // 2]
+        # The first window of each run is left out: the K = WINDOW one
+        # holds the eager warm-up step and the capture. The device's span
+        # of a replayed step (the host far ahead of the card: one launch
+        # per step) is the device time of the step's work, gaps between
+        # the graph's kernels included; each run's busy share is that over
+        # its own wall time per step.
+        device = p50(rk["span_s"][1:])
+        for k, key in ((1, "k1"), (WINDOW, "k4")):
+            step = p50(runs[k]["step_s"][1:])
+            out[f"step_time_p50_s_{key}"] = step
+            out[f"device_span_p50_s_{key}"] = p50(runs[k]["span_s"][1:])
+            out[f"device_busy_share_{key}"] = device / step
+        out["first_window_step_s_k4"] = rk["step_s"][0]
+        log(f"  {name}: step time p50 K=1 {out['step_time_p50_s_k1'] * 1e3:.2f}"
+            f" ms, K={WINDOW} {out['step_time_p50_s_k4'] * 1e3:.2f} ms; "
+            f"device span of a replayed step {device * 1e3:.2f} ms, so "
+            f"device-busy {out['device_busy_share_k1']:.3f} (K=1) and "
+            f"{out['device_busy_share_k4']:.3f} (K={WINDOW}); first K="
+            f"{WINDOW} window {out['first_window_step_s_k4'] * 1e3:.1f} ms "
+            f"per step (warm-up step and capture)")
+    return out
+
+
+def windowed_run(torch, attn, cfg, per_step, label):
+    """Phase 24's main path: ``run_experiment`` (``cli train``'s path) with
+    ``train.step_window`` = WINDOW, every count set to 0 first and read at
+    the last step's hook, before the eval. The launches must be
+    ``per_step`` × microbatch steps: each replay is counted once, the
+    capture not at all."""
+    from deeplearning_cfn_tpu_torch.train.run import run_experiment
+
+    steps = cfg.train.steps
+    at_end, by_variant = {}, {}
+
+    def hook(step, state, record):
+        if step == steps:
+            at_end.update(counts(attn))
+            by_variant.update(variant_counts(attn))
+
+    set_counts(attn, 0)
+    t0 = time.perf_counter()
+    final = run_experiment(cfg, device=DEVICE, hooks=(hook,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(cfg.workdir, cfg.preset, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh if line.strip()]
+    logged = [r["step"] for r in records if "loss" in r]
+    micro = steps * cfg.train.grad_accum_steps
+    expect = {k: v * micro for k, v in per_step.items()}
+    log(f"  {label} through run_experiment, step_window={WINDOW}: steps "
+        f"logged {logged}, launches {at_end} (expected {expect}), by "
+        f"variant {by_variant}; run {wall:.1f} s")
+    if logged != list(range(WINDOW, steps + 1, WINDOW)):
+        raise AssertionError(f"{label}: logged steps {logged}")
+    if sum("compile_s" in r for r in records) != 1:
+        raise AssertionError(f"{label}: compile_s is not logged once")
+    if not all(math.isfinite(r["loss"]) for r in records if "loss" in r):
+        raise AssertionError(f"{label}: non-finite loss in {records}")
+    if at_end != expect:
+        raise AssertionError(f"{label}: launch counts {at_end} != {expect}")
+    if any(by_variant[k]["tc"] != at_end[k] for k in ("fwd", "dkdv", "dq")):
+        raise AssertionError(f"{label}: bf16 launches off the tc variant: "
+                             f"{by_variant}")
+    return dict(steps=steps, steps_logged=logged, launches=at_end,
+                variant_launches=by_variant, final_eval_loss=final["loss"],
+                wall_s=wall)
+
+
+def train_windows(torch, attn):
+    """Phase 24: ``train.step_window=4``. ViT-S/16 and the NMT at full
+    width in bf16, K = 1 against K = 4, with their step times and busy
+    shares; the other trainable presets as tiny f32 cuts; then the ViT and
+    the NMT through ``run_experiment`` with ``step_window=4``, the path's
+    launch counts."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    for cut in WINDOW_CUTS:
+        log(f"  cut: {cut}")
+    vit = lambda k, steps=WINDOW_STEPS: vit_cfg(WINDOW_VIT + [
+        f"train.step_window={k}", f"train.steps={steps}",
+        f"train.log_every_steps={WINDOW}"], "smoke_window_vit")
+    nmt = lambda k, steps=WINDOW_STEPS: apply_overrides(
+        train_cfg(torch, "bfloat16", TRAIN_BATCH, steps, "smoke_window_nmt"),
+        [f"train.step_window={k}", f"train.log_every_steps={WINDOW}",
+         "data.num_eval_examples=128"])
+    out = {}
+    for name, cfg_of in (("vit", vit), ("nmt", nmt)):
+        out[name] = check_windows(
+            name, window_runs(torch, attn, cfg_of, WINDOW_STEPS),
+            WINDOW_TOL["bfloat16"], kernels=True, timed=True)
+    for preset, over in WINDOW_TINY.items():
+        cfg_of = lambda k, preset=preset, over=over: apply_overrides(
+            get_preset(preset), over + [
+                "train.dtype=float32", "train.seed=0",
+                f"train.step_window={k}",
+                f"workdir={fresh_workdir('smoke_window_tiny')}"])
+        out[preset] = check_windows(
+            preset, window_runs(torch, attn, cfg_of, WINDOW_TINY_STEPS,
+                                again=True), WINDOW_TOL["float32"])
+    out["vit_run"] = windowed_run(torch, attn, vit(WINDOW, 2 * WINDOW),
+                                  VIT_PER_STEP, "vit")
+    out["nmt_run"] = windowed_run(torch, attn, nmt(WINDOW, 2 * WINDOW),
+                                  PER_STEP, "nmt")
+    return out
+
+
 def main() -> int:
     profiles = {"--profile": profile_serving,
                 "--profile-train": profile_training,
@@ -3810,6 +4129,11 @@ def main() -> int:
     bert_pipe = train_bert(torch, attn, "bert_pipelined_wikipedia",
                            "smoke_bert_pipelined", PIPE_CUTS)
 
+    phase(f"24. train.step_window={WINDOW}: K = 1 eager against K = "
+          f"{WINDOW} CUDA graph replays (ViT-S/16 and NMT at full width, "
+          f"bf16; the other presets tiny, f32)")
+    windows = train_windows(torch, attn)
+
     # The forward kernel serves every path: its numbers cover the three
     # serving shapes, the NMT training shape, BERT's, GPT's train shape,
     # GPT's decode step, the verify span over the dense cache and the
@@ -3838,7 +4162,11 @@ def main() -> int:
                               bert_moe["variant_launches_with_eval"]["fwd"]),
                  "bert_pipelined": (
                      bert_pipe["launches_with_eval"]["fwd"],
-                     bert_pipe["variant_launches_with_eval"]["fwd"])}
+                     bert_pipe["variant_launches_with_eval"]["fwd"]),
+                 "vit_window": (windows["vit_run"]["launches"]["fwd"],
+                                windows["vit_run"]["variant_launches"]["fwd"]),
+                 "nmt_window": (windows["nmt_run"]["launches"]["fwd"],
+                                windows["nmt_run"]["variant_launches"]["fwd"])}
     for name, run in spec["runs"].items():
         fwd_paths[f"spec_{name[0]}"] = (run["launches"],
                                         run["variant_launches"])
@@ -3886,7 +4214,9 @@ def main() -> int:
                       ("flash_attn_bwd_dq", "dq")):
         # The NMT training shape, GPT's and ViT's, one call at each.
         shapes = [train_rows[name], gpt_rows[name], vit_rows[name]]
-        paths = {"train": trained, "gpt_train": gpt, "vit_train": vit}
+        paths = {"train": trained, "gpt_train": gpt, "vit_train": vit,
+                 "vit_window": windows["vit_run"],
+                 "nmt_window": windows["nmt_run"]}
         records.append({
             "name": name, "route": "cuda",
             "source": f"deeplearning_cfn_tpu_torch/csrc/{name}.cu",
@@ -3934,6 +4264,7 @@ def main() -> int:
         "bert_moe_train": bert_moe,
         "moe_tiny_f32_card_vs_cpu": moe_f32,
         "bert_pipelined_train": bert_pipe,
+        "step_window": windows,
         "script_s": time.perf_counter() - script_t0,
     }
     log(json.dumps({"summary": summary}))

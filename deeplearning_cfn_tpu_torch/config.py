@@ -132,17 +132,17 @@ class TrainConfig:
     # (unroll on CPU, where XLA executes convs inside loop bodies ~10x
     # slower than straight-line — measured r04; scan elsewhere).
     grad_accum_unroll: str = "auto"
-    # Device-resident fast path: fuse this many consecutive train steps
-    # into ONE jitted lax.scan per device call (a *train window*), paying
-    # Python dispatch + input staging once per window instead of per step.
-    # Per-step RNG folds in the global step inside the scan body, so the
-    # loss trajectory is bit-identical to the per-step loop for any K (the
-    # parity contract — mirrors serve's decode windows). Windows clamp to
-    # the next log/eval/trace/hook-cadence boundary so every existing
-    # cadence lands exactly where it does today. 1 (the default) is the
-    # per-step loop, unchanged; keep 1 on CPU for conv presets — XLA:CPU
-    # runs convs inside scan bodies ~10x slower than straight-line (the
-    # r04 scan-vs-unroll finding).
+    # Device-resident fast path: run this many consecutive train steps as
+    # one train *window* (the JAX package jits them as ONE lax.scan, paying
+    # dispatch and input staging once per window). On the card each step
+    # of a window is one replay of a CUDA graph of the whole step, captured
+    # after one eager warm-up step (train/graphs.py): one launch in place
+    # of the step's thousands. On the CPU a window runs its steps eagerly.
+    # Per-step RNG is reseeded from the global step, so the loss
+    # trajectory is the per-step loop's for any K (bit for bit where the
+    # step has no atomics). Windows clamp to the next
+    # log/eval/trace/hook-cadence boundary so every existing cadence lands
+    # exactly where it does today. 1 (the default) is the per-step loop.
     step_window: int = 1
     # Host→device input staging depth: batches are device_put with their
     # target shardings on a background thread (double-buffered at the

@@ -318,7 +318,10 @@ class DevicePrefetcher:
     staged batch carries an event that the consuming stream waits on, and
     its tensors are recorded on that stream so the caching allocator does
     not reuse them early. On the CPU it only converts. ``close()`` stops
-    and joins the worker, then closes the wrapped iterator.
+    and joins the worker, then closes the wrapped iterator. A CUDA graph
+    reads fixed buffers, so a replayed step copies the batch it gets here
+    (on the consuming stream, after the wait) into the graph's static
+    inputs (``train/graphs.py``); the staging itself is unchanged.
     """
 
     def __init__(self, it: Iterator[Batch], device: Union[str, torch.device],

@@ -17,7 +17,9 @@ The port of ``deeplearning_cfn_tpu/ops/attention.py``:
   ports of ``_flash_bwd_dkdv_kernel`` and ``_flash_bwd_dq_kernel``, with their
   plain versions ``flash_bwd_dkdv_reference`` / ``flash_bwd_dq_reference``
   beside them and a ``launches`` counter each, split by variant in
-  ``.variant_launches`` (``backward_variant``).
+  ``.variant_launches`` (``backward_variant``). Under a CUDA graph the
+  wrappers run once, at capture; ``launch_counts``/``add_launch_counts``
+  let the graph count each replay's launches instead (``train/graphs.py``).
 - ``forward_variant`` / ``backward_variant``: the one rule that picks each
   kernel's variant (``backward_variant`` for both backward kernels) —
   ``tc`` (bf16 on tensor cores: wgmma fed by TMA), ``decode`` (bf16 with
@@ -449,6 +451,35 @@ def attention_reference_vjp(q, k, v, bias, g, causal, scale, wanted):
 
 
 attention_reference_vjp.calls = 0
+
+
+def _counters():
+    return {"flash_attn_fwd": flash_attention_forward,
+            "flash_attn_bwd_dkdv": flash_attn_bwd_dkdv,
+            "flash_attn_bwd_dq": flash_attn_bwd_dq}
+
+
+def launch_counts():
+    """Every kernel wrapper's launches by variant, and the reference VJP's
+    recomputes: ``{name: {variant or "calls": n}}``."""
+    out = {name: dict(fn.variant_launches)
+           for name, fn in _counters().items()}
+    out["attention_reference_vjp"] = {"calls": attention_reference_vjp.calls}
+    return out
+
+
+def add_launch_counts(counts, times: int = 1) -> None:
+    """Add ``times`` × ``counts`` (as :func:`launch_counts` gives them) to
+    the counters. A CUDA graph replay launches again every kernel its
+    capture recorded, which the wrappers counted once, at capture (when
+    nothing ran): the capture gives its counts back (``times=-1``) and each
+    replay adds them (``train/graphs.py``)."""
+    for name, fn in _counters().items():
+        for variant, n in counts[name].items():
+            fn.variant_launches[variant] += n * times
+            fn.launches += n * times
+    attention_reference_vjp.calls += \
+        counts["attention_reference_vjp"]["calls"] * times
 
 
 class FlashAttention(torch.autograd.Function):

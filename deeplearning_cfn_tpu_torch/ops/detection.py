@@ -96,10 +96,21 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
                          by + 0.5 * bh, bx + 0.5 * bw], dim=-1)
     if clip_hw is not None:
         h, w = clip_hw
-        hi = torch.tensor([h, w, h, w], dtype=boxes.dtype,
-                          device=boxes.device)
+        hi = device_values([h, w, h, w], boxes.dtype, boxes.device)
         boxes = torch.minimum(torch.clamp(boxes, min=0.0), hi)
     return boxes
+
+
+def device_values(values: Sequence[float], dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)`` written by one
+    fill per value: no copy from host memory, which a CUDA graph capture
+    refuses (``train/graphs.py``). Each value is rounded to ``dtype`` as
+    ``torch.tensor`` rounds it."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
 
 
 # -- anchors ----------------------------------------------------------------
@@ -304,8 +315,7 @@ def multilevel_roi_align(
     flat = torch.cat([feats[l].permute(0, 2, 3, 1).reshape(bsz, -1, c)
                       for l in levels], dim=1).reshape(bsz * rows, c)
 
-    lut = lambda vals, dtype: torch.tensor(vals, dtype=dtype,
-                                           device=dev)[tidx]
+    lut = lambda vals, dtype: device_values(vals, dtype, dev)[tidx]
     inv_stride = lut([1.0 / strides[l] for l in levels], torch.float32)
     hl = lut(hs, torch.float32)
     wl = lut(ws, torch.float32)

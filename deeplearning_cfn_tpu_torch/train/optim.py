@@ -7,26 +7,36 @@ then sees ``step - warmup``; ``cosine_decay_schedule``;
 ``piecewise_constant_schedule`` with ratios; the Transformer rsqrt schedule
 with its own warmup).
 
-:class:`Optimizer` wraps a ``torch.optim`` optimizer with optax's chain
+:class:`Optimizer` drives one of the update rules below with optax's chain
 semantics around it:
 
 - ``clip_by_global_norm``: when the global norm ``n`` of the gradients is at
   least ``max_norm`` they are scaled by ``max_norm / n`` (optax's rule, not
   ``clip_grad_norm_``'s ``max_norm / (n + 1e-6)``);
 - the learning rate of update ``t`` (counted from 0, before the increment,
-  as optax's ``count``) is ``schedule(t)``, set on every param group before
-  each step — no ``LambdaLR``, whose count runs one ahead of optax's;
+  as optax's ``count``) is ``schedule(t)`` — no ``LambdaLR``, whose count
+  runs one ahead of optax's;
 - weight decay applies to parameters with ``ndim > 1`` only (optax's
   ``_non_bn_mask``), through two param groups.
 
-``adamw`` is ``torch.optim.AdamW`` (decoupled decay, as ``optax.adamw``);
-``adam``, ``sgd`` and ``momentum`` take decay as an L2 term added to the
-gradient after clipping, as ``optax.add_decayed_weights`` does before them.
-``lars`` is :class:`Lars`, ``optax.lars`` step for step (the trust ratio and
-the learning rate come BEFORE the momentum trace; see its docstring),
-``lamb`` is :class:`Lamb`, ``optax.lamb`` step for step, and ``adafactor`` is
-:class:`Adafactor`, ``optax.adafactor(schedule)`` with optax's defaults
-(its weight decay, as for sgd/momentum/adam, goes in front of it). Adafactor
+Every rule reads its learning rate and update count from two f32 device
+scalars (``Optimizer.lr``, ``Optimizer.count_t``) that the host fills before
+each update (:meth:`Optimizer.prepare`, an asynchronous ``fill_``), and
+computes its bias corrections from them on the device. An update therefore
+reads nothing from the host, and a CUDA graph that captures it
+(``train/graphs.py``) replays it with each step's values; the eager step
+runs the same arithmetic.
+
+``adamw`` and ``adam`` are :class:`Adam` (``optax.adamw`` with its decoupled
+decay, ``optax.adam``), ``sgd`` and ``momentum`` are :class:`Sgd`
+(``optax.sgd`` with and without the momentum trace); ``adam``, ``sgd`` and
+``momentum`` take decay as an L2 term added to the gradient after clipping,
+as ``optax.add_decayed_weights`` does before them. ``lars`` is :class:`Lars`,
+``optax.lars`` step for step (the trust ratio and the learning rate come
+BEFORE the momentum trace; see its docstring), ``lamb`` is :class:`Lamb`,
+``optax.lamb`` step for step, and ``adafactor`` is :class:`Adafactor`,
+``optax.adafactor(schedule)`` with optax's defaults (its weight decay, as for
+sgd/momentum/adam, goes in front of it). Adafactor
 factors a parameter's second moment by the parameter's Flax shape, so it is
 told each parameter's layout (``convert.flax_layout``'s kind) and keeps its
 statistics in Flax's layout.
@@ -142,8 +152,6 @@ _OPTAX_STATE: Dict[str, Tuple[Tuple[str, ...], Dict[str, str]]] = {
     "adafactor": (("0/count", "2/count"),
                   {"0/v_row": "v_row", "0/v_col": "v_col", "0/v": "v"}),
 }
-# Optimizers whose torch state counts its own steps (a float tensor).
-_STEP_STATE = ("adam", "adamw", "lamb", "adafactor")
 # Optimizers whose slots are kept in Flax's layout with shapes of their own
 # (``inner.slot(p, key)`` gives one, its initial value if not created yet).
 _FLAX_SLOTS = ("adafactor",)
@@ -152,7 +160,113 @@ _FLAX_SLOTS = ("adafactor",)
 _DECAY_IN_FRONT = ("sgd", "momentum", "adam", "adafactor")
 
 
-class Lars(torch.optim.Optimizer):
+class _Rule(torch.optim.Optimizer):
+    """An update rule whose learning rate ``lr`` and update count ``count``
+    (the updates applied before this one) are f32 device scalars shared
+    with :class:`Optimizer`, which fills them before each :meth:`step`. Each
+    param group carries its ``weight_decay`` (and, for LARS, whether it
+    takes the trust ratio)."""
+
+    def __init__(self, groups, lr: torch.Tensor, count: torch.Tensor,
+                 **defaults):
+        super().__init__(groups, dict(weight_decay=0.0, **defaults))
+        self.lr, self.count = lr, count
+
+    def _slots(self, params, key: str) -> List[torch.Tensor]:
+        """The ``key`` slot of each parameter, zeros where not created yet
+        (optax's init)."""
+        out = []
+        for p in params:
+            state = self.state[p]
+            if key not in state:
+                state[key] = torch.zeros_like(p)
+            out.append(state[key])
+        return out
+
+
+def _with_grads(group) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    params = [p for p in group["params"] if p.grad is not None]
+    return params, [p.grad for p in params]
+
+
+class Sgd(_Rule):
+    """``optax.sgd(lr, momentum, nesterov)`` after the chain's weight decay:
+    ``u = g + wd·p`` where the group decays; with momentum the trace ``t =
+    u + μ·t`` (zeros at first) and the update ``t``, or ``u + μ·t`` with
+    Nesterov; then ``p = p − lr·update``. The trace is the slot
+    ``momentum_buffer``."""
+
+    def __init__(self, groups, lr, count, momentum: float = 0.0,
+                 nesterov: bool = False):
+        super().__init__(groups, lr, count, momentum=momentum,
+                         nesterov=nesterov)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        del closure
+        for group in self.param_groups:
+            params, updates = _with_grads(group)
+            if not params:
+                continue
+            if group["weight_decay"]:
+                updates = torch._foreach_add(updates, params,
+                                             alpha=group["weight_decay"])
+            momentum = group["momentum"]
+            if momentum:
+                traces = self._slots(params, "momentum_buffer")
+                torch._foreach_mul_(traces, momentum)
+                torch._foreach_add_(traces, updates)
+                updates = torch._foreach_add(updates, traces,
+                                             alpha=momentum) \
+                    if group["nesterov"] else traces
+            torch._foreach_sub_(params, torch._foreach_mul(updates, self.lr))
+
+
+class Adam(_Rule):
+    """``optax.adam`` / ``optax.adamw`` per update ``t = count + 1``: ``m =
+    b1·m + (1 − b1)·g``, ``v = b2·v + (1 − b2)·g²``, ``u = m̂ / (√v̂ + eps)``
+    with ``m̂ = m / (1 − b1^t)``, ``v̂ = v / (1 − b2^t)`` (the corrections
+    computed on the device from ``count``). Weight decay goes in front as
+    ``g + wd·p`` (adam, the chain's ``add_decayed_weights``), or, with
+    ``decoupled`` (adamw), after as ``u + wd·p``; then ``p = p − lr·u``.
+    The slots are ``exp_avg`` (optax's ``mu``) and ``exp_avg_sq``
+    (``nu``)."""
+
+    def __init__(self, groups, lr, count, betas=(0.9, 0.999),
+                 eps: float = 1e-8, decoupled: bool = False):
+        super().__init__(groups, lr, count, betas=betas, eps=eps)
+        self.decoupled = decoupled
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        del closure
+        t = self.count + 1.0
+        for group in self.param_groups:
+            params, grads = _with_grads(group)
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            wd = group["weight_decay"]
+            if wd and not self.decoupled:
+                grads = torch._foreach_add(grads, params, alpha=wd)
+            mus = self._slots(params, "exp_avg")
+            nus = self._slots(params, "exp_avg_sq")
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+            denom = torch._foreach_sqrt(
+                torch._foreach_div(nus, 1.0 - b2 ** t))
+            torch._foreach_add_(denom, group["eps"])
+            updates = torch._foreach_div(
+                torch._foreach_div(mus, 1.0 - b1 ** t), denom)
+            if wd and self.decoupled:
+                torch._foreach_add_(updates, params, alpha=wd)
+            torch._foreach_mul_(updates, self.lr)
+            torch._foreach_sub_(params, updates)
+
+
+class Lars(_Rule):
     """``optax.lars``: per update, for each parameter ``p`` with gradient
     ``g``:
 
@@ -170,20 +284,19 @@ class Lars(torch.optim.Optimizer):
     ``trust_ratio``; the trainer gives both only to params with ``ndim >
     1`` (optax's ``_non_bn_mask`` for both masks)."""
 
-    def __init__(self, groups, lr: float, momentum: float = 0.9,
+    def __init__(self, groups, lr, count, momentum: float = 0.9,
                  nesterov: bool = False, trust_coefficient: float = 0.001):
-        super().__init__(groups, dict(
-            lr=lr, weight_decay=0.0, trust_ratio=False, momentum=momentum,
-            nesterov=nesterov, trust_coefficient=trust_coefficient))
+        super().__init__(groups, lr, count, trust_ratio=False,
+                         momentum=momentum, nesterov=nesterov,
+                         trust_coefficient=trust_coefficient)
 
     @torch.no_grad()
     def step(self, closure=None):
         del closure
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
+            params, updates = _with_grads(group)
             if not params:
                 continue
-            updates = [p.grad for p in params]
             if group["weight_decay"]:
                 updates = torch._foreach_add(updates, params,
                                              alpha=group["weight_decay"])
@@ -194,13 +307,8 @@ class Lars(torch.optim.Optimizer):
                 ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                     torch.ones_like(ratio), ratio)
                 updates = torch._foreach_mul(updates, list(ratio.unbind()))
-            updates = torch._foreach_mul(updates, -group["lr"])
-            traces = []
-            for p in params:
-                state = self.state[p]
-                if "trace" not in state:
-                    state["trace"] = torch.zeros_like(p)
-                traces.append(state["trace"])
+            updates = torch._foreach_mul(updates, -self.lr)
+            traces = self._slots(params, "trace")
             momentum = group["momentum"]
             torch._foreach_mul_(traces, momentum)
             torch._foreach_add_(traces, updates)
@@ -212,8 +320,8 @@ class Lars(torch.optim.Optimizer):
                 torch._foreach_add_(params, traces)
 
 
-class Lamb(torch.optim.Optimizer):
-    """``optax.lamb``: per update ``t`` (counted from 1), for each parameter
+class Lamb(_Rule):
+    """``optax.lamb``: per update ``t = count + 1``, for each parameter
     ``p`` with gradient ``g``:
 
     1. ``scale_by_adam``: ``m = b1·m + (1 − b1)·g``,
@@ -225,34 +333,24 @@ class Lamb(torch.optim.Optimizer):
        no mask) — replaced by 1 where either norm is 0;
     4. ``p = p − lr · u``.
 
-    The slots are torch Adam's: ``exp_avg`` (optax's ``mu``), ``exp_avg_sq``
-    (``nu``) and the float ``step`` tensor."""
+    The slots are ``exp_avg`` (optax's ``mu``) and ``exp_avg_sq``
+    (``nu``)."""
 
-    def __init__(self, groups, lr: float, betas=(0.9, 0.999),
+    def __init__(self, groups, lr, count, betas=(0.9, 0.999),
                  eps: float = 1e-6):
-        super().__init__(groups, dict(lr=lr, betas=betas, eps=eps,
-                                      weight_decay=0.0))
+        super().__init__(groups, lr, count, betas=betas, eps=eps)
 
     @torch.no_grad()
     def step(self, closure=None):
         del closure
+        t = self.count + 1.0
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
+            params, grads = _with_grads(group)
             if not params:
                 continue
             b1, b2 = group["betas"]
-            mus, nus = [], []
-            for p in params:
-                state = self.state[p]
-                if "step" not in state:
-                    state["step"] = torch.tensor(0.0, dtype=torch.float32)
-                    state["exp_avg"] = torch.zeros_like(p)
-                    state["exp_avg_sq"] = torch.zeros_like(p)
-                state["step"] += 1
-                mus.append(state["exp_avg"])
-                nus.append(state["exp_avg_sq"])
-            t = float(self.state[params[0]]["step"])
-            grads = [p.grad for p in params]
+            mus = self._slots(params, "exp_avg")
+            nus = self._slots(params, "exp_avg_sq")
             torch._foreach_mul_(mus, b1)
             torch._foreach_add_(mus, grads, alpha=1.0 - b1)
             torch._foreach_mul_(nus, b2)
@@ -270,7 +368,8 @@ class Lamb(torch.optim.Optimizer):
             ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                 torch.ones_like(p_norm), p_norm / u_norm)
             torch._foreach_mul_(updates, list(ratio.unbind()))
-            torch._foreach_add_(params, updates, alpha=-group["lr"])
+            torch._foreach_mul_(updates, self.lr)
+            torch._foreach_sub_(params, updates)
 
 
 def _flax_view(t: torch.Tensor, kind: str) -> torch.Tensor:
@@ -294,10 +393,10 @@ def _factored_dims(shape: Tuple[int, ...], min_dim: int
     return int(order[-2]), int(order[-1])
 
 
-class Adafactor(torch.optim.Optimizer):
-    """``optax.adafactor(lr)`` with optax's defaults: per update ``t``
-    (counted from 0), for each parameter ``p`` with gradient ``g``, both in
-    Flax's layout (``kinds[p]``):
+class Adafactor(_Rule):
+    """``optax.adafactor(lr)`` with optax's defaults: per update ``t =
+    count`` (counted from 0), for each parameter ``p`` with gradient ``g``,
+    both in Flax's layout (``kinds[p]``):
 
     1. ``u = g + wd·p`` where the group decays (the chain's
        ``add_decayed_weights`` in front);
@@ -314,13 +413,14 @@ class Adafactor(torch.optim.Optimizer):
     5. ``p = p − u``.
 
     The slots ``v_row``, ``v_col`` and ``v`` hold optax's shapes in Flax's
-    layout, the placeholders (``[1]``) included; ``step`` is the count."""
+    layout, the placeholders (``[1]``) included, and are updated in place
+    (a CUDA graph that captured an update keeps their addresses)."""
 
-    def __init__(self, groups, lr: float, kinds: Dict[nn.Parameter, str],
+    def __init__(self, groups, lr, count, kinds: Dict[nn.Parameter, str],
                  decay_rate: float = 0.8, eps: float = 1e-30,
                  min_dim_size_to_factor: int = 128,
                  clipping_threshold: float = 1.0, min_scale: float = 1e-3):
-        super().__init__(groups, dict(lr=lr, weight_decay=0.0))
+        super().__init__(groups, lr, count)
         self.kinds = kinds
         self.decay_rate, self.eps = decay_rate, eps
         self.min_dim = min_dim_size_to_factor
@@ -346,53 +446,52 @@ class Adafactor(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure=None):
         del closure
+        beta = 1.0 - (self.count + 1.0) ** -self.decay_rate
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is None:
                     continue
                 state = self.state[p]
-                if "step" not in state:
-                    state["step"] = torch.tensor(0.0, dtype=torch.float32)
+                if "v" not in state:
                     state.update(self._initial(p))
                 kind = self.kinds.get(p, "none")
                 w, u = _flax_view(p, kind), _flax_view(p.grad, kind)
-                t = float(state["step"])
-                beta = 1.0 - (t + 1.0) ** -self.decay_rate
                 if group["weight_decay"]:
                     u = u + group["weight_decay"] * w
                 sq = u * u + self.eps
                 dims = _factored_dims(tuple(w.shape), self.min_dim)
                 if dims is not None:
                     d1, d0 = dims
-                    v_row = beta * state["v_row"] + (1.0 - beta) * sq.mean(d0)
-                    v_col = beta * state["v_col"] + (1.0 - beta) * sq.mean(d1)
-                    state["v_row"], state["v_col"] = v_row, v_col
+                    v_row, v_col = state["v_row"], state["v_col"]
+                    v_row.copy_(beta * v_row + (1.0 - beta) * sq.mean(d0))
+                    v_col.copy_(beta * v_col + (1.0 - beta) * sq.mean(d1))
                     reduced_d1 = d1 - 1 if d1 > d0 else d1
                     row_col_mean = v_row.mean(reduced_d1, keepdim=True)
                     row_factor = (v_row / row_col_mean) ** -0.5
                     update = u * row_factor.unsqueeze(d0) \
                         * (v_col ** -0.5).unsqueeze(d1)
                 else:
-                    v = beta * state["v"] + (1.0 - beta) * sq
-                    state["v"] = v
+                    v = state["v"]
+                    v.copy_(beta * v + (1.0 - beta) * sq)
                     update = u * v ** -0.5
                 rms = update.square().mean().sqrt()
                 update = update / torch.clamp(rms / self.clipping_threshold,
                                               min=1.0)
-                update = update * group["lr"]
+                update = update * self.lr
                 p_rms = w.square().mean().sqrt()
                 update = update * torch.where(
                     p_rms <= self.min_scale,
                     torch.full_like(p_rms, self.min_scale), p_rms)
                 w.sub_(update)
-                state["step"] += 1
 
 
 class Optimizer:
-    """A ``torch.optim`` optimizer driven with optax's chain semantics (see
-    the module docstring). ``count`` is the number of updates applied.
-    ``kinds`` gives each parameter's Flax layout (``"dense"``, ``"conv"`` or
-    ``"none"``, default ``"none"``); only Adafactor reads it."""
+    """An update rule driven with optax's chain semantics (see the module
+    docstring). ``count`` is the number of updates applied; ``lr`` and
+    ``count_t`` are the f32 device scalars the rule reads, filled by
+    :meth:`prepare`. ``kinds`` gives each parameter's Flax layout
+    (``"dense"``, ``"conv"`` or ``"none"``, default ``"none"``); only
+    Adafactor reads it."""
 
     def __init__(self, cfg: OptimizerConfig, schedule: Schedule,
                  params: List[nn.Parameter],
@@ -406,30 +505,27 @@ class Optimizer:
              "weight_decay": 0.0, "trust_ratio": False},
         ]
         groups = [g for g in groups if g["params"]]
-        lr0 = schedule(0)
-        if name == "adamw":
-            self.inner = torch.optim.AdamW(groups, lr=lr0,
-                                           betas=(cfg.b1, cfg.b2),
-                                           eps=cfg.eps)
-        elif name == "adam":
-            self.inner = torch.optim.Adam(groups, lr=lr0,
-                                          betas=(cfg.b1, cfg.b2),
-                                          eps=cfg.eps)
+        device = self.params[0].device if self.params else None
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        self.count_t = torch.zeros((), dtype=torch.float32, device=device)
+        hyper = (self.lr, self.count_t)
+        if name in ("adamw", "adam"):
+            self.inner = Adam(groups, *hyper, betas=(cfg.b1, cfg.b2),
+                              eps=cfg.eps, decoupled=name == "adamw")
         elif name == "sgd":
-            self.inner = torch.optim.SGD(groups, lr=lr0)
+            self.inner = Sgd(groups, *hyper)
         elif name == "momentum":
-            self.inner = torch.optim.SGD(groups, lr=lr0,
-                                         momentum=cfg.momentum,
-                                         nesterov=cfg.nesterov)
+            self.inner = Sgd(groups, *hyper, momentum=cfg.momentum,
+                             nesterov=cfg.nesterov)
         elif name == "lars":
-            self.inner = Lars(groups, lr=lr0, momentum=cfg.momentum,
+            self.inner = Lars(groups, *hyper, momentum=cfg.momentum,
                               nesterov=cfg.nesterov,
                               trust_coefficient=cfg.trust_coefficient)
         elif name == "lamb":
-            self.inner = Lamb(groups, lr=lr0, betas=(cfg.b1, cfg.b2),
+            self.inner = Lamb(groups, *hyper, betas=(cfg.b1, cfg.b2),
                               eps=cfg.eps)
         elif name == "adafactor":
-            self.inner = Adafactor(groups, lr=lr0, kinds=kinds or {})
+            self.inner = Adafactor(groups, *hyper, kinds=kinds or {})
         else:
             raise ValueError(f"unknown optimizer {cfg.name!r}")
         self.name = name
@@ -445,10 +541,18 @@ class Optimizer:
     def grads(self) -> List[torch.Tensor]:
         return [p.grad for p in self.params if p.grad is not None]
 
-    def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
-        """Apply one update from the parameters' ``.grad``. ``grad_norm``
-        (the global norm of those gradients) is computed when clipping needs
-        it and was not passed."""
+    def prepare(self) -> None:
+        """Write this update's learning rate, ``schedule(count)``, and the
+        update count into the device scalars (asynchronous fills on the
+        current stream, ordered before the update that reads them)."""
+        self.lr.fill_(float(self.schedule(self.count)))
+        self.count_t.fill_(float(self.count))
+
+    def apply(self, grad_norm: Optional[torch.Tensor] = None) -> None:
+        """The device work of one update from the parameters' ``.grad``,
+        with the values :meth:`prepare` wrote: the clip, then the rule.
+        ``grad_norm`` (the global norm of those gradients) is computed when
+        clipping needs it and was not passed. Does not advance ``count``."""
         if self.grad_clip_norm > 0:
             grads = self.grads()
             if grad_norm is None:
@@ -456,10 +560,12 @@ class Optimizer:
             # optax: g if norm < max_norm else g / norm * max_norm.
             factor = torch.clamp(self.grad_clip_norm / grad_norm, max=1.0)
             torch._foreach_mul_(grads, factor)
-        lr = float(self.schedule(self.count))
-        for group in self.inner.param_groups:
-            group["lr"] = lr
         self.inner.step()
+
+    def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
+        """One update: :meth:`prepare`, :meth:`apply`, ``count += 1``."""
+        self.prepare()
+        self.apply(grad_norm)
         self.count += 1
 
     def zero_grad(self) -> None:
@@ -510,9 +616,6 @@ class Optimizer:
                     value = from_flax(value)
                 state[key] = torch.as_tensor(np.ascontiguousarray(value),
                                              dtype=p.dtype).to(p.device)
-            if self.name in _STEP_STATE:
-                state["step"] = torch.tensor(float(self.count),
-                                             dtype=torch.float32)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -105,7 +105,8 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     """Train (or resume) the experiment on ``device`` (``"gpu"``, the
     default, raises without a card; ``"cpu"`` runs the plain versions of the
     kernels) and return the final eval metrics. ``hooks`` run after every
-    step, after the checkpoint hook, as ``hook(step, state, last_record)``."""
+    step (at every window edge with ``train.step_window`` > 1), after the
+    checkpoint hook, as ``hook(step, state, last_record)``."""
     dev = resolve_device(device)
     task = build_task(cfg, dev)
     train_pipe = build_pipeline(cfg.data, cfg.train.global_batch,
@@ -169,7 +170,10 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
             log_every=cfg.train.log_every_steps, metrics_writer=writer,
             trace_dir=os.path.join(workdir, "profile")
             if cfg.train.profile_steps > 0 else None,
-            trace_steps=cfg.train.profile_steps)
+            trace_steps=cfg.train.profile_steps,
+            # Windows (train.step_window > 1) clamp to the checkpoint
+            # cadence, so checkpoints commit on their exact steps.
+            hook_every=ckpt_every)
         manager.save(state.step, state, force=True)
         manager.wait()
         final = _final_eval(cfg, task, trainer, state, eval_pipe)

@@ -9,7 +9,10 @@ step counter and the optional EMA copy of the parameters. One device, no
 sharding: ZeRO-1 and the mesh belong to ROADMAP A.10. The JAX state's
 ``batch_stats`` (BatchNorm running statistics) are the model's buffers
 here: a train-mode forward updates them in place, they are not parameters,
-and the EMA does not cover them, as in the JAX package.
+and the EMA does not cover them, as in the JAX package. Nothing here rebinds
+a parameter, buffer or slot after the first update, which a CUDA graph that
+captured a step relies on (``train/graphs.py``); :meth:`TrainState.load_named`
+rebinds the optimizer's slots and runs before any capture.
 
 Checkpoints: :meth:`TrainState.named_leaves` names every leaf as
 ``utils/trees.py:flatten_with_names`` names the JAX ``TrainState`` of the
@@ -101,17 +104,24 @@ class TrainState:
             for (name, _, _, kind), e in zip(params, self.ema_params):
                 put(e, leaves["ema_params/" + name[len("params/"):]], kind)
 
-    def apply_gradients(self, ema_decay: float = 0.0,
-                        grad_norm: Optional[torch.Tensor] = None) -> None:
-        """One optimizer update from the parameters' ``.grad``, then the EMA
-        (``e = e·decay + p·(1 − decay)``) and ``step += 1``."""
-        self.optimizer.step(grad_norm)
+    def update(self, ema_decay: float = 0.0,
+               grad_norm: Optional[torch.Tensor] = None) -> None:
+        """The device work of one optimizer update from the parameters'
+        ``.grad`` (with the learning rate and count the optimizer's
+        ``prepare`` wrote), then the EMA (``e = e·decay + p·(1 − decay)``).
+        Everything is updated in place, so a CUDA graph that captured this
+        replays it on the same tensors. :meth:`advance` moves the counts."""
+        self.optimizer.apply(grad_norm)
         if self.ema_params is not None and ema_decay > 0:
             with torch.no_grad():
                 torch._foreach_mul_(self.ema_params, ema_decay)
                 torch._foreach_add_(self.ema_params,
                                     [p.detach() for p in self.params],
                                     alpha=1.0 - ema_decay)
+
+    def advance(self) -> None:
+        """After an update: ``step += 1`` and the optimizer's count."""
+        self.optimizer.count += 1
         self.step += 1
 
     @contextlib.contextmanager

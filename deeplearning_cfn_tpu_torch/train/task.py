@@ -75,32 +75,39 @@ def remat(model: nn.Module, fn: Callable, generator: Optional[torch.Generator],
     """``jax.checkpoint`` of a train forward: ``fn(*args)`` keeps only its
     inputs for the backward, which runs it again (``torch.utils.checkpoint``,
     non-reentrant). The recompute must be the same function of the same
-    inputs, so its context (1) sets the explicit dropout ``generator`` back
-    to its state at entry — the stock recompute restores only the global
-    RNGs, and would draw other masks — and afterwards gives it back the
-    state the recompute found, and (2) holds every module with a
+    inputs, so its context (1) draws from the explicit dropout ``generator``
+    as it stood at entry — the stock recompute restores only the global
+    RNGs, and would draw other masks — and afterwards leaves the generator
+    where the recompute found it, and (2) holds every module with a
     ``freeze_stats`` flag (the port's BatchNorm) to its running statistics,
     which the forward already moved once, as the JAX step returns them once.
+    The trainer's generator (``train.graphs.StepGenerator``) does (1) in a
+    way a CUDA graph can capture; any other is rewound by its state.
     """
     from torch.utils.checkpoint import checkpoint
 
-    entry = None if generator is None else generator.get_state()
+    from .graphs import StepGenerator, rewound_to_state
+
+    if isinstance(generator, StepGenerator):
+        point = generator.rewind_point()
+        rewound = lambda: generator.rewound(point)
+    elif generator is not None:
+        entry = generator.get_state()
+        rewound = lambda: rewound_to_state(generator, entry)
+    else:
+        rewound = contextlib.nullcontext
 
     @contextlib.contextmanager
     def recompute():
-        later = None if generator is None else generator.get_state()
-        if generator is not None:
-            generator.set_state(entry)
         frozen = [m for m in model.modules() if hasattr(m, "freeze_stats")]
         for m in frozen:
             m.freeze_stats = True
         try:
-            yield
+            with rewound():
+                yield
         finally:
             for m in frozen:
                 m.freeze_stats = False
-            if generator is not None:
-                generator.set_state(later)
 
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False,

@@ -6,15 +6,24 @@ update). Here it is eager PyTorch on one card: the task's forward, autograd
 (through the flash kernels' ``autograd.Function``), and the optimizer's
 in-place update. What carries over exactly:
 
-- one dropout ``torch.Generator`` per step, seeded from ``(seed, step)``, so
+- one dropout generator, reseeded to ``(seed, step)`` before every step, so
   a step's noise does not depend on earlier steps (the role of
   ``fold_in(rng, state.step)``); microbatches draw from it in turn;
 - gradient accumulation with the STRIDED microbatch split (row i goes to
   microbatch i % accum) and uniform averaging of microbatch means;
 - ``grad_norm`` is the global norm of the unclipped (averaged) gradients;
-- ``fit`` syncs only at ``log_every`` boundaries and on the first step
-  (whose time, kernel builds included, is reported as ``compile_s`` and
-  kept out of the throughput window), and writes the same JSONL records;
+- ``train.step_window`` K > 1 runs fused windows of up to K steps
+  (:meth:`Trainer.window_step`, metrics stacked ``[k]``), planned by
+  :func:`_plan_window` so that the log, eval, hook (checkpoint) and trace
+  cadences land on window edges. On the card a window replays one captured
+  CUDA graph per step (``train/graphs.py``; the first step eager, then the
+  capture); on the CPU it runs k eager steps, the plain version. K = 1 is
+  the per-step loop;
+- ``fit`` syncs only at ``log_every`` boundaries and once after the first
+  window (whose time, kernel builds and graph capture included, is reported
+  as ``compile_s`` and kept out of the throughput window), and writes the
+  same JSONL records; with K > 1 a boundary realizes the PREVIOUS window,
+  so records lag one boundary and the final one flushes both;
 - ``evaluate`` aggregates by each batch's ``eval_weight``, so metrics are
   exact over the full eval set, then adds the task's ``eval_derived``
   metrics (functions of the aggregates: perplexity = exp(mean CE) is not
@@ -33,16 +42,17 @@ in-place update. What carries over exactly:
   steps after the first with ``torch.profiler``, the card synchronised before
   the trace stops.
 
-``train.remat`` is the task's (``train/task.py:remat``). Not ported in this
-slice: ``train.step_window > 1`` (fused multi-step windows; on the card that
-is CUDA graphs, ROADMAP A.5b step_window), which raises.
+``train.remat`` is the task's (``train/task.py:remat``). The JAX
+``train.grad_accum_unroll`` (how XLA lowers the microbatch loop) is
+validated as JAX validates it; the port's microbatch loop is eager either
+way.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,16 +60,27 @@ import torch
 from ..config import ExperimentConfig
 from ..data.pipeline import DevicePrefetcher, to_device
 from ..obs.trace import span
+from .graphs import GraphedStep, StepGenerator
 from .optim import global_norm
 from .state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
 
 
-def step_seed(seed: int, step: int) -> int:
-    """A well-mixed 63-bit seed for ``(seed, step)``."""
-    return int(np.random.SeedSequence([int(seed), int(step)])
-               .generate_state(1, np.uint64)[0] >> np.uint64(1))
+def _plan_window(step: int, num_steps: int, window: int,
+                 cadences, boundaries=()) -> int:
+    """Largest k <= ``window`` such that the half-open step range
+    [step, step+k) crosses no cadence multiple and no explicit boundary
+    except at its end — so log/eval/hook cadences and trace start/stop
+    always land exactly on a window edge, never inside a fused window."""
+    k = min(window, num_steps - step)
+    for c in cadences:
+        if c and c > 0:
+            k = min(k, c - step % c)
+    for b in boundaries:
+        if b > step:
+            k = min(k, b - step)
+    return max(k, 1)
 
 
 class Trainer:
@@ -77,14 +98,16 @@ class Trainer:
             raise ValueError(
                 f"global batch {cfg.train.global_batch} must be divisible "
                 f"by grad_accum_steps ({accum})")
+        if cfg.train.grad_accum_unroll not in ("auto", "scan", "unroll"):
+            # Checked on every build, as the JAX trainer does, so a typo
+            # does not stay silent until accumulation is switched on.
+            raise ValueError(
+                f"train.grad_accum_unroll must be auto|scan|unroll, got "
+                f"{cfg.train.grad_accum_unroll!r}")
         if cfg.train.step_window < 1:
             raise ValueError(
                 f"train.step_window must be >= 1, got "
                 f"{cfg.train.step_window}")
-        if cfg.train.step_window > 1:
-            raise NotImplementedError(
-                "train.step_window > 1 is not ported yet (ROADMAP A.5 "
-                "step_window: CUDA graphs over fused steps)")
         if cfg.train.device_prefetch < 0:
             raise ValueError(
                 f"train.device_prefetch must be >= 0, got "
@@ -95,14 +118,12 @@ class Trainer:
             # convs, unlike matmuls); the switch is process-wide.
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        self.generator = StepGenerator(self.device, cfg.train.seed)
+        self.graphs = GraphedStep(self.device) if (
+            cfg.train.step_window > 1 and self.device.type == "cuda") \
+            else None
 
     # -- steps --------------------------------------------------------------
-
-    def step_generator(self, step: int) -> torch.Generator:
-        """The dropout generator of one step, seeded from (seed, step)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(step_seed(self.cfg.train.seed, step))
-        return gen
 
     def grads_and_metrics(self, state: TrainState, batch: Dict,
                           generator: torch.Generator) -> Metrics:
@@ -126,14 +147,40 @@ class Trainer:
                 sums[k] = sums[k] + v.detach() if k in sums else v.detach()
         return {k: v / accum for k, v in sums.items()}
 
-    def train_step(self, state: TrainState, batch: Dict) -> Metrics:
-        """One optimizer step; ``state`` is updated in place."""
-        metrics = self.grads_and_metrics(state, batch,
-                                         self.step_generator(state.step))
+    def prepare_step(self, state: TrainState) -> None:
+        """The host's part of a step, ahead of its device work: the dropout
+        generator reseeded to ``(seed, state.step)`` and the optimizer's
+        learning rate and count written to its device scalars."""
+        self.generator.reseed(state.step)
+        state.optimizer.prepare()
+
+    def step_body(self, state: TrainState, batch: Dict) -> Metrics:
+        """The device work of a step: forward and backward, the global
+        norm, the update and the EMA. It reads no value from the host, so a
+        CUDA graph can capture it (``train/graphs.py``)."""
+        metrics = self.grads_and_metrics(state, batch, self.generator)
         grad_norm = global_norm(state.optimizer.grads())
-        state.apply_gradients(self.cfg.train.ema_decay, grad_norm)
+        state.update(self.cfg.train.ema_decay, grad_norm)
         metrics["grad_norm"] = grad_norm
         return metrics
+
+    def train_step(self, state: TrainState, batch: Dict) -> Metrics:
+        """One eager optimizer step; ``state`` is updated in place."""
+        self.prepare_step(state)
+        metrics = self.step_body(state, batch)
+        state.advance()
+        return metrics
+
+    def window_step(self, state: TrainState,
+                    batches: Sequence[Dict]) -> Metrics:
+        """``len(batches)`` consecutive steps, each metric stacked ``[k]``
+        (the JAX ``window_step``). On the card with ``train.step_window`` >
+        1 each step replays its captured graph (after the eager warm-up
+        step); otherwise the steps run eagerly, one by one."""
+        if self.graphs is not None:
+            return self.graphs.window(self, state, batches)
+        steps = [self.train_step(state, b) for b in batches]
+        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
     def eval_step(self, state: TrainState, batch: Dict) -> Metrics:
         with torch.no_grad(), state.eval_weights():
@@ -152,14 +199,24 @@ class Trainer:
                          ...] = (),
             log_every: int = 50, metrics_writer=None,
             trace_dir: Optional[str] = None,
-            trace_steps: int = 0) -> TrainState:
+            trace_steps: int = 0, hook_every: int = 1) -> TrainState:
         """The step loop. Syncs with the card only at ``log_every``
-        boundaries (and after the first step), so the host runs ahead
+        boundaries (and after the first window), so the host runs ahead
         enqueueing work; host batches are staged to the device
         ``train.device_prefetch`` deep on a background thread. Records carry
         ``examples_per_sec``, ``step_time_s`` and
         ``target_tokens_per_sec`` over the window since the last record.
-        Hooks run after every step with ``(step, state, last record)``.
+
+        With ``train.step_window`` K > 1, up to K steps run as one
+        :meth:`window_step`; windows are clamped so the log, eval and hook
+        cadences and the trace start and stop land on a window edge. Hooks
+        run at every window edge with ``(step, state, last record)``, and
+        ``hook_every`` names the cadence (in steps) they must land on
+        exactly (``run.py`` passes the checkpoint cadence). A boundary
+        realizes the previous window, which has finished on the card, so
+        records lag one boundary and the final boundary flushes both
+        pending windows, as the JAX loop does. K = 1 is the per-step loop.
+
         ``trace_dir`` + ``trace_steps``: a profiler trace of that many steps,
         skipping the first (its kernel builds and allocations)."""
         from ..runtime.profiling import trace_steps as profiler_trace
@@ -168,8 +225,8 @@ class Trainer:
         if self.cfg.train.hang_timeout_s > 0:
             from ..runtime.watchdog import StepWatchdog
 
-            # The first step builds kernels inside the first sync window:
-            # it gets the same budget again on top.
+            # The first window builds kernels (and captures the graph)
+            # inside the first sync: it gets the same budget again on top.
             watchdog = StepWatchdog(
                 self.cfg.train.hang_timeout_s,
                 first_beat_grace_s=self.cfg.train.hang_timeout_s)
@@ -179,6 +236,14 @@ class Trainer:
         trace_stack = contextlib.ExitStack()
         tracing = False
         gb = self.cfg.train.global_batch
+        K = self.cfg.train.step_window
+        # Cadences a window must not straddle. hook_every binds only when
+        # there are hooks to land; log_every=0 still logs every step.
+        cadences = [max(log_every, 1)]
+        if eval_iter_fn is not None and eval_every > 0:
+            cadences.append(eval_every)
+        if hooks and hook_every > 0:
+            cadences.append(hook_every)
         depth = self.cfg.train.device_prefetch
         if depth > 0:
             batch_iter = DevicePrefetcher(train_iter, self.device, depth)
@@ -187,6 +252,9 @@ class Trainer:
         window_start = time.perf_counter()
         window_examples = 0
         window_tokens: Optional[torch.Tensor] = None
+        last: Optional[tuple] = None
+        prev: Optional[tuple] = None
+        realized_thru = step - 1  # the last step index already logged
         compile_s: Optional[float] = None
         first_sync_done = False
         last_realized: Optional[Dict[str, float]] = None
@@ -196,20 +264,30 @@ class Trainer:
                     trace_stack.enter_context(profiler_trace(
                         trace_dir, cuda=self.device.type == "cuda"))
                     tracing = True
-                batch = next(batch_iter)
-                with span("train.dispatch", step=step, k=1):
-                    metrics = self.train_step(state, batch)
-                step += 1
+                k = 1 if K == 1 else _plan_window(
+                    step, num_steps, K, cadences, (trace_start, trace_stop))
+                batches = [next(batch_iter) for _ in range(k)]
+                with span("train.dispatch", step=step, k=k):
+                    metrics = self.train_step(state, batches[0]) if K == 1 \
+                        else self.window_step(state, batches)
+                prev, last = last, (step + k - 1, metrics)
+                window_examples += gb * k
+                for batch in batches:
+                    if "tgt_mask" in batch:
+                        tokens = batch["tgt_mask"].sum()
+                        window_tokens = tokens if window_tokens is None \
+                            else window_tokens + tokens
+                step += k
                 if tracing and step >= trace_stop:
                     self._sync()
                     trace_stack.close()
                     tracing = False
-                window_examples += gb
-                if "tgt_mask" in batch:
-                    tokens = batch["tgt_mask"].sum()
-                    window_tokens = tokens if window_tokens is None \
-                        else window_tokens + tokens
-                if not first_sync_done:
+                if not first_sync_done and (
+                        self.graphs is None or not self.graphs.warming_up
+                        or step >= num_steps):
+                    # The first window built the kernels (and captured the
+                    # graph): sync on it, report it as compile_s, and
+                    # restart the throughput window.
                     self._sync()
                     compile_s = time.perf_counter() - window_start
                     window_start = time.perf_counter()
@@ -219,32 +297,55 @@ class Trainer:
                     if watchdog is not None:
                         watchdog.beat()
                 if step % max(log_every, 1) == 0 or step >= num_steps:
-                    with span("train.realize", step=step):
-                        realized = {k: float(v) for k, v in metrics.items()}
-                        tokens = None if window_tokens is None \
-                            else float(window_tokens)
-                    elapsed = time.perf_counter() - window_start
-                    if window_examples > 0:
-                        realized["examples_per_sec"] = \
-                            window_examples / max(elapsed, 1e-9)
-                        realized["examples_per_sec_per_device"] = \
-                            realized["examples_per_sec"]
-                        realized["step_time_s"] = \
-                            elapsed / max(window_examples // gb, 1)
-                        if tokens is not None:
-                            realized["target_tokens_per_sec"] = \
-                                tokens / max(elapsed, 1e-9)
-                    window_start = time.perf_counter()
-                    window_examples = 0
-                    window_tokens = None
-                    realized["step"] = step
-                    if compile_s is not None:
-                        realized["compile_s"] = compile_s
-                        compile_s = None
-                    if metrics_writer is not None:
-                        metrics_writer.write(realized)
-                    last_realized = realized
-                    if watchdog is not None:
+                    # The per-step loop realizes the latest step. Windowed
+                    # runs realize the PREVIOUS window, which has finished
+                    # on the card (its successor was dispatched after it);
+                    # the final boundary flushes both pending windows.
+                    at_end = step >= num_steps
+                    to_realize = []
+                    if K == 1:
+                        to_realize.append(last)
+                    else:
+                        if prev is not None and prev[0] > realized_thru:
+                            to_realize.append(prev)
+                        if at_end and last[0] > realized_thru:
+                            to_realize.append(last)
+                    first_write = True
+                    for w_end, w_metrics in to_realize:
+                        with span("train.realize", step=w_end + 1):
+                            realized = {
+                                k_: float(v.reshape(-1)[-1])
+                                for k_, v in w_metrics.items()}
+                        if first_write:
+                            # Throughput covers everything dispatched since
+                            # the last written boundary; the final flush's
+                            # second record carries step metrics only.
+                            tokens = None if window_tokens is None \
+                                else float(window_tokens)
+                            elapsed = time.perf_counter() - window_start
+                            if window_examples > 0:
+                                realized["examples_per_sec"] = \
+                                    window_examples / max(elapsed, 1e-9)
+                                realized["examples_per_sec_per_device"] = \
+                                    realized["examples_per_sec"]
+                                realized["step_time_s"] = \
+                                    elapsed / max(window_examples // gb, 1)
+                                if tokens is not None:
+                                    realized["target_tokens_per_sec"] = \
+                                        tokens / max(elapsed, 1e-9)
+                            window_start = time.perf_counter()
+                            window_examples = 0
+                            window_tokens = None
+                            first_write = False
+                        realized["step"] = w_end + 1
+                        if compile_s is not None:
+                            realized["compile_s"] = compile_s
+                            compile_s = None
+                        if metrics_writer is not None:
+                            metrics_writer.write(realized)
+                        realized_thru = w_end
+                        last_realized = realized
+                    if to_realize and watchdog is not None:
                         watchdog.beat()  # the values above came off the card
                 t_hooks = time.perf_counter()
                 for hook in hooks:

@@ -865,3 +865,100 @@ def test_moe_tiny_f32_on_card_matches_cpu(cuda):
     assert out["bert_moe"]["dispatch_equal"]
     assert out["gpt_moe"]["dispatch_equal"]
     assert out["bert_moe"]["dropped_choices"] > 0
+
+
+# -- train.step_window > 1: steps replayed from CUDA graphs ------------------
+
+
+def _window_nmt(dtype, extra=()):
+    """``cfg_of`` for ``chip_smoke.window_runs``: a tiny NMT (head dim 64,
+    dropout 0.1)."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    return lambda k: apply_overrides(get_preset("transformer_nmt_wmt"), [
+        "model.kwargs.hidden_size=128", "model.kwargs.num_layers=2",
+        "model.kwargs.num_heads=2", "model.kwargs.mlp_dim=256",
+        "model.kwargs.dropout_rate=0.1", "data.vocab_size=256",
+        "data.seq_len=32", "train.global_batch=8", f"train.dtype={dtype}",
+        "train.seed=0", "schedule.warmup_steps=3", "schedule.base_lr=0.01",
+        f"train.step_window={k}", *extra])
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_step_window_graphs_follow_the_eager_nmt(cuda, remat):
+    """K = 1 eager steps against K = 4 windows replaying the captured step,
+    from one seed, with dropout on and two microbatches (and, with remat,
+    the recompute drawing from the capture's twin generators): the losses
+    and weights agree to phase 24's f32 bound (the embedding backward's
+    atomics reorder additions), and the launches per step are equal."""
+    from chip_smoke import WINDOW_TOL, check_windows, window_runs
+
+    runs = window_runs(torch, attn, _window_nmt("float32", [
+        "train.grad_accum_steps=2", f"train.remat={str(remat).lower()}"]),
+        8)
+    out = check_windows("nmt_tiny", runs, WINDOW_TOL["float32"],
+                        kernels=True)
+    # Per microbatch: 6 forwards (run again by the recompute under remat),
+    # 2 dK/dV and dQ for the decoder self-attentions, 4 reference VJPs.
+    assert out["launches_per_step"] == {"fwd": 6 * 2 * (1 + remat),
+                                        "dkdv": 2 * 2, "dq": 2 * 2,
+                                        "vjp": 4 * 2}
+
+
+def test_replays_count_their_launches(cuda):
+    """A window of 4 (the eager warm-up step, the capture, three replays)
+    counts the launches of 4 eager steps: each replay adds its graph's
+    launches, the capture none; on the tc variant in bf16."""
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.train import optim
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.task import Seq2SeqTask
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    cfg = _window_nmt("bfloat16")(4)
+    task = Seq2SeqTask(cfg, cuda)
+    task.init(torch.Generator(device=cuda).manual_seed(0))
+    state = create_train_state(task.model, optim.build_optimizer(
+        cfg.optimizer, optim.build_schedule(cfg.schedule, 9, 8), task.model))
+    trainer = Trainer(cfg, task, cuda)
+    batches = [to_device(b, cuda) for _, b in zip(range(4), build_pipeline(
+        cfg.data, 8, seed=0).one_epoch())]
+    before = attn.launch_counts()
+    trainer.train_step(state, batches[0])
+    torch.cuda.synchronize()
+    one = attn.launch_counts()
+    per_step = {n: {v: c - before[n][v] for v, c in by.items()}
+                for n, by in one.items()}
+    assert per_step["flash_attn_fwd"]["tc"] == 6
+    assert per_step["flash_attn_bwd_dkdv"]["tc"] == 2
+    metrics = trainer.window_step(state, batches)
+    torch.cuda.synchronize()
+    assert trainer.graphs is not None and not trainer.graphs.warming_up
+    after = attn.launch_counts()
+    assert {n: {v: c - one[n][v] for v, c in by.items()}
+            for n, by in after.items()} == \
+        {n: {v: 4 * c for v, c in by.items()} for n, by in per_step.items()}
+    assert state.step == 5 and torch.isfinite(metrics["loss"]).all()
+
+
+def test_no_collection_runs_during_a_capture(cuda, monkeypatch):
+    """A graph destroyed during another's capture (a dead trainer's,
+    collected from a reference cycle) invalidates the capture: the
+    collector is off while a step is captured, and on again after."""
+    import gc
+
+    from chip_smoke import window_runs
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    body, seen = Trainer.step_body, []
+
+    def watched(self, state, batch):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return body(self, state, batch)
+
+    monkeypatch.setattr(Trainer, "step_body", watched)
+    window_runs(torch, attn, _window_nmt("float32"), 4)
+    assert seen == [False] and gc.isenabled()

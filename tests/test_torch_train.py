@@ -15,7 +15,9 @@ the JAX package's, on the CPU.
   1e-4;
 - dropout: the identity when not training, keep rate ≈ 1 − p, one seed one
   mask;
-- the ``train`` CLI verb on the CPU, and its refusal without a card.
+- the ``train`` CLI verb on the CPU, and its refusal without a card;
+- the trainer's checks: ``train.grad_accum_unroll`` must be
+  ``auto|scan|unroll``, and ``train.step_window=4`` builds.
 
 Inputs are numpy arrays made from seeds and handed to both packages.
 """
@@ -267,17 +269,32 @@ def test_training_trajectory_matches_jax(accum):
 
 
 def test_trainer_refuses_what_this_slice_leaves_out():
-    base = apply_overrides(get_preset("transformer_nmt_wmt"), TINY)
-    task = Seq2SeqTask(base, torch.device("cpu"))
+    # train.step_window > 1 is ported (tests/test_torch_step_window.py): on
+    # the CPU a window runs its steps eagerly, with no graph.
     cfg = apply_overrides(get_preset("transformer_nmt_wmt"),
                           TINY + ["train.step_window=4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5 step_window"):
-        Trainer(cfg, task, torch.device("cpu"))
+    trainer = Trainer(cfg, Seq2SeqTask(cfg, torch.device("cpu")),
+                      torch.device("cpu"))
+    assert trainer.graphs is None
     # train.remat is ported (tests/test_torch_runtime.py).
     remat = apply_overrides(get_preset("transformer_nmt_wmt"),
                             TINY + ["train.remat=true"])
     Trainer(remat, Seq2SeqTask(remat, torch.device("cpu")),
             torch.device("cpu"))
+
+
+@pytest.mark.parametrize("unroll", ["sacn", "auto", "scan", "unroll"])
+def test_grad_accum_unroll_is_validated(unroll):
+    """As the JAX trainer does, on every build: a typo raises even while
+    accumulation is off."""
+    cfg = apply_overrides(get_preset("transformer_nmt_wmt"),
+                          TINY + [f"train.grad_accum_unroll={unroll}"])
+    task = Seq2SeqTask(cfg, torch.device("cpu"))
+    if unroll == "sacn":
+        with pytest.raises(ValueError, match="auto|scan|unroll"):
+            Trainer(cfg, task, torch.device("cpu"))
+    else:
+        Trainer(cfg, task, torch.device("cpu"))
 
 
 # -- dropout ------------------------------------------------------------------
