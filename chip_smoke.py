@@ -277,6 +277,26 @@ order; a failing phase raises, so the exit code is nonzero:
    boundary), ``compile_s`` once, and the launches (the path's, in the
    kernels line as ``launches_vit_window`` and ``launches_nmt_window``).
    A capture or replay that fails raises.
+25. int8 serving: phase 5's engine and 24 requests with ``quantize="int8"``
+   and ``kv_quant="int8"`` (int8 weights; the paged pool as int8 codes
+   with per-block, per-head scales). Every request done, no KV block held
+   after the drain, the launches equal the tally, both the ``decode``
+   variant and the ``tc`` encoder launched (none ``simt``). Printed and
+   held to JAX's serving contracts: weight bytes int8 / f32 <= 0.35, KV
+   pool bytes as stored / the f32 pool <= 0.30 (also against phase 5's
+   bf16 pool, and ``serve_kv_quant_bytes``), and on a teacher-forced batch
+   (8 sources, 32 positions through the paged decode) the weights, the KV
+   and both against the unquantized bf16 model within 0.1 · max(1, max
+   |ref|). Then the same requests with γ = 4 on the device chain, which
+   must be token-identical to the plain int8 engine; one beam request at
+   windows 1 and 4 (identical); ``swap_variables`` with the f32 state on an
+   int8 radix engine (the radix sources dropped, the same tokens after);
+   a tiny f32 NMT with int8 weights and pool, card against CPU (logits
+   within 1e-3 of the largest, codes within ±1); and ``cli serve
+   --quantize int8 --kv-quant int8 --vocab`` (a BPE vocab trained offline)
+   on three text lines (exit 0, ``"text"`` on every result line). It
+   prints tokens/s, TTFT p50 and the decode-step p50 beside phase 5's, and
+   ``max_memory_allocated``.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -3993,6 +4013,294 @@ def train_windows(torch, attn):
     return out
 
 
+# -- slice 12: int8 weights and the int8 paged KV pool ----------------------
+
+# JAX's serving contracts (serve/bench.py): weight bytes <= 0.35 of f32, KV
+# pool bytes <= 0.30 of the f32 pool, and teacher-forced logits within 0.1
+# of max(1, the largest |logit|).
+INT8_WEIGHT_RATIO, INT8_KV_RATIO, INT8_DIVERGENCE = 0.35, 0.30, 0.1
+INT8_TF_STEPS = 32                # teacher-forced positions of the checks
+INT8_CLI_LINES = ("the quick brown fox jumps over the lazy dog",
+                  "a stitch in time saves nine",
+                  "all that glitters is not gold")
+
+
+def seeded_nmt(torch, dtype):
+    """The seeded init the engines of phases 5 and 25 serve (the loader's
+    ``allow_init`` path), as a model on the card."""
+    from deeplearning_cfn_tpu_torch.models.transformer_nmt import init_weights
+    from deeplearning_cfn_tpu_torch.serve.loader import build_nmt
+
+    cfg = smoke_cfg(dtype)
+    model = build_nmt(cfg, torch.device(DEVICE))
+    init_weights(model, torch.Generator(device=DEVICE).manual_seed(
+        int(cfg.train.seed)))
+    return model.requires_grad_(False)
+
+
+def teacher_forced(torch, model, src, mask, tgt, kv_quant):
+    """Logits [B, T, V] of ``tgt`` fed position by position through the
+    paged decode (blocks of 16, each row its own blocks)."""
+    b = src.shape[0]
+    mb = model.max_len // 16
+    tables = torch.arange(1, b * mb + 1, device=DEVICE).view(b, mb)
+    cache = model.init_paged_cache(b * mb + 1, 16, kv_quant=kv_quant)
+    with torch.no_grad():
+        enc = model.encode(src, mask)
+        return torch.cat([
+            model.decode_step_paged(tgt[:, t:t + 1], enc, mask,
+                                    torch.full((b,), t, device=DEVICE),
+                                    tables, cache).float()
+            for t in range(tgt.shape[1])], dim=1)
+
+
+def int8_divergence(torch, reqs):
+    """Weights, KV and both against the unquantized bf16 model on one
+    teacher-forced batch (the first ``SLOTS`` sources, seeded targets):
+    max |Δlogit| and the bound 0.1 · max(1, max |ref|)."""
+    from deeplearning_cfn_tpu_torch.serve.quant import quantize_model
+
+    model = seeded_nmt(torch, "bfloat16")
+    qmodel = quantize_model(model)
+    src = torch.zeros((SLOTS, SRC_LEN), dtype=torch.long, device=DEVICE)
+    for i, (_, ids, _, _) in enumerate(reqs[:SLOTS]):
+        src[i, :len(ids)] = torch.tensor(ids, device=DEVICE)
+    mask = (src != 0).long()
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    tgt = torch.randint(3, model.vocab_size, (SLOTS, INT8_TF_STEPS),
+                        generator=g, device=DEVICE)
+    ref = teacher_forced(torch, model, src, mask, tgt, "")
+    with torch.no_grad():
+        full = model(src, mask, tgt, train=False).float()
+        full_q = qmodel(src, mask, tgt, train=False).float()
+    out = {}
+    for name, got, want in (
+            ("weights", full_q, full),
+            ("kv", teacher_forced(torch, model, src, mask, tgt, "int8"), ref),
+            ("both", teacher_forced(torch, qmodel, src, mask, tgt, "int8"),
+             ref)):
+        diff = (got - want).abs().max().item()
+        out[name] = dict(max_abs_diff=diff,
+                         bound=INT8_DIVERGENCE
+                         * max(1.0, want.abs().max().item()))
+    log("  teacher-forced logits against the bf16 model (bound 0.1 * "
+        "max(1, max |ref|)): " + ", ".join(
+            f"{k} {v['max_abs_diff']:.4f} (bound {v['bound']:.4f})"
+            for k, v in out.items()))
+    for name, v in out.items():
+        if not v["max_abs_diff"] <= v["bound"]:
+            raise AssertionError(f"int8 {name}: logits diverge by "
+                                 f"{v['max_abs_diff']} > {v['bound']}")
+    return out
+
+
+def int8_tiny_parity(torch):
+    """A tiny f32 NMT with int8 weights and the int8 pool on the card
+    against the CPU (TF32 off) from one seeded init and one prior pool:
+    one paged verify span of 5 (rows past the table, an unbound entry, a
+    row on the null block). Logits within 1e-3 of the largest, codes within
+    ±1."""
+    import numpy as np
+
+    from deeplearning_cfn_tpu_torch.models.transformer_nmt import (
+        init_weights, transformer_nmt_tiny)
+    from deeplearning_cfn_tpu_torch.serve.quant import quantize_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = transformer_nmt_tiny(vocab_size=64, max_len=32)
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    card = transformer_nmt_tiny(vocab_size=64, max_len=32, device=DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    b, nb, bs, s = 4, 17, 8, 5
+    src = torch.from_numpy(rng.integers(3, 64, (b, 8)))
+    tgt = torch.from_numpy(rng.integers(3, 64, (b, s)))
+    pos = torch.tensor([6, 9, 29, 31])
+    tables = torch.tensor([[1, 0, 0, 0], [0, 0, 0, 0], [6, 7, 8, 9],
+                           [10, 11, 12, 13]])
+    prior = [torch.from_numpy(rng.integers(-127, 128, (nb, 4, bs, 16))
+                              .astype(np.int8)) for _ in range(2)] + \
+        [torch.from_numpy(rng.uniform(0.01, 0.05, (nb, 4))
+                          .astype(np.float32)) for _ in range(2)]
+    outs = []
+    for model in (cpu, card):
+        qm = quantize_model(model)
+        dev = qm.device
+        cache = qm.init_paged_cache(nb, bs, kv_quant="int8")
+        for layer in cache:
+            for t, p in zip(layer, prior):
+                t.copy_(p)
+        mask = torch.ones_like(src).to(dev)
+        with torch.no_grad():
+            logits = qm.decode_span_paged(
+                tgt.to(dev), qm.encode(src.to(dev), mask), mask,
+                pos.to(dev), tables.to(dev), cache)
+        outs.append((logits.cpu(), [t.cpu() for layer in cache
+                                    for t in layer[:2]]))
+    (ref, ref_codes), (got, got_codes) = outs
+    logit_err = ((got - ref).abs().max() / ref.abs().max()).item()
+    code_err = max((a.int() - b.int()).abs().max().item()
+                   for a, b in zip(ref_codes, got_codes))
+    log(f"  tiny f32 card vs CPU (int8 weights + int8 pool, span 5): "
+        f"logits max |diff| / max |logit| {logit_err:.3e} (limit 1e-3), "
+        f"codes max |diff| {code_err} (limit 1)")
+    if not (logit_err <= 1e-3 and code_err <= 1):
+        raise AssertionError(f"int8 tiny card vs CPU: logits {logit_err}, "
+                             f"codes {code_err}")
+    return dict(logits_rel=logit_err, codes_max_diff=code_err)
+
+
+def int8_cli(torch):
+    """``cli serve --quantize int8 --kv-quant int8 --vocab`` on three text
+    lines, with a BPE vocab trained offline (``data/bpe.py``): exit 0, and
+    on every result line a ``"text"`` field that is the vocab's decoding of
+    its tokens (the random weights emit ids past the 300-id vocab too,
+    which decode to nothing)."""
+    from deeplearning_cfn_tpu_torch.data.bpe import NMT_SPECIALS, train_bpe
+
+    workdir = fresh_workdir("smoke_int8_cli")
+    os.makedirs(workdir)
+    vocab = os.path.join(workdir, "vocab.json")
+    bpe = train_bpe(list(INT8_CLI_LINES) * 4, 300, NMT_SPECIALS)
+    bpe.save(vocab)
+    reqs = os.path.join(workdir, "reqs.jsonl")
+    with open(reqs, "w") as fh:
+        for i, line in enumerate(INT8_CLI_LINES):
+            fh.write(json.dumps({"text": line, "id": f"t{i}",
+                                 "max_new_tokens": 8}) + "\n")
+    cmd = [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "serve",
+           "--preset", "transformer_nmt_wmt", "--allow-init", "--requests",
+           reqs, "--quantize", "int8", "--kv-quant", "int8", "--vocab",
+           vocab, f"workdir={workdir}", "train.seed=0"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    log(f"  cli serve --quantize int8 --kv-quant int8 --vocab: rc "
+        f"{proc.returncode} in {wall:.1f} s; {len(lines)} result lines, "
+        f"tokens {[ln.get('tokens') for ln in lines]}, texts "
+        f"{[ln.get('text') for ln in lines]}")
+    if proc.returncode != 0 or len(lines) != len(INT8_CLI_LINES) \
+            or not all(ln["state"] == "done"
+                       and ln.get("text") == bpe.decode(ln["tokens"])
+                       for ln in lines):
+        raise AssertionError(f"cli serve (text): rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return dict(rc=proc.returncode, wall_s=wall, results=len(lines))
+
+
+def serve_int8(torch, attn, reqs, served):
+    """Phase 25: phase 5's engine and requests with ``quantize="int8"`` and
+    ``kv_quant="int8"``, then the byte ratios, the divergence checks, the
+    speculative and beam-window identities, the weight swap, the tiny f32
+    card-vs-CPU check and the text CLI."""
+    from deeplearning_cfn_tpu_torch.serve.quant import (kv_pool_bytes,
+                                                        variables_bytes)
+
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(quantize="int8", kv_quant="int8")
+    engine, tokens, snap, row = serve_main_path(
+        torch, attn, "int8 weights + int8 KV",
+        lambda: build_engine(smoke_cfg("bfloat16"), **kw), submit_all(reqs))
+    peak = torch.cuda.max_memory_allocated()
+    variants = row["variant_launches"]
+    in_use = engine.allocator.blocks_in_use
+    log(f"  forward launches by variant {variants}; KV blocks in use after "
+        f"the drain {in_use}")
+    if not (variants["decode"] > 0 and variants["tc"] > 0):
+        raise AssertionError(f"int8 path launches: {variants} (decode and "
+                             f"the tc encoder must both be > 0)")
+    if in_use:
+        raise AssertionError(f"{in_use} KV blocks held after the drain")
+    f32_model = seeded_nmt(torch, "bfloat16")
+    w_int8 = variables_bytes(engine.model)
+    w_f32 = variables_bytes(f32_model)
+    stored, f32_pool = kv_pool_bytes(engine.cache, engine.kv_blocks)
+    bf16_pool = f32_pool // 2
+    gauge = snap["serve_kv_quant_bytes"]
+    log(f"  weight bytes int8 {w_int8} / f32 {w_f32} = "
+        f"{w_int8 / w_f32:.4f} (limit {INT8_WEIGHT_RATIO}); KV pool bytes "
+        f"stored {stored} / f32 {f32_pool} = {stored / f32_pool:.4f} (limit "
+        f"{INT8_KV_RATIO}), / the bf16 pool of phase 5 {bf16_pool} = "
+        f"{stored / bf16_pool:.4f}; serve_kv_quant_bytes {gauge}")
+    if not (w_int8 <= INT8_WEIGHT_RATIO * w_f32
+            and stored <= INT8_KV_RATIO * f32_pool and gauge == stored):
+        raise AssertionError("int8 byte contracts broken")
+    log(f"  tokens/s {row['tokens_per_s']:.1f} (phase 5: "
+        f"{served['tokens_per_s']:.1f}), TTFT p50 "
+        f"{row['ttft_p50_s'] * 1e3:.2f} ms (phase 5: "
+        f"{served['ttft_p50_s'] * 1e3:.2f}), decode-step p50 "
+        f"{row['decode_step_p50_ms']:.3f} ms (phase 5: "
+        f"{served['decode_step_p50_ms']:.3f}); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    del engine
+    divergence = int8_divergence(torch, reqs)
+    _, spec_tokens, spec_snap, spec_row = serve_main_path(
+        torch, attn, "int8 + speculation (gamma 4, device chain)",
+        lambda: build_engine(smoke_cfg("bfloat16"),
+                             speculate_gamma=SPEC_GAMMA,
+                             speculate_device=True, **kw), submit_all(reqs))
+    same = sum(spec_tokens[r] == tokens[r] for r in tokens)
+    log(f"  speculation on the int8 engine: {same}/{len(tokens)} requests "
+        f"token-identical to the plain int8 engine; accepted/proposed "
+        f"{spec_snap['serve_spec_accepted']}/"
+        f"{spec_snap['serve_spec_proposed']}")
+    if same != len(tokens):
+        raise AssertionError(f"int8 speculation: {same}/{len(tokens)} "
+                             f"token-identical")
+    beam = next(r for r in reqs if r[3] > 1)
+    beams = []
+    for window in (1, 4):
+        eng = build_engine(smoke_cfg("bfloat16"), decode_window=window, **kw)
+        submit_all([beam])(eng)
+        beams.append(list(eng.poll(beam[0]).tokens))
+        del eng
+    log(f"  beam {beam[3]} with the int8 pool: windows 1 and 4 "
+        f"{'identical' if beams[0] == beams[1] else 'DIFFER'}")
+    if beams[0] != beams[1]:
+        raise AssertionError(f"int8 beam windows differ: {beams}")
+    greedy = [r for r in reqs if r[3] == 1][:SLOTS]
+    eng = build_engine(smoke_cfg("bfloat16"), radix_cache=True, **kw)
+    submit_all(greedy)(eng)
+    first = {r[0]: list(eng.poll(r[0]).tokens) for r in greedy}
+    held = eng.radix.source_count
+    eng.swap_variables(f32_model.state_dict())
+    dropped = eng.radix.source_count
+    again = [(rid + "_swapped", src, budget, beam)
+             for rid, src, budget, beam in greedy]
+    submit_all(again)(eng)
+    same_swap = sum(list(eng.poll(r[0] + "_swapped").tokens) == first[r[0]]
+                    for r in greedy)
+    log(f"  swap_variables (the f32 state, requantized): radix sources "
+        f"{held} before, {dropped} after; {same_swap}/{len(greedy)} "
+        f"requests token-identical after the swap")
+    if not (held > 0 and dropped == 0 and same_swap == len(greedy)):
+        raise AssertionError("swap_variables check failed")
+    del eng, f32_model
+    tiny = int8_tiny_parity(torch)
+    cli = int8_cli(torch)
+    row.update(
+        weight_bytes=w_int8, weight_bytes_f32=w_f32,
+        weight_ratio=w_int8 / w_f32, kv_bytes=stored, kv_bytes_f32=f32_pool,
+        kv_ratio=stored / f32_pool, kv_ratio_to_bf16=stored / bf16_pool,
+        max_memory_allocated=peak, divergence=divergence,
+        spec=dict(token_identical=f"{same}/{len(tokens)}",
+                  launches=spec_row["launches"],
+                  variant_launches=spec_row["variant_launches"],
+                  accepted=spec_snap["serve_spec_accepted"],
+                  proposed=spec_snap["serve_spec_proposed"]),
+        beam_windows_identical=beams[0] == beams[1],
+        swap=dict(radix_before=held, radix_after=dropped,
+                  token_identical=f"{same_swap}/{len(greedy)}"),
+        tiny_f32_card_vs_cpu=tiny, cli=cli,
+        phase5=dict(tokens_per_s=served["tokens_per_s"],
+                    ttft_p50_s=served["ttft_p50_s"],
+                    decode_step_p50_ms=served["decode_step_p50_ms"]))
+    return row
+
+
 def main() -> int:
     profiles = {"--profile": profile_serving,
                 "--profile-train": profile_training,
@@ -4134,6 +4442,9 @@ def main() -> int:
           f"bf16; the other presets tiny, f32)")
     windows = train_windows(torch, attn)
 
+    phase("25. int8 weights and KV (full width, bf16)")
+    int8 = serve_int8(torch, attn, make_requests(), served)
+
     # The forward kernel serves every path: its numbers cover the three
     # serving shapes, the NMT training shape, BERT's, GPT's train shape,
     # GPT's decode step, the verify span over the dense cache and the
@@ -4170,6 +4481,9 @@ def main() -> int:
     for name, run in spec["runs"].items():
         fwd_paths[f"spec_{name[0]}"] = (run["launches"],
                                         run["variant_launches"])
+    fwd_paths["int8"] = (int8["launches"], int8["variant_launches"])
+    fwd_paths["int8_spec"] = (int8["spec"]["launches"],
+                              int8["spec"]["variant_launches"])
     fwd = {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -4265,6 +4579,7 @@ def main() -> int:
         "moe_tiny_f32_card_vs_cpu": moe_f32,
         "bert_pipelined_train": bert_pipe,
         "step_window": windows,
+        "int8_serve": int8,
         "script_s": time.perf_counter() - script_t0,
     }
     log(json.dumps({"summary": summary}))

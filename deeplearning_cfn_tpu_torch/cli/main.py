@@ -13,6 +13,7 @@ and ``ckpt`` verbs.
     python -m deeplearning_cfn_tpu_torch.cli serve --preset transformer_nmt_wmt \\
         --allow-init --requests reqs.jsonl [--speculate G [--speculate-device] \\
         [--draft tiny-distilled]] [--radix-cache] [--prefill-chunk N] \\
+        [--quantize int8] [--kv-quant int8] [--vocab vocab.json] \\
         [overrides ...]
     python -m deeplearning_cfn_tpu_torch.cli ckpt list <ckpt dir>
     python -m deeplearning_cfn_tpu_torch.cli ckpt rollback <ckpt dir> --step N
@@ -23,11 +24,13 @@ Same flags, defaults, result lines and stderr summary as the JAX package's
 these slices port (``train`` runs on this host only: no ``--stack``; a rerun
 resumes from the latest committed checkpoint). ``--accelerator`` takes ``gpu`` (the
 default — the CUDA card, raising without one) or ``cpu``. Serve
-requests are JSONL lines ``{"src_ids": [...]}`` with optional ``id``,
-``max_new_tokens``, ``beam_size``, ``deadline_s``, ``tenant`` and
-``qos_class``; text requests (the tokenizer on the serving side) belong to
-ROADMAP A.6. ``generate`` takes a byte-level prompt (byte + 4), or a BPE
-one with ``--vocab`` (``data/bpe.py``). The ``data`` verbs
+requests are JSONL lines ``{"src_ids": [...]}``, or ``{"text": "..."}`` with
+``--vocab`` (BPE-encoded, ``data/bpe.py``, plus EOS; each result line then
+carries the decoded ``"text"``), with optional ``id``, ``max_new_tokens``,
+``beam_size``, ``deadline_s``, ``tenant`` and ``qos_class``; ``--quantize
+int8`` and ``--kv-quant int8`` serve int8 weights and an int8 paged KV pool.
+``generate`` takes a byte-level prompt (byte + 4), or a BPE one with
+``--vocab``. The ``data`` verbs
 (``data prepare-coco`` and the rest) are not ported yet and raise, naming
 ROADMAP A.13; ``data/coco.py:prepare_coco`` converts COCO from Python.
 """
@@ -212,14 +215,14 @@ def _cmd_serve(args) -> int:
     """Offline continuous-batching driver: a JSONL request trace in, one
     result JSON line per request out."""
     from ..metrics.jsonl import MetricsWriter
-    from ..models.decoding import strip_special
+    from ..models.decoding import EOS_ID, strip_special
     from ..serve import OverloadError
     from ..serve.loader import load_engine
 
     cfg = apply_overrides(get_preset(args.preset), args.overrides)
     cfg.stack.accelerator = args.accelerator
     try:
-        engine, _, at_step = load_engine(
+        engine, bpe, at_step = load_engine(
             cfg, capacity=args.slots, queue_depth=args.queue_depth,
             default_max_new_tokens=args.max_new_tokens,
             decode_window=args.decode_window,
@@ -228,9 +231,10 @@ def _cmd_serve(args) -> int:
             speculate_gamma=args.speculate,
             speculate_device=args.speculate_device,
             draft_cfg=args.draft or None,
+            quantize=args.quantize, kv_quant=args.kv_quant,
             radix_cache=args.radix_cache,
             prefill_chunk=args.prefill_chunk,
-            step=args.step, allow_init=args.allow_init,
+            step=args.step, vocab=args.vocab, allow_init=args.allow_init,
             device=args.accelerator)
     except (FileNotFoundError, ValueError, RuntimeError) as e:
         print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
@@ -263,12 +267,18 @@ def _cmd_serve(args) -> int:
             print(f"[dlcfn-tpu] ERROR: bad JSON on requests line {lineno}: "
                   f"{e}", file=sys.stderr)
             return 1
-        if "src_ids" not in rec:
-            print(f"[dlcfn-tpu] ERROR: requests line {lineno} has no "
-                  "\"src_ids\" (text requests need the tokenizer, not "
-                  "ported yet)", file=sys.stderr)
+        if "src_ids" in rec:
+            src_ids = [int(t) for t in rec["src_ids"]]
+        elif "text" in rec:
+            if bpe is None:
+                print(f"[dlcfn-tpu] ERROR: requests line {lineno} has "
+                      "\"text\" but no --vocab was given", file=sys.stderr)
+                return 1
+            src_ids = bpe.encode(rec["text"]) + [EOS_ID]
+        else:
+            print(f"[dlcfn-tpu] ERROR: requests line {lineno} has neither "
+                  "\"src_ids\" nor \"text\"", file=sys.stderr)
             return 1
-        src_ids = [int(t) for t in rec["src_ids"]]
         kwargs = dict(
             max_new_tokens=int(rec.get("max_new_tokens",
                                        args.max_new_tokens)),
@@ -300,13 +310,16 @@ def _cmd_serve(args) -> int:
                                      emit_every=args.emit_every)
     for rid in submitted:
         req = engine.poll(rid)
-        print(json.dumps({
+        out = {
             "id": req.id,
             "state": req.state.value,
             "tokens": [int(t) for t in strip_special(req.tokens)],
             "ttft_s": req.ttft_s,
             "latency_s": req.latency_s,
-        }), flush=True)
+        }
+        if bpe is not None:
+            out["text"] = bpe.decode(strip_special(req.tokens))
+        print(json.dumps(out), flush=True)
     snap = engine.metrics.snapshot()
     print(f"[dlcfn-tpu] drained in {steps} steps: "
           f"{snap['serve_completed']} done, "
@@ -375,9 +388,9 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--accelerator", default="gpu", choices=["gpu", "cpu"])
     sv.add_argument("--requests", required=True,
                     help="JSONL request trace path, or - for stdin; each "
-                         "line {\"src_ids\": [...]} plus optional "
-                         "id/max_new_tokens/beam_size/deadline_s/tenant/"
-                         "qos_class")
+                         "line {\"text\": ...} or {\"src_ids\": [...]} "
+                         "plus optional id/max_new_tokens/beam_size/"
+                         "deadline_s/tenant/qos_class")
     sv.add_argument("--slots", type=int, default=4,
                     help="slot-table capacity (concurrent KV-cache rows)")
     sv.add_argument("--queue-depth", type=int, default=64,
@@ -419,6 +432,17 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--draft", default="",
                     help="committed distilled-draft preset for --speculate "
                          "(e.g. tiny-distilled; empty = self-draft)")
+    sv.add_argument("--quantize", default="", choices=["", "int8"],
+                    help="weight-only quantization for serving (int8 = "
+                         "per-channel symmetric, ~4x smaller weights; "
+                         "checkpoints stay fp32 on disk)")
+    sv.add_argument("--kv-quant", default="", choices=["", "int8"],
+                    help="paged KV-cache quantization: int8 block codes "
+                         "+ per-block scales (~4x smaller KV pool, "
+                         "bounded logits divergence; needs "
+                         "--kv-block-size > 0)")
+    sv.add_argument("--vocab", default="",
+                    help="BPE vocab.json — required for \"text\" requests")
     sv.add_argument("--step", type=int, default=0,
                     help="committed checkpoint step (0 = latest)")
     sv.add_argument("--allow-init", action="store_true",

@@ -35,6 +35,12 @@ params (the leaf names the JAX checkpoint manifest uses) and returns a
 - The pipelined BERT's ``pipe_stack/*`` leaves (every trunk kernel
   [L, in, out], biases and LayerNorm scales [L, F]) keep the JAX layout,
   untransposed; ``embed`` and the heads keep their names.
+- An int8 tree (the JAX ``serve/quant.py:quantize_variables`` output) maps
+  to the port's quantized NMT copy (``serve/quant.py:quantize_model``): a
+  ``scale`` beside a 2-D ``kernel`` or ``embedding`` is that layer's
+  per-channel scale and keeps its name (a LayerNorm's ``scale``, which has
+  no such sibling, still becomes ``weight``), and int8 codes stay int8 —
+  a ``kernel``'s transposed to ``[out, in]`` like any Dense kernel.
 
 ``flax_layout`` is the inverse: every parameter and BatchNorm buffer of a
 port model with its Flax leaf name (``params/...``, ``batch_stats/...``)
@@ -101,16 +107,25 @@ def params_from_flax(flat: Dict[str, np.ndarray],
                      ) -> Dict[str, torch.Tensor]:
     """Flat ``{"a/b/c": array}`` Flax params (an optional leading ``params/``
     is stripped; ``batch_stats/...`` leaves are stats) and the optional flat
-    ``batch_stats`` collection → state_dict of f32 CPU tensors."""
+    ``batch_stats`` collection → state_dict of f32 CPU tensors (int8 codes
+    of a quantized tree stay int8)."""
     leaves = dict(flat)
     for name, value in (batch_stats or {}).items():
         if not name.startswith("batch_stats/"):
             name = f"batch_stats/{name}"
         leaves[name] = value
+    # Layers whose ``scale`` is a quantization scale, not a LayerNorm's.
+    quantized = {name.rpartition("/")[0] for name, value in leaves.items()
+                 if name.rpartition("/")[2] in ("kernel", "embedding")
+                 and np.ndim(value) == 2}
     state = {}
     for name, value in leaves.items():
         key, transpose = _torch_key(name)
-        arr = np.array(value, dtype=np.float32)
+        parent, _, leaf = name.rpartition("/")
+        if leaf == "scale" and parent in quantized:
+            key = key[:-len("weight")] + "scale"
+        arr = np.array(value, dtype=np.int8 if np.asarray(value).dtype
+                       == np.int8 else np.float32)
         if transpose:
             if arr.ndim not in (2, 4):
                 raise ValueError(f"{name}: a kernel must be 2-D (Dense) or "

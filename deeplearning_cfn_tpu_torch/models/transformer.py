@@ -24,8 +24,12 @@ cache [B, H, max_len, D], and the paged block pool
 caller owns and are updated in place (the JAX engine donates them to the
 same effect). Both cached modes take S >= 1 positions per row (the
 speculative verify span): the S K/V vectors are written before the S
-queries attend, under a span bias that keeps query j causal. The int8 KV
-pool is not ported yet.
+queries attend, under a span bias that keeps query j causal. The paged pool
+may be int8 (``kv_quant``): codes plus per-block, per-head f32 scales,
+requantized on every write and dequantized in the gather.
+
+``QuantDense`` and ``QuantEmbed`` are the int8 weight-only layers of the
+quantized serving copy (``serve/quant.py:quantize_model``).
 """
 
 from __future__ import annotations
@@ -71,6 +75,65 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class QuantDense(nn.Module):
+    """Weight-only int8 ``Dense``: ``y = (x @ codes.T) * scale + bias``.
+
+    ``weight`` holds the int8 codes ``[out, in]`` (the Flax kernel ``[in,
+    out]`` transposed), ``scale`` one f32 factor per output channel and
+    ``bias`` stays f32 — all buffers: the layer is built by quantizing a
+    trained ``Dense``, never trained. The codes widen to the compute dtype
+    inside the op; the scale multiplies after the product and the bias is
+    added after that, as three ops in the JAX order (an ``addmm`` rounds
+    differently in bf16)."""
+
+    def __init__(self, codes: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("weight", codes)
+        self.register_buffer("scale", scale)
+        self.register_buffer("bias", bias)
+
+    @classmethod
+    def from_dense(cls, dense: "Dense") -> "QuantDense":
+        from ..serve.quant import quantize_weight
+
+        codes, scale = quantize_weight(dense.weight, transposed=True)
+        return cls(codes, scale, dense.bias.detach().clone(), dense.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y * self.scale.to(self.dtype) + self.bias.to(self.dtype)
+
+
+class QuantEmbed(nn.Module):
+    """Weight-only int8 token table with the tied-output ``attend``.
+
+    ``weight`` holds the int8 codes ``[V, H]`` and ``scale`` one f32 factor
+    per hidden channel, which serves both directions: the lookup
+    dequantizes the gathered rows, and ``attend`` folds the scale into the
+    query, so no float ``[V, H]`` table is ever made."""
+
+    def __init__(self, codes: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("weight", codes)
+        self.register_buffer("scale", scale)
+
+    @classmethod
+    def from_embedding(cls, emb: nn.Embedding) -> "QuantEmbed":
+        from ..serve.quant import quantize_weight
+
+        return cls(*quantize_weight(emb.weight, transposed=False))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.weight[ids].float() * self.scale
+
+    def attend(self, query: torch.Tensor) -> torch.Tensor:
+        # query @ (codes * scale).T == (query * scale) @ codes.T
+        return torch.matmul(query * self.scale.to(query.dtype),
+                            self.weight.to(query.dtype).t())
 
 
 class LayerNorm(nn.Module):
@@ -201,8 +264,7 @@ class MultiHeadAttention(nn.Module):
             bias = span_bias(pos, s, ck.shape[2])
         return self._merge(self._attend(q, ck, cv, bias, False))
 
-    def decode_paged(self, x: torch.Tensor, cache: KvCache,
-                     pos: torch.Tensor,
+    def decode_paged(self, x: torch.Tensor, cache, pos: torch.Tensor,
                      block_tables: torch.Tensor) -> torch.Tensor:
         """:meth:`decode_at` against a shared block pool
         [num_blocks, H, block_size, D]: row b's logical position p lives in
@@ -211,8 +273,13 @@ class MultiHeadAttention(nn.Module):
         0 (writes from idle rows land there; the bias hides it), and so do
         positions past the table's span. With ``max_blocks * block_size ==
         max_len`` the gathered span equals the dense row, so the output is
-        bit-identical to :meth:`decode_at`."""
-        pk, pv = cache
+        bit-identical to :meth:`decode_at`.
+
+        ``cache`` is ``(pk, pv)``, or ``(pk, pv, sk, sv)`` for the int8
+        pool: int8 codes with f32 scales [num_blocks, H] per block and
+        head (:meth:`_requant_write`)."""
+        pk, pv, *scales = cache
+        sk, sv = scales or (None, None)
         bs = pk.shape[2]
         q = self._split(self.query(x))
         k = self._split(self.key(x))
@@ -221,7 +288,12 @@ class MultiHeadAttention(nn.Module):
         rows = torch.arange(b, device=q.device)
         mb = block_tables.shape[1]
         span = mb * bs
-        if s == 1:
+        if sk is not None:
+            self._requant_write(pk, sk, k, pos, block_tables)
+            self._requant_write(pv, sv, v, pos, block_tables)
+            bias = step_bias(pos, span) if s == 1 \
+                else span_bias(pos, s, span)
+        elif s == 1:
             blk = block_tables[rows, pos // bs]
             off = pos % bs
             pk[blk, :, off, :] = k[:, :, 0, :].to(pk.dtype)
@@ -240,12 +312,89 @@ class MultiHeadAttention(nn.Module):
             pv[blk, :, off, :] = v.transpose(1, 2).to(pv.dtype)
             bias = span_bias(pos, s, span)
 
-        def gathered(pool):  # [B, MB, H, bs, D] -> [B, H, span, D]
-            return pool[block_tables].transpose(1, 2).reshape(
+        def gathered(pool, scale):  # [B, MB, H, bs, D] -> [B, H, span, D]
+            g = pool[block_tables]
+            if scale is not None:
+                # Dequantize in the gather: the pool itself stays int8.
+                g = (g.float() * scale[block_tables][..., None, None]) \
+                    .to(self.dtype)
+            return g.transpose(1, 2).reshape(
                 b, self.num_heads, span, self.head_dim)
 
-        out = self._attend(q, gathered(pk), gathered(pv), bias, False)
+        out = self._attend(q, gathered(pk, sk), gathered(pv, sv), bias,
+                           False)
         return self._merge(out)
+
+    def _requant_write(self, codes: torch.Tensor, scale: torch.Tensor,
+                       new: torch.Tensor, pos: torch.Tensor,
+                       block_tables: torch.Tensor) -> None:
+        """Write this step's K or V ``new`` [B, H, S, D] into the int8 pool
+        by read-modify-write, one code path for S = 1 and the verify span
+        (JAX ``models/transformer.py:240-288``): gather the window of
+        ``T = (S + 2·bs − 2) // bs`` blocks from ``pos // bs``, dequantize
+        it in f32, insert the S vectors, zero every position at or above
+        ``min(pos + S, span)`` (recycled blocks' leftovers would inflate the
+        absmax), requantize each (block, head) to absmax / 127 and write
+        codes and scales back.
+
+        JAX sends window blocks past the table, or on the null block 0, to
+        the index ``num_blocks``, which its scatter drops; positions past
+        the span go to an offset past the window. ``index_put`` drops
+        nothing, so only the selected (row, block) pairs are written
+        (:func:`_put_selected`): no index is clamped, and block 0 is never
+        given anything but its own content."""
+        b, h, s, d = new.shape
+        bs = codes.shape[2]
+        mb = block_tables.shape[1]
+        span = mb * bs
+        dev = new.device
+        n_win = (s + 2 * bs - 2) // bs
+        rows = torch.arange(b, device=dev)[:, None]
+        base = pos // bs
+        entry = base[:, None] + torch.arange(n_win, device=dev)  # [B, T]
+        in_table = entry < mb
+        phys = torch.where(
+            in_table, block_tables[rows, torch.clamp(entry, max=mb - 1)], 0)
+        pos_mat, valid = _span_positions(pos, s, span)
+        # Window offsets; a position past the span goes to the spare slot
+        # n_win * bs, cut off below.
+        woff = torch.where(valid, pos_mat - base[:, None] * bs, n_win * bs)
+        win = codes[phys].float() * scale[phys][..., None, None]
+        win = win.transpose(2, 3).reshape(b, n_win * bs, h, d)
+        win = torch.cat([win, win.new_zeros(b, 1, h, d)], dim=1)
+        win[rows.expand(b, s), woff] = new.transpose(1, 2).float()
+        win = win[:, :n_win * bs]
+        wpos = base[:, None] * bs + torch.arange(n_win * bs, device=dev)
+        live = wpos < torch.clamp(pos + s, max=span)[:, None]
+        win = torch.where(live[:, :, None, None], win, 0.0)
+        blocks = win.reshape(b, n_win, bs, h, d).transpose(2, 3)
+        amax = blocks.abs().amax(dim=(3, 4))  # [B, T, H]
+        new_scale = torch.where(amax > 0.0, amax / 127.0,
+                                torch.ones_like(amax))
+        new_codes = torch.clamp(
+            torch.round(blocks / new_scale[..., None, None]), -127.0,
+            127.0).to(torch.int8)
+        sel = in_table & (phys > 0)
+        _put_selected(codes, phys, new_codes, sel)
+        _put_selected(scale, phys, new_scale, sel)
+
+
+def _put_selected(pool: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                  sel: torch.Tensor) -> None:
+    """``pool[idx[sel]] = val[sel]`` with no host sync (a boolean index
+    waits for the card to count it): an unselected entry repeats the first
+    selected one, index and value, so it rewrites what that entry writes;
+    with none selected every entry rewrites block 0 with its own content.
+    The selected indices must be distinct."""
+    idx = idx.reshape(-1)
+    sel = sel.reshape(-1)
+    val = val.reshape(idx.shape[0], *val.shape[2:])
+    first = torch.argmax(sel.to(torch.uint8))  # the first selected, or 0
+    some = sel.any()
+    fill_idx = torch.where(some, idx[first], 0)
+    fill_val = torch.where(some, val[first], pool[0])
+    keep = sel.view(-1, *([1] * (val.ndim - 1)))
+    pool[torch.where(sel, idx, fill_idx)] = torch.where(keep, val, fill_val)
 
 
 class Mlp(nn.Module):

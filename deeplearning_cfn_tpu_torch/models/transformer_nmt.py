@@ -15,7 +15,13 @@ in one call).
 Decoder KV caches are explicit: :meth:`TransformerNMT.init_cache` returns a
 list of per-layer ``(k, v)`` tensors [B, H, max_len, D] and
 :meth:`TransformerNMT.init_paged_cache` a list of per-layer pools
-[num_blocks, H, block_size, D]; the decode steps update them in place.
+[num_blocks, H, block_size, D] (with ``kv_quant="int8"``: int8 codes plus
+their per-block, per-head f32 scales); the decode steps update them in
+place.
+
+Int8 serving: ``serve/quant.py:quantize_model`` returns a copy whose
+projections are ``QuantDense`` and whose token table (tied three ways) is a
+``QuantEmbed``; ``quantized`` tells the two apart.
 
 Training: ``forward(src_ids, src_mask, tgt_in_ids, train=True,
 generator=g)`` applies dropout (embeddings, after every attention and MLP
@@ -33,8 +39,8 @@ import torch
 from torch import nn
 
 from . import register_model
-from .transformer import (KvCache, LayerNorm, TransformerLayer, dropout,
-                          init_flax_defaults, padding_bias)
+from .transformer import (KvCache, LayerNorm, QuantEmbed, TransformerLayer,
+                          dropout, init_flax_defaults, padding_bias)
 
 
 class NmtEmbeddings(nn.Module):
@@ -85,6 +91,8 @@ class NmtEmbeddings(nn.Module):
 
     def logits(self, y: torch.Tensor) -> torch.Tensor:
         # Tied output projection, in f32 (Flax Embed.attend on an f32 query).
+        if isinstance(self.token, QuantEmbed):
+            return self.token.attend(y.float())
         return torch.matmul(y.float(), self.token.weight.t())
 
 
@@ -101,6 +109,7 @@ class TransformerNMT(nn.Module):
         self.num_heads = num_heads
         self.max_len = max_len
         self.dtype = dtype
+        self.quantized = False  # True on serve/quant.py's int8 copy
         self.embed = NmtEmbeddings(vocab_size, hidden_size, max_len, dtype,
                                    dropout_rate)
         layer = lambda cross: TransformerLayer(
@@ -126,13 +135,26 @@ class TransformerNMT(nn.Module):
                  torch.zeros(shape, dtype=self.dtype, device=self.device))
                 for _ in range(self.num_layers)]
 
-    def init_paged_cache(self, num_blocks: int, block_size: int
-                         ) -> List[KvCache]:
-        """Per-layer block pools [num_blocks, H, block_size, D] (zeros)."""
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         kv_quant: str = "") -> List[tuple]:
+        """Per-layer block pools [num_blocks, H, block_size, D] (zeros).
+        ``kv_quant="int8"``: int8 code pools plus f32 scale sidecars
+        [num_blocks, H] (ones, as JAX initialises them), per layer
+        ``(k codes, v codes, k scales, v scales)``."""
         shape = (num_blocks, self.num_heads, block_size,
                  self.hidden_size // self.num_heads)
-        return [(torch.zeros(shape, dtype=self.dtype, device=self.device),
-                 torch.zeros(shape, dtype=self.dtype, device=self.device))
+        dev = self.device
+        if not kv_quant:
+            return [(torch.zeros(shape, dtype=self.dtype, device=dev),
+                     torch.zeros(shape, dtype=self.dtype, device=dev))
+                    for _ in range(self.num_layers)]
+        from ..serve.quant import check_kv_quant_dtype
+
+        check_kv_quant_dtype(kv_quant)
+        codes = lambda: torch.zeros(shape, dtype=torch.int8, device=dev)
+        ones = lambda: torch.ones(shape[:2], dtype=torch.float32,
+                                  device=dev)
+        return [(codes(), codes(), ones(), ones())
                 for _ in range(self.num_layers)]
 
     # -- forward paths -----------------------------------------------------
@@ -195,7 +217,7 @@ class TransformerNMT(nn.Module):
     def decode_step_paged(self, tgt_id: torch.Tensor, enc: torch.Tensor,
                           src_mask: torch.Tensor, pos: torch.Tensor,
                           block_tables: torch.Tensor,
-                          cache: List[KvCache]) -> torch.Tensor:
+                          cache: List[tuple]) -> torch.Tensor:
         """Paged-KV form of :meth:`decode_step_at` over per-layer block
         pools; ``block_tables`` [B, max_blocks] maps row b's position p to
         pool block ``block_tables[b, p // block_size]``."""
@@ -217,7 +239,7 @@ class TransformerNMT(nn.Module):
     def decode_span_paged(self, tgt_ids: torch.Tensor, enc: torch.Tensor,
                           src_mask: torch.Tensor, pos: torch.Tensor,
                           block_tables: torch.Tensor,
-                          cache: List[KvCache]) -> torch.Tensor:
+                          cache: List[tuple]) -> torch.Tensor:
         """Paged-KV form of :meth:`decode_span_at` (positions past the
         table's span are written to the null block 0)."""
         return self._step(tgt_ids, enc, src_mask, pos, cache, block_tables)

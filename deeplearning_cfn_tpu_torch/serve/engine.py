@@ -41,13 +41,22 @@ What is ported:
 - multi-tenant QoS (``qos_classes``, ``tenant`` / ``qos_class`` on submit):
   weighted fair share in the queue, and a blocked higher-priority head
   preempts a best-effort group, which restarts from scratch later (the
-  tokens it had emitted are kept for the zero-loss audit).
+  tokens it had emitted are kept for the zero-loss audit);
+- int8 serving: ``quantize="int8"`` serves a weight-only int8 copy of the
+  model (serve/quant.py; a distinct draft is quantized too), and
+  ``kv_quant="int8"`` (paged engines) keeps the target's block pool as int8
+  codes with per-block, per-head scales — the draft's pool stays float.
+  Every block-keyed move (beam copy-on-write) carries the scales with the
+  codes;
+- ``swap_variables`` (an idle engine's weight swap, requantized under
+  ``quantize``) and the brownout knobs ``_degrade_no_spec`` and
+  ``_degrade_window_cap`` that the fleet's degrade controller sets.
 
 The KV caches, the encoder tables and the source-mask table are updated in
 place (the JAX engine donates them into each device call for the same
-effect). Constructor arguments of later slices raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them. The draft model carries its
-own weights (the JAX engine's ``draft_variables``).
+effect). ``phase`` (the disaggregated prefill/decode handoff) raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it. The draft
+model carries its own weights (the JAX engine's ``draft_variables``).
 
 Every device call is counted for the launch audit: ``encoder_forwards``
 (target encoder applications, the constructor's warmup included),
@@ -74,6 +83,8 @@ from ..obs.trace import span
 from .blockpool import BlockAllocator
 from .metrics import ServeMetrics
 from .prefix import PrefixCache, unpadded_key
+from .quant import (check_kv_quant_dtype, kv_pool_bytes, quantize_model,
+                    quantize_state_dict)
 from .queue import OverloadError, QosSpec, Request, RequestQueue, \
     RequestState
 from .radix import RadixCache
@@ -81,8 +92,6 @@ from .radix import RadixCache
 # Out-of-slice options → the ROADMAP.md item that ports them.
 _LATER = {
     "phase": "A.6d (disaggregated prefill/decode handoff)",
-    "quantize": "A.6e (int8 weights and KV)",
-    "kv_quant": "A.6e (int8 weights and KV)",
 }
 
 
@@ -151,9 +160,6 @@ class Engine:
                  = RequestQueue.DEFAULT_RETRY_AFTER_FLOOR_S,
                  qos_classes: Optional[Dict[str, QosSpec]] = None,
                  prefill_chunk: int = 0):
-        for name, value in (("quantize", quantize), ("kv_quant", kv_quant)):
-            if value:
-                raise _not_ported(name)
         if (phase or "both") != "both":
             raise _not_ported("phase")
         if capacity <= 0:
@@ -172,10 +178,32 @@ class Engine:
         if self.prefill_chunk < 0:
             raise ValueError(
                 f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        # Int8 weights: the engine owns the quantized copy, so that
+        # swap_variables can requantize an incoming f32 state.
+        self.quantize = str(quantize or "")
+        if self.quantize:
+            model = quantize_model(model, self.quantize)
+            if draft_model is not None:
+                draft_model = quantize_model(draft_model, self.quantize)
+        # Int8 KV: paged only, since the quantization grid is the pool
+        # block. Only the target's pool is int8.
+        self.kv_quant = str(kv_quant or "")
+        if self.kv_quant:
+            if int(kv_block_size) <= 0:
+                raise ValueError(
+                    "kv_quant requires the paged KV path "
+                    "(kv_block_size > 0) — the quantization grid is per "
+                    "pool block")
+            check_kv_quant_dtype(self.kv_quant)
         self.model = model
         self.device = model.device
         self.capacity = capacity
         self.decode_window = int(decode_window)
+        # Brownout knobs, set by the fleet's degrade controller (or by
+        # hand). Neither changes an emitted token: speculation and fused
+        # windows are exact accelerations of the plain greedy path.
+        self._degrade_no_spec = False
+        self._degrade_window_cap: Optional[int] = None
         self.model_max_len = int(getattr(model, "max_len", 0) or 0)
         if self.model_max_len <= 0:
             raise ValueError("model must expose max_len (the KV-cache size)")
@@ -315,10 +343,13 @@ class Engine:
         self._src_mask = torch.zeros((cap, s), dtype=torch.long,
                                      device=self.device)
         if self.paged:
-            self.cache = model.init_paged_cache(self.kv_blocks,
-                                                self.kv_block_size)
+            self.cache = model.init_paged_cache(
+                self.kv_blocks, self.kv_block_size, kv_quant=self.kv_quant)
         else:
             self.cache = model.init_cache(cap)
+        if self.kv_quant:
+            stored, _ = kv_pool_bytes(self.cache, self.kv_blocks)
+            self.metrics.configure_kv_quant(stored)
         # Host-side per-row state (scheduler-authoritative; uploaded into
         # each device call and refreshed from its outputs).
         self._prev = np.full((cap,), PAD_ID, np.int64)
@@ -386,6 +417,32 @@ class Engine:
     def slot_view(self) -> List[Optional[str]]:
         """Row → owning request id (None = free). For tests/diagnostics."""
         return list(self._row_owner)
+
+    def swap_variables(self, state: Dict[str, torch.Tensor]) -> None:
+        """Swap in new weights — the fleet rollout's checkpoint swap.
+
+        ``state`` is an f32 state_dict in the port's key layout (what
+        ``convert.params_from_flax`` returns); under ``quantize`` it is
+        requantized first. The weights load in place, so a self-draft
+        still aliases the target. Only legal on an idle engine: a request's
+        KV was computed under the old weights. The encoder prefix cache and
+        the radix cache hold old-weight outputs and are dropped."""
+        if self._groups or self._prefilling or self.queue.depth > 0:
+            raise RuntimeError(
+                f"swap_variables requires an idle engine "
+                f"({len(self._groups)} running, "
+                f"{len(self._prefilling)} prefilling, "
+                f"{self.queue.depth} queued, "
+                f"0 parked for handoff) "
+                f"— drain first")
+        if self.quantize:
+            state = quantize_state_dict(state, self.quantize)
+        self.model.load_state_dict(state, strict=True)
+        if self._prefix is not None:
+            self._prefix = PrefixCache(self._prefix.max_entries)
+        # Radix entries are old-weight decoder KV: resuming from them would
+        # splice generations across checkpoints.
+        self.reset_radix_cache()
 
     def reset_radix_cache(self) -> int:
         """Drop every radix-cached block. Returns blocks released; 0 when
@@ -1039,7 +1096,8 @@ class Engine:
         tick may run. More than one only when the scheduler provably has
         nothing to do in between: no chunked prefill in progress,
         greedy-only traffic, no running deadlines, no admissible queued
-        work, and no pending request that outranks a preemptible group."""
+        work, and no pending request that outranks a preemptible group.
+        The brownout knob ``_degrade_window_cap`` caps it."""
         if self.decode_window <= 1:
             return 1
         if self._prefilling:
@@ -1057,7 +1115,12 @@ class Engine:
                     spec = self.queue.qos_spec(g.req.qos_class)
                     if spec.preemptible and spec.priority > pend:
                         return 1
-        return self.decode_window
+        k = self.decode_window
+        if self._degrade_window_cap is not None:
+            # Brownout: shorter windows keep the per-tick latency (and
+            # admission freshness) bounded at some throughput cost.
+            k = min(k, self._degrade_window_cap)
+        return max(1, k)
 
     # -- the step ----------------------------------------------------------
 
@@ -1068,7 +1131,8 @@ class Engine:
         per-group bookkeeping → evict finished. Returns the number of
         decode steps run (0 = idle; a chunk-only tick reports 1). Ticks
         with a beam group take the single-step logits path; speculation
-        runs only on pure-greedy ticks without deadlines."""
+        runs only on pure-greedy ticks without deadlines, and not while the
+        brownout knob ``_degrade_no_spec`` is set."""
         now = self._clock()
         self._reap(now)
         with span("serve.admit", queued=self.queue.depth) as sp:
@@ -1091,8 +1155,9 @@ class Engine:
             with span("serve.decode", path="host", k=1,
                       request_ids=active_ids):
                 return self._host_step()
-        if self.speculate_gamma > 0 and not any(
-                g.req.deadline is not None for g in self._groups):
+        if self.speculate_gamma > 0 and not self._degrade_no_spec \
+                and not any(g.req.deadline is not None
+                            for g in self._groups):
             if self.speculate_device:
                 k = self._plan_window()
                 with span("serve.decode", path="spec-device", k=k,
@@ -1410,11 +1475,13 @@ class Engine:
         if copy_dst:
             # Gathers read the pre-update pool, so a block freed and
             # re-handed-out within this tick still sources its old content.
+            # Every pool tensor moves: an int8 block's scales go with its
+            # codes, or the copy decodes wrong.
             dst = torch.as_tensor(copy_dst, device=self.device)
             src = torch.as_tensor(copy_src, device=self.device)
-            for pk, pv in self.cache:
-                pk[dst] = pk[src]
-                pv[dst] = pv[src]
+            for layer in self.cache:
+                for p in layer:
+                    p[dst] = p[src]
         self.metrics.record_step(
             rows_active, self.queue.depth, new_tokens, self._clock() - t0,
             kv_blocks_in_use=kv_in_use)

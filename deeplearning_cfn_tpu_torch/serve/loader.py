@@ -8,7 +8,10 @@ committed JAX checkpoint of the experiment (``<workdir>/<preset>/ckpt``,
 read with numpy through :mod:`..convert`) or, with ``allow_init``, from a
 seeded init on the device with Flax's distributions. A speculative draft
 comes the same way from a second experiment, or from a committed distilled
-draft (:data:`DRAFT_PRESETS`, the npz files under ``serve/data/``).
+draft (:data:`DRAFT_PRESETS`, the npz files under ``serve/data/``). The f32
+restore stays canonical: ``quantize``/``kv_quant`` are the engine's (it
+quantizes, and requantizes on every ``swap_variables``). ``vocab`` binds
+the BPE tokenizer (``data/bpe.py``) that text requests need.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from ..config import ExperimentConfig
 from ..convert import committed_steps, load_flax_checkpoint, params_from_flax
+from ..data.bpe import Bpe
 from ..models import build_model
 from ..models.transformer_nmt import (TransformerNMT, init_weights,
                                       transformer_nmt_tiny)
@@ -115,17 +119,20 @@ def load_engine(cfg: ExperimentConfig, *, capacity: int = 4,
                 speculate_gamma: int = 0,
                 speculate_device: bool = False,
                 draft_cfg: Union[ExperimentConfig, str, None] = None,
+                quantize: str = "",
+                kv_quant: str = "",
                 radix_cache: bool = False,
                 prefill_chunk: int = 0,
-                step: int = 0, allow_init: bool = False,
+                step: int = 0, vocab: str = "", allow_init: bool = False,
                 device: Union[str, torch.device] = "gpu",
                 attention_impl: Optional[str] = None,
-                clock=time.monotonic, **later) -> Tuple[Engine, None, int]:
+                clock=time.monotonic, **later
+                ) -> Tuple[Engine, Optional[Bpe], int]:
     """Build an Engine from an experiment config.
 
-    Returns ``(engine, None, checkpoint_step)`` — the JAX loader's shape,
-    whose second item is the tokenizer (not ported: requests arrive as
-    token ids). ``checkpoint_step`` is -1 when ``allow_init`` served a
+    Returns ``(engine, bpe_or_None, checkpoint_step)`` as the JAX loader
+    does: the BPE tokenizer loaded from ``vocab`` (a ``vocab.json``), or
+    None without one. ``checkpoint_step`` is -1 when ``allow_init`` served a
     seeded random init because no checkpoint was committed. ``device`` is
     ``"gpu"`` (the default; raises without a card) or ``"cpu"``.
 
@@ -135,11 +142,12 @@ def load_engine(cfg: ExperimentConfig, *, capacity: int = 4,
     :data:`DRAFT_PRESETS` name; without one the engine self-drafts.
     ``speculate_device`` chains the windows on the device. ``radix_cache``
     arms the radix prefix KV cache (needs ``kv_block_size > 0``);
-    ``prefill_chunk > 0`` chunked prefill. QoS classes are not taken here:
-    the engine runs the default classes and turns QoS on at the first
-    tenant-tagged submit. Options of later slices (``quantize``,
-    ``kv_quant``, ``phase``) go through ``later`` and raise
-    ``NotImplementedError`` in the engine.
+    ``prefill_chunk > 0`` chunked prefill. ``quantize="int8"`` serves
+    int8 weights (the engine quantizes the f32 restore); ``kv_quant="int8"``
+    an int8 paged KV pool (needs ``kv_block_size > 0``). QoS classes are not
+    taken here: the engine runs the default classes and turns QoS on at the
+    first tenant-tagged submit. ``phase`` (ROADMAP A.6d) goes through
+    ``later`` and raises ``NotImplementedError`` in the engine.
     """
     dev = resolve_device(device)
     model, at_step = _restore(cfg, dev, attention_impl, step, allow_init,
@@ -153,6 +161,7 @@ def load_engine(cfg: ExperimentConfig, *, capacity: int = 4,
         else:
             draft_model, _ = _restore(draft_cfg, dev, attention_impl, 0,
                                       allow_init, "draft ")
+    bpe = Bpe.load(vocab) if vocab else None
     engine = Engine(
         model, capacity=capacity,
         max_src_len=max_src_len or cfg.data.seq_len,
@@ -164,7 +173,8 @@ def load_engine(cfg: ExperimentConfig, *, capacity: int = 4,
         kv_block_size=kv_block_size, kv_blocks=kv_blocks,
         prefix_cache_size=prefix_cache_size,
         speculate_gamma=speculate_gamma, speculate_device=speculate_device,
-        draft_model=draft_model, radix_cache=radix_cache,
-        prefill_chunk=prefill_chunk, clock=clock, **later)
+        draft_model=draft_model, quantize=quantize, kv_quant=kv_quant,
+        radix_cache=radix_cache, prefill_chunk=prefill_chunk, clock=clock,
+        **later)
     engine.metrics.ckpt_load_retries = 0
-    return engine, None, at_step
+    return engine, bpe, at_step

@@ -17,8 +17,10 @@ and speculative serving: the verify span (γ = 1, 4, 8, dense and paged)
 against the plain version, and a tiny f32 speculative engine on the card
 against the CPU; ViT's attention at [256, 6, 196, 64] (neither causal nor
 biased) against the plain versions, the tiny f32 ViT (with 5 Adafactor
-steps) and the tiny f32 BERT-MoE and GPT-MoE on the card against the CPU.
-This file imports no JAX, so it runs on a machine that has only PyTorch and
+steps) and the tiny f32 BERT-MoE and GPT-MoE on the card against the CPU;
+and int8 serving: the bf16 ``QuantDense``/``QuantEmbed`` on the card against
+their f32 CPU versions, and the int8 paged write (codes within ±1) and a
+tiny int8 engine on the card against the CPU. This file imports no JAX, so it runs on a machine that has only PyTorch and
 the CUDA toolkit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -962,3 +964,124 @@ def test_no_collection_runs_during_a_capture(cuda, monkeypatch):
     monkeypatch.setattr(Trainer, "step_body", watched)
     window_runs(torch, attn, _window_nmt("float32"), 4)
     assert seen == [False] and gc.isenabled()
+
+
+# -- int8 serving on the card -------------------------------------------------
+
+
+def test_quant_layers_bf16_on_card_match_cpu_f32(cuda):
+    """The bf16 ``QuantDense`` and ``QuantEmbed`` (lookup and ``attend``) on
+    the card against the same layers in f32 on the CPU, each output on its
+    own scale (``scaled_error``)."""
+    from deeplearning_cfn_tpu_torch.models.transformer import (Dense,
+                                                               QuantDense,
+                                                               QuantEmbed)
+
+    g = torch.Generator().manual_seed(0)
+    dense = Dense(512, 2048, torch.float32)
+    with torch.no_grad():
+        dense.weight.normal_(0.0, 0.05, generator=g)
+        dense.bias.normal_(0.0, 0.1, generator=g)
+    emb = torch.nn.Embedding(1000, 512)
+    with torch.no_grad():
+        emb.weight.normal_(0.0, 0.02, generator=g)
+    x = torch.randn(8, 16, 512, generator=g)
+    ids = torch.randint(0, 1000, (8, 16), generator=g)
+    cpu_d, cpu_e = QuantDense.from_dense(dense), QuantEmbed.from_embedding(emb)
+    card_d = QuantDense.from_dense(dense).to(cuda)
+    card_d.dtype = torch.bfloat16
+    card_e = QuantEmbed.from_embedding(emb).to(cuda)
+    assert card_d.weight.dtype == card_e.weight.dtype == torch.int8
+    with torch.no_grad():
+        pairs = [(card_d(x.to(cuda)), cpu_d(x)),
+                 (card_e(ids.to(cuda)), cpu_e(ids)),
+                 (card_e.attend(x.to(cuda, torch.bfloat16)),
+                  cpu_e.attend(x))]
+    assert pairs[0][0].dtype == torch.bfloat16
+    for got, ref in pairs:
+        err = scaled_error(got.float().cpu(), ref)
+        assert err["ok"], err
+    # The lookup is exact: int8 codes times an f32 scale on both.
+    assert torch.equal(pairs[1][0].cpu(), pairs[1][1])
+
+
+def _int8_pair(cuda):
+    from deeplearning_cfn_tpu_torch.models.transformer import Dense
+    from deeplearning_cfn_tpu_torch.models.transformer_nmt import (
+        init_weights, transformer_nmt_tiny)
+
+    cpu = transformer_nmt_tiny(vocab_size=64, max_len=32)
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for mod in cpu.modules():
+            if isinstance(mod, Dense):
+                mod.weight.mul_(3.0)
+    card = transformer_nmt_tiny(vocab_size=64, max_len=32, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cpu.requires_grad_(False), card.requires_grad_(False)
+
+
+@pytest.mark.parametrize("s", [1, 5], ids=["step", "span5"])
+def test_int8_paged_write_on_card_matches_cpu(cuda, s):
+    """The int8 pool's requantizing write and dequantizing gather, f32 on
+    the card against the CPU from the same prior pool (spans past the
+    table, an unbound entry, a row on the null block): codes within ±1,
+    scales within 1e-5 relative, logits within 1e-3 of the largest."""
+    models = _int8_pair(cuda)
+    b, nb, bs = 4, 17, 8
+    rng = np.random.default_rng(s)
+    src = torch.from_numpy(rng.integers(3, 64, (b, 8)))
+    tgt = torch.from_numpy(rng.integers(3, 64, (b, s)))
+    pos = torch.tensor([6, 9, 29, 31])
+    tables = torch.tensor([[1, 0, 0, 0], [0, 0, 0, 0], [6, 7, 8, 9],
+                           [10, 11, 12, 13]])
+    prior = [(torch.from_numpy(rng.integers(-127, 128, (nb, 4, bs, 16))
+                               .astype(np.int8)) if j < 2 else
+              torch.from_numpy(rng.uniform(0.01, 0.05, (nb, 4))
+                               .astype(np.float32)))
+             for j in range(4)]
+    outs = []
+    for m in models:
+        dev = m.device
+        cache = m.init_paged_cache(nb, bs, kv_quant="int8")
+        for layer in cache:
+            for t, p in zip(layer, prior):
+                t.copy_(p)
+        mask = torch.ones_like(src)
+        with torch.no_grad():
+            logits = m.decode_span_paged(
+                tgt.to(dev), m.encode(src.to(dev), mask.to(dev)),
+                mask.to(dev), pos.to(dev), tables.to(dev), cache)
+        outs.append((logits.cpu(), [[t.cpu() for t in layer]
+                                    for layer in cache]))
+    (ref, ref_cache), (got, got_cache) = outs
+    assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+    for ref_layer, got_layer in zip(ref_cache, got_cache):
+        for j, (r, g) in enumerate(zip(ref_layer, got_layer)):
+            if j < 2:
+                assert (r.int() - g.int()).abs().max() <= 1
+            else:
+                assert ((r - g).abs() <= 1e-5 * r.abs()).all()
+
+
+def test_int8_engine_tiny_f32_on_card_matches_cpu(cuda):
+    """A tiny f32 engine with int8 weights and the int8 KV pool (paged,
+    window 4, beams) on the card against the CPU: identical tokens."""
+    from deeplearning_cfn_tpu_torch.serve import Engine
+
+    models = _int8_pair(cuda)
+    rng = np.random.default_rng(1)
+    srcs = [[int(t) for t in rng.integers(3, 64, 2 + i % 6)] + [2]
+            for i in range(8)]
+    tokens = []
+    for m in models:
+        eng = Engine(m, capacity=4, max_src_len=8, kv_block_size=8,
+                     decode_window=4, quantize="int8", kv_quant="int8")
+        ids = [eng.submit(s, max_new_tokens=6 + 2 * j,
+                          beam_size=2 if j % 4 == 3 else 1).id
+               for j, s in enumerate(srcs)]
+        eng.run_until_drained()
+        assert eng.allocator.blocks_in_use == 0
+        tokens.append([list(eng.poll(r).tokens) for r in ids])
+    assert tokens[0] == tokens[1]
+    assert len({tuple(t) for t in tokens[0]}) > 1

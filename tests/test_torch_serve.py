@@ -258,7 +258,7 @@ def test_deadline_expires_running_request_within_one_step(weights):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("quantize", "int8"), ("kv_quant", "int8"), ("phase", "prefill"),
+    ("phase", "prefill"),
 ])
 def test_out_of_slice_options_name_their_roadmap_item(weights, option,
                                                       value):
