@@ -270,8 +270,10 @@ order; a failing phase raises, so the exit code is nonzero:
    window; the host is ahead of the card, one launch per step) over each
    run's wall time per step. Then the other seven trainable presets as tiny
    f32 cuts, 8 steps each, K = 1 run twice (BERT with remat, dropout and
-   two microbatches; where two eager runs drift apart, as Mask R-CNN's
-   do, the bound is ``WINDOW_RERUN_FACTOR`` times their drift). Then the
+   two microbatches), under PyTorch's deterministic algorithms: the two
+   eager runs and the graphs must agree bit for bit (without them Mask
+   R-CNN's atomics can flip a top-k or NMS choice, and two runs part by
+   a few percent of the loss). Then the
    ViT and the NMT through ``run_experiment``
    with ``step_window=4``, 8 steps: the steps logged (4 and 8, lagging one
    boundary), ``compile_s`` once, and the launches (the path's, in the
@@ -297,6 +299,25 @@ order; a failing phase raises, so the exit code is nonzero:
    on three text lines (exit 0, ``"text"`` on every result line). It
    prints tokens/s, TTFT p50 and the decode-step p50 beside phase 5's, and
    ``max_memory_allocated``.
+26. the launched path, in a temporary directory, on phase 9's NMT config
+   (full width, bf16, batch 128): (a) ``cli stack create --provisioner
+   dryrun --slice-type v5p-4`` (one host), then ``cli train --stack`` in a
+   child process for 12 steps with ``train.profile_steps=1``: exit 0 and
+   ``job finished``, the worker's log names the CUDA device, the worker's
+   Chrome trace names the three kernels, ``metrics.jsonl`` holds
+   ``train.dispatch`` and ``ckpt.save`` spans, ``metrics.prom`` exists; the
+   launched step p50 beside phase 9's; (b) ``launch/chaos.py:
+   run_crash_recovery`` on the card, 8 steps, the worker SIGKILLed right
+   after its (synchronous) step-4 save, ``max_restarts=2``: outcomes crash
+   then ok, resumed from step 4, the per-step losses equal to the
+   uninterrupted run's bit for bit, no uncommitted step directory; each
+   attempt's wall time and the restart overhead (the launcher seeing the
+   death to the resumed run's first step record); (c) ``cli obs
+   summarize`` (the ``ckpt.save`` p50 and p95, the attempts),
+   ``obs check`` (two rules the run must hold), ``obs export`` (the trace
+   passes ``validate_trace``) and ``cli metrics`` on (b)'s run, each exit
+   0; (d) ``cli doctor``: all checks pass. The workers' kernel launches
+   happen in their own processes, so the kernels line does not count them.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -333,6 +354,7 @@ it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -342,6 +364,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"                 # the card every phase runs on
+# cuBLAS's reproducible workspace setting, which strict deterministic
+# algorithms (phase 24) require; PyTorch reads it once, at the first GEMM.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 SLOTS, SRC_LEN, HEADS, HEAD_DIM = 8, 128, 8, 64
@@ -506,11 +531,11 @@ WINDOW, WINDOW_STEPS, WINDOW_TINY_STEPS = 4, 16, 8
 # last-bit difference in an f32 weight can flip a bf16 rounding
 # downstream, 2e-3.
 WINDOW_TOL = {"float32": 1e-4, "bfloat16": 2e-3}
-# The tiny presets run K = 1 twice: where two eager runs drift apart further
-# than WINDOW_TOL (Mask R-CNN: a last-bit difference from the index_add's
-# atomics can flip a top-k or NMS choice, and the trajectories part), the
-# graphs may drift from the eager run up to this many times as far.
-WINDOW_RERUN_FACTOR = 10
+# The tiny presets run K = 1 twice and K = 4, all three under
+# ``deterministic``: there no atomics reorder additions, so every pair must
+# agree bit for bit (a bound of 0). Without it a last-bit difference from
+# Mask R-CNN's index_add can flip a top-k or NMS choice, and two eager runs
+# part by up to 4% of the loss.
 WINDOW_VIT = [f"train.global_batch={VIT_BATCH}",
               f"train.grad_accum_steps={VIT_ACCUM}",
               "schedule.warmup_steps=2",
@@ -3845,6 +3870,23 @@ def window_runs(torch, attn, cfg_of, steps, again=False):
     return runs
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic algorithms, strict (an op that has none
+    raises), and cuDNN's deterministic convolutions; restored on the way
+    out."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic = before[2]
+
+
 def _drift(ra, rb):
     """(largest loss difference, that over the largest |loss|, the largest
     weight difference over its tensor's largest |value|, bit for bit)."""
@@ -3858,11 +3900,11 @@ def _drift(ra, rb):
 
 def check_windows(name, runs, tol, kernels=False, timed=False):
     """Phase 24's checks of one pair: finite losses, the two trajectories
-    within ``tol`` of the largest |value| — or, where the K = 1 run was made
-    twice, within WINDOW_RERUN_FACTOR times the two eager runs' own drift
-    when that is larger — (bit for bit reported), the same launches per
-    step, and with ``kernels`` all three kernels launched; with ``timed``
-    the step times and busy shares. Logs and returns the figures."""
+    within ``tol`` of the largest |value| (bit for bit reported; a ``tol``
+    of 0 asks for bit for bit) — and, where the K = 1 run was made twice,
+    the two eager runs as well — the same launches per step, and with
+    ``kernels`` all three kernels launched; with ``timed`` the step times
+    and busy shares. Logs and returns the figures."""
     r1, rk = runs[1], runs[WINDOW]
     l1, lk = r1["losses"], rk["losses"]
     if not all(math.isfinite(x) for x in l1 + lk):
@@ -3870,25 +3912,24 @@ def check_windows(name, runs, tol, kernels=False, timed=False):
     loss_diff, loss_rel, weight_rel, bitwise = _drift(r1, rk)
     log(f"  {name} K=1 losses: {' '.join(f'{x:.6f}' for x in l1)}")
     log(f"  {name} K={WINDOW} losses: {' '.join(f'{x:.6f}' for x in lk)}")
-    loss_bound = weight_bound = tol
     eager = None
     if "again" in runs:
         eager = _drift(r1, runs["again"])
-        loss_bound = max(tol, WINDOW_RERUN_FACTOR * eager[1])
-        weight_bound = max(tol, WINDOW_RERUN_FACTOR * eager[2])
         log(f"  {name}: two eager runs drift {eager[1]:.3e} (loss) and "
             f"{eager[2]:.3e} (weights); bitwise "
             f"{'equal' if eager[3] else 'not equal'}")
+        if eager[1] > tol or eager[2] > tol or (tol == 0 and not eager[3]):
+            raise AssertionError(f"{name}: two eager runs parted (loss "
+                                 f"{eager[1]:.3e} or weights "
+                                 f"{eager[2]:.3e} > {tol:.3g})")
     log(f"  {name}: largest loss difference {loss_diff:.3e} ({loss_rel:.3e} "
         f"of the largest loss), largest weight difference {weight_rel:.3e} "
         f"of its tensor's largest |value|; bitwise "
-        f"{'equal' if bitwise else 'not equal'} (bounds {loss_bound:.3g}, "
-        f"{weight_bound:.3g})")
-    if loss_rel > loss_bound or weight_rel > weight_bound:
+        f"{'equal' if bitwise else 'not equal'} (bound {tol:.3g})")
+    if loss_rel > tol or weight_rel > tol or (tol == 0 and not bitwise):
         raise AssertionError(f"{name}: K={WINDOW} graphs left the eager "
-                             f"trajectory (loss {loss_rel:.3e} > "
-                             f"{loss_bound:.3g} or weights {weight_rel:.3e} "
-                             f"> {weight_bound:.3g})")
+                             f"trajectory (loss {loss_rel:.3e} or weights "
+                             f"{weight_rel:.3e} > {tol:.3g})")
     if r1["launches"] != rk["launches"]:
         raise AssertionError(f"{name}: per-step launches under replay "
                              f"{rk['launches']} != eager {r1['launches']}")
@@ -4003,9 +4044,10 @@ def train_windows(torch, attn):
                 "train.dtype=float32", "train.seed=0",
                 f"train.step_window={k}",
                 f"workdir={fresh_workdir('smoke_window_tiny')}"])
-        out[preset] = check_windows(
-            preset, window_runs(torch, attn, cfg_of, WINDOW_TINY_STEPS,
-                                again=True), WINDOW_TOL["float32"])
+        with deterministic(torch):
+            runs = window_runs(torch, attn, cfg_of, WINDOW_TINY_STEPS,
+                               again=True)
+        out[preset] = check_windows(preset, runs, 0.0)
     out["vit_run"] = windowed_run(torch, attn, vit(WINDOW, 2 * WINDOW),
                                   VIT_PER_STEP, "vit")
     out["nmt_run"] = windowed_run(torch, attn, nmt(WINDOW, 2 * WINDOW),
@@ -4301,6 +4343,272 @@ def serve_int8(torch, attn, reqs, served):
     return row
 
 
+# Phase 26: the launched path (ROADMAP A.13). transformer_nmt_wmt at phase
+# 9's widths and recipe (bf16, batch 128) through `cli stack create` (a
+# one-host dry-run stack), `cli train --stack` (the launcher fans
+# `train.worker` to the host as a local process on the card) and the crash
+# recovery harness (`launch/chaos.py`). The workers' kernel launches happen
+# in their own processes, which the parent's counters do not see: the
+# worker's Chrome trace (train.profile_steps=1) shows them instead.
+LAUNCH_STEPS = 12
+LAUNCH_OVERRIDES = [
+    "train.dtype=bfloat16", "train.seed=0",
+    f"train.global_batch={TRAIN_BATCH}", "schedule.warmup_steps=10", "schedule.base_lr=1e-3",
+    "data.num_eval_examples=128", "eval.max_decode_len=32"]
+CHAOS = dict(total_steps=8, kill_at_step=4, ckpt_every=4, max_restarts=2)
+# Synchronous saves: the step-4 save commits before the kill hook runs, so
+# the restarted attempt resumes from step 4 (with asynchronous saves the
+# SIGKILL lands before the commit and the restart begins again at 0).
+CHAOS_OVERRIDES = LAUNCH_OVERRIDES + ["checkpoint.async_write=false"]
+KERNEL_NAMES = ("flash_attn_fwd", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq")
+# Thresholds the runs must hold; a loss ceiling above ln(32000) + smoothing.
+LAUNCH_RULES = {"rules": [
+    {"name": "train-step-time-p95", "metric": "step_time_s",
+     "kind": "percentile", "q": 95, "max": 5.0, "min_count": 3},
+    {"name": "train-loss-ceiling", "metric": "loss", "kind": "threshold",
+     "max": 20.0}]}
+
+
+def cli_inprocess(argv):
+    """``cli.main(argv)`` in this process; returns (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from deeplearning_cfn_tpu_torch.cli.main import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(list(argv))
+    return rc, out.getvalue()
+
+
+def read_jsonl(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def step_p50(records):
+    times = sorted(r["step_time_s"] for r in records if "step_time_s" in r)
+    return times[len(times) // 2]
+
+
+def trace_kernels(profile_dir):
+    """Kernel launches by name in the worker's Chrome trace(s)."""
+    import glob
+
+    paths = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
+    if not paths:
+        raise AssertionError(f"no Chrome trace under {profile_dir}")
+    found = dict.fromkeys(KERNEL_NAMES, 0)
+    for path in paths:
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        for e in events:
+            if e.get("cat") != "kernel":
+                continue
+            for name in KERNEL_NAMES:
+                if f"{name}_" in e.get("name", ""):
+                    found[name] += 1
+    return found
+
+
+def attempt_times(log_dir):
+    """(wall seconds of each attempt, the ts of each attempt's end event)
+    from the launcher's launch.jsonl."""
+    recs = read_jsonl(os.path.join(log_dir, "launch.jsonl"))
+    walls = [r["dur_s"] for r in recs if r.get("span") == "launch.attempt"]
+    ends = [r["ts"] for r in recs if r.get("event") == "launch_attempt"]
+    return walls, ends
+
+
+def expected_device_line(torch):
+    return f"one device: {torch.cuda.get_device_name(0)} (cuda:"
+
+
+def launched_training(torch, root, trained, accelerator="gpu"):
+    """Phase 26a: a one-host dry-run stack and `cli train --stack` on it."""
+    state_dir = os.path.join(root, "stacks")
+    rc, out = cli_inprocess(["stack", "create", "--name", "smoke",
+                             "--slice-type", "v5p-4", "--provisioner",
+                             "dryrun", "--state-dir", state_dir])
+    if rc != 0 or "CREATE_COMPLETE: 1 hosts" not in out:
+        raise AssertionError(f"stack create: rc {rc}\n{out}")
+    workdir = os.path.join(root, "work")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "train",
+         "--preset", "transformer_nmt_wmt", "--stack", "smoke",
+         "--state-dir", state_dir, "--max-steps", str(LAUNCH_STEPS),
+         "--accelerator", accelerator,
+         f"workdir={workdir}", "train.log_every_steps=1",
+         "train.profile_steps=1", *LAUNCH_OVERRIDES],
+        cwd=root, capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "job finished" not in out:
+        raise AssertionError(f"train --stack: rc {proc.returncode}\n"
+                             f"{out[-4000:]}")
+    run_dir = os.path.join(workdir, "transformer_nmt_wmt")
+    with open(os.path.join(run_dir, "logs", "attempt0-host0.log")) as fh:
+        worker_log = fh.read()
+    device_line = [ln for ln in worker_log.splitlines()
+                   if "one device:" in ln]
+    if not device_line or expected_device_line(torch) not in device_line[0]:
+        raise AssertionError(f"the worker's log names no CUDA device: "
+                             f"{device_line}")
+    kernels = trace_kernels(os.path.join(run_dir, "profile"))
+    if not all(kernels.values()):
+        raise AssertionError(f"the worker's trace lacks a kernel: {kernels}")
+    recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    spans = {r["span"] for r in recs if "span" in r}
+    if not {"train.dispatch", "ckpt.save"} <= spans:
+        raise AssertionError(f"metrics.jsonl spans {sorted(spans)}")
+    if not os.path.exists(os.path.join(run_dir, "metrics.prom")):
+        raise AssertionError("no metrics.prom")
+    steps = [r for r in recs if "loss" in r and "step" in r
+             and "span" not in r and "final_eval_loss" not in r]
+    losses = [r["loss"] for r in steps]
+    if len(losses) != LAUNCH_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"bad losses {losses}")
+    walls, _ = attempt_times(os.path.join(run_dir, "logs"))
+    out = dict(steps=LAUNCH_STEPS, step_time_p50_s=step_p50(steps),
+               phase9_step_time_p50_s=trained["step_time_p50_s"],
+               attempt_wall_s=walls, cli_wall_s=wall,
+               device_line=device_line[0], trace_kernel_launches=kernels,
+               spans=sorted(spans))
+    log(f"  {device_line[0].strip()}")
+    log(f"  train --stack: rc 0, job finished in {wall:.1f} s (attempt "
+        f"wall {walls[0]:.2f} s); kernels in the worker's traced step: "
+        f"{kernels}; spans {sorted(spans)}; metrics.prom written")
+    log(f"  launched step p50 {out['step_time_p50_s'] * 1e3:.2f} ms against "
+        f"phase 9's {trained['step_time_p50_s'] * 1e3:.2f} ms (one traced "
+        f"step among {LAUNCH_STEPS}) [{card_line()}]")
+    return out
+
+
+def crash_recovery(root, accelerator="gpu"):
+    """Phase 26b: SIGKILL the launched worker at step 4, restart, resume."""
+    from deeplearning_cfn_tpu_torch.launch.chaos import run_crash_recovery
+
+    workdir = os.path.join(root, "chaos")
+    report = run_crash_recovery(workdir, preset="transformer_nmt_wmt",
+                                overrides=CHAOS_OVERRIDES,
+                                accelerator=accelerator, **CHAOS)
+    outcomes = report.chaos_result.attempt_outcomes
+    checks = {
+        "baseline ok": report.baseline_result.success,
+        "chaos ok": report.chaos_result.success,
+        "outcomes crash, ok": outcomes == ["crash", "ok"],
+        "resumed from 4": report.resumed_from == 4,
+        "per-step losses bit for bit": report.parity_ok,
+        "no uncommitted step dir": report.uncommitted_after == [],
+        "report ok": report.ok,
+    }
+    log(f"  baseline steps {report.baseline_steps}, chaos steps "
+        f"{report.chaos_steps}, outcomes {outcomes}, resumed from "
+        f"{report.resumed_from}, mismatches {report.mismatches}, "
+        f"uncommitted {report.uncommitted_after}")
+    if not all(checks.values()):
+        raise AssertionError(f"crash recovery: {checks}")
+    base_walls, _ = attempt_times(os.path.join(workdir, "logs-baseline"))
+    walls, ends = attempt_times(os.path.join(workdir, "logs-chaos"))
+    # From the launcher seeing attempt 0's death (the SIGKILL, within one
+    # 0.1 s poll) to the resumed attempt's first step record: the restart
+    # backoff (2 s), the worker's start, the restore and the first step.
+    recs = read_jsonl(os.path.join(workdir, "chaos", "transformer_nmt_wmt",
+                                   "metrics.jsonl"))
+    resumed = [r for r in recs if "loss" in r and "span" not in r
+               and r["ts"] > ends[0]]
+    overhead = resumed[0]["ts"] - ends[0]
+    out = dict(baseline_attempt_wall_s=base_walls, attempt_wall_s=walls,
+               outcomes=outcomes, resumed_from=report.resumed_from,
+               first_resumed_step=resumed[0]["step"],
+               restart_overhead_s=overhead,
+               resumed_first_step_s=resumed[0].get("compile_s"),
+               parity_ok=report.parity_ok,
+               run_dir=os.path.join(workdir, "chaos", "transformer_nmt_wmt"),
+               log_dir=os.path.join(workdir, "logs-chaos"))
+    log(f"  attempt wall s: baseline {base_walls}, chaos {walls}; restart "
+        f"overhead {overhead:.2f} s (SIGKILL seen -> step "
+        f"{resumed[0]['step']} recorded; that step's own first-step time "
+        f"{out['resumed_first_step_s']} s) [{card_line()}]")
+    return out
+
+
+def obs_verbs(root, chaos):
+    """Phase 26c: the obs verbs and `metrics` on the chaos run."""
+    from deeplearning_cfn_tpu_torch.obs.export import validate_trace
+
+    rules = os.path.join(root, "rules.json")
+    with open(rules, "w") as fh:
+        json.dump(LAUNCH_RULES, fh)
+    trace = os.path.join(root, "trace.json")
+    run_dir = chaos["run_dir"]
+    calls = {
+        "summarize": ["obs", "summarize", run_dir, "--json"],
+        "summarize_launch": ["obs", "summarize", chaos["log_dir"], "--json"],
+        "check": ["obs", "check", run_dir, "--rules", rules],
+        "export": ["obs", "export", run_dir, "-o", trace],
+        "metrics": ["metrics", run_dir],
+    }
+    outs = {}
+    for name, argv in calls.items():
+        rc, outs[name] = cli_inprocess(argv)
+        if rc != 0:
+            raise AssertionError(f"cli {' '.join(argv)}: rc {rc}\n"
+                                 f"{outs[name]}")
+    with open(trace) as fh:
+        problems = validate_trace(json.load(fh))
+    if problems:
+        raise AssertionError(f"exported trace: {problems[:5]}")
+    summary = json.loads(outs["summarize"])
+    launch = json.loads(outs["summarize_launch"])["launch"]
+    save = summary["spans"]["ckpt.save"]
+    if launch["outcomes"] != ["crash", "ok"]:
+        raise AssertionError(f"obs summarize launch: {launch}")
+    out = dict(ckpt_save_p50_s=save["p50"], ckpt_save_p95_s=save["p95"],
+               ckpt_saves=save["count"], launch=launch,
+               check=outs["check"].strip().splitlines()[-1],
+               export=outs["export"].strip().splitlines()[-1])
+    log(f"  obs summarize: ckpt.save p50 {save['p50']:.4f} s, p95 "
+        f"{save['p95']:.4f} s over {save['count']} saves; attempts "
+        f"{launch['outcomes']} [{card_line()}]")
+    log(f"  {out['check']}")
+    log(f"  {out['export']} (validate_trace: no problem)")
+    return out
+
+
+def launched_path(torch, trained):
+    """Phase 26: 26a-26d in one temporary directory."""
+    import shutil
+    import tempfile
+
+    # The workers find the package from any directory; this process's
+    # cached blocks go back to the card first.
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="smoke_launch_")
+    try:
+        t = time.perf_counter()
+        launched = launched_training(torch, root, trained)
+        log(f"  26a {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        chaos = crash_recovery(root)
+        log(f"  26b {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        verbs = obs_verbs(root, chaos)
+        log(f"  26c {time.perf_counter() - t:.1f} s")
+        rc, out = cli_inprocess(["doctor"])
+        log("  " + out.strip().replace("\n", "\n  "))
+        if rc != 0 or "all checks passed" not in out:
+            raise AssertionError(f"doctor: rc {rc}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launched=launched, crash_recovery=chaos, obs=verbs,
+                doctor="all checks passed")
+
+
 def main() -> int:
     profiles = {"--profile": profile_serving,
                 "--profile-train": profile_training,
@@ -4445,6 +4753,11 @@ def main() -> int:
     phase("25. int8 weights and KV (full width, bf16)")
     int8 = serve_int8(torch, attn, make_requests(), served)
 
+    t = phase("26. launched training: dry-run stack, train --stack, SIGKILL "
+              "and resume, obs verbs, doctor (NMT full width, bf16)")
+    launched = launched_path(torch, trained)
+    log(f"  phase 26 {time.perf_counter() - t:.1f} s")
+
     # The forward kernel serves every path: its numbers cover the three
     # serving shapes, the NMT training shape, BERT's, GPT's train shape,
     # GPT's decode step, the verify span over the dense cache and the
@@ -4580,6 +4893,7 @@ def main() -> int:
         "bert_pipelined_train": bert_pipe,
         "step_window": windows,
         "int8_serve": int8,
+        "launched_training": launched,
         "script_s": time.perf_counter() - script_t0,
     }
     log(json.dumps({"summary": summary}))

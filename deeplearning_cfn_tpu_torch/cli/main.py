@@ -1,12 +1,15 @@
-"""The port's command line: the ``train``, ``eval``, ``generate``, ``serve``
-and ``ckpt`` verbs.
+"""The port's command line — the JAX package's ``dlcfn-tpu`` verbs on
+PyTorch and CUDA:
 
+    python -m deeplearning_cfn_tpu_torch.cli stack create --name demo \\
+        --slice-type v5p-4 --provisioner dryrun [--state-dir DIR]
     python -m deeplearning_cfn_tpu_torch.cli train --preset transformer_nmt_wmt \\
-        [--max-steps N] [overrides ...]
-    python -m deeplearning_cfn_tpu_torch.cli train --preset bert_base_wikipedia
+        [--stack demo [--state-dir DIR] [--max-restarts N]] \\
+        [--accelerator gpu|cpu] [--max-steps N] [overrides ...]
+    python -m deeplearning_cfn_tpu_torch.cli stack resize|delete|status demo
+    python -m deeplearning_cfn_tpu_torch.cli stack list
     python -m deeplearning_cfn_tpu_torch.cli eval --preset bert_base_wikipedia \\
         [--step N] workdir=...
-    python -m deeplearning_cfn_tpu_torch.cli train --preset gpt_small_lm
     python -m deeplearning_cfn_tpu_torch.cli generate --preset gpt_small_lm \\
         --prompt "..." [--max-new-tokens N] [--temperature T --top-k K] \\
         [--vocab vocab.json] [--step N] workdir=...
@@ -17,22 +20,34 @@ and ``ckpt`` verbs.
         [overrides ...]
     python -m deeplearning_cfn_tpu_torch.cli ckpt list <ckpt dir>
     python -m deeplearning_cfn_tpu_torch.cli ckpt rollback <ckpt dir> --step N
-    python -m deeplearning_cfn_tpu_torch.cli train --preset maskrcnn_coco
+    python -m deeplearning_cfn_tpu_torch.cli presets | config --preset P | info
+    python -m deeplearning_cfn_tpu_torch.cli doctor [--skip-backend]
+    python -m deeplearning_cfn_tpu_torch.cli metrics <run dir>
+    python -m deeplearning_cfn_tpu_torch.cli obs summarize|export|check|diff|tail ...
+    python -m deeplearning_cfn_tpu_torch.cli data prepare-text|prepare-wmt|\\
+        prepare-wikipedia|prepare-coco|prepare-imagenet|feed-rate ...
 
-Same flags, defaults, result lines and stderr summary as the JAX package's
-``dlcfn-tpu train``/``eval``/``generate``/``serve``/``ckpt`` for the options
-these slices port (``train`` runs on this host only: no ``--stack``; a rerun
-resumes from the latest committed checkpoint). ``--accelerator`` takes ``gpu`` (the
-default — the CUDA card, raising without one) or ``cpu``. Serve
-requests are JSONL lines ``{"src_ids": [...]}``, or ``{"text": "..."}`` with
-``--vocab`` (BPE-encoded, ``data/bpe.py``, plus EOS; each result line then
-carries the decoded ``"text"``), with optional ``id``, ``max_new_tokens``,
+Same flags, defaults, result lines, exit codes and stderr summary as the JAX
+package's verbs. ``--accelerator`` takes ``gpu`` (the default — the CUDA
+card, raising without one) or ``cpu``. ``train`` without ``--stack`` runs
+in this process (a rerun resumes from the latest committed checkpoint);
+with ``--stack`` it fans ``train.worker`` to the stack's host through the
+launcher, which restarts a dead or hung worker up to ``--max-restarts``
+times, each attempt resuming from the last committed checkpoint (logs in
+``<workdir>/<preset>/logs/attempt<N>-host<I>.log`` and ``launch.jsonl``). A
+dry-run stack runs its host as a local process on the card (or the CPU with
+``--accelerator cpu``; the JAX package forces the CPU there). A stack of
+more than one host is refused before any launch: the multi-host rendezvous
+is ROADMAP A.10. ``info`` and ``doctor`` report torch, CUDA and the one
+device; there is no mesh until A.10. Serve requests are JSONL lines
+``{"src_ids": [...]}``, or ``{"text": "..."}`` with ``--vocab``
+(BPE-encoded, ``data/bpe.py``, plus EOS; each result line then carries the
+decoded ``"text"``), with optional ``id``, ``max_new_tokens``,
 ``beam_size``, ``deadline_s``, ``tenant`` and ``qos_class``; ``--quantize
 int8`` and ``--kv-quant int8`` serve int8 weights and an int8 paged KV pool.
 ``generate`` takes a byte-level prompt (byte + 4), or a BPE one with
-``--vocab``. The ``data`` verbs
-(``data prepare-coco`` and the rest) are not ported yet and raise, naming
-ROADMAP A.13; ``data/coco.py:prepare_coco`` converts COCO from Python.
+``--vocab``. Not here yet: ``bench`` (ROADMAP A.7), ``fleet`` and the
+``net``/``loadgen`` verbs (A.12).
 """
 
 from __future__ import annotations
@@ -43,18 +58,151 @@ import os
 import sys
 from typing import List, Optional
 
-from ..config import apply_overrides
-from ..presets import get_preset
+from ..config import ExperimentConfig, StackConfig, apply_overrides
+from ..presets import get_preset, list_presets
+
+
+def _stack_cfg_from_args(args) -> StackConfig:
+    return StackConfig(
+        name=args.name,
+        accelerator=args.accelerator,
+        slice_type=args.slice_type,
+        zone=args.zone,
+        project=args.project,
+        runtime_version=args.runtime_version,
+        preemptible=args.preemptible,
+        provisioner=args.provisioner,
+        state_dir=args.state_dir,
+        create_timeout_s=args.create_timeout_s,
+    )
+
+
+def _cmd_stack_create(args) -> int:
+    from ..provision import ProvisionError, create_stack
+
+    cfg = _stack_cfg_from_args(args)
+    print(f"[dlcfn-tpu] creating stack {cfg.name!r} "
+          f"({cfg.slice_type}, zone {cfg.zone}, "
+          f"provisioner {cfg.provisioner}) ...")
+
+    def on_status(state):
+        counts = {}
+        for h in state.hosts:
+            counts[h.state] = counts.get(h.state, 0) + 1
+        print(f"[dlcfn-tpu]   hosts: {counts}")
+
+    try:
+        state = create_stack(cfg, on_status=on_status)
+    except ProvisionError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(f"[dlcfn-tpu] stack {state.name!r} CREATE_COMPLETE: "
+          f"{len(state.hosts)} hosts, hostfile {state.hostfile}")
+    return 0
+
+
+def _cmd_stack_resize(args) -> int:
+    from ..provision import ProvisionError, StackStore, resize_stack
+
+    # Destroy-first semantics must be visible before the irreversible step:
+    # if the replacement create fails (quota, capacity) the old stack is
+    # already gone (slices are not elastically resizable).
+    print(f"[dlcfn-tpu] resize: tearing down stack {args.name!r} before "
+          f"creating its {args.slice_type} replacement — if the new create "
+          f"fails, the old stack will NOT be restored", flush=True)
+    try:
+        state = resize_stack(args.name, args.slice_type,
+                             store=StackStore(args.state_dir))
+    except (KeyError, ProvisionError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(f"[dlcfn-tpu] stack {state.name!r} resized to "
+          f"{state.slice_type}: {len(state.hosts)} hosts ready; relaunch "
+          f"`train --stack {state.name}` to resume from the last "
+          f"checkpoint")
+    return 0
+
+
+def _cmd_stack_delete(args) -> int:
+    from ..provision import ProvisionError, StackStore, delete_stack
+
+    try:
+        delete_stack(args.name, store=StackStore(args.state_dir))
+    except (KeyError, ProvisionError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(f"[dlcfn-tpu] stack {args.name!r} deleted")
+    return 0
+
+
+def _cmd_stack_status(args) -> int:
+    from ..provision import StackStore
+
+    store = StackStore(args.state_dir)
+    state = store.load_or_none(args.name)
+    if state is None:
+        print(f"[dlcfn-tpu] no such stack {args.name!r}", file=sys.stderr)
+        return 1
+    print(json.dumps(state.to_dict(), indent=2))
+    return 0
+
+
+def _cmd_stack_list(args) -> int:
+    from ..provision import StackStore
+
+    store = StackStore(args.state_dir)
+    stacks = store.list()
+    if not stacks:
+        print("[dlcfn-tpu] no stacks")
+        return 0
+    for s in stacks:
+        print(f"{s.name:20s} {s.slice_type:10s} {s.status.value:20s} "
+              f"{len(s.hosts)} hosts  zone={s.zone}")
+    return 0
+
+
+def _cmd_presets(args) -> int:
+    for name in list_presets():
+        cfg = get_preset(name)
+        print(f"{name:24s} model={cfg.model.name:20s} "
+              f"data={cfg.data.name:16s} slice={cfg.stack.slice_type}")
+    return 0
+
+
+def _cmd_show_config(args) -> int:
+    cfg = apply_overrides(get_preset(args.preset), args.overrides)
+    print(cfg.to_json())
+    return 0
+
+
+def _cmd_info(args) -> int:
+    """torch and CUDA versions, the devices, and the layout: one device (no
+    mesh until ROADMAP A.10)."""
+    import torch
+
+    from ..train.run import _describe
+
+    cuda = torch.cuda.is_available()
+    n = torch.cuda.device_count() if cuda else 0
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"backend {'cuda' if cuda else 'cpu'}")
+    print(f"devices: {n} total, {n} local, process 0/1")
+    print(_describe(torch.device("cuda", torch.cuda.current_device())
+                    if cuda else torch.device("cpu")))
+    return 0
 
 
 def _cmd_train(args) -> int:
     """Train a preset on this host's card (or the CPU with
-    ``--accelerator cpu``) and print the final metrics."""
+    ``--accelerator cpu``) and print the final metrics; with ``--stack``,
+    launch it on the stack's host instead."""
     from ..runtime.platform import resolve_device
     from ..train.run import run_experiment
 
     cfg = apply_overrides(get_preset(args.preset), args.overrides)
     cfg.stack.accelerator = args.accelerator
+    if args.stack:
+        return _train_on_stack(args, cfg)
     try:
         device = resolve_device(args.accelerator)
     except RuntimeError as e:
@@ -66,11 +214,73 @@ def _cmd_train(args) -> int:
     return 0
 
 
-def _cmd_data(args) -> int:
-    raise NotImplementedError(
-        f"cli data {args.verb} is not ported yet (ROADMAP A.13); "
-        f"deeplearning_cfn_tpu_torch.data.coco.prepare_coco converts COCO "
-        f"from Python")
+def _train_on_stack(args, cfg: ExperimentConfig) -> int:
+    """Fan the worker module to the stack's host through the launcher, which
+    restarts a failed attempt (each resumes from the last committed
+    checkpoint). One host only: the multi-host rendezvous is ROADMAP A.10."""
+    from ..launch import JobLauncher, LocalTransport, SshTransport
+    from ..provision import StackStore
+    from ..provision.topology import slice_topology
+    from ..runtime.cluster import ClusterSpec
+
+    store = StackStore(args.state_dir)
+    state = store.load_or_none(args.stack)
+    if state is None:
+        print(f"[dlcfn-tpu] no such stack {args.stack!r} — "
+              "run `stack create` first", file=sys.stderr)
+        return 1
+    if not state.ready:
+        print(f"[dlcfn-tpu] stack {args.stack!r} is {state.status.value}, "
+              "not CREATE_COMPLETE", file=sys.stderr)
+        return 1
+    if len(state.hosts) > 1:
+        print(f"[dlcfn-tpu] ERROR: stack {args.stack!r} has "
+              f"{len(state.hosts)} hosts; the port trains on one host until "
+              f"the multi-host rendezvous is ported (ROADMAP A.10)",
+              file=sys.stderr)
+        return 1
+    if state.provisioner == "dryrun" and args.accelerator == "gpu":
+        # A dry-run host is a local process on this machine's card.
+        import torch
+
+        if not torch.cuda.is_available():
+            print("[dlcfn-tpu] ERROR: a CUDA card was asked for but "
+                  "torch.cuda.is_available() is False — pass --accelerator "
+                  "cpu to run the dry-run host on the CPU", file=sys.stderr)
+            return 1
+
+    topo = slice_topology(state.slice_type)
+    spec = ClusterSpec(hosts=state.host_addresses(),
+                       chips_per_host=topo.chips_per_host,
+                       hostfile=state.hostfile)
+    worker_argv = [
+        sys.executable, "-m", "deeplearning_cfn_tpu_torch.train.worker",
+        "--preset", args.preset, "--accelerator", args.accelerator,
+    ]
+    if args.max_steps is not None:
+        worker_argv += ["--max-steps", str(args.max_steps)]
+    worker_argv += list(args.overrides)
+    # Dry-run stacks run their host as a local process.
+    transport = LocalTransport() if state.provisioner == "dryrun" \
+        else SshTransport()
+
+    log_dir = os.path.join(cfg.workdir, args.preset, "logs")
+    launcher = JobLauncher(transport=transport,
+                           max_restarts=args.max_restarts)
+
+    def on_failure(idx, host):
+        print(f"[dlcfn-tpu] host {idx} ({host}) FAILED — killing job, "
+              "will resume from last checkpoint", file=sys.stderr)
+
+    result = launcher.run(spec, worker_argv, log_dir, on_failure=on_failure)
+    if result.success:
+        print(f"[dlcfn-tpu] job finished "
+              f"(restarts={result.restarts}, logs in {result.log_dir})")
+        return 0
+    print(f"[dlcfn-tpu] job FAILED after {result.restarts} restarts "
+          f"(exit codes {result.exit_codes}, logs in {result.log_dir})",
+          file=sys.stderr)
+    return 1
 
 
 def _cmd_eval(args) -> int:
@@ -333,19 +543,472 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+def _cmd_doctor(args) -> int:
+    """Preflight: the reference-era 'verify drivers / EFA provider' role.
+    Every check prints one line with a wall-clock timestamp so a hang is
+    attributable to an exact stage (the JAX package's stages, with torch
+    and CUDA in place of jax and its backend)."""
+    import time as _time
+
+    t0 = _time.monotonic()
+    ok = True
+
+    def report(name, good, detail=""):
+        nonlocal ok
+        ok &= bool(good)
+        mark = "ok" if good else "FAIL"
+        print(f"[doctor t=+{_time.monotonic() - t0:5.1f}s] "
+              f"{name}: {mark}{' — ' + detail if detail else ''}",
+              flush=True)
+
+    # 1. Package + presets resolve.
+    try:
+        names = list_presets()
+        for name in names:
+            get_preset(name)
+        report("presets", True, f"{len(names)} presets resolve")
+    except Exception as e:
+        report("presets", False, repr(e))
+
+    # 2. Native data loader builds (or degrades cleanly).
+    try:
+        from .. import dataio
+
+        if dataio.available():
+            report("native-loader", True, "dataio.so built and loadable")
+        else:
+            report("native-loader", True,
+                   "unavailable; Python fallback active (no g++?)")
+    except Exception as e:
+        report("native-loader", False, repr(e))
+
+    # 3. The card: import → init → devices, stage by stage.
+    if args.skip_backend:
+        report("backend", True, "skipped on request")
+    else:
+        try:
+            import torch
+
+            report("torch-import", True,
+                   f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA card: torch.cuda.is_available() "
+                                   "is False")
+            torch.cuda.init()  # the stage that hangs on a bad driver
+            n = torch.cuda.device_count()
+            kinds = sorted({torch.cuda.get_device_name(i)
+                            for i in range(n)})
+            report("backend-init", True,
+                   f"{n} device(s): {', '.join(kinds)}")
+            x = torch.ones((128, 128), device="cuda")
+            val = float((x @ x).sum())  # executes + syncs one real program
+            report("device-exec", val == 128.0 * 128 * 128,
+                   f"matmul sum={val:.0f}")
+            free, total = torch.cuda.mem_get_info()
+            report("hbm", True,
+                   f"{(total - free) / 2**30:.2f} / {total / 2**30:.2f} "
+                   f"GiB in use")
+            from ..train.run import _describe
+
+            report("mesh", True,
+                   f"{_describe(torch.device('cuda', 0))}; no mesh until "
+                   f"ROADMAP A.10")
+        except Exception as e:
+            report("backend", False, repr(e))
+
+    print(f"[doctor] {'all checks passed' if ok else 'CHECKS FAILED'}")
+    return 0 if ok else 1
+
+
+def _cmd_metrics(args) -> int:
+    """Operator's at-a-glance run summary from the JSONL stream."""
+    path = args.path
+    if os.path.isdir(path):
+        path = os.path.join(path, "metrics.jsonl")
+    if not os.path.exists(path):
+        print(f"[dlcfn-tpu] ERROR: no metrics file at {path}",
+              file=sys.stderr)
+        return 1
+    # Lenient parse: the writer is append-mode and tailed live, so a run
+    # killed mid-write leaves a truncated last line — skip bad lines
+    # (counted) instead of tracebacking on them.
+    records, skipped = [], 0
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                records.append(json.loads(line))
+            except json.JSONDecodeError:
+                skipped += 1
+    train = [r for r in records if "examples_per_sec" in r]
+    evals = [r for r in records
+             if any(k.startswith("eval_") for k in r)]
+    finals = [r for r in records
+              if any(k.startswith("final_eval_") for k in r)]
+    out = {"path": path, "records": len(records)}
+    if skipped:
+        out["skipped_malformed_lines"] = skipped
+    if train:
+        last = train[-1]
+        out["last_step"] = last.get("step")
+        out["last_loss"] = last.get("loss")
+        rates = [r["examples_per_sec"] for r in train]
+        out["mean_examples_per_sec"] = round(sum(rates) / len(rates), 2)
+    if evals:
+        accs = [(r.get("eval_accuracy"), r.get("step")) for r in evals
+                if r.get("eval_accuracy") is not None]
+        if accs:
+            best = max(accs)
+            out["best_eval_accuracy"] = best[0]
+            out["best_eval_accuracy_step"] = best[1]
+    if finals:
+        out["final"] = {k: v for k, v in finals[-1].items()
+                        if k.startswith("final_eval_")}
+    print(json.dumps(out))
+    return 0
+
+
+def _cmd_obs_summarize(args) -> int:
+    """Full run report (train + serve + spans + launch attempts) from a
+    metrics.jsonl or a run directory — the obs subsystem's reporting verb.
+    ``dlcfn-tpu metrics`` stays the quick one-line JSON summary; this one
+    answers "what happened in this run"."""
+    from ..obs.report import (render_fleet_report, render_report,
+                              summarize, summarize_fleet)
+
+    path = args.path
+    if not os.path.exists(path):
+        print(f"[dlcfn-tpu] ERROR: no metrics file or directory at {path}",
+              file=sys.stderr)
+        return 1
+    if getattr(args, "fleet", False):
+        try:
+            summary = summarize_fleet(path)
+        except (FileNotFoundError, OSError) as e:
+            print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+            return 1
+        if args.json:
+            print(json.dumps(summary))
+        else:
+            print(render_fleet_report(summary))
+        if summary["source"]["replicas"] == 0:
+            print(f"[dlcfn-tpu] no replica run dirs under {path}",
+                  file=sys.stderr)
+            return 1
+        return 0
+    try:
+        summary = summarize(path, since_step=args.since_step)
+    except OSError as e:
+        print(f"[dlcfn-tpu] ERROR: cannot read {path}: {e}",
+              file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(summary))
+    else:
+        print(render_report(summary))
+    if summary["source"]["records"] == 0:
+        print(f"[dlcfn-tpu] no JSONL records found under {path} "
+              f"(empty run dir?)", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _cmd_obs_export(args) -> int:
+    """JSONL streams → Chrome/Perfetto trace.json (load in
+    ui.perfetto.dev or chrome://tracing)."""
+    from ..obs.export import export_fleet_trace, export_trace
+
+    path = args.path
+    if not os.path.exists(path):
+        print(f"[dlcfn-tpu] ERROR: no metrics file or directory at {path}",
+              file=sys.stderr)
+        return 1
+    fleet = getattr(args, "fleet", False)
+    if fleet and not os.path.isdir(path):
+        print(f"[dlcfn-tpu] ERROR: --fleet needs a fleet trace "
+              f"directory, got a file: {path}", file=sys.stderr)
+        return 1
+    out = args.out
+    if not out:
+        d = path if os.path.isdir(path) else os.path.dirname(path) or "."
+        out = os.path.join(d, "trace.json")
+    try:
+        summary = export_fleet_trace(path, out) if fleet \
+            else export_trace(path, out)
+    except OSError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    for p in summary["problems"]:
+        print(f"[dlcfn-tpu] WARNING: trace problem: {p}", file=sys.stderr)
+    extra = (f", {summary['flow_events']} flow link(s) across "
+             f"{len(summary['shards'])} shard(s)") if fleet else ""
+    print(f"[dlcfn-tpu] wrote {summary['out']}: {summary['events']} "
+          f"events ({summary['spans']} spans{extra}) from "
+          f"{summary['records']} records — open in "
+          f"https://ui.perfetto.dev")
+    if summary["records"] == 0:
+        print(f"[dlcfn-tpu] no JSONL records found under {path}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def _cmd_obs_check(args) -> int:
+    """Evaluate SLO rules over a recorded run; rc=0 clean, rc=1 when any
+    rule fired (the CI gate), rc=2 on unusable inputs."""
+    from ..obs.slo import RuleError, check_run
+
+    if not os.path.exists(args.path):
+        print(f"[dlcfn-tpu] ERROR: no metrics file or directory at "
+              f"{args.path}", file=sys.stderr)
+        return 2
+    try:
+        result = check_run(args.path, args.rules)
+    except (RuleError, OSError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(result))
+    else:
+        for a in result["alerts"]:
+            print(f"ALERT {a['rule']}: {a.get('detail', '')}")
+        state = "OK" if result["ok"] else "BREACH"
+        print(f"[dlcfn-tpu] obs check {state}: {len(result['alerts'])} "
+              f"alert(s) from {result['rules']} rule(s) over "
+              f"{result['records']} records")
+    return 0 if result["ok"] else 1
+
+
+def _cmd_obs_diff(args) -> int:
+    """Align two runs' metric series and report p50/p95 deltas; rc=1 when
+    any shared metric regressed beyond --tolerance."""
+    from ..obs.diff import diff_runs, render_diff
+
+    for p in (args.run_a, args.run_b):
+        if not os.path.exists(p):
+            print(f"[dlcfn-tpu] ERROR: no metrics file or directory at "
+                  f"{p}", file=sys.stderr)
+            return 2
+    try:
+        report = diff_runs(args.run_a, args.run_b,
+                           tolerance=args.tolerance)
+    except OSError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(report))
+    else:
+        print(render_diff(report))
+    return 0 if report["ok"] else 1
+
+
+def _cmd_obs_tail(args) -> int:
+    """Follow a live run's JSONL streams with a one-line status; optional
+    --rules evaluates SLOs as records arrive."""
+    from ..obs.tail import tail
+
+    engine = None
+    if args.rules:
+        from ..obs.slo import RuleError, SloEngine
+        try:
+            engine = SloEngine.from_file(args.rules)
+        except RuleError as e:
+            print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+            return 2
+    if getattr(args, "fleet", False) and not os.path.isdir(args.path):
+        print(f"[dlcfn-tpu] ERROR: --fleet needs a directory of replica "
+              f"run dirs, got {args.path}", file=sys.stderr)
+        return 2
+    try:
+        return tail(args.path, interval_s=args.interval,
+                    max_seconds=args.duration or None, once=args.once,
+                    slo_engine=engine, fleet=getattr(args, "fleet", False))
+    except KeyboardInterrupt:
+        return 0
+
+
+def _cmd_data_prepare_imagenet(args) -> int:
+    from ..data.imagenet import prepare_imagenet
+
+    index = prepare_imagenet(args.src, args.out, size=args.size,
+                             shard_records=args.shard_records,
+                             limit=args.limit or None)
+    n = sum(s["num_records"] for s in index["shards"])
+    print(f"[dlcfn-tpu] wrote {n} records in {len(index['shards'])} shards "
+          f"({index['num_classes']} classes) to {args.out}")
+    return 0
+
+
+def _cmd_data_prepare_text(args) -> int:
+    from ..data.text import prepare_lm_text
+
+    try:
+        info = prepare_lm_text(args.src, args.out, args.seq_len,
+                               args.eval_fraction)
+    except (OSError, ValueError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(f"[dlcfn-tpu] wrote {info['train_examples']} train / "
+          f"{info['eval_examples']} eval examples to {args.out}; train "
+          f"with: --preset gpt_small_lm data.name=lm_text "
+          f"data.data_dir={args.out} data.synthetic=false "
+          f"data.vocab_size={info['vocab_size']} "
+          f"data.seq_len={info['seq_len']}")
+    return 0
+
+
+def _cmd_data_prepare_coco(args) -> int:
+    from ..data.coco import prepare_coco
+
+    try:
+        info = prepare_coco(args.annotations, args.images, args.out,
+                            args.split, image_size=args.image_size,
+                            max_boxes=args.max_boxes, limit=args.limit)
+    except (OSError, ValueError, KeyError, json.JSONDecodeError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(f"[dlcfn-tpu] wrote {info['images']} images / {info['objects']} "
+          f"objects to {args.out}/{args.split}.npz (skipped "
+          f"{info['skipped_crowd']} crowds + "
+          f"{info['skipped_degenerate']} degenerate, dropped "
+          f"{info['dropped_over_max']} over max-boxes); train with: "
+          f"--preset maskrcnn_coco data.data_dir={args.out} "
+          f"data.synthetic=false data.image_size={info['image_size']} "
+          f"model.kwargs.image_size={info['image_size']} "
+          f"data.max_boxes={info['max_boxes']}")
+    return 0
+
+
+def _cmd_data_prepare_wikipedia(args) -> int:
+    from ..data.text import prepare_mlm_text
+
+    try:
+        info = prepare_mlm_text(args.src, args.out, args.seq_len,
+                                vocab_size=args.vocab_size,
+                                eval_fraction=args.eval_fraction,
+                                vocab_path=args.vocab, seed=args.seed)
+    except (OSError, ValueError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(f"[dlcfn-tpu] wrote {info['train_examples']} train / "
+          f"{info['eval_examples']} eval examples to {args.out} "
+          f"(vocab {info['vocab_size']}); train with: "
+          f"--preset bert_base_wikipedia data.data_dir={args.out} "
+          f"data.synthetic=false data.vocab_size={info['vocab_size']} "
+          f"data.seq_len={info['seq_len']}")
+    return 0
+
+
+def _cmd_data_prepare_wmt(args) -> int:
+    from ..data.text import prepare_nmt_text
+
+    try:
+        info = prepare_nmt_text(args.src, args.tgt, args.out, args.seq_len,
+                                vocab_size=args.vocab_size,
+                                eval_fraction=args.eval_fraction,
+                                vocab_path=args.vocab)
+    except (OSError, ValueError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    print(f"[dlcfn-tpu] wrote {info['train_examples']} train / "
+          f"{info['eval_examples']} eval pairs to {args.out} "
+          f"(vocab {info['vocab_size']}, skipped {info['skipped_pairs']} "
+          f"over-length); train with: --preset transformer_nmt_wmt "
+          f"data.data_dir={args.out} data.synthetic=false "
+          f"data.vocab_size={info['vocab_size']} "
+          f"data.seq_len={info['seq_len']}")
+    return 0
+
+
+def _cmd_data_feed_rate(args) -> int:
+    """Host-side input pipeline throughput: no device in the loop."""
+    from ..data.imagenet import measure_feed_rate
+    from ..data.pipeline import build_pipeline
+
+    cfg = apply_overrides(get_preset(args.preset), args.overrides)
+    if not any(o.startswith("data.prefetch=") for o in args.overrides):
+        # Measure raw producer rate: a prefetch queue that starts full
+        # would inflate the first `depth` timed batches.
+        cfg.data.prefetch = 0
+    pipe = build_pipeline(cfg.data, args.local_batch,
+                          cfg.model.num_classes, seed=0, train=True)
+    rate = measure_feed_rate(pipe, num_batches=args.batches)
+    print(json.dumps({"metric": f"{args.preset}_feed_images_per_sec",
+                      **{k: round(v, 2) for k, v in rate.items()}}))
+    return 0
+
+
+def _add_stack_args(p: argparse.ArgumentParser) -> None:
+    defaults = StackConfig()
+    p.add_argument("--state-dir", default=defaults.state_dir)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
-        description="PyTorch/CUDA port of dlcfn-tpu (serve the NMT; train "
-                    "and evaluate the NMT, the ResNets, BERT, GPT and Mask "
-                    "R-CNN; generate with GPT)")
+        description="PyTorch/CUDA port of dlcfn-tpu: stack create → train "
+                    "(locally or on a stack), eval, generate, serve, and "
+                    "the operator verbs")
     sub = parser.add_subparsers(dest="command", required=True)
-    tr = sub.add_parser("train", help="train a preset on this host")
+
+    # stack ------------------------------------------------------------------
+    stack = sub.add_parser("stack", help="cluster lifecycle")
+    ssub = stack.add_subparsers(dest="stack_command", required=True)
+
+    defaults = StackConfig()
+    sc = ssub.add_parser("create", help="create a TPU pod-slice stack")
+    sc.add_argument("--name", default=defaults.name)
+    sc.add_argument("--slice-type", default=defaults.slice_type)
+    sc.add_argument("--zone", default=defaults.zone)
+    sc.add_argument("--project", default=defaults.project)
+    sc.add_argument("--runtime-version", default=defaults.runtime_version)
+    sc.add_argument("--accelerator", default=defaults.accelerator,
+                    choices=["tpu", "cpu"])
+    sc.add_argument("--preemptible", action="store_true")
+    sc.add_argument("--provisioner", default=defaults.provisioner,
+                    choices=["auto", "gcp", "dryrun"])
+    sc.add_argument("--create-timeout-s", type=int,
+                    default=defaults.create_timeout_s)
+    _add_stack_args(sc)
+    sc.set_defaults(fn=_cmd_stack_create)
+
+    sr = ssub.add_parser(
+        "resize",
+        help="scale a stack to a new slice type (delete + recreate; "
+             "training resumes from the last checkpoint on relaunch)")
+    sr.add_argument("name")
+    sr.add_argument("--slice", required=True, dest="slice_type",
+                    help="new slice type, e.g. v5p-16")
+    _add_stack_args(sr)
+    sr.set_defaults(fn=_cmd_stack_resize)
+
+    sd = ssub.add_parser("delete", help="delete a stack")
+    sd.add_argument("name")
+    _add_stack_args(sd)
+    sd.set_defaults(fn=_cmd_stack_delete)
+
+    st = ssub.add_parser("status", help="describe a stack")
+    st.add_argument("name")
+    _add_stack_args(st)
+    st.set_defaults(fn=_cmd_stack_status)
+
+    sl = ssub.add_parser("list", help="list stacks")
+    _add_stack_args(sl)
+    sl.set_defaults(fn=_cmd_stack_list)
+
+    # train ------------------------------------------------------------------
+    tr = sub.add_parser("train", help="train a preset (locally or on a stack)")
     tr.add_argument("--preset", required=True)
+    tr.add_argument("--stack", default="",
+                    help="stack name to fan out to (empty = this host only)")
     tr.add_argument("--accelerator", default="gpu", choices=["gpu", "cpu"])
     tr.add_argument("--max-steps", type=int, default=None)
+    tr.add_argument("--max-restarts", type=int, default=2)
     tr.add_argument("overrides", nargs="*",
                     help="config overrides, e.g. train.global_batch=256")
+    _add_stack_args(tr)
     tr.set_defaults(fn=_cmd_train)
     ev = sub.add_parser(
         "eval",
@@ -457,11 +1120,118 @@ def build_parser() -> argparse.ArgumentParser:
                          "training run used")
     sv.set_defaults(fn=_cmd_serve)
 
-    dt = sub.add_parser("data", help="dataset preparation (not ported "
-                                     "yet: ROADMAP A.13)")
-    dt.add_argument("verb", help="e.g. prepare-coco")
-    dt.add_argument("args", nargs=argparse.REMAINDER)
-    dt.set_defaults(fn=_cmd_data)
+    # introspection ----------------------------------------------------------
+    pr = sub.add_parser("presets", help="list training presets")
+    pr.set_defaults(fn=_cmd_presets)
+
+    co = sub.add_parser("config", help="print a preset's resolved config")
+    co.add_argument("--preset", required=True)
+    co.add_argument("overrides", nargs="*")
+    co.set_defaults(fn=_cmd_show_config)
+
+    inf = sub.add_parser("info", help="device / mesh info")
+    inf.set_defaults(fn=_cmd_info)
+
+    doc = sub.add_parser(
+        "doctor",
+        help="preflight checks: backend init (stage-timestamped), native "
+             "loader build, preset integrity")
+    doc.add_argument("--skip-backend", action="store_true",
+                     help="skip accelerator init (for hosts where the "
+                          "backend is known-hung)")
+    doc.set_defaults(fn=_cmd_doctor)
+
+    met = sub.add_parser(
+        "metrics",
+        help="summarize a run's metrics.jsonl (last step, best eval, "
+             "mean throughput)")
+    met.add_argument("path", help="metrics.jsonl path (or its directory)")
+    met.set_defaults(fn=_cmd_metrics)
+
+    # obs --------------------------------------------------------------------
+    ob = sub.add_parser(
+        "obs",
+        help="observability: run reports over metrics/span JSONL streams")
+    obsub = ob.add_subparsers(dest="obs_command", required=True)
+    obsum = obsub.add_parser(
+        "summarize",
+        help="render a run report (step-time p50/p95, tokens/sec, ckpt "
+             "latency + retries, queue wait, per-attempt outcomes) from a "
+             "metrics.jsonl file or a run directory of *.jsonl streams")
+    obsum.add_argument("path", help="metrics.jsonl path or run directory")
+    obsum.add_argument("--json", action="store_true",
+                       help="emit the summary as one JSON object instead "
+                            "of the text report")
+    obsum.add_argument("--since-step", type=int, default=None,
+                       help="ignore records with a numeric step below N "
+                            "(post-restart triage: report only the "
+                            "resumed window)")
+    obsum.add_argument("--fleet", action="store_true",
+                       help="treat PATH as a fleet run root (one run dir "
+                            "per replica) and aggregate: total tokens/sec, "
+                            "worst p95, alert count, per-replica lines")
+    obsum.set_defaults(fn=_cmd_obs_summarize)
+
+    obexp = obsub.add_parser(
+        "export",
+        help="convert a run's span/metric JSONL into Chrome/Perfetto "
+             "trace-event JSON (trace.json, loadable in ui.perfetto.dev)")
+    obexp.add_argument("path", help="metrics.jsonl path or run directory")
+    obexp.add_argument("-o", "--out", default="",
+                       help="output path (default: trace.json next to "
+                            "the input)")
+    obexp.add_argument("--fleet", action="store_true",
+                       help="treat PATH as a fleet trace root (router "
+                            "*.jsonl at the top, one shard dir per "
+                            "replica) and merge every shard into ONE "
+                            "timeline with cross-process flow arrows")
+    obexp.set_defaults(fn=_cmd_obs_export)
+
+    obchk = obsub.add_parser(
+        "check",
+        help="evaluate declarative SLO rules (threshold/percentile/drop) "
+             "over a run; nonzero exit on any breach — the CI gate")
+    obchk.add_argument("path", help="metrics.jsonl path or run directory")
+    obchk.add_argument("--rules", required=True,
+                       help="rules JSON file ({\"rules\": [...]}; see "
+                            "docs/OBSERVABILITY.md)")
+    obchk.add_argument("--json", action="store_true",
+                       help="emit the check result as one JSON object")
+    obchk.set_defaults(fn=_cmd_obs_check)
+
+    obdif = obsub.add_parser(
+        "diff",
+        help="align two runs' metric series and report p50/p95 deltas; "
+             "nonzero exit when a shared metric regressed beyond the "
+             "tolerance")
+    obdif.add_argument("run_a", help="baseline run (file or directory)")
+    obdif.add_argument("run_b", help="candidate run (file or directory)")
+    obdif.add_argument("--tolerance", type=float, default=0.10,
+                       help="relative regression tolerance on p50/p95 "
+                            "deltas (default 0.10 = 10%%)")
+    obdif.add_argument("--json", action="store_true",
+                       help="emit the diff report as one JSON object")
+    obdif.set_defaults(fn=_cmd_obs_diff)
+
+    obtail = obsub.add_parser(
+        "tail",
+        help="follow a live run's JSONL streams, rendering a one-line "
+             "train/serve status as records arrive (truncation-tolerant)")
+    obtail.add_argument("path", help="run directory or one JSONL file")
+    obtail.add_argument("--interval", type=float, default=1.0,
+                        help="poll interval seconds (default 1.0)")
+    obtail.add_argument("--duration", type=float, default=0.0,
+                        help="stop after N seconds (default: follow "
+                             "until interrupted)")
+    obtail.add_argument("--once", action="store_true",
+                        help="render the current status once and exit")
+    obtail.add_argument("--rules", default="",
+                        help="also evaluate SLO rules live, printing "
+                             "alerts as they fire")
+    obtail.add_argument("--fleet", action="store_true",
+                        help="treat PATH as a fleet run root and render "
+                             "one aggregated fleet status line")
+    obtail.set_defaults(fn=_cmd_obs_tail)
 
     ck = sub.add_parser("ckpt", help="checkpoint inspection / rollback")
     cksub = ck.add_subparsers(dest="ckpt_cmd", required=True)
@@ -488,6 +1258,88 @@ def build_parser() -> argparse.ArgumentParser:
                      help="committed step to roll back to")
     add_retry_flags(ckr)
     ckr.set_defaults(fn=_cmd_ckpt_rollback)
+
+    # data -------------------------------------------------------------------
+    data = sub.add_parser("data", help="dataset preparation / diagnostics")
+    dsub = data.add_subparsers(dest="data_command", required=True)
+
+    dp = dsub.add_parser(
+        "prepare-imagenet",
+        help="JPEG class-dir tree → dlcfn binary shards (run per split)")
+    dp.add_argument("--src", required=True,
+                    help="class-per-subdirectory image tree")
+    dp.add_argument("--out", required=True, help="output shard directory")
+    dp.add_argument("--size", type=int, default=256,
+                    help="stored square resolution (default 256)")
+    dp.add_argument("--shard-records", type=int, default=8192)
+    dp.add_argument("--limit", type=int, default=0,
+                    help="stop after N images (smoke tests)")
+    dp.set_defaults(fn=_cmd_data_prepare_imagenet)
+
+    dt = dsub.add_parser(
+        "prepare-text",
+        help="tokenize a raw text file (byte-level, offline) into the "
+             "lm_text train/eval npz contract")
+    dt.add_argument("--src", required=True, help="raw text/bytes file")
+    dt.add_argument("--out", required=True, help="output directory")
+    dt.add_argument("--seq-len", type=int, default=1024)
+    dt.add_argument("--eval-fraction", type=float, default=0.05)
+    dt.set_defaults(fn=_cmd_data_prepare_text)
+
+    dc = dsub.add_parser(
+        "prepare-coco",
+        help="COCO instances_*.json + image dir → the detection npz "
+             "contract (boxes, labels, box-aligned 28×28 masks); run per "
+             "split")
+    dc.add_argument("--annotations", required=True,
+                    help="instances_train2017.json-style file")
+    dc.add_argument("--images", required=True, help="image directory")
+    dc.add_argument("--out", required=True, help="output directory")
+    dc.add_argument("--split", required=True, choices=["train", "eval"])
+    dc.add_argument("--image-size", type=int, default=1024)
+    dc.add_argument("--max-boxes", type=int, default=100)
+    dc.add_argument("--limit", type=int, default=0,
+                    help="stop after N images (smoke tests)")
+    dc.set_defaults(fn=_cmd_data_prepare_coco)
+
+    dw = dsub.add_parser(
+        "prepare-wikipedia",
+        help="raw text corpus → BPE vocab + pre-masked MLM+NSP npz shards "
+             "(the wikipedia_mlm real-data contract)")
+    dw.add_argument("--src", required=True, help="raw UTF-8 text file")
+    dw.add_argument("--out", required=True, help="output directory")
+    dw.add_argument("--seq-len", type=int, default=512)
+    dw.add_argument("--vocab-size", type=int, default=8192,
+                    help="total ids incl. 4 specials + 256 bytes")
+    dw.add_argument("--vocab", default="",
+                    help="reuse an existing vocab.json instead of training")
+    dw.add_argument("--eval-fraction", type=float, default=0.05)
+    dw.add_argument("--seed", type=int, default=0)
+    dw.set_defaults(fn=_cmd_data_prepare_wikipedia)
+
+    dm = dsub.add_parser(
+        "prepare-wmt",
+        help="parallel src/tgt line files → shared BPE vocab + seq2seq npz "
+             "shards (the wmt_en_de real-data contract)")
+    dm.add_argument("--src", required=True, help="source-language lines")
+    dm.add_argument("--tgt", required=True, help="target-language lines")
+    dm.add_argument("--out", required=True, help="output directory")
+    dm.add_argument("--seq-len", type=int, default=128)
+    dm.add_argument("--vocab-size", type=int, default=8192)
+    dm.add_argument("--vocab", default="",
+                    help="reuse an existing vocab.json instead of training")
+    dm.add_argument("--eval-fraction", type=float, default=0.05)
+    dm.set_defaults(fn=_cmd_data_prepare_wmt)
+
+    df = dsub.add_parser(
+        "feed-rate",
+        help="host-side input pipeline throughput (images/sec)")
+    df.add_argument("--preset", default="imagenet_resnet50")
+    df.add_argument("--local-batch", type=int, default=256)
+    df.add_argument("--batches", type=int, default=30)
+    df.add_argument("overrides", nargs="*")
+    df.set_defaults(fn=_cmd_data_feed_rate)
+
     return parser
 
 

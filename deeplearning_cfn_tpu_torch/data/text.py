@@ -4,10 +4,11 @@ imports the JAX package.
 
 - **Real data**: ``<data_dir>/{train,eval}.npz`` holding the arrays of the
   dataset — for ``wmt_en_de`` ``src_ids``, ``src_mask``, ``tgt_in_ids``,
-  ``tgt_out_ids``, ``tgt_mask`` (the files the JAX package's
-  ``prepare_nmt_text`` writes), for ``wikipedia_mlm`` the MLM contract below,
-  for ``lm_text`` ``tokens`` and ``loss_mask`` (the files
-  :func:`prepare_lm_text` writes).
+  ``tgt_out_ids``, ``tgt_mask`` (the files :func:`prepare_nmt_text`
+  writes), for ``wikipedia_mlm`` the MLM contract below (the files
+  :func:`prepare_mlm_text` writes), for ``lm_text`` ``tokens`` and
+  ``loss_mask`` (the files :func:`prepare_lm_text` writes). The three
+  converters are the JAX package's, byte for byte in what they write.
 - **Synthetic**: deterministic, *learnable* generators, the same arrays from
   the same seeds as the JAX package, so both packages train on identical
   batches: a seq2seq task (the target is the reversed source plus a fixed
@@ -208,6 +209,136 @@ def prepare_lm_text(src_path: str, out_dir: str, seq_len: int,
                  loss_mask=np.ones((len(toks), seq_len), np.float32))
     return {"train_examples": n - n_eval, "eval_examples": n_eval,
             "vocab_size": 260, "seq_len": seq_len}
+
+
+def _read_lines(path: str):
+    with open(path, encoding="utf-8", errors="replace") as f:
+        return f.read().splitlines()
+
+
+def _train_or_load_bpe(lines, vocab_size: int, specials, out_dir: str,
+                       vocab_path: str = ""):
+    """Load an existing vocab file, or train one from ``lines`` and save it
+    to ``<out_dir>/vocab.json`` (reusable across splits and at decode time
+    via the CLI's --vocab)."""
+    from .bpe import Bpe, train_bpe
+
+    if vocab_path:
+        bpe = Bpe.load(vocab_path)
+        if bpe.specials != tuple(specials):
+            raise ValueError(
+                f"{vocab_path} was trained with specials "
+                f"{list(bpe.specials)} but this converter needs "
+                f"{list(specials)} — reusing it would shift every byte id "
+                f"and silently corrupt the shards. Train a fresh vocab for "
+                f"this task (omit --vocab).")
+        return bpe
+    bpe = train_bpe(lines, vocab_size, specials)
+    os.makedirs(out_dir, exist_ok=True)
+    bpe.save(os.path.join(out_dir, "vocab.json"))
+    return bpe
+
+
+def prepare_mlm_text(src_path: str, out_dir: str, seq_len: int,
+                     vocab_size: int = 8192, eval_fraction: float = 0.05,
+                     vocab_path: str = "", seed: int = 0) -> Dict[str, int]:
+    """Real corpus → the ``wikipedia_mlm`` npz contract, via byte-level BPE
+    (data/bpe.py) — the rebuild's create_pretraining_data.py: train (or
+    load) the vocab, encode the corpus, cut into ``seq_len-2`` content
+    windows, and frame/mask with the same recipe as the synthetic source
+    (``_build_mlm_examples``: CLS/SEP framing, midpoint segments, NSP by
+    second-half swap, 15% masking at 80/10/10)."""
+    from .bpe import MLM_SPECIALS
+
+    if not 0.0 < eval_fraction < 1.0:
+        raise ValueError(
+            f"eval_fraction must be in (0, 1), got {eval_fraction}")
+    lines = _read_lines(src_path)
+    bpe = _train_or_load_bpe(lines, vocab_size, MLM_SPECIALS, out_dir,
+                             vocab_path)
+    stream: list = []
+    for line in lines:
+        stream.extend(bpe.encode(line))
+    content = seq_len - 2
+    n = len(stream) // content
+    if n < 2:
+        raise ValueError(
+            f"{src_path}: corpus encodes to {len(stream)} tokens; need at "
+            f"least 2 windows of seq_len-2={content}")
+    tokens = np.asarray(stream[:n * content], np.int32).reshape(n, content)
+    examples = _build_mlm_examples(tokens, bpe.vocab_size,
+                                   np.random.RandomState(seed))
+    n_eval = min(max(1, int(n * eval_fraction)), n - 1)
+    os.makedirs(out_dir, exist_ok=True)
+    for split, sl in (("train", slice(None, n - n_eval)),
+                      ("eval", slice(n - n_eval, None))):
+        np.savez(os.path.join(out_dir, f"{split}.npz"),
+                 **{k: v[sl] for k, v in examples.items()})
+    return {"train_examples": n - n_eval, "eval_examples": n_eval,
+            "vocab_size": bpe.vocab_size, "seq_len": seq_len}
+
+
+def prepare_nmt_text(src_path: str, tgt_path: str, out_dir: str,
+                     seq_len: int, vocab_size: int = 8192,
+                     eval_fraction: float = 0.05,
+                     vocab_path: str = "") -> Dict[str, int]:
+    """Parallel line files → the ``wmt_en_de`` npz contract, with ONE
+    shared byte-level BPE over both sides (Sockeye's shared-vocab
+    prepare-data convention). Pairs whose encoded source or target exceeds
+    ``seq_len - 1`` (room for EOS) are dropped and counted, Sockeye's
+    max-length filter behavior."""
+    from .bpe import NMT_SPECIALS
+
+    if not 0.0 < eval_fraction < 1.0:
+        raise ValueError(
+            f"eval_fraction must be in (0, 1), got {eval_fraction}")
+    src_lines = _read_lines(src_path)
+    tgt_lines = _read_lines(tgt_path)
+    if len(src_lines) != len(tgt_lines):
+        raise ValueError(
+            f"parallel files differ in length: {len(src_lines)} src vs "
+            f"{len(tgt_lines)} tgt lines")
+    bpe = _train_or_load_bpe(src_lines + tgt_lines, vocab_size,
+                             NMT_SPECIALS, out_dir, vocab_path)
+    pairs = []
+    skipped = 0
+    for s_line, t_line in zip(src_lines, tgt_lines):
+        s, t = bpe.encode(s_line), bpe.encode(t_line)
+        if not s or not t or len(s) > seq_len - 1 or len(t) > seq_len - 1:
+            skipped += 1
+            continue
+        pairs.append((s, t))
+    n = len(pairs)
+    if n < 2:
+        raise ValueError(
+            f"only {n} usable pairs (skipped {skipped}); need at least 2 — "
+            f"raise seq_len or check the files are parallel")
+    src_ids = np.zeros((n, seq_len), np.int32)
+    src_mask = np.zeros((n, seq_len), np.int32)
+    tgt_in = np.zeros((n, seq_len), np.int32)
+    tgt_out = np.zeros((n, seq_len), np.int32)
+    tgt_mask = np.zeros((n, seq_len), np.float32)
+    for i, (s, t) in enumerate(pairs):
+        src_ids[i, :len(s)] = s
+        src_ids[i, len(s)] = 2  # EOS
+        src_mask[i, :len(s) + 1] = 1
+        tgt_in[i, 0] = 1  # BOS
+        tgt_in[i, 1:len(t) + 1] = t
+        tgt_out[i, :len(t)] = t
+        tgt_out[i, len(t)] = 2  # EOS
+        tgt_mask[i, :len(t) + 1] = 1.0
+    n_eval = min(max(1, int(n * eval_fraction)), n - 1)
+    arrays = {"src_ids": src_ids, "src_mask": src_mask,
+              "tgt_in_ids": tgt_in, "tgt_out_ids": tgt_out,
+              "tgt_mask": tgt_mask}
+    os.makedirs(out_dir, exist_ok=True)
+    for split, sl in (("train", slice(None, n - n_eval)),
+                      ("eval", slice(n - n_eval, None))):
+        np.savez(os.path.join(out_dir, f"{split}.npz"),
+                 **{k: v[sl] for k, v in arrays.items()})
+    return {"train_examples": n - n_eval, "eval_examples": n_eval,
+            "skipped_pairs": skipped, "vocab_size": bpe.vocab_size,
+            "seq_len": seq_len}
 
 
 def _load_npz_dir(data_dir: str, split: str, keys) -> ArraySource:

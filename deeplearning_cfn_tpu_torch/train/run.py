@@ -13,7 +13,14 @@ package's — and the pipeline starts at the restored step's batch. It runs
 ``<workdir>/<preset>/profile``, ``train.hang_timeout_s`` watchdog), forces a
 final save and waits for it, then the weighted full-set eval plus the task's
 own acceptance metric where it has one (BLEU for NMT). Records go to
-``<workdir>/<preset>/metrics.jsonl`` and stdout, as in the JAX package.
+``<workdir>/<preset>/metrics.jsonl`` and stdout, as in the JAX package; with
+obs on (``DLCFN_OBS_OFF`` unset) the span records (``train.dispatch``,
+``train.realize``, ``train.eval``, ``ckpt.save``, ``ckpt.restore``,
+``ckpt.store_retry``) go into the same ``metrics.jsonl`` (not stdout), and
+the end of the run writes ``<workdir>/<preset>/metrics.prom`` from the
+tracer's registry. ``DLCFN_CHAOS_KILL_AT_STEP`` arms the chaos SIGKILL hook
+after the checkpoint hook (``runtime/faults.py``; the launcher's crash
+recovery test harness sets it).
 
 ``run_eval`` evaluates a committed checkpoint without training.
 
@@ -32,6 +39,9 @@ from ..ckpt import CheckpointManager, latest_checkpoint, \
 from ..config import ExperimentConfig
 from ..data.pipeline import build_pipeline
 from ..metrics.jsonl import MetricsWriter
+from ..obs.sinks import JsonlSink, write_prometheus
+from ..obs.trace import get_tracer, obs_enabled
+from ..runtime.faults import chaos_kill_hook_from_env
 from ..runtime.platform import resolve_device
 from .optim import build_optimizer, build_schedule
 from .state import create_train_state
@@ -106,7 +116,8 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     default, raises without a card; ``"cpu"`` runs the plain versions of the
     kernels) and return the final eval metrics. ``hooks`` run after every
     step (at every window edge with ``train.step_window`` > 1), after the
-    checkpoint hook, as ``hook(step, state, last_record)``."""
+    checkpoint hook (and before the chaos kill hook, when armed), as
+    ``hook(step, state, last_record)``."""
     dev = resolve_device(device)
     task = build_task(cfg, dev)
     train_pipe = build_pipeline(cfg.data, cfg.train.global_batch,
@@ -149,7 +160,15 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
             print(f"[dlcfn-tpu] resumed from step {at_step}")
     trainer = Trainer(cfg, task, dev)
 
-    writer = MetricsWriter(os.path.join(workdir, "metrics.jsonl"))
+    metrics_path = os.path.join(workdir, "metrics.jsonl")
+    writer = MetricsWriter(metrics_path)
+    # Span records flow into the same metrics.jsonl as additive lines with
+    # a "span" key, not on stdout (spans are high-rate; stdout stays the
+    # human stream).
+    span_sink = None
+    if obs_enabled():
+        span_sink = JsonlSink(MetricsWriter(metrics_path, also_stdout=False))
+        get_tracer().add_sink(span_sink)
     print(f"[dlcfn-tpu] {_describe(dev)}")
     print(f"[dlcfn-tpu] total_steps={total_steps} "
           f"steps_per_epoch={steps_per_epoch} "
@@ -157,6 +176,14 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
 
     def ckpt_hook(step, st, _record):
         manager.save(step, st)
+
+    # The chaos kill (test harness, env-gated) goes last: the SIGKILL then
+    # lands between a dispatched save and the next one — the torn-commit
+    # window the recovery contract must survive.
+    all_hooks = [ckpt_hook, *hooks]
+    chaos_hook = chaos_kill_hook_from_env()
+    if chaos_hook is not None:
+        all_hooks.append(chaos_hook)
 
     eval_every = cfg.train.eval_every_steps or steps_per_epoch
     try:
@@ -166,7 +193,7 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
                               skip_batches=state.step % steps_per_epoch),
             num_steps=total_steps,
             eval_iter_fn=lambda: eval_pipe.one_epoch(),
-            eval_every=eval_every, hooks=(ckpt_hook, *hooks),
+            eval_every=eval_every, hooks=tuple(all_hooks),
             log_every=cfg.train.log_every_steps, metrics_writer=writer,
             trace_dir=os.path.join(workdir, "profile")
             if cfg.train.profile_steps > 0 else None,
@@ -185,4 +212,13 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
         # caller (a retry, a resume in this process) touches the store.
         manager.wait()
         writer.close()
+        if span_sink is not None:
+            get_tracer().remove_sink(span_sink)
+            span_sink.close()
+        if obs_enabled():
+            # One end-of-run Prometheus text snapshot of every instrument
+            # the tracer's registry accumulated (span_dur_s histograms
+            # included): scrape-by-file, no server.
+            write_prometheus(get_tracer().registry,
+                             os.path.join(workdir, "metrics.prom"))
     return final

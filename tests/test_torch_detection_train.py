@@ -17,7 +17,8 @@
   compile).
 - ``cli train --preset maskrcnn_coco`` runs on the CPU when asked, and
   without a card and without ``--accelerator cpu`` it refuses (exit 1);
-  ``cli data prepare-coco`` raises, naming ROADMAP A.13.
+  ``cli data prepare-coco`` (ported with ROADMAP A.13) exits as the JAX
+  CLI does on a missing annotations file.
 """
 
 import os
@@ -179,8 +180,17 @@ def test_cli_trains_maskrcnn_on_cpu_and_refuses_without_a_card(
     assert "CUDA card" in capsys.readouterr().err
 
 
-def test_the_data_verbs_name_their_roadmap_item():
+def test_the_data_verbs_name_their_roadmap_item(tmp_path, capsys):
+    """The data verbs are ported (ROADMAP A.13): ``data prepare-coco`` on a
+    missing annotations file exits 1 with the JAX CLI's error line."""
+    from deeplearning_cfn_tpu.cli.main import main as jax_main
     from deeplearning_cfn_tpu_torch.cli.main import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        main(["data", "prepare-coco", "--annotations", "x.json"])
+    argv = ["data", "prepare-coco", "--annotations",
+            str(tmp_path / "x.json"), "--images", str(tmp_path), "--out",
+            str(tmp_path / "out"), "--split", "train"]
+    assert jax_main(argv) == 1
+    want = capsys.readouterr()
+    assert main(argv) == 1
+    got = capsys.readouterr()
+    assert got == want and "ERROR" in got.err and "x.json" in got.err

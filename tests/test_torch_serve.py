@@ -364,7 +364,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "deeplearning_cfn_tpu_torch.models.decoding",
             "deeplearning_cfn_tpu_torch.data.bpe",
             "deeplearning_cfn_tpu_torch.data.text",
-            "deeplearning_cfn_tpu_torch.serve.radix"} <= set(modules)
+            "deeplearning_cfn_tpu_torch.serve.radix",
+            "deeplearning_cfn_tpu_torch.launch",
+            "deeplearning_cfn_tpu_torch.launch.launcher",
+            "deeplearning_cfn_tpu_torch.launch.chaos",
+            "deeplearning_cfn_tpu_torch.runtime.cluster",
+            "deeplearning_cfn_tpu_torch.runtime.faults",
+            "deeplearning_cfn_tpu_torch.provision",
+            "deeplearning_cfn_tpu_torch.provision.provisioner",
+            "deeplearning_cfn_tpu_torch.provision.stack",
+            "deeplearning_cfn_tpu_torch.provision.topology",
+            "deeplearning_cfn_tpu_torch.obs.sinks",
+            "deeplearning_cfn_tpu_torch.obs.report",
+            "deeplearning_cfn_tpu_torch.obs.signals",
+            "deeplearning_cfn_tpu_torch.obs.slo",
+            "deeplearning_cfn_tpu_torch.obs.export",
+            "deeplearning_cfn_tpu_torch.obs.tail",
+            "deeplearning_cfn_tpu_torch.obs.diff",
+            "deeplearning_cfn_tpu_torch.train.worker",
+            "deeplearning_cfn_tpu_torch.cli.main"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

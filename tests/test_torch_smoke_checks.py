@@ -7,6 +7,11 @@ A missing tile is built from the port's plain versions on the CPU, at
 [1, 2, 1024, 1024, 64] causal with bf16 inputs: the forward and dQ without
 one KV tile, dK/dV without one query tile (the last of the 16-step loop
 among them). A bf16-rounded plain result stands in for a correct kernel.
+
+Phase 24's check of a pair of runs (``check_windows``) with a bound of 0,
+as the tiny presets take under ``deterministic``, fails on a last-bit
+difference between the graphs and the eager run, or between two eager
+runs; ``deterministic`` restores PyTorch's flags even when its body raises.
 """
 
 import math
@@ -117,3 +122,46 @@ def test_dq_missing_one_kv_tile_fails(inputs, tile):
     got = (scale * ds @ k.float()).to(q.dtype)
     e = chip_smoke.scaled_error(got, ref)
     assert not e["ok"], e
+
+
+def _window_run(losses, weight):
+    return {"losses": list(losses), "weights": [weight.clone()],
+            "launches": [{"fwd": 0, "dkdv": 0, "dq": 0}]}
+
+
+@pytest.mark.parametrize("part", ["none", "graph_loss", "graph_weight",
+                                  "eager_weight"])
+def test_window_check_at_bound_zero_asks_for_bit_for_bit(part):
+    """One ulp in the K = 4 run's loss or weights, or in the eager rerun's
+    weights, fails the check; identical runs pass it, bitwise."""
+    losses = [2.5, 2.25, 2.0]
+    w = torch.linspace(-1.0, 1.0, 17)
+    ulp = torch.nextafter(w[3], torch.tensor(2.0))
+    nudged = w.clone()
+    nudged[3] = ulp
+    runs = {1: _window_run(losses, w), "again": _window_run(losses, w),
+            chip_smoke.WINDOW: _window_run(losses, w)}
+    if part == "graph_loss":
+        runs[chip_smoke.WINDOW]["losses"][-1] = math.nextafter(2.0, 3.0)
+    elif part == "graph_weight":
+        runs[chip_smoke.WINDOW]["weights"] = [nudged]
+    elif part == "eager_weight":
+        runs["again"]["weights"] = [nudged]
+    if part == "none":
+        out = chip_smoke.check_windows("tiny", runs, 0.0)
+        assert out["bitwise"] and out["eager_bitwise"]
+    else:
+        with pytest.raises(AssertionError, match="parted|left the eager"):
+            chip_smoke.check_windows("tiny", runs, 0.0)
+
+
+def test_deterministic_restores_the_flags_when_its_body_raises():
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.backends.cudnn.deterministic)
+    with pytest.raises(RuntimeError, match="body"):
+        with chip_smoke.deterministic(torch):
+            assert torch.are_deterministic_algorithms_enabled()
+            assert torch.backends.cudnn.deterministic
+            raise RuntimeError("body")
+    assert (torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cudnn.deterministic) == before
