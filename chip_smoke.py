@@ -318,6 +318,38 @@ order; a failing phase raises, so the exit code is nonzero:
    passes ``validate_trace``) and ``cli metrics`` on (b)'s run, each exit
    0; (d) ``cli doctor``: all checks pass. The workers' kernel launches
    happen in their own processes, so the kernels line does not count them.
+27. the fleet, in phase 26's directory: (a) ``cli fleet up --prefill 1
+   --decode 1`` in this process: phase 5's engine as a prefill and a
+   decode replica (``load_engine(phase=...)``, paged blocks of 16) behind
+   the ``Router``, serving phase 5's 24 requests: rc 0, every request
+   done, none dropped, one handoff each, the printed tokens equal to phase
+   5's; the decode replica runs no encoder (no encode, no ``tc`` launch);
+   each replica's launches (counted around its own steps, from 0 once the
+   CLI has built both) equal its tally and none is ``simt``. It prints the
+   handoff bytes per request (p50, max), the hop's host time (export,
+   save, load, import, release) p50, the prefill replica's TTFT p50 and
+   the decode replica's decode-step p50 beside phase 5's; (b) the same
+   with ``--quantize int8 --kv-quant int8`` on phase 25's requests,
+   token-identical to phase 25, and a bf16 artifact into the int8 decode
+   replica refused with ValueError, nothing committed; (c) ``cli fleet
+   route`` and ``cli fleet rollout`` (two replicas) on phase 26's chaos
+   run: the replicas load its latest checkpoint, the rollout swaps them to
+   the other in mid-stream; rc 0, every request done, the routed tokens
+   equal to one engine at the latest step and those served after the swap
+   to one engine at the new step; (d) ``cli fleet up``: two supervised
+   ``cli serve`` children on the card, each on its shard; both ok, each
+   child's log holds its results and its kernel launches after its
+   warm-up, equal to its own tally; ``fleet status`` and ``obs summarize
+   --fleet`` read the run root; (e) ``cli fleet up --net`` in a child
+   process: two ``net.server`` children (the seeded tiny recipe) behind
+   unix sockets, both SIGKILLed in mid-stream, one after the other, each
+   with requests in flight, so that every request left is served by a
+   restarted child: each child's first attempt is a crash, its second
+   says ready and exits rc 0 after the drain with its launches (after its
+   warm-up) equal to its own tally, the restarted children launched the
+   kernel, and every request is done and equal to an in-process engine of
+   the recipe on the card. The children's launches are in the kernels
+   line as ``child_launches``, apart from ``launches``.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -909,16 +941,19 @@ def make_requests(n=24, n_beam=4, vocab=32000, seed=0):
     return reqs
 
 
+def no_checkpoint_dir():
+    """A workdir that holds no checkpoint: engines serve a seeded init."""
+    return os.path.join(REPO, "deeplearning_cfn_tpu_torch", "_build",
+                        "no_checkpoint")
+
+
 def smoke_cfg(dtype: str):
     from deeplearning_cfn_tpu_torch.config import apply_overrides
     from deeplearning_cfn_tpu_torch.presets import get_preset
 
-    # The workdir holds no checkpoint: the engine serves a seeded init.
-    nowhere = os.path.join(REPO, "deeplearning_cfn_tpu_torch", "_build",
-                           "no_checkpoint")
     return apply_overrides(get_preset("transformer_nmt_wmt"),
-                           [f"workdir={nowhere}", f"train.dtype={dtype}",
-                            "train.seed=0"])
+                           [f"workdir={no_checkpoint_dir()}",
+                            f"train.dtype={dtype}", "train.seed=0"])
 
 
 def build_engine(cfg, **kw):
@@ -987,7 +1022,7 @@ def serve(torch, attn, reqs):
                 decoder_steps=engine.decoder_steps, wall_s=wall,
                 tokens=generated, tokens_per_s=generated / wall,
                 ttft_p50_s=snap["serve_ttft_p50_s"],
-                decode_step_p50_ms=step_ms)
+                decode_step_p50_ms=step_ms, tokens_by_request=tokens)
 
 
 def f32_parity(torch, reqs):
@@ -4339,7 +4374,8 @@ def serve_int8(torch, attn, reqs, served):
         tiny_f32_card_vs_cpu=tiny, cli=cli,
         phase5=dict(tokens_per_s=served["tokens_per_s"],
                     ttft_p50_s=served["ttft_p50_s"],
-                    decode_step_p50_ms=served["decode_step_p50_ms"]))
+                    decode_step_p50_ms=served["decode_step_p50_ms"]),
+        tokens_by_request=tokens)
     return row
 
 
@@ -4578,35 +4614,575 @@ def obs_verbs(root, chaos):
     return out
 
 
-def launched_path(torch, trained):
-    """Phase 26: 26a-26d in one temporary directory."""
-    import shutil
-    import tempfile
-
+def launched_path(torch, trained, root):
+    """Phase 26: 26a-26d in the directory ``root`` (phase 27 reuses the
+    chaos run's checkpoints; the caller removes it)."""
     # The workers find the package from any directory; this process's
     # cached blocks go back to the card first.
     os.environ["PYTHONPATH"] = os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
     torch.cuda.empty_cache()
-    root = tempfile.mkdtemp(prefix="smoke_launch_")
-    try:
-        t = time.perf_counter()
-        launched = launched_training(torch, root, trained)
-        log(f"  26a {time.perf_counter() - t:.1f} s")
-        t = time.perf_counter()
-        chaos = crash_recovery(root)
-        log(f"  26b {time.perf_counter() - t:.1f} s")
-        t = time.perf_counter()
-        verbs = obs_verbs(root, chaos)
-        log(f"  26c {time.perf_counter() - t:.1f} s")
-        rc, out = cli_inprocess(["doctor"])
-        log("  " + out.strip().replace("\n", "\n  "))
-        if rc != 0 or "all checks passed" not in out:
-            raise AssertionError(f"doctor: rc {rc}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    launched = launched_training(torch, root, trained)
+    log(f"  26a {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    chaos = crash_recovery(root)
+    log(f"  26b {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    verbs = obs_verbs(root, chaos)
+    log(f"  26c {time.perf_counter() - t:.1f} s")
+    rc, out = cli_inprocess(["doctor"])
+    log("  " + out.strip().replace("\n", "\n  "))
+    if rc != 0 or "all checks passed" not in out:
+        raise AssertionError(f"doctor: rc {rc}")
     return dict(launched=launched, crash_recovery=chaos, obs=verbs,
                 doctor="all checks passed")
+
+
+# Phase 27: the fleet (ROADMAP A.6d + A.12). transformer_nmt_wmt at full
+# width in bf16 as a disaggregated prefill/decode pair behind the router
+# (the KV handoff through a store), route and rollout over phase 26's
+# committed checkpoints, then `fleet up` with `cli serve` children and with
+# `net.server` children behind unix sockets (the seeded tiny recipe). The
+# children's kernel launches happen in their own processes: each prints its
+# count, which the phase reads from the child's log.
+FLEET_RUN_REQUESTS = 12
+NET_REQUESTS, NET_SLOTS, NET_BUDGET = 64, 4, 48
+NMT_LAYERS = 6  # transformer_nmt_wmt's encoder and decoder depth
+
+
+def replica_launch_counts(attn, replicas):
+    """Wrap each replica's ``step`` so that the forward kernel's launches
+    during it are added to that replica's own count (the router steps the
+    replicas in turn in this process; nothing else here launches)."""
+    fwd = attn.flash_attention_forward
+    counts = {}
+    for rep in replicas:
+        tally = counts[rep.id] = {"launches": 0,
+                                  **dict.fromkeys(fwd.variant_launches, 0)}
+
+        def counted(step=rep.step, tally=tally):
+            n0, by0 = fwd.launches, dict(fwd.variant_launches)
+            try:
+                return step()
+            finally:
+                tally["launches"] += fwd.launches - n0
+                for v, n in fwd.variant_launches.items():
+                    tally[v] += n - by0[v]
+        rep.step = counted
+    return counts
+
+
+def pctl(values, q):
+    from deeplearning_cfn_tpu_torch.serve.metrics import percentile
+
+    return percentile(list(values), q)
+
+
+def write_requests(path, reqs):
+    with open(path, "w") as fh:
+        for rid, src, budget, beam in reqs:
+            fh.write(json.dumps({"id": rid, "src_ids": src,
+                                 "max_new_tokens": budget,
+                                 "beam_size": beam}) + "\n")
+
+
+def result_lines(out):
+    return {r["id"]: r for r in (json.loads(ln) for ln in out.splitlines()
+                                 if ln.startswith("{"))}
+
+
+def disagg_pair(torch, attn, root, label, reqs, want, colocated, extra=()):
+    """27a/27b: ``cli fleet up --prefill 1 --decode 1`` in this process. The
+    CLI builds one prefill and one decode replica of phase 5's engine (8
+    slots, paged blocks of 16, decode window 4, seeded init) through
+    ``load_engine(phase=...)`` and routes the requests; the router moves
+    every request through the store codec after its first token. The
+    router class is wrapped to record the replicas and to count each one's
+    launches around its own steps, from 0 once both are built. rc 0, every
+    request done, none dropped, one handoff each, the printed tokens equal
+    to the co-located engine's (``want``), the decode replica without an
+    encoder call, both replicas on the CUDA kernel with launches equal to
+    their tallies."""
+    import deeplearning_cfn_tpu_torch.fleet as fleet
+    from deeplearning_cfn_tpu_torch.models.decoding import strip_special
+
+    name = label.split()[0]
+    path = os.path.join(root, f"{name}_requests.jsonl")
+    write_requests(path, reqs)
+    built = {}
+    cli_router = fleet.Router
+
+    class CountedRouter(cli_router):
+        def __init__(self, replicas, **kw):
+            super().__init__(replicas, **kw)
+            built.update(
+                router=self, engines={r.id: r.engine for r in replicas},
+                counts=replica_launch_counts(attn, replicas),
+                before={r.id: (r.engine.encoder_forwards,
+                               r.engine.decoder_steps) for r in replicas})
+            torch.cuda.synchronize()
+            set_counts(attn, 0)
+            built["t0"] = time.perf_counter()
+
+    fleet.Router = CountedRouter
+    try:
+        rc, out = cli_inprocess([
+            "fleet", "up", "--prefill", "1", "--decode", "1", "--preset",
+            "transformer_nmt_wmt", "--accelerator", "gpu", "--requests",
+            path, "--slots", str(SLOTS), "--max-new-tokens", "32",
+            "--decode-window", "4", "--kv-block-size", "16", "--allow-init",
+            "--run-root", os.path.join(root, name), *extra,
+            f"workdir={no_checkpoint_dir()}", "train.dtype=bfloat16",
+            "train.seed=0"])
+    finally:
+        fleet.Router = cli_router
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - built["t0"]
+    if rc != 0:
+        raise AssertionError(f"{label}: fleet up rc {rc}\n{out[-3000:]}")
+    router, engines, counts = (built["router"], built["engines"],
+                               built["counts"])
+    pre, dec = engines["prefill-0"], engines["decode-0"]
+    fwd = attn.flash_attention_forward
+    stats = router.stats()
+    rids = [rid for rid, *_ in reqs]
+    lines = result_lines(out)
+    bad = {r: lines.get(r, {}).get("state") for r in rids
+           if lines.get(r, {}).get("state") != "done"}
+    same = sum(lines.get(r, {}).get("tokens")
+               == [int(t) for t in strip_special(want[r])] for r in rids)
+    work = {n: (e.encoder_forwards - built["before"][n][0],
+                e.decoder_steps - built["before"][n][1])
+            for n, e in engines.items()}
+    expect = {n: NMT_LAYERS * enc + 2 * NMT_LAYERS * steps
+              for n, (enc, steps) in work.items()}
+    nbytes = [router._requests[r].handoff_bytes for r in rids]
+    hop_ms = [t * 1e3 for t in router.handoff_latencies]
+    pre_snap, dec_snap = pre.metrics.snapshot(), dec.metrics.snapshot()
+    row = dict(
+        requests=len(rids), wall_s=wall, handoffs=stats["handoffs"],
+        dropped=stats["dropped_requests"], token_identical=f"{same}/"
+        f"{len(rids)}", launches=fwd.launches,
+        variant_launches=dict(fwd.variant_launches), replicas=counts,
+        encoder_forwards={n: w[0] for n, w in work.items()},
+        decoder_steps={n: w[1] for n, w in work.items()},
+        handoff_bytes_p50=pctl(nbytes, 50), handoff_bytes_max=max(nbytes),
+        handoff_bytes_total=stats["handoff_bytes"],
+        hop_host_ms_p50=pctl(hop_ms, 50), hop_host_ms_max=max(hop_ms),
+        ttft_p50_s=pre_snap["serve_ttft_p50_s"],
+        decode_step_p50_ms=dec_snap["serve_step_latency_p50_s"] * 1e3,
+        colocated_decode_step_p50_ms=colocated["decode_step_p50_ms"],
+        colocated_ttft_p50_s=colocated["ttft_p50_s"])
+    log(f"  {label} (cli fleet up --prefill 1 --decode 1): {len(rids)} "
+        f"requests in {wall:.3f} s, {row['handoffs']} handoffs, dropped "
+        f"{row['dropped']}, printed tokens identical to the co-located "
+        f"engine {row['token_identical']}; encodes "
+        f"{row['encoder_forwards']}, decoder steps {row['decoder_steps']}; "
+        f"flash launches by replica {counts} (tally {expect})")
+    log(f"  handoff bytes per request p50 {row['handoff_bytes_p50']:.0f}, "
+        f"max {row['handoff_bytes_max']}; hop host time (export, save, "
+        f"load, import, release) p50 {row['hop_host_ms_p50']:.3f} ms, max "
+        f"{row['hop_host_ms_max']:.3f} ms; TTFT p50 "
+        f"{row['ttft_p50_s'] * 1e3:.2f} ms (co-located "
+        f"{colocated['ttft_p50_s'] * 1e3:.2f}); decode replica's "
+        f"decode-step p50 {row['decode_step_p50_ms']:.3f} ms (co-located "
+        f"{colocated['decode_step_p50_ms']:.3f}) [{card_line()}]")
+    if bad or row["dropped"] or row["handoffs"] != len(rids):
+        raise AssertionError(f"{label}: not done {bad}, dropped "
+                             f"{row['dropped']}, handoffs {row['handoffs']}")
+    if same != len(rids):
+        raise AssertionError(f"{label}: {same}/{len(rids)} requests "
+                             f"token-identical to the co-located engine")
+    dec_count = counts["decode-0"]
+    if work["decode-0"][0] or dec_count["tc"]:
+        raise AssertionError(f"{label}: the decode replica ran the encoder "
+                             f"({work['decode-0'][0]} encodes, "
+                             f"{dec_count['tc']} encoder-shaped launches)")
+    for rep, tally in counts.items():
+        if tally["launches"] <= 0 or tally["launches"] != expect[rep] \
+                or tally["simt"]:
+            raise AssertionError(f"{label}: {rep} launches {tally} != "
+                                 f"tally {expect[rep]}")
+    if sum(t["launches"] for t in counts.values()) != fwd.launches:
+        raise AssertionError(f"{label}: launches outside the replicas' "
+                             f"steps: {fwd.launches}")
+    return row, engines
+
+
+def cross_precision_refused(bf16_prefill, int8_decode, src):
+    """27b: a bf16 exporter's artifact into an int8 importer is refused with
+    ValueError before any state commits."""
+    req = bf16_prefill.submit(src, max_new_tokens=8)
+    bf16_prefill.run_until_drained()
+    art = bf16_prefill.export_handoff(req.id)
+    alloc = int8_decode.allocator
+    state = (alloc.blocks_in_use, alloc.committed_blocks,
+             int8_decode.active_rows, len(int8_decode._groups))
+    try:
+        int8_decode.import_handoff(art, request_id=req.id + "#a1")
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise AssertionError("a bf16 artifact was imported into an int8 "
+                             "pool")
+    after = (alloc.blocks_in_use, alloc.committed_blocks,
+             int8_decode.active_rows, len(int8_decode._groups))
+    bf16_prefill.release_handoff(req.id)
+    log(f"  bf16 artifact into the int8 decode replica: ValueError "
+        f"({message}); importer state {after} (before {state})")
+    if after != state:
+        raise AssertionError("the refused import committed state")
+    return message
+
+
+def single_engine_tokens(cfg, reqs, step):
+    """The tokens of one engine built as `fleet route` builds a replica
+    (8 slots, dense KV, window 4), at checkpoint ``step``."""
+    from deeplearning_cfn_tpu_torch.models.decoding import strip_special
+    from deeplearning_cfn_tpu_torch.serve.loader import load_engine
+
+    engine, _, at = load_engine(cfg, capacity=SLOTS, decode_window=4,
+                                default_max_new_tokens=32, step=step,
+                                device="gpu")
+    assert at == step
+    submit_all(reqs)(engine)
+    return {rid: [int(t) for t in strip_special(engine.poll(rid).tokens)]
+            for rid, *_ in reqs}
+
+
+def fleet_route_rollout(torch, attn, root, workdir):
+    """27c: `cli fleet route` and `cli fleet rollout` (two replicas, 8 slots
+    each) on phase 26's chaos run, whose checkpoints are committed at steps
+    4 and 8. The replicas load the latest; the rollout swaps both to the
+    other in mid-stream. Every request done, none dropped; the routed
+    tokens equal one engine at the latest step, and those of the requests
+    submitted after the rollout one engine at the new step."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.convert import committed_steps
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.serve.loader import checkpoint_dir
+
+    overrides = CHAOS_OVERRIDES + [f"workdir={workdir}"]
+    cfg = apply_overrides(get_preset("transformer_nmt_wmt"), overrides)
+    steps = committed_steps(checkpoint_dir(cfg))
+    if len(steps) < 2:
+        raise AssertionError(f"phase 26 committed {steps}, not two steps")
+    latest, to_step = steps[-1], steps[0]
+    reqs = make_requests(FLEET_RUN_REQUESTS, n_beam=2, seed=3)
+    path = os.path.join(root, "fleet_requests.jsonl")
+    write_requests(path, reqs)
+    base = ["--preset", "transformer_nmt_wmt", "--accelerator", "gpu",
+            "--requests", path, "--replicas", "2", "--slots", str(SLOTS),
+            "--max-new-tokens", "32"]
+    out = {}
+    for verb, extra in (("route", []), ("rollout",
+                                        ["--to-step", str(to_step)])):
+        set_counts(attn, 0)
+        t = time.perf_counter()
+        rc, stdout = cli_inprocess(["fleet", verb, *base, *extra,
+                                    *overrides])
+        lines = result_lines(stdout)
+        fwd = attn.flash_attention_forward
+        out[verb] = dict(rc=rc, wall_s=time.perf_counter() - t,
+                         launches=fwd.launches,
+                         variant_launches=dict(fwd.variant_launches),
+                         done=sum(ln["state"] == "done"
+                                  for ln in lines.values()))
+        if rc != 0 or out[verb]["done"] != len(reqs) \
+                or fwd.launches <= 0 or fwd.variant_launches["simt"]:
+            raise AssertionError(f"fleet {verb}: rc {rc}, {out[verb]}")
+        out[verb]["tokens"] = {r: lines[r]["tokens"] for r in lines}
+    half = len(reqs) // 2
+    want_latest = single_engine_tokens(cfg, reqs, latest)
+    want_new = single_engine_tokens(cfg, reqs[half:], to_step)
+    routed = sum(out["route"]["tokens"][r] == want_latest[r]
+                 for r, *_ in reqs)
+    after = sum(out["rollout"]["tokens"][r] == want_new[r]
+                for r, *_ in reqs[half:])
+    for verb in ("route", "rollout"):
+        del out[verb]["tokens"]
+    out.update(from_step=latest, to_step=to_step,
+               route_token_identical=f"{routed}/{len(reqs)}",
+               after_swap_token_identical=f"{after}/{len(reqs) - half}")
+    log(f"  fleet route: rc 0, {len(reqs)} done in "
+        f"{out['route']['wall_s']:.1f} s, {routed}/{len(reqs)} "
+        f"token-identical to one engine at step {latest}; flash launches "
+        f"{out['route']['variant_launches']}")
+    log(f"  fleet rollout {latest} -> {to_step}: rc 0, {len(reqs)} done in "
+        f"{out['rollout']['wall_s']:.1f} s, the {len(reqs) - half} "
+        f"requests after the swap {after}/{len(reqs) - half} "
+        f"token-identical to one engine at step {to_step}; flash launches "
+        f"{out['rollout']['variant_launches']}")
+    if routed != len(reqs) or after != len(reqs) - half:
+        raise AssertionError("fleet route/rollout tokens differ")
+    return out
+
+
+def child_launches(run_dir, marker):
+    """``{log file: {"launches", "variants", "encodes", "steps"}}`` from
+    each attempt log's line with ``marker``: the child's own launches after
+    its warm-up, and the encoder forwards and decoder steps they served (a
+    killed attempt has no such line)."""
+    import glob
+    import re
+
+    found = {}
+    for path in sorted(glob.glob(os.path.join(run_dir, "logs",
+                                              "attempt*-host0.log"))):
+        with open(path, errors="replace") as fh:
+            for line in fh:
+                m = re.search(marker + r" (\d+) (\{.*\}) over (\d+) encoder "
+                              r"forwards and (\d+) decoder steps", line)
+                if m:
+                    found[os.path.basename(path)] = dict(
+                        launches=int(m.group(1)),
+                        variants=json.loads(m.group(2).replace("'", '"')),
+                        encodes=int(m.group(3)), steps=int(m.group(4)))
+    return found
+
+
+def tally(layers, child):
+    """The forward launches a child's encodes and decoder steps make."""
+    return layers * child["encodes"] + 2 * layers * child["steps"]
+
+
+def fleet_up_colocated(root, accelerator="gpu", overrides=()):
+    """27d: `cli fleet up` with two supervised `cli serve` children on the
+    card, each serving its shard of the trace (seeded init, phase 5's
+    model); both end ok, each child's log holds its result lines and its
+    kernel launches after its warm-up, equal to its own tally; `fleet
+    status` and `obs summarize --fleet` read the run root."""
+    run_root = os.path.join(root, "fleet_up")
+    reqs = make_requests(8, n_beam=2, seed=4)
+    path = os.path.join(root, "fleet_up_requests.jsonl")
+    write_requests(path, reqs)
+    t = time.perf_counter()
+    rc, out = cli_inprocess([
+        "fleet", "up", "--preset", "transformer_nmt_wmt", "--accelerator",
+        accelerator, "--requests", path, "--replicas", "2", "--slots",
+        str(SLOTS), "--max-new-tokens", "32", "--allow-init", "--run-root",
+        run_root, "--timeout", "300", f"workdir={no_checkpoint_dir()}",
+        "train.dtype=bfloat16", "train.seed=0", *overrides])
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"fleet up: rc {rc}\n{out[-3000:]}")
+    children = {}
+    for i in range(2):
+        run_dir = os.path.join(run_root, f"replica-{i}")
+        counts = child_launches(run_dir, r"flash kernel launches")
+        with open(os.path.join(run_dir, "logs", "attempt0-host0.log"),
+                  errors="replace") as fh:
+            done = sum('"state": "done"' in ln for ln in fh)
+        children[f"replica-{i}"] = dict(launches=counts, done=done)
+        if len(counts) != 1 or not all(
+                0 < c["launches"] == tally(NMT_LAYERS, c)
+                for c in counts.values()):
+            raise AssertionError(f"replica-{i}: launches in its log "
+                                 f"{counts}, not its tally")
+    if sum(c["done"] for c in children.values()) != len(reqs):
+        raise AssertionError(f"fleet up: results {children}")
+    verbs = {}
+    for name, argv in (("status", ["fleet", "status", run_root]),
+                       ("summarize", ["obs", "summarize", "--fleet",
+                                      run_root])):
+        vrc, verbs[name] = cli_inprocess(argv)
+        if vrc != 0 or "fleet 2 replica(s)" not in verbs[name]:
+            raise AssertionError(f"{name}: rc {vrc}\n{verbs[name]}")
+    log(f"  fleet up: rc 0 in {wall:.1f} s, both replicas ok; results done "
+        f"by child {[c['done'] for c in children.values()]}; flash launches "
+        f"in each child after its warm-up (its own log, each equal to its "
+        f"tally) {[c['launches'] for c in children.values()]}")
+    log("  " + verbs["status"].strip().splitlines()[0])
+    return dict(wall_s=wall, children=children,
+                status=verbs["status"].strip().splitlines()[0])
+
+
+def net_requests(vocab, n):
+    import numpy as np
+
+    rng = np.random.RandomState(6)
+    out = []
+    for i in range(n):
+        length = int(rng.randint(8, 17))
+        src = [int(t) for t in rng.randint(3, vocab, size=length - 1)] + [2]
+        out.append((f"n{i}", src, NET_BUDGET, 1))
+    return out
+
+
+def kill_in_flight(sock, deadline_s=120.0):
+    """SIGKILL the server behind ``sock`` once it has a request in flight
+    (its pid from its own health frame); returns what was seen."""
+    import signal
+
+    from deeplearning_cfn_tpu_torch.net.client import RemoteReplica
+
+    probe = RemoteReplica("probe", "unix://" + sock,
+                          connect_retry_deadline_s=240.0).connect()
+    try:
+        deadline = time.time() + deadline_s
+        while time.time() < deadline:
+            health = probe.health()
+            if health["active_requests"] > 0:
+                os.kill(health["pid"], signal.SIGKILL)
+                return dict(pid=health["pid"],
+                            active=health["active_requests"],
+                            queued=health["queue_depth"],
+                            steps=health["steps"])
+            time.sleep(0.002)
+    finally:
+        probe.close()
+    raise AssertionError(f"{sock}: never seen with a request in flight")
+
+
+def fleet_up_net(root, accelerator="gpu", n_requests=NET_REQUESTS,
+                 slots=NET_SLOTS, budget=NET_BUDGET):
+    """27e: `cli fleet up --net` in a child process: two `net.server`
+    children behind unix sockets, serving the seeded tiny recipe. Both are
+    SIGKILLed in mid-stream, replica-1 and then replica-0, each with
+    requests in flight, so that every request left is served by a child
+    the supervisor restarted. Each child's first attempt is a crash; its
+    second says ready, serves, and exits rc 0 after the drain with its
+    launches (after its warm-up) equal to its own tally; the restarted
+    children together served requests and, on the card, launched the
+    kernel. Nothing drops, and the tokens equal an in-process engine of the
+    same recipe on the same device."""
+    from deeplearning_cfn_tpu_torch.models.decoding import strip_special
+    from deeplearning_cfn_tpu_torch.net.server import (TINY_VOCAB,
+                                                       tiny_recipe_engine)
+    from deeplearning_cfn_tpu_torch.serve.queue import OverloadError
+
+    run_root = os.path.join(root, "fleet_net")
+    reqs = [(rid, src, budget, beam)
+            for rid, src, _, beam in net_requests(TINY_VOCAB, n_requests)]
+    path = os.path.join(root, "fleet_net_requests.jsonl")
+    write_requests(path, reqs)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "fleet",
+         "up", "--net", "--preset", "transformer_nmt_wmt", "--accelerator",
+         accelerator, "--requests", path, "--replicas", "2", "--slots",
+         str(slots), "--max-new-tokens", str(budget), "--run-root",
+         run_root, "--max-restarts", "1"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    killed = {}
+    try:
+        for i in (1, 0):
+            killed[f"replica-{i}"] = kill_in_flight(os.path.join(
+                run_root, f"replica-{i}", "replica.sock"))
+            killed[f"replica-{i}"]["after_s"] = time.perf_counter() - t
+        stdout, stderr = proc.communicate(timeout=400)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"fleet up --net: rc {proc.returncode}\n"
+                             f"{stderr[-3000:]}")
+    lines = result_lines(stdout)
+    ref = tiny_recipe_engine(
+        slots=slots, src_len=max(len(r[1]) for r in reqs),
+        max_new_tokens=budget, decode_window=4, device=accelerator)
+    for rid, src, budget_, _ in reqs:
+        while True:
+            try:
+                ref.submit(src, max_new_tokens=budget_, request_id=rid)
+                break
+            except OverloadError:
+                ref.step()
+    ref.run_until_drained()
+    want = {rid: [int(t) for t in strip_special(ref.poll(rid).tokens)]
+            for rid, *_ in reqs}
+    done = sum(lines.get(r, {}).get("state") == "done" for r, *_ in reqs)
+    same = sum(lines.get(r, {}).get("tokens") == want[r] for r, *_ in reqs)
+    layers = ref.model.num_layers
+    dropped = [ln for ln in stderr.splitlines() if "dropped_requests=" in ln]
+    replicas, problems = {}, []
+    for i in range(2):
+        rep = f"replica-{i}"
+        run_dir = os.path.join(run_root, rep)
+        attempts = read_jsonl(os.path.join(run_dir, "logs",
+                                           "launch.jsonl"))
+        outcomes = [a["outcome"] for a in attempts
+                    if a.get("event") == "launch_attempt"]
+        logs = {}
+        for n in range(2):
+            log_path = os.path.join(run_dir, "logs",
+                                    f"attempt{n}-host0.log")
+            if os.path.exists(log_path):
+                with open(log_path, errors="replace") as fh:
+                    logs[n] = fh.read()
+        counts = child_launches(run_dir, r"flash kernel launches")
+        restarted = counts.get("attempt1-host0.log")
+        replicas[rep] = dict(outcomes=outcomes, restarted=restarted)
+        if not outcomes or outcomes[0] != "crash":
+            problems.append(f"{rep}: attempts {outcomes}")
+        if "attempt0-host0.log" in counts:
+            problems.append(f"{rep}: the killed attempt exited by itself")
+        if f"[net.server] {rep} ready" not in logs.get(1, ""):
+            problems.append(f"{rep}: no restarted child reached ready")
+        if restarted is None or f"{rep} exiting rc 0" not in logs.get(1, ""):
+            problems.append(f"{rep}: the restarted child did not exit "
+                            f"cleanly: {restarted}")
+        elif accelerator == "gpu" and \
+                restarted["launches"] != tally(layers, restarted):
+            problems.append(f"{rep}: restarted launches {restarted} != "
+                            f"tally {tally(layers, restarted)}")
+    served = [r["restarted"] for r in replicas.values() if r["restarted"]]
+    steps = sum(c["steps"] for c in served)
+    launched = sum(c["launches"] for c in served)
+    log(f"  fleet up --net: rc 0 in {wall:.1f} s; SIGKILLed "
+        + ", ".join(f"{rep} (pid {k['pid']}) {k['after_s']:.1f} s in with "
+                    f"{k['active']} running and {k['queued']} queued"
+                    for rep, k in killed.items())
+        + f"; {dropped[-1].strip() if dropped else ''}; {done}/{len(reqs)} "
+        f"done, {same}/{len(reqs)} token-identical to the in-process "
+        f"engine; attempts and the restarted children's exit lines "
+        f"(launches after warm-up, encodes, decoder steps) {replicas}")
+    if done != len(reqs) or same != len(reqs):
+        problems.append("fleet up --net results differ")
+    if steps <= 0 or (accelerator == "gpu" and launched <= 0):
+        problems.append(f"the restarted children served nothing: {served}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return dict(wall_s=wall, killed=killed, replicas=replicas,
+                done=f"{done}/{len(reqs)}",
+                token_identical=f"{same}/{len(reqs)}")
+
+
+def fleet_phase(torch, attn, root, served, int8, reqs):
+    """Phase 27: 27a-27e."""
+    out = {}
+    t = time.perf_counter()
+    out["disagg"], bf16 = disagg_pair(
+        torch, attn, root, "27a bf16 pair", reqs,
+        served["tokens_by_request"], served)
+    log(f"  27a {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["disagg_int8"], q8 = disagg_pair(
+        torch, attn, root, "27b int8 pair", reqs, int8["tokens_by_request"],
+        int8, extra=["--quantize", "int8", "--kv-quant", "int8"])
+    out["disagg_int8"]["cross_precision"] = cross_precision_refused(
+        bf16["prefill-0"], q8["decode-0"], reqs[0][1])
+    del bf16, q8
+    torch.cuda.empty_cache()
+    log(f"  27b {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["route_rollout"] = fleet_route_rollout(
+        torch, attn, root, os.path.join(root, "chaos", "chaos"))
+    torch.cuda.empty_cache()
+    log(f"  27c {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["fleet_up"] = fleet_up_colocated(root)
+    log(f"  27d {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["fleet_up_net"] = fleet_up_net(root)
+    log(f"  27e {time.perf_counter() - t:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -4753,10 +5329,26 @@ def main() -> int:
     phase("25. int8 weights and KV (full width, bf16)")
     int8 = serve_int8(torch, attn, make_requests(), served)
 
-    t = phase("26. launched training: dry-run stack, train --stack, SIGKILL "
-              "and resume, obs verbs, doctor (NMT full width, bf16)")
-    launched = launched_path(torch, trained)
-    log(f"  phase 26 {time.perf_counter() - t:.1f} s")
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="smoke_launch_")
+    try:
+        t = phase("26. launched training: dry-run stack, train --stack, "
+                  "SIGKILL and resume, obs verbs, doctor (NMT full width, "
+                  "bf16)")
+        launched = launched_path(torch, trained, root)
+        log(f"  phase 26 {time.perf_counter() - t:.1f} s")
+
+        t = phase("27. the fleet: disaggregated prefill/decode, route, "
+                  "rollout, fleet up and fleet up --net (NMT full width, "
+                  "bf16; the net children the tiny recipe)")
+        fleet = fleet_phase(torch, attn, root, served, int8, make_requests())
+        log(f"  phase 27 {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for row in (served, int8):
+        row.pop("tokens_by_request")
 
     # The forward kernel serves every path: its numbers cover the three
     # serving shapes, the NMT training shape, BERT's, GPT's train shape,
@@ -4797,6 +5389,15 @@ def main() -> int:
     fwd_paths["int8"] = (int8["launches"], int8["variant_launches"])
     fwd_paths["int8_spec"] = (int8["spec"]["launches"],
                               int8["spec"]["variant_launches"])
+    for name in ("disagg", "disagg_int8"):
+        for rep, tally in fleet[name]["replicas"].items():
+            fwd_paths[f"{name}_{rep.split('-')[0]}"] = (
+                tally["launches"],
+                {v: tally[v] for v in served["variant_launches"]})
+    for verb in ("route", "rollout"):
+        row = fleet["route_rollout"][verb]
+        fwd_paths[f"fleet_{verb}"] = (row["launches"],
+                                      row["variant_launches"])
     fwd = {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -4823,6 +5424,13 @@ def main() -> int:
         **{key: sum(r[key] for r in rows) for key in timings},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
         else "operations",
+        # Launched in child processes (phase 27d/27e), read from each
+        # child's log; not part of "launches".
+        "child_launches": {
+            "fleet_up": {r: c["launches"] for r, c in
+                         fleet["fleet_up"]["children"].items()},
+            "fleet_up_net": {r: c["restarted"] for r, c in
+                             fleet["fleet_up_net"]["replicas"].items()}},
         "shapes": rows,
     }
     if sum(fwd["variant_launches"].values()) != fwd["launches"]:
@@ -4894,6 +5502,7 @@ def main() -> int:
         "step_window": windows,
         "int8_serve": int8,
         "launched_training": launched,
+        "fleet": fleet,
         "script_s": time.perf_counter() - script_t0,
     }
     log(json.dumps({"summary": summary}))

@@ -18,6 +18,12 @@ PyTorch and CUDA:
         [--draft tiny-distilled]] [--radix-cache] [--prefill-chunk N] \\
         [--quantize int8] [--kv-quant int8] [--vocab vocab.json] \\
         [overrides ...]
+    python -m deeplearning_cfn_tpu_torch.cli fleet up --preset transformer_nmt_wmt \
+        --requests reqs.jsonl [--replicas N | --prefill P --decode D | --net] \
+        [--accelerator gpu|cpu] [--allow-init] [overrides ...]
+    python -m deeplearning_cfn_tpu_torch.cli fleet route|rollout --preset P \
+        --requests reqs.jsonl [--replicas N] [--to-step S] [overrides ...]
+    python -m deeplearning_cfn_tpu_torch.cli fleet status <run root> [--json]
     python -m deeplearning_cfn_tpu_torch.cli ckpt list <ckpt dir>
     python -m deeplearning_cfn_tpu_torch.cli ckpt rollback <ckpt dir> --step N
     python -m deeplearning_cfn_tpu_torch.cli presets | config --preset P | info
@@ -46,8 +52,18 @@ decoded ``"text"``), with optional ``id``, ``max_new_tokens``,
 ``beam_size``, ``deadline_s``, ``tenant`` and ``qos_class``; ``--quantize
 int8`` and ``--kv-quant int8`` serve int8 weights and an int8 paged KV pool.
 ``generate`` takes a byte-level prompt (byte + 4), or a BPE one with
-``--vocab``. Not here yet: ``bench`` (ROADMAP A.7), ``fleet`` and the
-``net``/``loadgen`` verbs (A.12).
+``--vocab``. On the card, ``serve`` adds one stderr line with the
+attention kernel's launches after its warm-up and the encoder forwards and
+decoder steps they served (its children's counts are how ``fleet up``
+shows the card was used). ``fleet up`` runs ``--replicas`` supervised
+``serve`` children, each on its shard of the trace; with ``--prefill``/
+``--decode`` it serves a disaggregated fleet in this process instead (KV
+handoff through a store), and with ``--net`` it drives ``net.server``
+children behind unix sockets (the seeded tiny recipe). ``fleet route``
+and ``fleet rollout`` serve in-process replicas behind the router
+(``rollout`` swaps every replica to ``--to-step`` mid-stream), and
+``fleet status`` reports on a fleet run root. Not here yet: ``bench``
+(ROADMAP A.7), with ``bench --fleet [--net]``.
 """
 
 from __future__ import annotations
@@ -56,6 +72,7 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import List, Optional
 
 from ..config import ExperimentConfig, StackConfig, apply_overrides
@@ -457,6 +474,12 @@ def _cmd_serve(args) -> int:
               f"({args.slots} slots, decode window {args.decode_window})",
               file=sys.stderr)
 
+    from ..ops.attention import flash_attention_forward as fwd
+    from ..ops.attention import zero_launch_counts
+
+    # The launch line reports the requests' launches, not the warm-up's.
+    zero_launch_counts()
+    work0 = (engine.encoder_forwards, engine.decoder_steps)
     if args.requests == "-":
         lines = [ln for ln in sys.stdin if ln.strip()]
     else:
@@ -538,8 +561,535 @@ def _cmd_serve(args) -> int:
           f"tokens/sec={snap['serve_tokens_per_sec']}, "
           f"ttft_p50_s={snap['serve_ttft_p50_s']}, "
           f"occupancy={snap['serve_slot_occupancy']}", file=sys.stderr)
+    if fwd.launches:
+        print(f"[dlcfn-tpu] flash kernel launches {fwd.launches} "
+              f"{dict(fwd.variant_launches)} over "
+              f"{engine.encoder_forwards - work0[0]} encoder forwards and "
+              f"{engine.decoder_steps - work0[1]} decoder steps",
+              file=sys.stderr)
     if writer is not None:
         writer.close()
+    return 0
+
+
+# -- fleet ------------------------------------------------------------------
+
+
+def _fleet_read_trace(path: str, vocab: str):
+    """Parse a serve-style JSONL request trace into submit kwargs.
+    Returns (list of dicts, bpe_or_None) or raises ValueError/OSError."""
+    bpe = None
+    if vocab:
+        from ..data.bpe import Bpe
+
+        bpe = Bpe.load(vocab)
+    from ..models.decoding import EOS_ID
+
+    if path == "-":
+        lines = [ln for ln in sys.stdin if ln.strip()]
+    else:
+        with open(path) as fh:
+            lines = [ln for ln in fh if ln.strip()]
+    trace = []
+    for lineno, ln in enumerate(lines, 1):
+        try:
+            rec = json.loads(ln)
+        except json.JSONDecodeError as e:
+            raise ValueError(f"bad JSON on requests line {lineno}: {e}")
+        if "src_ids" in rec:
+            src_ids = [int(t) for t in rec["src_ids"]]
+        elif "text" in rec:
+            if bpe is None:
+                raise ValueError(
+                    f"requests line {lineno} has \"text\" but no --vocab")
+            src_ids = bpe.encode(rec["text"]) + [EOS_ID]
+        else:
+            raise ValueError(
+                f"requests line {lineno} has neither \"src_ids\" nor "
+                f"\"text\"")
+        trace.append({"src_ids": src_ids, "line": ln.strip(),
+                      "rec": rec})
+    return trace, bpe
+
+
+def _fleet_build_replicas(args, n: int, specs=None, kv_block_size: int = 0):
+    """N in-process engine replicas from the same checkpoint (fleet
+    route / rollout), on the device ``--accelerator`` names. One load per
+    replica — each engine owns its model — but the restored weights are
+    identical by construction.
+    ``specs`` (a [(name, phase)] list) builds a disaggregated topology
+    instead of N co-located replicas; the phases require the paged path,
+    so pass ``kv_block_size`` with them."""
+    from ..fleet import EngineReplica
+    from ..serve.loader import load_engine
+
+    replicas, at_step = [], None
+    bpe = None
+    radix = getattr(args, "radix_cache", False)
+    if radix and kv_block_size == 0:
+        # The radix cache lives on the paged KV path — co-located
+        # route/rollout fleets default to dense rows, so arming it pulls
+        # in the serve default block size.
+        kv_block_size = 16
+    roles = specs if specs is not None \
+        else [(f"replica-{i}", "both") for i in range(n)]
+    for name, phase in roles:
+        cfg = apply_overrides(get_preset(args.preset), args.overrides)
+        cfg.stack.accelerator = args.accelerator
+        engine, bpe, at_step = load_engine(
+            cfg, capacity=args.slots,
+            default_max_new_tokens=args.max_new_tokens,
+            decode_window=args.decode_window,
+            kv_block_size=kv_block_size,
+            speculate_gamma=getattr(args, "speculate", 0),
+            speculate_device=getattr(args, "speculate_device", False),
+            quantize=getattr(args, "quantize", ""),
+            kv_quant=getattr(args, "kv_quant", ""),
+            radix_cache=radix and phase == "both",
+            phase=phase,
+            prefill_chunk=getattr(args, "prefill_chunk", 0)
+            if phase == "both" else 0,
+            vocab=args.vocab, allow_init=args.allow_init,
+            device=args.accelerator)
+        replicas.append(EngineReplica(name, engine))
+    return replicas, bpe, at_step
+
+
+def _fleet_route_trace(router, trace, args):
+    """Submit the whole trace through the router with backpressure and
+    drain; returns the ordered logical request ids."""
+    from ..serve import OverloadError
+
+    rids = []
+    for item in trace:
+        rec = item["rec"]
+        kwargs = dict(
+            max_new_tokens=int(rec.get("max_new_tokens",
+                                       args.max_new_tokens)),
+            beam_size=int(rec.get("beam_size", 1)),
+            request_id=rec.get("id"),
+        )
+        if rec.get("deadline_s") is not None:
+            kwargs["deadline_s"] = float(rec["deadline_s"])
+        # Per-request QoS tags ride in the trace line itself
+        # ({"tenant": ..., "qos_class": ...}); untagged lines keep the
+        # exact pre-QoS submit shape.
+        for key in ("tenant", "qos_class"):
+            if rec.get(key) is not None:
+                kwargs[key] = str(rec[key])
+        while True:
+            try:
+                rids.append(router.submit(item["src_ids"], **kwargs))
+                break
+            except OverloadError:
+                if not router.step():
+                    raise
+    return rids
+
+
+def _fleet_print_results(router, rids, bpe):
+    import numpy as np
+
+    from ..models.decoding import strip_special
+
+    for rid in rids:
+        out = router.result(rid)
+        out["tokens"] = [int(t) for t in strip_special(out["tokens"])]
+        if bpe is not None:
+            out["text"] = bpe.decode(np.asarray(out["tokens"], np.int32))
+        print(json.dumps(out), flush=True)
+
+
+def _fleet_up_disagg(args) -> int:
+    """--prefill/--decode: in-process phase-split fleet behind the
+    phase-aware router (the KV handoff is an in-memory block transfer,
+    so the phases share one process where the co-located default runs
+    one supervised child per replica). Writes the standard fleet
+    run-root layout — one role-named run dir per replica plus
+    router.jsonl — so `fleet status` and `obs summarize --fleet` read
+    the per-phase fleet like any other."""
+    from ..fleet import Router
+    from ..metrics.jsonl import MetricsWriter
+    from ..obs.report import render_fleet_report, summarize_fleet
+    from ..obs.sinks import JsonlSink
+
+    if args.prefill < 1 or args.decode < 1:
+        print("[dlcfn-tpu] a disaggregated fleet needs BOTH --prefill "
+              ">= 1 and --decode >= 1", file=sys.stderr)
+        return 2
+    if getattr(args, "radix_cache", False):
+        print("[dlcfn-tpu] --radix-cache needs co-located replicas — a "
+              "phase-split stream never owns a reusable finished block "
+              "table", file=sys.stderr)
+        return 2
+    cfg = apply_overrides(get_preset(args.preset), args.overrides)
+    cfg.stack.accelerator = args.accelerator
+    run_root = args.run_root or os.path.join(
+        cfg.workdir, args.preset, "fleet")
+    os.makedirs(run_root, exist_ok=True)
+    specs = [(f"prefill-{i}", "prefill") for i in range(args.prefill)] \
+        + [(f"decode-{i}", "decode") for i in range(args.decode)]
+    try:
+        replicas, bpe, at_step = _fleet_build_replicas(
+            args, len(specs), specs=specs,
+            kv_block_size=args.kv_block_size)
+        trace, bpe2 = _fleet_read_trace(args.requests, args.vocab)
+    except (FileNotFoundError, ValueError, OSError, RuntimeError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    bpe = bpe or bpe2
+    if at_step == -1:
+        print("[dlcfn-tpu] WARNING: fleet serving RANDOM weights "
+              "(--allow-init) — smoke mode only", file=sys.stderr)
+    router = Router(replicas, policy=args.policy)
+    writers = []
+    router_writer = MetricsWriter(os.path.join(run_root, "router.jsonl"),
+                                  also_stdout=False, all_processes=True)
+    writers.append(router_writer)
+    router.trace_sink = JsonlSink(router_writer)
+    rep_writers = {}
+    for rep in replicas:
+        os.makedirs(os.path.join(run_root, rep.id), exist_ok=True)
+        w = MetricsWriter(os.path.join(run_root, rep.id, "metrics.jsonl"),
+                          also_stdout=False, all_processes=True)
+        writers.append(w)
+        rep_writers[rep.id] = w
+        rep.trace_sink = JsonlSink(w)
+    print(f"[dlcfn-tpu] fleet up (disaggregated): {args.prefill} "
+          f"prefill + {args.decode} decode replica(s), "
+          f"{len(trace)} request(s), run root {run_root}",
+          file=sys.stderr)
+    rids = _fleet_route_trace(router, trace, args)
+    router.run_until_drained()
+    _fleet_print_results(router, rids, bpe)
+    stats = router.stats()
+    for rep in replicas:
+        rep.engine.metrics.emit(rep_writers[rep.id], replica=rep.id,
+                                phase=rep.phase)
+        rep.trace_sink = None
+    router.trace_sink = None
+    for w in writers:
+        w.close()
+    print(f"[dlcfn-tpu] fleet drained: {len(rids)} request(s), "
+          f"{stats['handoffs']} handoff(s) "
+          f"({stats['handoff_bytes']} bytes on the wire), "
+          f"dropped {stats['dropped_requests']}", file=sys.stderr)
+    try:
+        print(render_fleet_report(summarize_fleet(run_root)))
+    except FileNotFoundError:
+        pass
+    return 0 if stats["dropped_requests"] == 0 else 1
+
+
+def _fleet_up_net(args) -> int:
+    """--net: `fleet up` over REAL socket-backed replica servers
+    (``python -m deeplearning_cfn_tpu_torch.net.server`` on the device
+    ``--accelerator`` names), each spawned
+    through a :class:`SupervisedSpawner` spec factory so every replica
+    carries the launcher's hang-vs-crash restart budget and its own
+    ``logs/launch.jsonl`` stream, then driven by the NetRouter over
+    unix sockets. The children serve the seeded tiny-NMT recipe engine
+    (not a preset checkpoint), so the trace must stay inside its
+    vocab; prints one JSON result line per request like `fleet
+    route`, and the per-replica run dirs feed `fleet status`."""
+    from ..fleet.autoscale import SupervisedSpawner
+    from ..fleet.router import NoReplicasError
+    from ..net.bench import make_server_spec
+    from ..net.client import RemoteReplica
+    from ..net.router import NetRouter
+    from ..net.server import TINY_VOCAB
+    from ..serve import OverloadError
+
+    cfg = apply_overrides(get_preset(args.preset), args.overrides)
+    run_root = args.run_root or os.path.join(
+        cfg.workdir, args.preset, "fleet")
+    os.makedirs(run_root, exist_ok=True)
+    try:
+        trace, bpe = _fleet_read_trace(args.requests, args.vocab)
+    except (OSError, ValueError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    for item in trace:
+        bad = [t for t in item["src_ids"]
+               if t < 0 or t >= TINY_VOCAB]
+        if bad:
+            print(f"[dlcfn-tpu] ERROR: --net replicas serve the seeded "
+                  f"tiny-NMT recipe (vocab {TINY_VOCAB}); request "
+                  f"{item['rec'].get('id', '?')} has out-of-range "
+                  f"token ids {bad[:4]}", file=sys.stderr)
+            return 1
+    warmup = trace[0]["src_ids"] if trace else ()
+    src_len = max((len(item["src_ids"]) for item in trace), default=8)
+
+    def spec_factory(phase, replica_id):
+        run_dir = os.path.join(run_root, replica_id)
+        os.makedirs(run_dir, exist_ok=True)
+        spec, _ = make_server_spec(
+            replica_id, run_dir, phase=phase, slots=args.slots,
+            src_len=src_len, max_new_tokens=args.max_new_tokens,
+            decode_window=args.decode_window, warmup_src=warmup,
+            trace=True, accelerator=args.accelerator)
+        return spec
+
+    def replica_factory(phase, replica_id):
+        addr = "unix://" + os.path.join(
+            run_root, replica_id, "replica.sock")
+        return RemoteReplica(replica_id, addr, phase=phase,
+                             connect_retry_deadline_s=180.0)
+
+    spawner = SupervisedSpawner(spec_factory, replica_factory,
+                                max_restarts=args.max_restarts)
+
+    class _PollAll:
+        # NetRouter polls one supervisor per tick; the spawner holds
+        # one single-spec supervisor per replica.
+        def poll(self):
+            for sup in spawner.supervisors.values():
+                sup.poll()
+
+    print(f"[dlcfn-tpu] fleet up --net: {args.replicas} replica "
+          f"process(es), {len(trace)} request(s), run root {run_root}",
+          file=sys.stderr)
+    replicas = []
+    try:
+        for i in range(args.replicas):
+            replicas.append(spawner.spawn("both", f"replica-{i}"))
+        for r in replicas:
+            r.connect()   # readiness barrier: built + warm
+        router = NetRouter(replicas, supervisor=_PollAll(),
+                           policy=args.policy)
+        rids = []
+        for item in trace:
+            rec = item["rec"]
+            kwargs = dict(
+                max_new_tokens=int(rec.get("max_new_tokens",
+                                           args.max_new_tokens)),
+                beam_size=int(rec.get("beam_size", 1)),
+                request_id=rec.get("id"))
+            if rec.get("deadline_s") is not None:
+                kwargs["deadline_s"] = float(rec["deadline_s"])
+            for key in ("tenant", "qos_class"):
+                if rec.get(key) is not None:
+                    kwargs[key] = str(rec[key])
+            while True:
+                try:
+                    rids.append(router.submit(item["src_ids"],
+                                              **kwargs))
+                    break
+                except OverloadError:
+                    # Remote children drain between ticks — zero
+                    # observed progress is normal, not terminal.
+                    router.step()
+                    time.sleep(0.01)
+                except NoReplicasError:
+                    # Every replica is down at once: wait while a
+                    # supervisor restarts one, give up when none will.
+                    if not any(state == "running"
+                               for sup in spawner.supervisors.values()
+                               for state in sup.status_states().values()):
+                        raise
+                    router.step()
+                    time.sleep(0.01)
+        router.run_until_drained(
+            idle_timeout_s=max(args.timeout, 60.0))
+        _fleet_print_results(router, rids, bpe)
+        for r in replicas:
+            try:
+                r.drain()
+            except Exception:
+                pass
+        dropped = router.dropped_requests
+        print(f"[dlcfn-tpu] fleet up --net drained: "
+              f"dropped_requests={dropped}", file=sys.stderr)
+        return 0 if dropped == 0 else 1
+    finally:
+        for r in replicas:
+            r.close()
+        spawner.close()
+
+
+def _cmd_fleet_up(args) -> int:
+    """Run N serve child processes over a sharded request trace, each in
+    its own run dir under --run-root, supervised with hang-vs-crash
+    classification and bounded restart; prints the fleet report when
+    every replica drains. --prefill/--decode switches to the
+    disaggregated in-process topology instead."""
+    from ..fleet import ReplicaProcSpec, ReplicaSupervisor
+    from ..obs.report import render_fleet_report, summarize_fleet
+
+    if getattr(args, "net", False):
+        if getattr(args, "prefill", 0) or getattr(args, "decode", 0):
+            print("[dlcfn-tpu] --net spawns co-located server "
+                  "processes — drop --prefill/--decode (the process "
+                  "fleet's disagg topology lives in `bench --fleet "
+                  "--net`)", file=sys.stderr)
+            return 2
+        return _fleet_up_net(args)
+    if getattr(args, "prefill", 0) or getattr(args, "decode", 0):
+        return _fleet_up_disagg(args)
+    cfg = apply_overrides(get_preset(args.preset), args.overrides)
+    cfg.stack.accelerator = args.accelerator
+    try:
+        with open(args.requests) as fh:
+            lines = [ln for ln in fh if ln.strip()]
+    except OSError as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    run_root = args.run_root or os.path.join(
+        cfg.workdir, args.preset, "fleet")
+    os.makedirs(run_root, exist_ok=True)
+    specs = []
+    for i in range(args.replicas):
+        run_dir = os.path.join(run_root, f"replica-{i}")
+        os.makedirs(run_dir, exist_ok=True)
+        # .json, not .jsonl: the run dir's *.jsonl files are the obs
+        # streams (`obs summarize` globs them) — the input shard is not
+        # a metrics stream.
+        shard_path = os.path.join(run_dir, "requests.json")
+        # Round-robin sharding: deterministic, and every replica gets a
+        # representative slice of the trace.
+        with open(shard_path, "w") as fh:
+            for ln in lines[i::args.replicas]:
+                fh.write(ln if ln.endswith("\n") else ln + "\n")
+        argv = [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli",
+                "serve",
+                "--preset", args.preset,
+                "--requests", shard_path,
+                "--metrics-path", os.path.join(run_dir, "metrics.jsonl"),
+                "--slots", str(args.slots),
+                "--max-new-tokens", str(args.max_new_tokens),
+                "--decode-window", str(args.decode_window),
+                "--emit-every", str(args.emit_every)]
+        if getattr(args, "speculate", 0):
+            argv += ["--speculate", str(args.speculate)]
+        if getattr(args, "speculate_device", False):
+            argv += ["--speculate-device"]
+        if getattr(args, "quantize", ""):
+            argv += ["--quantize", args.quantize]
+        if getattr(args, "kv_quant", ""):
+            argv += ["--kv-quant", args.kv_quant]
+        if getattr(args, "radix_cache", False):
+            argv += ["--radix-cache"]
+        if getattr(args, "prefill_chunk", 0):
+            argv += ["--prefill-chunk", str(args.prefill_chunk)]
+        argv += ["--accelerator", args.accelerator]
+        if args.vocab:
+            argv += ["--vocab", args.vocab]
+        if args.allow_init:
+            argv += ["--allow-init"]
+        argv += list(args.overrides)
+        specs.append(ReplicaProcSpec(
+            replica_id=f"replica-{i}", argv=argv, run_dir=run_dir))
+    sup = ReplicaSupervisor(specs, max_restarts=args.max_restarts)
+    print(f"[dlcfn-tpu] fleet up: {args.replicas} replica(s), "
+          f"{len(lines)} request(s), run root {run_root}",
+          file=sys.stderr)
+    sup.start()
+    try:
+        all_ok = sup.wait(timeout_s=args.timeout or None)
+    except KeyboardInterrupt:
+        sup.terminate()
+        sup.close()
+        return 1
+    if not all_ok:
+        sup.terminate()
+    sup.close()
+    for row in sup.status():
+        print(f"[dlcfn-tpu] {row['replica']}: {row['state']} "
+              f"(attempts: {row['attempt'] + 1}, "
+              f"outcomes: {','.join(row['outcomes']) or '-'})",
+              file=sys.stderr)
+    try:
+        print(render_fleet_report(summarize_fleet(run_root)))
+    except FileNotFoundError:
+        pass
+    return 0 if all_ok else 1
+
+
+def _cmd_fleet_route(args) -> int:
+    """In-process fleet: N engine replicas from one checkpoint behind
+    the router; routes a JSONL trace through the chosen policy and
+    prints one result line per request plus the fleet stats."""
+    from ..fleet import Router
+
+    try:
+        replicas, bpe, at_step = _fleet_build_replicas(args, args.replicas)
+        trace, bpe2 = _fleet_read_trace(args.requests, args.vocab)
+    except (FileNotFoundError, ValueError, OSError, RuntimeError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    bpe = bpe or bpe2
+    if at_step == -1:
+        print("[dlcfn-tpu] WARNING: fleet serving RANDOM weights "
+              "(--allow-init) — smoke mode only", file=sys.stderr)
+    router = Router(replicas, policy=args.policy)
+    rids = _fleet_route_trace(router, trace, args)
+    router.run_until_drained()
+    _fleet_print_results(router, rids, bpe)
+    stats = router.stats()
+    print(f"[dlcfn-tpu] fleet drained: {len(rids)} request(s) over "
+          f"{len(replicas)} replica(s), policy {router.policy.name}, "
+          f"dropped {stats['dropped_requests']}, "
+          f"routed " + ", ".join(
+              f"{rid}={s['routed']}"
+              for rid, s in stats["replicas"].items()), file=sys.stderr)
+    return 0 if stats["dropped_requests"] == 0 else 1
+
+
+def _cmd_fleet_rollout(args) -> int:
+    """Rolling checkpoint upgrade while serving: routes the trace,
+    upgrades every replica to --to-step mid-stream (drain → swap →
+    probe → readmit), keeps serving, and verifies zero drops."""
+    from ..fleet import Router, restore_swap_variables, rolling_upgrade
+
+    try:
+        replicas, bpe, at_step = _fleet_build_replicas(args, args.replicas)
+        trace, bpe2 = _fleet_read_trace(args.requests, args.vocab)
+        cfg = apply_overrides(get_preset(args.preset), args.overrides)
+        cfg.stack.accelerator = args.accelerator
+        variables, to_step = restore_swap_variables(cfg, step=args.to_step)
+    except (FileNotFoundError, ValueError, OSError, RuntimeError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    bpe = bpe or bpe2
+    router = Router(replicas, policy=args.policy)
+    # Submit the first half, upgrade mid-stream, submit the rest — the
+    # CLI shape of the end-to-end rolling-upgrade contract.
+    half = max(1, len(trace) // 2)
+    rids = _fleet_route_trace(router, trace[:half], args)
+    print(f"[dlcfn-tpu] rolling upgrade: step {at_step} -> {to_step} "
+          f"({len(replicas)} replica(s), one at a time)", file=sys.stderr)
+    report = rolling_upgrade(router, variables)
+    rids += _fleet_route_trace(router, trace[half:], args)
+    router.run_until_drained()
+    _fleet_print_results(router, rids, bpe)
+    stats = router.stats()
+    rep = report.to_dict()
+    print(f"[dlcfn-tpu] rollout {'OK' if rep['ok'] else 'FAILED'}: "
+          f"upgraded {len(rep['upgraded'])}/{len(replicas)}, "
+          f"dropped {stats['dropped_requests']}, "
+          f"evacuations {stats['evacuations']}", file=sys.stderr)
+    return 0 if rep["ok"] and stats["dropped_requests"] == 0 else 1
+
+
+def _cmd_fleet_status(args) -> int:
+    """Fleet-wide one-line status + per-replica report over a directory
+    of per-replica run dirs (the `fleet up` run root)."""
+    from ..obs.report import render_fleet_report, summarize_fleet
+
+    try:
+        summary = summarize_fleet(args.run_root)
+    except (FileNotFoundError, OSError) as e:
+        print(f"[dlcfn-tpu] ERROR: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(summary))
+    else:
+        print(render_fleet_report(summary))
+    if summary["source"]["replicas"] == 0:
+        print(f"[dlcfn-tpu] no replica run dirs under {args.run_root}",
+              file=sys.stderr)
+        return 1
     return 0
 
 
@@ -1119,6 +1669,152 @@ def build_parser() -> argparse.ArgumentParser:
                     help="config overrides — at least the workdir the "
                          "training run used")
     sv.set_defaults(fn=_cmd_serve)
+
+    # fleet ------------------------------------------------------------------
+    fl = sub.add_parser(
+        "fleet",
+        help="multi-replica serving: supervised serve processes, request "
+             "routing, rolling checkpoint upgrades")
+    flsub = fl.add_subparsers(dest="fleet_command", required=True)
+
+    def _add_fleet_engine_flags(p, requests_required=True):
+        p.add_argument("--preset", required=True)
+        p.add_argument("--accelerator", default="gpu",
+                       choices=["gpu", "cpu"])
+        p.add_argument("--requests", required=requests_required,
+                       help="JSONL request trace path, or - for stdin "
+                            "(same line format as `serve`)")
+        p.add_argument("--replicas", type=int, default=2,
+                       help="replica count (default 2)")
+        p.add_argument("--slots", type=int, default=4,
+                       help="per-replica slot-table capacity")
+        p.add_argument("--max-new-tokens", type=int, default=64)
+        p.add_argument("--decode-window", type=int, default=4,
+                       help="fused decode steps per device call")
+        p.add_argument("--speculate", type=int, default=0,
+                       help="per-replica speculative decode draft depth "
+                            "(0 = off; self-draft)")
+        p.add_argument("--speculate-device", action="store_true",
+                       help="per-replica device-resident speculative "
+                            "chains (requires --speculate > 0)")
+        p.add_argument("--quantize", default="", choices=["", "int8"],
+                       help="per-replica weight-only quantization; "
+                            "rolling upgrades re-quantize the incoming "
+                            "fp32 checkpoint on swap")
+        p.add_argument("--kv-quant", default="", choices=["", "int8"],
+                       help="per-replica int8 paged KV cache (needs the "
+                            "paged path; disagg topologies are paged "
+                            "already)")
+        p.add_argument("--radix-cache", action="store_true",
+                       help="per-replica radix token-prefix KV cache "
+                            "(forces the paged path; co-located "
+                            "replicas only — pair with the "
+                            "prefix_affinity policy to keep repeats on "
+                            "one replica's cache)")
+        p.add_argument("--prefill-chunk", type=int, default=0,
+                       help="per-replica chunked prefill: admission "
+                            "encode proceeds this many source tokens "
+                            "per tick interleaved with decode "
+                            "(co-located replicas only; 0 = one-shot)")
+        p.add_argument("--vocab", default="",
+                       help="BPE vocab.json — required for \"text\" "
+                            "requests")
+        p.add_argument("--allow-init", action="store_true",
+                       help="serve random weights when no checkpoint "
+                            "exists (smoke/CI mode)")
+
+    flup = flsub.add_parser(
+        "up",
+        help="one command → serving fleet: N supervised serve child "
+             "processes, the trace round-robin sharded across them, each "
+             "replica writing metrics/launch streams to its own run dir; "
+             "--prefill/--decode instead builds a disaggregated "
+             "phase-split fleet (in-process, KV handoff between phases)")
+    _add_fleet_engine_flags(flup)
+    flup.add_argument("--prefill", type=int, default=0,
+                      help="disaggregated topology: prefill replica "
+                           "count (pair with --decode; replaces the "
+                           "co-located --replicas processes with an "
+                           "in-process phase-split fleet)")
+    flup.add_argument("--decode", type=int, default=0,
+                      help="disaggregated topology: decode replica count "
+                           "(pair with --prefill)")
+    flup.add_argument("--kv-block-size", type=int, default=16,
+                      help="disaggregated topology: paged KV block size "
+                           "(the handoff artifact is block-structured)")
+    flup.add_argument("--policy", default="least_loaded",
+                      choices=["least_loaded", "round_robin",
+                               "prefix_affinity"],
+                      help="disaggregated topology: routing policy")
+    flup.add_argument("--run-root", default="",
+                      help="fleet run root; per-replica run dirs are "
+                           "created under it (default: <workdir>/<preset>"
+                           "/fleet)")
+    flup.add_argument("--net", action="store_true",
+                      help="socket fleet: replica SERVER processes "
+                           "(net/server.py children behind unix "
+                           "sockets) spawned through SupervisedSpawner "
+                           "spec factories and driven by the NetRouter "
+                           "— requests stream over the wire instead of "
+                           "being sharded into files; children serve "
+                           "the seeded tiny-NMT recipe engine, so the "
+                           "trace must stay inside its vocab")
+    flup.add_argument("--max-restarts", type=int, default=1,
+                      help="per-replica restart budget on hang/crash "
+                           "(default 1)")
+    flup.add_argument("--timeout", type=float, default=0.0,
+                      help="give up after N seconds (default: wait "
+                           "until every replica exits)")
+    flup.add_argument("--emit-every", type=int, default=20,
+                      help="per-replica metrics emission period in "
+                           "engine steps")
+    flup.add_argument("overrides", nargs="*",
+                      help="config overrides, forwarded to every replica")
+    flup.set_defaults(fn=_cmd_fleet_up)
+
+    flrt = flsub.add_parser(
+        "route",
+        help="in-process fleet: N engine replicas from one checkpoint "
+             "behind the router; one result line per request")
+    _add_fleet_engine_flags(flrt)
+    flrt.add_argument("--policy", default="least_loaded",
+                      choices=["least_loaded", "round_robin",
+                               "prefix_affinity"],
+                      help="routing policy (prefix_affinity: rendezvous-"
+                           "hash each request's cache-affinity key — "
+                           "its leading source tokens — to a preferred "
+                           "replica, least-loaded fallback)")
+    flrt.add_argument("overrides", nargs="*",
+                      help="config overrides — at least the workdir the "
+                           "training run used")
+    flrt.set_defaults(fn=_cmd_fleet_route)
+
+    flro = flsub.add_parser(
+        "rollout",
+        help="rolling checkpoint upgrade while serving: drain → swap → "
+             "probe → readmit, one replica at a time, zero dropped "
+             "requests")
+    _add_fleet_engine_flags(flro)
+    flro.add_argument("--policy", default="least_loaded",
+                      choices=["least_loaded", "round_robin",
+                               "prefix_affinity"],
+                      help="routing policy")
+    flro.add_argument("--to-step", type=int, default=0,
+                      help="committed checkpoint step to upgrade to "
+                           "(0 = latest)")
+    flro.add_argument("overrides", nargs="*",
+                      help="config overrides — at least the workdir the "
+                           "training run used")
+    flro.set_defaults(fn=_cmd_fleet_rollout)
+
+    flst = flsub.add_parser(
+        "status",
+        help="fleet-wide status over a run root of per-replica run dirs: "
+             "total tokens/sec, worst p95, alert count, launch outcomes")
+    flst.add_argument("run_root", help="fleet run root (from `fleet up`)")
+    flst.add_argument("--json", action="store_true",
+                      help="emit the aggregate summary as one JSON object")
+    flst.set_defaults(fn=_cmd_fleet_status)
 
     # introspection ----------------------------------------------------------
     pr = sub.add_parser("presets", help="list training presets")

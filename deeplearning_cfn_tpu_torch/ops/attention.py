@@ -468,6 +468,12 @@ def launch_counts():
     return out
 
 
+def zero_launch_counts() -> None:
+    """Set every kernel wrapper's launches to 0: a serving process does so
+    after its warm-up, so that what it reports is its requests' own."""
+    add_launch_counts(launch_counts(), -1)
+
+
 def add_launch_counts(counts, times: int = 1) -> None:
     """Add ``times`` × ``counts`` (as :func:`launch_counts` gives them) to
     the counters. A CUDA graph replay launches again every kernel its

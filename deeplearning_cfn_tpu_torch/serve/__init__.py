@@ -1,9 +1,11 @@
 """Continuous-batching NMT serving — the port of the JAX package's serve/.
 
 ``queue``, ``blockpool``, ``prefix``, ``radix`` and ``metrics`` are copies of
-the JAX package's jax-free host modules; ``engine``, ``loader`` and
-``quant`` are ports (``quantize_model`` is the JAX ``quantized_model`` and
-``quantize_variables`` in one: the port's model holds its weights).
+the JAX package's jax-free host modules, and ``handoff`` (the KV-handoff
+artifact codec) one that decodes bfloat16 through torch; ``engine``,
+``loader`` and ``quant`` are ports (``quantize_model`` is the JAX
+``quantized_model`` and ``quantize_variables`` in one: the port's model
+holds its weights).
 """
 
 from .blockpool import BlockAllocator, BlockPoolExhausted  # noqa: F401

@@ -50,13 +50,20 @@ What is ported:
   codes;
 - ``swap_variables`` (an idle engine's weight swap, requantized under
   ``quantize``) and the brownout knobs ``_degrade_no_spec`` and
-  ``_degrade_window_cap`` that the fleet's degrade controller sets.
+  ``_degrade_window_cap`` that the fleet's degrade controller sets;
+- disaggregated serving (``phase``, paged engines): a ``"prefill"`` engine
+  runs admission prefill and exactly one decode step per request, then
+  parks it with its rows and blocks bound; :meth:`Engine.export_handoff`
+  serializes the parked state (serve/handoff.py), a ``"decode"`` engine
+  resumes it with :meth:`Engine.import_handoff` — into its own pool, no
+  encoder call — and :meth:`Engine.release_handoff` frees the prefill
+  side. The artifact's ``kv_<i>`` leaves follow the JAX package's cache
+  tree order, so artifacts cross between the two packages both ways.
 
 The KV caches, the encoder tables and the source-mask table are updated in
 place (the JAX engine donates them into each device call for the same
-effect). ``phase`` (the disaggregated prefill/decode handoff) raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it. The draft
-model carries its own weights (the JAX engine's ``draft_variables``).
+effect). The draft model carries its own weights (the JAX engine's
+``draft_variables``).
 
 Every device call is counted for the launch audit: ``encoder_forwards``
 (target encoder applications, the constructor's warmup included),
@@ -81,24 +88,37 @@ from ..models.decoding import (BOS_ID, EOS_ID, PAD_ID, pad_only_logp,
                                top_k_stable)
 from ..obs.trace import span
 from .blockpool import BlockAllocator
+from .handoff import (as_tensor, kv_leaf_count, pack_meta,
+                      validate_artifact)
 from .metrics import ServeMetrics
 from .prefix import PrefixCache, unpadded_key
-from .quant import (check_kv_quant_dtype, kv_pool_bytes, quantize_model,
-                    quantize_state_dict)
-from .queue import OverloadError, QosSpec, Request, RequestQueue, \
-    RequestState
+from .quant import (check_kv_quant_dtype, dequantize_kv_blocks,
+                    kv_pool_bytes, quantize_model, quantize_state_dict)
+from .queue import DeadlineExceededError, OverloadError, QosSpec, Request, \
+    RequestQueue, RequestState
 from .radix import RadixCache
 
-# Out-of-slice options → the ROADMAP.md item that ports them.
-_LATER = {
-    "phase": "A.6d (disaggregated prefill/decode handoff)",
-}
+
+def pool_leaf_slots(cache) -> List[tuple]:
+    """``(layer, part)`` of every block-pool tensor of a paged cache, in
+    the JAX package's cache-tree leaf order — the order of a handoff
+    artifact's ``kv_<i>`` leaves. The JAX tree sorts its keys: layers by
+    the name ``dec_<i>``, and within a layer ``cached_key``,
+    ``cached_key_scale``, ``cached_value``, ``cached_value_scale``. The
+    port's per-layer tuple is ``(k, v)`` or, int8, ``(k, v, k scale, v
+    scale)``: ``part`` indexes it."""
+    slots = []
+    for i in sorted(range(len(cache)), key=lambda i: f"dec_{i}"):
+        parts = (0, 2, 1, 3) if len(cache[i]) == 4 else (0, 1)
+        slots.extend((i, p) for p in parts)
+    return slots
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deeplearning_cfn_tpu_torch yet "
-        f"(ROADMAP.md {_LATER[what]})")
+def _host(t: torch.Tensor):
+    """A device tensor as an artifact leaf: a numpy array, or a CPU torch
+    tensor for bfloat16 (numpy has none; serve/handoff.py encodes it)."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
 @dataclass
@@ -128,6 +148,9 @@ class _Group:
     # covers its source.
     prefill_cursor: int = 0
     chunk_ticks: int = 0
+    # Disaggregated serving: decode steps this group arrived with through
+    # a KV handoff (decoded, and ledgered, on the prefill engine).
+    imported_tokens: int = 0
 
 
 class Engine:
@@ -160,8 +183,6 @@ class Engine:
                  = RequestQueue.DEFAULT_RETRY_AFTER_FLOOR_S,
                  qos_classes: Optional[Dict[str, QosSpec]] = None,
                  prefill_chunk: int = 0):
-        if (phase or "both") != "both":
-            raise _not_ported("phase")
         if capacity <= 0:
             raise ValueError(f"capacity must be positive, got {capacity}")
         if decode_window <= 0:
@@ -174,10 +195,28 @@ class Engine:
             raise ValueError(
                 "speculate_device requires speculate_gamma > 0 — there "
                 "is no speculative loop to move on-device")
+        # Disaggregated phase: "both" is the co-located engine; "prefill"
+        # prefills, runs one decode step per request and parks it for the
+        # KV handoff; "decode" also imports handoffs and resumes them.
+        self.phase = str(phase or "both")
+        if self.phase not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"phase must be 'both', 'prefill' or 'decode', got "
+                f"{phase!r}")
+        if self.phase != "both" and int(kv_block_size) <= 0:
+            raise ValueError(
+                "disaggregated phases require the paged KV path "
+                "(kv_block_size > 0) — the handoff artifact is "
+                "block-structured")
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 0:
             raise ValueError(
                 f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        if self.prefill_chunk > 0 and self.phase != "both":
+            raise ValueError(
+                "chunked prefill is a co-located-engine feature — "
+                "disaggregated phases already split prefill off the "
+                "decode tick")
         # Int8 weights: the engine owns the quantized copy, so that
         # swap_variables can requantize an incoming f32 state.
         self.quantize = str(quantize or "")
@@ -301,6 +340,11 @@ class Engine:
                     "radix_cache requires the paged KV path "
                     "(kv_block_size > 0) — cached prefixes are shared "
                     "pool blocks")
+            if self.phase != "both":
+                raise ValueError(
+                    "radix_cache is a co-located-engine feature — "
+                    "disaggregated phases hand blocks off instead of "
+                    "retaining them")
             self.radix = RadixCache(self.kv_block_size)
             self.metrics.configure_radix()
         else:
@@ -360,6 +404,14 @@ class Engine:
         # whose source encode is still in progress; no decode path runs
         # them until the full-source encode at completion.
         self._prefilling: List[_Group] = []
+        # Prefill phase: groups whose one decode step ran, parked with
+        # their rows and blocks bound until export_handoff +
+        # release_handoff (or a cancel or expiry, _reap_parked). Later
+        # ticks' device calls see their table rows as unbound (_tables),
+        # so nothing is written into a parked block; the fused window
+        # does reset their _prev mirror to PAD, so export rebuilds prev
+        # from the group.
+        self._handoff_ready: Dict[str, _Group] = {}
 
     # -- client surface ----------------------------------------------------
 
@@ -427,13 +479,14 @@ class Engine:
         still aliases the target. Only legal on an idle engine: a request's
         KV was computed under the old weights. The encoder prefix cache and
         the radix cache hold old-weight outputs and are dropped."""
-        if self._groups or self._prefilling or self.queue.depth > 0:
+        if self._groups or self._prefilling or self.queue.depth > 0 \
+                or self._handoff_ready:
             raise RuntimeError(
                 f"swap_variables requires an idle engine "
                 f"({len(self._groups)} running, "
                 f"{len(self._prefilling)} prefilling, "
                 f"{self.queue.depth} queued, "
-                f"0 parked for handoff) "
+                f"{len(self._handoff_ready)} parked for handoff) "
                 f"— drain first")
         if self.quantize:
             state = quantize_state_dict(state, self.quantize)
@@ -467,6 +520,14 @@ class Engine:
     def active_rows(self) -> int:
         return sum(1 for o in self._row_owner if o is not None)
 
+    @property
+    def handoff_pending(self) -> int:
+        """Requests parked on this (prefill) engine awaiting handoff."""
+        return len(self._handoff_ready)
+
+    def handoff_ready(self, request_id: str) -> bool:
+        return request_id in self._handoff_ready
+
     # -- device calls ------------------------------------------------------
 
     def _encode(self, src: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -484,9 +545,19 @@ class Engine:
         return self.draft_model.encode(src, mask)
 
     def _tables(self) -> Optional[torch.Tensor]:
+        """The block tables for a device call. A parked row's entries go
+        up as 0: its stray writes (every row runs each step) land in the
+        null block, so the parked blocks keep exactly what the prefill
+        step wrote — an int8 block would otherwise be requantized around
+        a garbage vector before its export."""
         if not self.paged:
             return None
-        return torch.as_tensor(self._block_tables, device=self.device)
+        tables = self._block_tables
+        if self._handoff_ready:
+            tables = tables.copy()
+            for g in self._handoff_ready.values():
+                tables[g.rows] = 0
+        return torch.as_tensor(tables, device=self.device)
 
     def _logits_step(self, prev, pos, tables) -> torch.Tensor:
         self.decoder_steps += 1
@@ -686,10 +757,15 @@ class Engine:
             self._groups.remove(group)
         elif group in self._prefilling:
             self._prefilling.remove(group)  # cancelled/expired mid-chunking
+        else:
+            # Cancelled/expired while parked for handoff (_reap_parked).
+            self._handoff_ready.pop(req.id, None)
         self.metrics.record_finish(state.value, req.latency_s)
         # Goodput/waste ledger: every decoded row-step is attributed once;
-        # tokens resumed from the radix tree were never decoded here.
-        kept = max(0, len(req.tokens) - group.radix_hit_tokens)
+        # tokens resumed from the radix tree, or imported with a handoff
+        # (decoded on the prefill engine), were not decoded here.
+        kept = max(0, len(req.tokens) - group.imported_tokens
+                   - group.radix_hit_tokens)
         if state is RequestState.DONE:
             self.metrics.record_ledger(
                 goodput=kept, wasted=max(0, group.decoded - kept),
@@ -738,6 +814,32 @@ class Engine:
             if g.req.beam_size > 1:
                 self._finalize_beam(g)
             self._release(g, state, now)
+
+    def _reap_parked(self, now: float) -> None:
+        """Cancel or expire requests parked for the KV handoff: their rows
+        and blocks free like a running group's (the router then finds
+        handoff_ready False and the poll state terminal)."""
+        for g in list(self._handoff_ready.values()):
+            if g.req.cancel_requested:
+                state = RequestState.CANCELLED
+            elif g.req.deadline is not None and now >= g.req.deadline:
+                state = RequestState.EXPIRED
+            else:
+                continue
+            if g.req.beam_size > 1:
+                self._finalize_beam(g)
+            self._release(g, state, now)
+
+    def _park_ready(self) -> None:
+        """Prefill phase: every group whose decode step has run leaves the
+        tick loop and parks, rows and blocks bound (the KV state is the
+        handoff payload), pollable as PREFILLED: the stream goes on on a
+        decode engine."""
+        for g in list(self._groups):
+            if g.steps >= 1:
+                self._groups.remove(g)
+                g.req.state = RequestState.PREFILLED
+                self._handoff_ready[g.req.id] = g
 
     def _preempt(self, group: _Group, now: float) -> None:
         """Evict a preemptible group so a higher-priority request can place:
@@ -1102,6 +1204,10 @@ class Engine:
             return 1
         if self._prefilling:
             return 1
+        if self.phase == "prefill":
+            # One decode step per request, then the handoff: a wider
+            # window would decode past it on the wrong replica.
+            return 1
         if any(g.req.beam_size > 1 for g in self._groups):
             return 1
         if any(g.req.deadline is not None for g in self._groups):
@@ -1131,10 +1237,13 @@ class Engine:
         per-group bookkeeping → evict finished. Returns the number of
         decode steps run (0 = idle; a chunk-only tick reports 1). Ticks
         with a beam group take the single-step logits path; speculation
-        runs only on pure-greedy ticks without deadlines, and not while the
-        brownout knob ``_degrade_no_spec`` is set."""
+        runs only on pure-greedy ticks without deadlines, never on a
+        prefill engine, and not while the brownout knob
+        ``_degrade_no_spec`` is set. A prefill engine parks every group
+        its tick decoded."""
         now = self._clock()
         self._reap(now)
+        self._reap_parked(now)
         with span("serve.admit", queued=self.queue.depth) as sp:
             before_g = len(self._groups)
             before_p = len(self._prefilling)
@@ -1154,21 +1263,28 @@ class Engine:
         if any(g.req.beam_size > 1 for g in self._groups):
             with span("serve.decode", path="host", k=1,
                       request_ids=active_ids):
-                return self._host_step()
-        if self.speculate_gamma > 0 and not self._degrade_no_spec \
+                n = self._host_step()
+        elif self.speculate_gamma > 0 and self.phase != "prefill" \
+                and not self._degrade_no_spec \
                 and not any(g.req.deadline is not None
                             for g in self._groups):
             if self.speculate_device:
                 k = self._plan_window()
                 with span("serve.decode", path="spec-device", k=k,
                           request_ids=active_ids):
-                    return self._spec_chain_step(k)
-            with span("serve.decode", path="spec", k=self.speculate_gamma,
+                    n = self._spec_chain_step(k)
+            else:
+                with span("serve.decode", path="spec",
+                          k=self.speculate_gamma, request_ids=active_ids):
+                    n = self._spec_step()
+        else:
+            k = self._plan_window()
+            with span("serve.decode", path="fused", k=k,
                       request_ids=active_ids):
-                return self._spec_step()
-        k = self._plan_window()
-        with span("serve.decode", path="fused", k=k, request_ids=active_ids):
-            return self._fused_step(k)
+                n = self._fused_step(k)
+        if self.phase == "prefill":
+            self._park_ready()
+        return n
 
     def _fused_step(self, k: int) -> int:
         """Greedy fast path: K fused steps, one host sync at the end."""
@@ -1486,6 +1602,247 @@ class Engine:
             rows_active, self.queue.depth, new_tokens, self._clock() - t0,
             kv_blocks_in_use=kv_in_use)
         return 1
+
+    # -- KV handoff (disaggregated prefill/decode) -------------------------
+
+    def export_handoff(self, request_id: str) -> Dict[str, object]:
+        """Serialize a parked request's resume state (the schema is in
+        serve/handoff.py). Read-only: the group stays parked and intact
+        until :meth:`release_handoff`, so a failed import can retry."""
+        g = self._handoff_ready.get(request_id)
+        if g is None:
+            raise KeyError(
+                f"no parked handoff for request {request_id!r}")
+        rows = g.rows
+        w = len(rows)
+        # Unique blocks in first-appearance order: beam rows sharing a
+        # prefix block reference one artifact index, and the importer
+        # re-shares it by refcount.
+        block_index: Dict[int, int] = {}
+        rbi = np.full((w, self.max_blocks_per_row), -1, np.int32)
+        for j, r in enumerate(rows):
+            for i, b in enumerate(self._blocks_bound[r]):
+                if b not in block_index:
+                    block_index[b] = len(block_index)
+                rbi[j, i] = block_index[b]
+        unique = torch.as_tensor(list(block_index), device=self.device)
+        artifact: Dict[str, object] = {"row_block_index": rbi}
+        for li, (layer, part) in enumerate(pool_leaf_slots(self.cache)):
+            artifact[f"kv_{li}"] = _host(self.cache[layer][part][unique])
+        # prev comes from the group: the fused window resets a parked
+        # row's _prev mirror to PAD.
+        if w == 1:
+            prev = np.asarray([g.req.tokens[-1]], np.int32)
+        else:
+            prev = np.asarray(g.beam_tokens[:, g.steps], np.int32)
+        artifact.update({
+            "enc": _host(self._enc[rows[0]]),
+            "src_mask": _host(self._src_mask[rows[0]]).astype(np.int32),
+            "src_ids": np.asarray(g.req.src_ids, np.int32),
+            "tokens": np.asarray(g.req.tokens, np.int32),
+            "prev": prev,
+            "pos": np.asarray([self._pos[r] for r in rows], np.int32),
+            "meta": pack_meta(
+                version=1, width=w, steps=g.steps, budget=g.budget,
+                kv_block_size=self.kv_block_size,
+                model_max_len=self.model_max_len,
+                max_src_len=self.max_src_len,
+                enc_hid=self._enc.shape[-1]),
+            "deadline": np.asarray(
+                [np.nan if g.req.deadline is None else g.req.deadline],
+                np.float64),
+        })
+        if w > 1:
+            artifact["scores"] = np.asarray(g.scores, np.float32)
+            artifact["beam_done"] = np.asarray(g.beam_done, bool)
+            artifact["beam_tokens"] = np.asarray(g.beam_tokens, np.int32)
+        return artifact
+
+    def import_handoff(self, artifact: Dict[str, object], request_id: str,
+                       trace_id: Optional[str] = None,
+                       tenant: Optional[str] = None,
+                       qos_class: Optional[str] = None) -> Request:
+        """Resume a handoff artifact mid-stream in this engine's own block
+        pool. Block ids are remapped through this pool's free list; rows,
+        blocks and the worst-case commit are reserved as a fresh admission
+        would. Every refusal — geometry, KV precision, capacity
+        (OverloadError), a deadline that passed in transit
+        (DeadlineExceededError) — raises before any state commits, so the
+        exporter's parked copy stays valid for a retry."""
+        if self.phase == "prefill":
+            raise RuntimeError(
+                "a prefill-phase engine cannot import handoffs")
+        if not self.paged:
+            raise RuntimeError(
+                "import_handoff requires the paged KV path")
+        meta = validate_artifact(artifact)
+        for key, mine in (("kv_block_size", self.kv_block_size),
+                          ("model_max_len", self.model_max_len),
+                          ("max_src_len", self.max_src_len),
+                          ("enc_hid", self._enc.shape[-1])):
+            if meta[key] != mine:
+                raise ValueError(
+                    f"handoff artifact {key}={meta[key]} does not match "
+                    f"this engine's {mine}")
+        # KV precision before anything commits: an int8 exporter ships
+        # scale sidecars as extra kv_* leaves, so a cross-precision pair
+        # disagrees on the leaf count.
+        slots = pool_leaf_slots(self.cache)
+        if len(slots) != kv_leaf_count(artifact):
+            raise ValueError(
+                f"handoff artifact carries {kv_leaf_count(artifact)} KV "
+                f"leaves, this engine's pool has {len(slots)} — the pair "
+                f"must agree on --kv-quant")
+        payloads = [as_tensor(artifact[f"kv_{i}"])
+                    for i in range(len(slots))]
+        for i, ((layer, part), p) in enumerate(zip(slots, payloads)):
+            leaf = self.cache[layer][part]
+            if tuple(p.shape[1:]) != tuple(leaf.shape[1:]):
+                raise ValueError(
+                    f"handoff artifact kv_{i} blocks are "
+                    f"{tuple(p.shape[1:])}, this engine's pool "
+                    f"{tuple(leaf.shape[1:])}")
+        w, steps, budget = meta["width"], meta["steps"], meta["budget"]
+        free = self._free_rows()
+        peak = self._peak_blocks(w, budget)
+        rbi = np.asarray(artifact["row_block_index"], np.int64)
+        n_unique = int(payloads[0].shape[0])
+        if w > len(free) or not self.allocator.can_commit(peak) \
+                or n_unique > self.allocator.free_blocks:
+            raise OverloadError(
+                self.queue.depth, self.queue.max_depth,
+                retry_after_s=self.queue.retry_after_floor_s)
+        now = self._clock()
+        deadline = float(np.asarray(artifact["deadline"])[0])
+        if not np.isnan(deadline) and now >= deadline:
+            # A stream whose budget lapsed in transit is refused before
+            # any state commits; the exporter's parked copy expires
+            # through its own reap and ledgers the waste there.
+            raise DeadlineExceededError(
+                f"request {request_id!r} deadline passed "
+                f"{now - deadline:.3f}s before handoff import")
+        req = Request(
+            id=request_id,
+            src_ids=[int(t) for t in np.asarray(artifact["src_ids"])],
+            max_new_tokens=budget, beam_size=w,
+            deadline=None if np.isnan(deadline) else deadline,
+            state=RequestState.RUNNING, submitted_at=now,
+            admitted_at=now,
+            tokens=[int(t) for t in np.asarray(artifact["tokens"])],
+            trace_id=trace_id, tenant=tenant,
+            qos_class=qos_class or "standard")
+        self.queue.adopt(req)
+        if tenant is not None or req.qos_class != "standard":
+            # An imported best-effort stream stays preemptible here.
+            self.queue.qos_active = True
+            self.metrics.configure_qos()
+        self.metrics.record_submit()
+        self.metrics.record_admit(0.0)
+        self.allocator.commit(peak)
+        # One fresh block per unique exported block from this pool's free
+        # list; every further row referencing it takes a reference.
+        new_ids = [self.allocator.alloc() for _ in range(n_unique)]
+        rows = free[:w]
+        prev = np.asarray(artifact["prev"], np.int64)
+        pos = np.asarray(artifact["pos"], np.int64)
+        refs = np.zeros((n_unique,), np.int64)
+        for j, r in enumerate(rows):
+            bound = []
+            for idx in rbi[j]:
+                if idx < 0:
+                    break
+                bound.append(new_ids[idx])
+                refs[idx] += 1
+            self._blocks_bound[r] = bound
+            self._block_tables[r] = 0
+            self._block_tables[r, :len(bound)] = bound
+            self._row_owner[r] = request_id
+            self._prev[r] = prev[j]
+            self._pos[r] = pos[j]
+        for idx in range(n_unique):
+            for _ in range(int(refs[idx]) - 1):
+                self.allocator.ref(new_ids[idx])
+        ids = torch.as_tensor(new_ids, device=self.device)
+        for (layer, part), p in zip(slots, payloads):
+            leaf = self.cache[layer][part]
+            leaf[ids] = p.to(device=self.device, dtype=leaf.dtype)
+        # The encoder output and source mask arrive precomputed: the
+        # decode engine never runs the encoder for a handed-off stream.
+        rows_t = torch.as_tensor(rows, device=self.device)
+        self._enc[rows_t] = as_tensor(artifact["enc"]).to(
+            device=self.device, dtype=self._enc.dtype)
+        mask = as_tensor(artifact["src_mask"]).to(
+            device=self.device, dtype=self._src_mask.dtype)
+        self._src_mask[rows_t] = mask
+        if self.speculate_gamma > 0:
+            self._warm_draft_rows(artifact, rows_t, ids, payloads, slots,
+                                  mask)
+        g = _Group(req=req, rows=rows, budget=budget, steps=steps,
+                   committed_blocks=peak, imported_tokens=steps)
+        if w > 1:
+            g.scores = np.asarray(artifact["scores"], np.float32).copy()
+            g.beam_done = np.asarray(artifact["beam_done"], bool).copy()
+            bt = np.full((w, budget + 1), PAD_ID, np.int64)
+            src_bt = np.asarray(artifact["beam_tokens"], np.int64)
+            bt[:, :src_bt.shape[1]] = src_bt
+            g.beam_tokens = bt
+        self._groups.append(g)
+        return req
+
+    def _warm_draft_rows(self, artifact, rows_t, ids, payloads, slots,
+                         mask) -> None:
+        """Speculation on a decode engine. The draft pool is indexed by the
+        same block tables as the target's, so self-draft takes the
+        imported blocks as they are — dequantized when the target pool is
+        int8 (the draft pool stays float) — and its acceptance stays what
+        it would have been. A distinct draft gets its encoder table
+        refreshed; its pool for the skipped positions stays cold, which
+        costs acceptance, never tokens (the accept-prefix rule)."""
+        if not self._self_draft:
+            src = torch.full((len(rows_t), self.max_src_len), PAD_ID,
+                             dtype=torch.long, device=self.device)
+            src_ids = torch.as_tensor(
+                np.asarray(artifact["src_ids"], np.int64),
+                device=self.device)
+            src[:, :len(src_ids)] = src_ids
+            m = mask.expand(len(rows_t), -1)
+            self._enc_d[rows_t] = self._encode_draft(src, m)
+            return
+        by_slot = dict(zip(slots, payloads))
+        for layer, dcache in enumerate(self._draft_cache):
+            quant = len(self.cache[layer]) == 4
+            for part in (0, 1):
+                blocks = by_slot[(layer, part)]
+                if quant:
+                    blocks = dequantize_kv_blocks(
+                        blocks, by_slot[(layer, part + 2)])
+                dleaf = dcache[part]
+                dleaf[ids] = blocks.to(device=self.device, dtype=dleaf.dtype)
+
+    def release_handoff(self, request_id: str) -> None:
+        """Free a parked request's rows and blocks once the decode side has
+        imported them. The request finalizes here as PREFILLED (the stream
+        lives on elsewhere); its decode work is ledgered as handoff
+        goodput, and its serve.request span is emitted — the prefill half
+        of the cross-replica flow link in ``obs export --fleet``."""
+        g = self._handoff_ready.pop(request_id, None)
+        if g is None:
+            raise KeyError(
+                f"no parked handoff for request {request_id!r}")
+        now = self._clock()
+        self._free_group_resources(g)
+        g.req.state = RequestState.PREFILLED
+        g.req.finished_at = now
+        self.metrics.record_finish(RequestState.PREFILLED.value,
+                                   g.req.latency_s)
+        self.metrics.record_ledger(goodput=g.decoded, wasted=0,
+                                   reason="handoff")
+        decode_s = None
+        if g.req.admitted_at is not None:
+            decode_s = max(now - g.req.admitted_at
+                           - (g.req.prefill_s or 0.0), 0.0)
+        self.metrics.record_phases(g.req.prefill_s, decode_s)
+        self.metrics.record_request_trace(g.req)
 
     def run_until_drained(self, max_steps: int = 1_000_000,
                           writer=None, emit_every: int = 0) -> int:

@@ -63,7 +63,7 @@ def distilled_draft(name: str = "tiny-distilled",
     return model.requires_grad_(False)
 
 
-def _ckpt_dir(cfg: ExperimentConfig) -> str:
+def checkpoint_dir(cfg: ExperimentConfig) -> str:
     """The JAX package's experiment layout (train/run.py)."""
     workdir = os.path.join(cfg.workdir, cfg.preset or cfg.model.name)
     return cfg.checkpoint.directory or os.path.join(workdir, "ckpt")
@@ -93,7 +93,7 @@ def _restore(cfg: ExperimentConfig, device: torch.device,
     """The experiment's model with its committed checkpoint (``step``, 0 =
     latest), or with a seeded init under ``allow_init`` (step -1)."""
     model = build_nmt(cfg, device, attention_impl)
-    ckpt_dir = _ckpt_dir(cfg)
+    ckpt_dir = checkpoint_dir(cfg)
     if committed_steps(ckpt_dir):
         flat, at_step = load_flax_checkpoint(ckpt_dir, step=step)
         model.load_state_dict(params_from_flax(flat), strict=True)
@@ -122,11 +122,12 @@ def load_engine(cfg: ExperimentConfig, *, capacity: int = 4,
                 quantize: str = "",
                 kv_quant: str = "",
                 radix_cache: bool = False,
+                phase: str = "both",
                 prefill_chunk: int = 0,
                 step: int = 0, vocab: str = "", allow_init: bool = False,
                 device: Union[str, torch.device] = "gpu",
                 attention_impl: Optional[str] = None,
-                clock=time.monotonic, **later
+                clock=time.monotonic
                 ) -> Tuple[Engine, Optional[Bpe], int]:
     """Build an Engine from an experiment config.
 
@@ -144,10 +145,11 @@ def load_engine(cfg: ExperimentConfig, *, capacity: int = 4,
     arms the radix prefix KV cache (needs ``kv_block_size > 0``);
     ``prefill_chunk > 0`` chunked prefill. ``quantize="int8"`` serves
     int8 weights (the engine quantizes the f32 restore); ``kv_quant="int8"``
-    an int8 paged KV pool (needs ``kv_block_size > 0``). QoS classes are not
-    taken here: the engine runs the default classes and turns QoS on at the
-    first tenant-tagged submit. ``phase`` (ROADMAP A.6d) goes through
-    ``later`` and raises ``NotImplementedError`` in the engine.
+    an int8 paged KV pool (needs ``kv_block_size > 0``). ``phase``
+    (``"prefill"`` or ``"decode"``, paged only) builds one side of a
+    disaggregated pair; the default ``"both"`` is the co-located engine.
+    QoS classes are not taken here: the engine runs the default classes and
+    turns QoS on at the first tenant-tagged submit.
     """
     dev = resolve_device(device)
     model, at_step = _restore(cfg, dev, attention_impl, step, allow_init,
@@ -174,7 +176,7 @@ def load_engine(cfg: ExperimentConfig, *, capacity: int = 4,
         prefix_cache_size=prefix_cache_size,
         speculate_gamma=speculate_gamma, speculate_device=speculate_device,
         draft_model=draft_model, quantize=quantize, kv_quant=kv_quant,
-        radix_cache=radix_cache, prefill_chunk=prefill_chunk, clock=clock,
-        **later)
+        radix_cache=radix_cache, phase=phase, prefill_chunk=prefill_chunk,
+        clock=clock)
     engine.metrics.ckpt_load_retries = 0
     return engine, bpe, at_step

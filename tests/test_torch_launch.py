@@ -277,9 +277,10 @@ def test_run_experiment_arms_the_chaos_hook_after_the_checkpoint(
 # -- the launcher: the same host programs through both packages --------------
 
 # A host program: records its DLCFN_* env per attempt, then acts by the
-# scenario (argv[1]) — "ok", "crash1" (rank 1 exits 7 on attempt 0), "exit3"
-# (every rank exits 3), "hang0" (exits the hang code on attempt 0), "kill"
-# (rank 1 exits 1, rank 0 sleeps an hour).
+# scenario (argv[1]) — "ok", "crash1" (rank 1 exits 7 on attempt 0 once
+# rank 0 has printed, and rank 0 waits to be killed), "exit3" (every rank
+# exits 3), "hang0" (exits the hang code on attempt 0), "kill" (rank 1 exits
+# 1, rank 0 sleeps an hour).
 HOST_PROGRAM = r"""
 import json, os, sys, time
 out, scenario = os.environ["OUT"], sys.argv[1]
@@ -289,7 +290,16 @@ env = {k: v for k, v in os.environ.items() if k.startswith("DLCFN_")}
 with open(os.path.join(out, f"env-{attempt}-{rank}.json"), "w") as fh:
     json.dump(env, fh)
 print("rank", rank, "attempt", attempt, "scenario", scenario, flush=True)
-if scenario == "crash1" and attempt == "0" and rank == 1:
+if scenario == "crash1" and attempt == "0":
+    # The same logs and exit codes in every run: rank 1 fails only after
+    # rank 0 has printed, and rank 0 is always the survivor the launcher
+    # kills.
+    printed = os.path.join(os.path.dirname(out), "rank0-printed")
+    if rank == 0:
+        open(printed, "w").close()
+        time.sleep(3600)
+    while not os.path.exists(printed):
+        time.sleep(0.01)
     sys.exit(7)
 if scenario == "exit3":
     sys.exit(3)
@@ -407,6 +417,9 @@ def test_launcher_runs_host_programs_as_jax_does(case, fake_ssh,
         assert elapsed < 30  # the sleeper was killed, not waited out
     if scenario == "crash1":
         assert res["attempt_outcomes"] == ["crash", "ok"]
+        first = next(e for e in got["events"]
+                     if e.get("event") == "launch_attempt")
+        assert first["exit_codes"] == [-15, 7]
         assert "RESUMED rank 1" in got["logs"]["attempt1-host1.log"]
         assert got["failures"] == [[1, hosts[1]]]
     if ssh:

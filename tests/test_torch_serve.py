@@ -262,8 +262,13 @@ def test_deadline_expires_running_request_within_one_step(weights):
 ])
 def test_out_of_slice_options_name_their_roadmap_item(weights, option,
                                                       value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+    # The last out-of-slice option (the disaggregated phase, ROADMAP A.6d)
+    # is ported: it is validated as the JAX engine validates it (paged
+    # only) and then taken.
+    with pytest.raises(ValueError, match="paged"):
         _port_engine(weights[2], **{option: value})
+    eng = _port_engine(weights[2], kv_block_size=8, **{option: value})
+    assert getattr(eng, option) == value
 
 
 # -- checkpoints, loader, CLI -----------------------------------------------

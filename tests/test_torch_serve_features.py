@@ -166,7 +166,7 @@ def test_radix_beams_bypass_the_tree(weights):
 def test_radix_needs_the_paged_pool_and_a_colocated_engine(weights):
     with pytest.raises(ValueError, match="paged"):
         _port_engine(weights, radix_cache=True)
-    with pytest.raises(NotImplementedError, match="A.6d"):
+    with pytest.raises(ValueError, match="co-located"):
         _port_engine(weights, radix_cache=True, kv_block_size=8,
                      phase="prefill")
 

@@ -404,5 +404,10 @@ def test_load_engine_takes_quantize_kv_quant_and_vocab(served_checkpoint):
     assert eng.metrics.snapshot()["serve_kv_quant_bytes"] > 0
     eng, bpe, _ = load_engine(cfg, device="cpu")
     assert bpe is None and not eng.model.quantized
-    with pytest.raises(NotImplementedError, match="A.6d"):
+    # phase (A.6d) is ported: it goes through, and the engine refuses it
+    # on a dense pool as JAX's does.
+    with pytest.raises(ValueError, match="paged"):
         load_engine(cfg, device="cpu", phase="decode")
+    eng, _, _ = load_engine(cfg, device="cpu", phase="decode",
+                            kv_block_size=4)
+    assert eng.phase == "decode"
