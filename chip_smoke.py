@@ -350,6 +350,33 @@ order; a failing phase raises, so the exit code is nonzero:
    kernel, and every request is done and equal to an in-process engine of
    the recipe on the card. The children's launches are in the kernels
    line as ``child_launches``, apart from ``launches``.
+28. data parallelism across processes (ROADMAP A.10 part 1), in phase
+   26's directory. Two processes share the one card over gloo, so every
+   collective goes through the host and no time here is a data-parallel
+   speed. (a) ``cli stack create --slice-type v5p-8`` (two dry-run hosts)
+   and ``cli train --stack`` on it: phase 9's NMT config (full width,
+   bf16, global batch 128 as 2 × 64) with dropout 0, 6 steps; exit 0, each
+   process's log names gloo on ``cuda:0``, the mesh line says ``data=2``,
+   and each process's flash kernel launches over its steps 2-6 (it prints
+   them) are a one-process step's per step (18, 6, 6); (b) one process on
+   the card trained on the same global batches (process 0's pipeline batch,
+   then process 1's): per-step losses within ``DP_LOSS_REL_BOUND``, set
+   between this cell's sound reading and its control's, two processes
+   whose gradients are never summed, which must exceed it (the control's
+   gradient sum is timed apart from its steps), and the losses must move by
+   ``DP_MOVE_FACTOR`` bounds over the steps; (c)
+   the f32 ResNet-20 (batch 32, 4 steps) on 2 processes
+   (``chip_smoke.py --dp-worker``) against one, under strict deterministic
+   algorithms: losses and BatchNorm running statistics within 1e-5, the two
+   processes' statistics identical; (d) ``run_crash_recovery`` with two
+   hosts: the tiny BERT under LAMB with ``shard_opt_state=True``, process 1
+   SIGKILLed after the step-4 commit, both restarted and resumed from step
+   4, the losses equal to an uninterrupted two-process run bit for bit, the
+   checkpoint with ``manifest_p0``/``manifest_p1``, and the slot bytes per
+   process against one process's; (e) ResNet-50 at full width, bf16, on 2
+   processes through ``run_experiment`` (global batch 64, 3 steps): finite
+   losses, identical running statistics on both, the step time per
+   process beside the card's name and power limit.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -5185,7 +5212,555 @@ def fleet_phase(torch, attn, root, served, int8, reqs):
     return out
 
 
+# Phase 28: data-parallel training across processes (ROADMAP A.10 part
+# 1). Two processes share the one card over gloo (NCCL takes one rank per
+# card), so every collective is staged through the host: the times here are
+# not a data-parallel speed. Each process's kernel launches are its own: it
+# prints them, and the phase reads them from its log.
+DP_RANKS, DP_STEPS = 2, 6
+DP_OVERRIDES = [
+    "train.dtype=bfloat16", "train.seed=0",
+    f"train.global_batch={TRAIN_BATCH}", "schedule.warmup_steps=10",
+    "schedule.base_lr=1e-3", "model.kwargs.dropout_rate=0.0",
+    "data.num_eval_examples=128", "eval.enabled=false",
+    "train.log_every_steps=1", "train.eval_every_steps=1000000",
+    "checkpoint.every_steps=1000000"]
+# 28b's bound on |2-process loss - 1-process loss| / loss, per step, set
+# from two readings of this cell on the card (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md, phase 28): the sound two-process run parts from one
+# process by 2.195e-6 (bf16 sums in another order), and the control, the
+# same two processes with their gradients never summed (``grad_sum`` =
+# ``"discard"``), by 7.913e-4. The bound sits between the two; 28b
+# fails when the control does not exceed it, or when the losses move by less
+# than DP_MOVE_FACTOR bounds over the steps (an update that never applies
+# must show). On the CPU the tiny f32 NMT parts by 1.146e-7
+# (tests/test_torch_dist_cli.py holds it to 1e-6).
+DP_LOSS_REL_BOUND, DP_MOVE_FACTOR = 1e-4, 10
+# 28c: the tiny f32 ResNet-20, 2 processes against 1 on the same global
+# batch, deterministic algorithms: the BatchNorm sums and the gradients
+# only change order. 1e-5 relative on the losses and the running
+# statistics (f32 has 2^-24 ≈ 6e-8; 20 layers of reordered sums over 4
+# steps stay below 1e-6 on the CPU).
+DP_RESNET20 = ["train.dtype=float32", "train.global_batch=32",
+               "data.num_train_examples=256", "data.num_eval_examples=32",
+               "data.prefetch=0", "schedule.name=constant",
+               "schedule.base_lr=0.1", "schedule.warmup_epochs=0",
+               "train.seed=0"]
+DP_RESNET20_STEPS, DP_F32_BOUND = 4, 1e-5
+# 28d: the tiny BERT under LAMB with ZeRO-1, killed and resumed.
+DP_BERT = ["model.name=bert_tiny", "model.kwargs.hidden_size=32",
+           "model.kwargs.num_layers=2", "model.kwargs.num_heads=2",
+           "model.kwargs.mlp_dim=64", "model.kwargs.max_len=32",
+           "data.vocab_size=64", "data.seq_len=16", "train.global_batch=8",
+           "data.num_train_examples=64", "data.num_eval_examples=16",
+           "train.dtype=float32", "schedule.warmup_steps=2",
+           "model.kwargs.dropout_rate=0.0", "checkpoint.async_write=false",
+           "train.shard_opt_state=true"]
+DP_CHAOS = dict(total_steps=6, kill_at_step=4, ckpt_every=2, max_restarts=2)
+# 28e: ResNet-50 at full width on 2 processes.
+DP_RESNET50_STEPS = 3
+DP_RESNET50 = ["train.dtype=bfloat16", "train.global_batch=64",
+               "data.num_train_examples=256", "data.num_eval_examples=64",
+               "train.eval_batch=64", "train.log_every_steps=1",
+               "train.eval_every_steps=1000000",
+               "checkpoint.every_steps=1000000",
+               "schedule.warmup_steps=1", "train.seed=0"]
+DP_RESNET50_CUTS = ["train.global_batch=64, 32 per process (preset 8192; "
+                    "two processes share one card's memory and time)",
+                    "data.num_train_examples=256 (preset 8192: 4.9 GB of "
+                    "f32 per process on the host)",
+                    f"{DP_RESNET50_STEPS} steps, warmup 1"]
+
+
+def dp_batches(cfg, steps, ranks=DP_RANKS):
+    """The global batch of each of the first ``steps`` steps as a job of
+    ``ranks`` processes sees it: process 0's pipeline batch, then process
+    1's (each the ``build_pipeline`` of its process index)."""
+    import numpy as np
+
+    from deeplearning_cfn_tpu_torch.data.pipeline import build_pipeline
+
+    local = cfg.train.global_batch // ranks
+    per_rank = []
+    for r in range(ranks):
+        pipe = build_pipeline(cfg.data, local, cfg.model.num_classes,
+                              seed=cfg.train.seed, train=True,
+                              process_index=r, process_count=ranks)
+        it = pipe.epochs()
+        per_rank.append([next(it) for _ in range(steps)])
+        it.close()
+    return [{k: np.concatenate([b[s][k] for b in per_rank])
+             for k in per_rank[0][s]} for s in range(steps)]
+
+
+def fed_run(torch, cfg, batches, device, init=None, step_s=None):
+    """``run_experiment``'s set-up (seeded init, schedule, optimizer,
+    state, trainer) on ``device``, trained on the given global batches;
+    across processes each trains its rows. ``init``, named leaves as
+    ``TrainState.load_named`` takes them, replaces the seeded state;
+    ``step_s``, a list, gets each step's wall seconds. Returns the per-step
+    losses (summed over the processes) and the state."""
+    from deeplearning_cfn_tpu_torch.data.pipeline import to_device
+    from deeplearning_cfn_tpu_torch.parallel import build_mesh, local_shard
+    from deeplearning_cfn_tpu_torch.train.optim import build_optimizer, \
+        build_schedule
+    from deeplearning_cfn_tpu_torch.train.state import create_train_state
+    from deeplearning_cfn_tpu_torch.train.task import build_task
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device(device)
+    mesh = build_mesh(cfg.mesh)
+    task = build_task(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(cfg.train.seed))
+    task.init(gen)
+    schedule = build_schedule(cfg.schedule, len(batches),
+                              cfg.train.global_batch)
+    state = create_train_state(
+        task.model, build_optimizer(cfg.optimizer, schedule, task.model,
+                                    cfg.train.shard_opt_state),
+        ema=cfg.train.ema_decay > 0)
+    if init is not None:
+        state.load_named(init)
+    trainer = Trainer(cfg, task, dev, mesh)
+    losses = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        local = {k: local_shard(v, mesh) for k, v in batch.items()}
+        metrics = trainer.train_step(state, to_device(local, dev))
+        losses.append(trainer._realize(metrics)["loss"])
+        if step_s is not None:
+            step_s.append(time.perf_counter() - t0)
+    return losses, state
+
+
+def bn_stats(torch, model):
+    """Every BatchNorm running statistic of ``model``, flattened, on the
+    host (f32; empty for a model without BatchNorm)."""
+    stats = [b.detach().float().reshape(-1).cpu()
+             for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    return torch.cat(stats) if stats else torch.zeros(0)
+
+
+def dp_worker(spec_path, rank):
+    """``chip_smoke.py --dp-worker SPEC RANK``: one process of a phase-28
+    job on the card (28c, 28e). It joins the group through
+    ``runtime.cluster.initialize`` (processes that share a card: gloo),
+    then either trains the given global batches (``fed``, strict
+    deterministic algorithms when asked) or runs ``run_experiment``
+    (``run``), and writes its losses, step times, kernel launches and
+    BatchNorm statistics to ``<out>/rank<r>.json``/``.npy``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.runtime.cluster import ClusterSpec, \
+        initialize
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    out = {}
+    if spec.get("grad_sum"):
+        time_grad_sum(torch, spec["grad_sum"], out)
+    initialize(ClusterSpec(hosts=["127.0.0.1"] * spec["ranks"],
+                           process_id=rank, chips_per_host=1,
+                           coordinator_port=spec["port"]),
+               timeout_s=300, accelerator=spec.get("accelerator", "gpu"))
+    device = DEVICE if spec.get("accelerator", "gpu") == "gpu" else "cpu"
+    cfg = apply_overrides(get_preset(spec["preset"]), spec["overrides"])
+    with (deterministic(torch) if spec.get("deterministic")
+          else contextlib.nullcontext()):
+        if spec["mode"] == "fed":
+            out["step_time_s"] = []
+            out["losses"], state = fed_run(
+                torch, cfg, load_batches(spec["batches"]), device,
+                step_s=out["step_time_s"])
+            model = state.model
+        else:
+            from deeplearning_cfn_tpu_torch.train.run import run_experiment
+
+            records, states = [], []
+
+            def hook(step, st, record):
+                records.append(record)
+                states[:] = [st]
+
+            run_experiment(cfg, max_steps=spec["steps"], device=device,
+                           hooks=(hook,))
+            out["losses"] = [r["loss"] for r in records]
+            out["step_time_s"] = [r["step_time_s"] for r in records
+                                  if "step_time_s" in r]
+            model = states[0].model
+    from deeplearning_cfn_tpu_torch.ops import attention as attn
+
+    out["launches"] = {k: v for k, v in counts(attn).items() if k != "vjp"}
+    np.save(os.path.join(spec["out"], f"rank{rank}.npy"),
+            bn_stats(torch, model).numpy())
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def time_grad_sum(torch, mode, out):
+    """Time the trainer's gradient sum over the processes apart from the
+    rest of the step (the card synchronized on both sides) into
+    ``out["grad_sum_s"]``. With ``mode`` ``"discard"`` the sum runs on
+    copies, so each process keeps its own gradients: a data-parallel step
+    whose gradients are never summed, with the same traffic (28b's
+    control)."""
+    from deeplearning_cfn_tpu_torch.train import trainer
+
+    real, times = trainer.all_reduce_sum_, out.setdefault("grad_sum_s", [])
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+
+    def timed(tensors):
+        tensors = list(tensors)
+        if mode == "discard":
+            tensors = [t.clone() for t in tensors]
+        sync()
+        t0 = time.perf_counter()
+        real(tensors)
+        sync()
+        times.append(time.perf_counter() - t0)
+
+    trainer.all_reduce_sum_ = timed
+
+
+def spawn_dp_workers(root, name, spec, timeout=600):
+    """The ``--dp-worker`` processes of one job; their results by rank."""
+    import numpy as np
+
+    from deeplearning_cfn_tpu_torch.runtime.cluster import free_local_port
+
+    out = os.path.join(root, name)
+    os.makedirs(out, exist_ok=True)
+    spec = dict(spec, ranks=DP_RANKS, port=free_local_port(), out=out)
+    path = os.path.join(out, "spec.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--dp-worker",
+         path, str(r)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(DP_RANKS)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{name} rank {r}: rc {p.returncode}\n"
+                                 f"{text[-4000:]}")
+    results = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as fh:
+            res = json.load(fh)
+        res["bn_stats"] = np.load(os.path.join(out, f"rank{r}.npy"))
+        res["log"] = logs[r]
+        results.append(res)
+    return results
+
+
+def save_batches(path, batches):
+    import numpy as np
+
+    np.savez(path, **{f"{i}/{k}": v for i, b in enumerate(batches)
+                      for k, v in b.items()})
+
+
+def load_batches(path):
+    """The global batches that ``save_batches`` wrote, in order."""
+    import numpy as np
+
+    with np.load(path) as data:
+        n = len({k.split("/")[0] for k in data.files})
+        return [{k.split("/", 1)[1]: data[k] for k in data.files
+                 if k.startswith(f"{i}/")} for i in range(n)]
+
+
+def worker_launches(log_text, rank):
+    """The launches a train worker printed over its steps after the first:
+    (counts, steps)."""
+    import re
+
+    m = re.search(rf"worker {rank} flash kernel launches over steps "
+                  rf"\d+-\d+: (\{{.*?\}}) \((\d+) steps\)", log_text)
+    if m is None:
+        raise AssertionError(f"rank {rank} printed no launch count")
+    return json.loads(m.group(1)), int(m.group(2))
+
+
+def dp_stack_train(torch, root, accelerator="gpu"):
+    """28a: a two-host dry-run stack and ``cli train --stack`` on it."""
+    state_dir = os.path.join(root, "dp_stacks")
+    rc, out = cli_inprocess(["stack", "create", "--name", "dp",
+                             "--slice-type", "v5p-8", "--provisioner",
+                             "dryrun", "--state-dir", state_dir])
+    if rc != 0 or "CREATE_COMPLETE: 2 hosts" not in out:
+        raise AssertionError(f"stack create: rc {rc}\n{out}")
+    workdir = os.path.join(root, "dp_work")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "train",
+         "--preset", "transformer_nmt_wmt", "--stack", "dp",
+         "--state-dir", state_dir, "--max-steps", str(DP_STEPS),
+         "--accelerator", accelerator, f"workdir={workdir}", *DP_OVERRIDES],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "job finished (restarts=0" not in out:
+        raise AssertionError(f"train --stack: rc {proc.returncode}\n"
+                             f"{out[-4000:]}")
+    run_dir = os.path.join(workdir, "transformer_nmt_wmt")
+    logs = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(run_dir, "logs",
+                               f"attempt0-host{r}.log")) as fh:
+            logs.append(fh.read())
+    backend = "gloo, device cuda:0" if accelerator == "gpu" \
+        else "gloo, device cpu"
+    launches = {}
+    for r, text in enumerate(logs):
+        if f"process {r}/{DP_RANKS}: backend {backend}" not in text:
+            raise AssertionError(f"rank {r} names no gloo rank on the "
+                                 f"card: {text[:400]}")
+        counts, steps = worker_launches(text, r)
+        launches[f"rank{r}"] = counts
+        per_step = {k: v / steps for k, v in counts.items()}
+        want = {k: PER_STEP[k] for k in counts}
+        log(f"  rank {r}: launches over {steps} steps {counts}, per step "
+            f"{per_step} (a one-process step: {want})")
+        if accelerator == "gpu" and per_step != want:
+            raise AssertionError(f"rank {r} per-step launches {per_step} "
+                                 f"!= {want}")
+    mesh_line = [ln for ln in logs[0].splitlines() if "mesh[" in ln]
+    if not mesh_line or "data=2" not in mesh_line[0]:
+        raise AssertionError(f"no mesh line with data=2: {mesh_line}")
+    recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    steps = [r for r in recs if "loss" in r and "span" not in r
+             and "final_eval_loss" not in r]
+    losses = [r["loss"] for r in steps]
+    if len(losses) != DP_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"bad losses {losses}")
+    log(f"  {mesh_line[0].strip()}")
+    log(f"  losses {' '.join(f'{x:.6f}' for x in losses)}; step p50 "
+        f"{step_p50(steps) * 1e3:.1f} ms (gloo through the host; not a "
+        f"data-parallel speed); job {wall:.1f} s [{card_line()}]")
+    return dict(losses=losses, launches=launches, wall_s=wall,
+                step_time_p50_s=step_p50(steps), mesh=mesh_line[0].strip())
+
+
+def dp_reference(torch, root, stacked, device=None):
+    """28b: one process on the card trained on 28a's global batches (the
+    two processes' pipeline batches, rank 0's rows first); per-step losses
+    within ``DP_LOSS_REL_BOUND``. The control, two processes on the same
+    batches whose gradients are never summed, must exceed it, and 28a's
+    losses must move by ``DP_MOVE_FACTOR`` bounds."""
+    import statistics
+
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    device = device or DEVICE
+    cfg = apply_overrides(get_preset("transformer_nmt_wmt"), DP_OVERRIDES)
+    batches = dp_batches(cfg, DP_STEPS)
+    losses = fed_run(torch, cfg, batches, device)[0]
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    path = os.path.join(root, "dp_nmt_batches.npz")
+    save_batches(path, batches)
+    control = spawn_dp_workers(root, "dp_nmt_unsummed", dict(
+        mode="fed", preset="transformer_nmt_wmt", overrides=DP_OVERRIDES,
+        batches=path, grad_sum="discard",
+        accelerator="gpu" if device != "cpu" else "cpu"))
+    relative = lambda got: [abs(a - b) / abs(b) for a, b in zip(got, losses)]
+    rel, ctl = relative(stacked["losses"]), relative(control[0]["losses"])
+    got = stacked["losses"]
+    moved = abs(got[-1] - got[0]) / abs(got[0])
+    # Steps after the first: the first holds the processes' warm-up.
+    sums = [s for c in control for s in c["grad_sum_s"][1:]]
+    steps = [s for c in control for s in c["step_time_s"][1:]]
+    timing = dict(grad_sum_p50_s=statistics.median(sums),
+                  step_p50_s=statistics.median(steps))
+    log(f"  one process: {' '.join(f'{x:.6f}' for x in losses)}; max "
+        f"relative difference {max(rel):.3e} (bound {DP_LOSS_REL_BOUND:.1e}"
+        f"); the control (gradients never summed): "
+        f"{' '.join(f'{x:.6f}' for x in control[0]['losses'])}, "
+        f"{max(ctl):.3e}; 28a's losses moved {moved:.3e}")
+    log(f"  the control's processes: gradient sum p50 "
+        f"{timing['grad_sum_p50_s'] * 1e3:.2f} ms of a step p50 "
+        f"{timing['step_p50_s'] * 1e3:.2f} ms (steps 2-{DP_STEPS}, both "
+        f"processes; gloo through the host) [{card_line()}]")
+    checks = {"within the bound": max(rel) <= DP_LOSS_REL_BOUND,
+              "the control beyond it": max(ctl) > DP_LOSS_REL_BOUND,
+              "the losses moved":
+                  moved >= DP_MOVE_FACTOR * DP_LOSS_REL_BOUND}
+    if not all(checks.values()):
+        raise AssertionError(f"2 processes against 1: {checks}; relative "
+                             f"{rel}, control {ctl}, moved {moved}")
+    return dict(losses=losses, max_rel=max(rel), bound=DP_LOSS_REL_BOUND,
+                control_losses=control[0]["losses"], control_max_rel=max(ctl),
+                moved=moved, **timing)
+
+
+def dp_batchnorm(torch, root, device=None):
+    """28c: mesh-wide BatchNorm, forward and backward: the tiny f32
+    ResNet-20 on 2 processes against 1 on the same global batches, under
+    strict deterministic algorithms."""
+    import numpy as np
+
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    device = device or DEVICE
+    cfg = apply_overrides(get_preset("cifar10_resnet20"), DP_RESNET20)
+    batches = dp_batches(cfg, DP_RESNET20_STEPS)
+    path = os.path.join(root, "dp_resnet20_batches.npz")
+    save_batches(path, batches)
+    ranks = spawn_dp_workers(root, "dp_resnet20", dict(
+        mode="fed", preset="cifar10_resnet20", overrides=DP_RESNET20,
+        batches=path, deterministic=True,
+        accelerator="gpu" if device != "cpu" else "cpu"))
+    with deterministic(torch):
+        losses, state = fed_run(torch, cfg, batches, device)
+    stats = bn_stats(torch, state.model).numpy()
+    got = ranks[0]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses))
+    stat_err = float(np.max(np.abs(ranks[0]["bn_stats"] - stats)
+                            / np.maximum(np.abs(stats), 1.0)))
+    same = bool(np.array_equal(ranks[0]["bn_stats"], ranks[1]["bn_stats"]))
+    log(f"  2 processes {' '.join(f'{x:.7f}' for x in got)}; 1 process "
+        f"{' '.join(f'{x:.7f}' for x in losses)}; max relative "
+        f"{loss_rel:.2e}; running statistics ({stats.size}) max "
+        f"{stat_err:.2e} (bound {DP_F32_BOUND}); the ranks' statistics "
+        f"identical: {same}")
+    if loss_rel > DP_F32_BOUND or stat_err > DP_F32_BOUND or not same:
+        raise AssertionError(f"mesh-wide BatchNorm: losses {loss_rel}, "
+                             f"stats {stat_err}, ranks equal {same}")
+    return dict(losses=got, reference=losses, max_rel=loss_rel,
+                stats_max_err=stat_err, ranks_equal=same)
+
+
+def dp_zero1_resume(root, accelerator="gpu"):
+    """28d: ZeRO-1 and the multi-process checkpoint: the tiny BERT under
+    LAMB through ``train --stack``'s worker on 2 processes, process 1
+    SIGKILLed after the step-4 commit; the launcher restarts both."""
+    import re
+
+    from deeplearning_cfn_tpu_torch.launch.chaos import run_crash_recovery
+
+    workdir = os.path.join(root, "dp_chaos")
+    report = run_crash_recovery(
+        workdir, preset="bert_base_wikipedia", overrides=DP_BERT,
+        accelerator=accelerator, hosts=DP_RANKS, kill_process=1,
+        **DP_CHAOS)
+    logs = os.path.join(workdir, "logs-chaos")
+    if not (report.baseline_result.success and report.chaos_result.success):
+        tails = []
+        for d in ("logs-baseline", "logs-chaos"):
+            for name in sorted(os.listdir(os.path.join(workdir, d))):
+                if name.endswith(".log"):
+                    with open(os.path.join(workdir, d, name)) as fh:
+                        tails.append(f"--- {d}/{name}\n{fh.read()[-1500:]}")
+        raise AssertionError("ZeRO-1 jobs failed: "
+                             f"{report.baseline_result.exit_codes} / "
+                             f"{report.chaos_result.exit_codes}\n"
+                             + "\n".join(tails))
+    step_dir = os.path.join(workdir, "chaos", "bert_base_wikipedia", "ckpt",
+                            f"step_{DP_CHAOS['total_steps']:08d}")
+    files = sorted(os.listdir(step_dir))
+    slots = {}
+    for r in range(DP_RANKS):
+        with open(os.path.join(logs, f"attempt0-host{r}.log")) as fh:
+            m = re.search(r"ZeRO-1 optimizer slots (\d+) bytes on this "
+                          r"process of (\d+)", fh.read())
+        slots[f"rank{r}"] = (int(m.group(1)), int(m.group(2))) if m \
+            else None
+    checks = {
+        "baseline ok": report.baseline_result.success,
+        "outcomes crash, ok":
+            report.chaos_result.attempt_outcomes == ["crash", "ok"],
+        "resumed from 4": report.resumed_from == DP_CHAOS["kill_at_step"],
+        "per-step losses bit for bit": report.parity_ok,
+        "no uncommitted step dir": report.uncommitted_after == [],
+        "manifest_p0 and manifest_p1": {"manifest_p0.json",
+                                        "manifest_p1.json",
+                                        "COMMIT"} <= set(files),
+        "slots split": all(s and s[0] < s[1] for s in slots.values()),
+    }
+    log(f"  outcomes {report.chaos_result.attempt_outcomes}, resumed from "
+        f"{report.resumed_from}, mismatches {report.mismatches or 'none'}; "
+        f"checkpoint {files}")
+    log(f"  ZeRO-1 slot bytes per process {slots} (one process: the "
+        f"second number)")
+    if not report.parity_ok:
+        log(f"  not bit for bit: {report.mismatches}")
+    if not all(checks.values()):
+        raise AssertionError(f"ZeRO-1 resume: {checks}")
+    return dict(outcomes=report.chaos_result.attempt_outcomes,
+                resumed_from=report.resumed_from,
+                parity_ok=report.parity_ok, files=files, slot_bytes=slots)
+
+
+def dp_resnet50(torch, root, device=None):
+    """28e: ResNet-50 at full width, bf16, on 2 processes through
+    ``run_experiment``: finite losses, the two processes' BatchNorm
+    running statistics identical, the step time per process."""
+    import numpy as np
+
+    device = device or DEVICE
+    ranks = spawn_dp_workers(root, "dp_resnet50", dict(
+        mode="run", preset="imagenet_resnet50",
+        overrides=DP_RESNET50 + [
+            f"workdir={os.path.join(root, 'dp_resnet50_work')}"],
+        steps=DP_RESNET50_STEPS,
+        accelerator="gpu" if device != "cpu" else "cpu"))
+    losses = ranks[0]["losses"]
+    same = bool(np.array_equal(ranks[0]["bn_stats"], ranks[1]["bn_stats"]))
+    times = {f"rank{r}": res["step_time_s"] for r, res in enumerate(ranks)}
+    log(f"  losses {losses}; the ranks' BatchNorm statistics identical: "
+        f"{same}; step time per process {times} s (gloo-staged through "
+        f"the host, two processes on one card; cuts: {DP_RESNET50_CUTS}) "
+        f"[{card_line()}]")
+    if len(losses) != DP_RESNET50_STEPS or \
+            not all(map(math.isfinite, losses)) or not same:
+        raise AssertionError(f"ResNet-50 on 2 processes: losses {losses}, "
+                             f"statistics equal {same}")
+    return dict(losses=losses, bn_stats_identical=same,
+                step_time_s=times, cuts=DP_RESNET50_CUTS)
+
+
+def dp_phase(torch, root):
+    """Phase 28: 28a-28e in ``root``."""
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
+    torch.cuda.empty_cache()
+    out = {}
+    for key, fn in (("28a", lambda: dp_stack_train(torch, root)),
+                    ("28b", lambda: dp_reference(torch, root, out["28a"])),
+                    ("28c", lambda: dp_batchnorm(torch, root)),
+                    ("28d", lambda: dp_zero1_resume(root)),
+                    ("28e", lambda: dp_resnet50(torch, root))):
+        t = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t
+        log(f"  {key} {out[key]['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+    return out
+
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2], int(sys.argv[3]))
     profiles = {"--profile": profile_serving,
                 "--profile-train": profile_training,
                 "--profile-resnet": profile_resnet,
@@ -5345,6 +5920,13 @@ def main() -> int:
                   "bf16; the net children the tiny recipe)")
         fleet = fleet_phase(torch, attn, root, served, int8, make_requests())
         log(f"  phase 27 {time.perf_counter() - t:.1f} s")
+
+        t = phase("28. data parallel across processes: train --stack on 2 "
+                  "hosts (NMT full width, bf16) against one process, "
+                  "mesh-wide BatchNorm, ZeRO-1 kill and resume, ResNet-50 "
+                  "on 2 processes")
+        dp = dp_phase(torch, root)
+        log(f"  phase 28 {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row in (served, int8):
@@ -5430,7 +6012,11 @@ def main() -> int:
             "fleet_up": {r: c["launches"] for r, c in
                          fleet["fleet_up"]["children"].items()},
             "fleet_up_net": {r: c["restarted"] for r, c in
-                             fleet["fleet_up_net"]["replicas"].items()}},
+                             fleet["fleet_up_net"]["replicas"].items()},
+            # Phase 28a's two train --stack processes, over their steps
+            # after the first.
+            "dp_train": {r: c["fwd"] for r, c in
+                         dp["28a"]["launches"].items()}},
         "shapes": rows,
     }
     if sum(fwd["variant_launches"].values()) != fwd["launches"]:
@@ -5471,6 +6057,8 @@ def main() -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in shapes) else "operations",
             # library_ms: SDPA's backward, one call giving dq, dk and dv.
+            "child_launches": {"dp_train": {
+                r: c[key] for r, c in dp["28a"]["launches"].items()}},
             "shapes": shapes,
         })
         if sum(records[-1]["variant_launches"].values()) \
@@ -5503,6 +6091,7 @@ def main() -> int:
         "int8_serve": int8,
         "launched_training": launched,
         "fleet": fleet,
+        "data_parallel": dp,
         "script_s": time.perf_counter() - script_t0,
     }
     log(json.dumps({"summary": summary}))

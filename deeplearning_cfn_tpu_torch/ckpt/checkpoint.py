@@ -1,20 +1,24 @@
 """Atomic, optionally async checkpoints in the JAX package's on-disk format —
-the port of ``deeplearning_cfn_tpu/ckpt/checkpoint.py`` for one process.
+the port of ``deeplearning_cfn_tpu/ckpt/checkpoint.py``.
 
 The port writes exactly what the JAX package writes, so each package
 restores the other's checkpoints:
 
-- layout ``<root>/step_<N:08d>/{manifest.json, manifest_p0.json,
-  shards_p0.npz, DONE_p0, COMMIT}``;
-- ``manifest.json`` lists every leaf by its flat name (``step``,
-  ``params/...``, ``batch_stats/...``, ``opt_state/...``,
+- layout ``<root>/step_<N:08d>/{manifest.json, manifest_p<i>.json,
+  shards_p<i>.npz, DONE_p<i>, COMMIT}``, one ``_p<i>`` set per process;
+- ``manifest.json`` (process 0's) lists every leaf by its flat name
+  (``step``, ``params/...``, ``batch_stats/...``, ``opt_state/...``,
   ``ema_params/...``: the names ``utils/trees.py:flatten_with_names`` gives
-  the JAX ``TrainState``) with its shape and dtype; ``manifest_p0.json``
-  maps each name to its array ``<name>::0`` in ``shards_p0.npz`` and the
-  index range that array covers (the whole leaf: one process);
-- the two-phase commit: the shard object and manifests first, then the
-  ``DONE_p0`` marker, then ``COMMIT`` once every process's marker exists.
-  Restore sees committed steps only.
+  the JAX ``TrainState``) with its shape and dtype, and the process count;
+  ``manifest_p<i>.json`` maps each name process ``i`` wrote to its array
+  ``<name>::0`` in ``shards_p<i>.npz`` and the index range that array
+  covers — the whole leaf, since a port process writes whole leaves:
+  process 0 the replicated ones, each process the ZeRO-1 slots it owns
+  (a leaf another process writes is an ``Elsewhere``, named in the
+  manifest only);
+- the two-phase commit: each process's shard object and manifest, then its
+  ``DONE_p<i>`` marker; process 0 writes ``COMMIT`` once every process's
+  marker exists. Restore sees committed steps only.
 
 A state is a mapping ``{flat name: tensor or array}`` or an object with
 ``named_leaves()`` (the port's :class:`~..train.state.TrainState`, whose
@@ -38,13 +42,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from ..obs.trace import span
+from ..parallel.mesh import process_count, process_index
+from ..parallel.sharding import Elsewhere
 from .store import RetryPolicy, Store, open_store
 
 _MANIFEST = "manifest.json"
 _COMMIT = "COMMIT"
 _DONE_TIMEOUT_S = 600.0
-_PROCESS = 0          # one process: this one
-_PROCESS_COUNT = 1
 
 StoreOrPath = Union[str, Store]
 
@@ -53,8 +57,9 @@ def _step_key(step: int) -> str:
     return f"step_{step:08d}"
 
 
-def _host_leaves(state) -> List[Tuple[str, Optional[np.ndarray]]]:
-    """(name, host array or None) for every leaf of ``state``. Tensors are
+def _host_leaves(state) -> List[Tuple[str, Any]]:
+    """(name, host array, None or Elsewhere) for every leaf of ``state``.
+    Tensors are
     copied now (a CPU tensor too: its numpy view would follow the next
     step); numpy leaves are the caller's, to leave unchanged until the
     write is done (``TrainState.named_leaves`` hands over fresh copies)."""
@@ -62,6 +67,9 @@ def _host_leaves(state) -> List[Tuple[str, Optional[np.ndarray]]]:
         else list(state.items())
     out = []
     for name, leaf in items:
+        if isinstance(leaf, Elsewhere):
+            out.append((name, leaf))
+            continue
         if leaf is not None and hasattr(leaf, "detach"):
             leaf = leaf.detach().to("cpu", copy=True).numpy()
         out.append((name, None if leaf is None else np.asarray(leaf)))
@@ -75,14 +83,15 @@ def save_checkpoint(directory: StoreOrPath, step: int, state,
                     keep: int = 0, async_write: bool = False,
                     _thread_holder: Optional[List[threading.Thread]] = None
                     ) -> str:
-    """Write one checkpoint; returns its location (a path for a POSIX
-    store, else ``<store> key``)."""
+    """Write this process's part of one checkpoint (every process of the
+    job calls it for the same step); returns its location (a path for a
+    POSIX store, else ``<store> key``)."""
     store = open_store(directory)
     key = _step_key(step)
-    tree_manifest: Dict[str, Any] = {"step": step,
-                                     "processes": _PROCESS_COUNT,
+    pidx, pcount = process_index(), process_count()
+    tree_manifest: Dict[str, Any] = {"step": step, "processes": pcount,
                                      "leaves": {}}
-    proc_manifest: Dict[str, Any] = {"process": _PROCESS, "leaves": {}}
+    proc_manifest: Dict[str, Any] = {"process": pidx, "leaves": {}}
     arrays: Dict[str, np.ndarray] = {}
     for name, data in _host_leaves(state):
         if data is None:
@@ -91,6 +100,8 @@ def save_checkpoint(directory: StoreOrPath, step: int, state,
         tree_manifest["leaves"][name] = {
             "kind": "array", "shape": list(data.shape),
             "dtype": str(data.dtype)}
+        if isinstance(data, Elsewhere):
+            continue
         akey = f"{name}::0"
         arrays[akey] = data
         proc_manifest["leaves"][name] = [
@@ -99,28 +110,33 @@ def save_checkpoint(directory: StoreOrPath, step: int, state,
     def write_files():
         retries_before = int(getattr(store, "retries_total", 0))
         with span("ckpt.save", step=step, async_write=async_write) as sp:
-            store.put_npz(f"{key}/shards_p{_PROCESS}.npz", arrays)
-            store.put_bytes(f"{key}/manifest_p{_PROCESS}.json",
+            store.put_npz(f"{key}/shards_p{pidx}.npz", arrays)
+            store.put_bytes(f"{key}/manifest_p{pidx}.json",
                             json.dumps(proc_manifest).encode())
-            store.put_bytes(f"{key}/{_MANIFEST}",
-                            json.dumps(tree_manifest).encode())
-            store.put_bytes(f"{key}/DONE_p{_PROCESS}", str(step).encode())
-            deadline = time.time() + _DONE_TIMEOUT_S
-            sleep_s = 0.05
-            while len([k for k in store.list(f"{key}/")
-                       if k.rsplit("/", 1)[-1].startswith("DONE_p")]) \
-                    < _PROCESS_COUNT:
-                if time.time() > deadline:  # pragma: no cover
-                    print(f"[dlcfn-tpu] WARNING: checkpoint step {step} not "
-                          f"committed: missing DONE markers after "
-                          f"{_DONE_TIMEOUT_S}s")
-                    sp.annotate(committed=False)
-                    return
-                time.sleep(sleep_s)
-                sleep_s = min(sleep_s * 1.6, 2.0)
-            store.put_bytes(f"{key}/{_COMMIT}", str(step).encode())
-            if keep > 0:
-                _garbage_collect(store, keep)
+            if pidx == 0:
+                store.put_bytes(f"{key}/{_MANIFEST}",
+                                json.dumps(tree_manifest).encode())
+            # The marker, then the storage-level commit rendezvous on
+            # process 0. No collective here: this may run on the async
+            # writer's thread, beside the training collectives.
+            store.put_bytes(f"{key}/DONE_p{pidx}", str(step).encode())
+            if pidx == 0:
+                deadline = time.time() + _DONE_TIMEOUT_S
+                sleep_s = 0.05
+                while len([k for k in store.list(f"{key}/")
+                           if k.rsplit("/", 1)[-1].startswith("DONE_p")]) \
+                        < pcount:
+                    if time.time() > deadline:  # pragma: no cover
+                        print(f"[dlcfn-tpu] WARNING: checkpoint step {step} "
+                              f"not committed: missing DONE markers after "
+                              f"{_DONE_TIMEOUT_S}s")
+                        sp.annotate(committed=False)
+                        return
+                    time.sleep(sleep_s)
+                    sleep_s = min(sleep_s * 1.6, 2.0)
+                store.put_bytes(f"{key}/{_COMMIT}", str(step).encode())
+                if keep > 0:
+                    _garbage_collect(store, keep)
             sp.annotate(retries=int(getattr(store, "retries_total", 0))
                         - retries_before)
 
@@ -363,6 +379,10 @@ class CheckpointManager:
             if step is None:
                 return None, None
         return restore_checkpoint(self.store, target, step)
+
+    def committed(self) -> List[int]:
+        """The committed steps in the store, unsorted."""
+        return _committed_steps(self.store)
 
     def store_retries(self) -> int:
         """Transient-fault retries the store absorbed so far."""

@@ -43,9 +43,12 @@ times, each attempt resuming from the last committed checkpoint (logs in
 ``<workdir>/<preset>/logs/attempt<N>-host<I>.log`` and ``launch.jsonl``). A
 dry-run stack runs its host as a local process on the card (or the CPU with
 ``--accelerator cpu``; the JAX package forces the CPU there). A stack of
-more than one host is refused before any launch: the multi-host rendezvous
-is ROADMAP A.10. ``info`` and ``doctor`` report torch, CUDA and the one
-device; there is no mesh until A.10. Serve requests are JSONL lines
+several hosts trains data-parallel: every host's worker joins the process
+group at host 0 (a dry-run stack's hosts are local processes that share
+this machine's cards, on a free local port), and a preset whose mesh needs
+an axis other than the batch axes over those processes is refused before
+any launch (ROADMAP A.10). ``info`` and ``doctor`` report torch, CUDA, the
+devices and the mesh of this process. Serve requests are JSONL lines
 ``{"src_ids": [...]}``, or ``{"text": "..."}`` with ``--vocab``
 (BPE-encoded, ``data/bpe.py``, plus EOS; each result line then carries the
 decoded ``"text"``), with optional ``id``, ``max_new_tokens``,
@@ -193,19 +196,22 @@ def _cmd_show_config(args) -> int:
 
 
 def _cmd_info(args) -> int:
-    """torch and CUDA versions, the devices, and the layout: one device (no
-    mesh until ROADMAP A.10)."""
+    """torch and CUDA versions, the devices, the process and the layout:
+    this process's device, behind JAX's mesh line in a process group."""
     import torch
 
+    from ..parallel.mesh import build_mesh
     from ..train.run import _describe
 
     cuda = torch.cuda.is_available()
     n = torch.cuda.device_count() if cuda else 0
+    mesh = build_mesh()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"backend {'cuda' if cuda else 'cpu'}")
-    print(f"devices: {n} total, {n} local, process 0/1")
+    print(f"devices: {n} total, {n} local, process "
+          f"{mesh.process_index}/{mesh.process_count}")
     print(_describe(torch.device("cuda", torch.cuda.current_device())
-                    if cuda else torch.device("cpu")))
+                    if cuda else torch.device("cpu"), mesh))
     return 0
 
 
@@ -232,13 +238,17 @@ def _cmd_train(args) -> int:
 
 
 def _train_on_stack(args, cfg: ExperimentConfig) -> int:
-    """Fan the worker module to the stack's host through the launcher, which
-    restarts a failed attempt (each resumes from the last committed
-    checkpoint). One host only: the multi-host rendezvous is ROADMAP A.10."""
+    """Fan the worker module to every host of the stack through the
+    launcher, which restarts a failed attempt on every host (each resumes
+    from the last committed checkpoint). Several hosts train data-parallel
+    over one process group; a mesh they cannot carry is refused before any
+    launch."""
     from ..launch import JobLauncher, LocalTransport, SshTransport
+    from ..parallel.mesh import build_mesh
     from ..provision import StackStore
     from ..provision.topology import slice_topology
-    from ..runtime.cluster import ClusterSpec
+    from ..runtime.cluster import DEFAULT_COORDINATOR_PORT, ClusterSpec, \
+        free_local_port
 
     store = StackStore(args.state_dir)
     state = store.load_or_none(args.stack)
@@ -250,11 +260,11 @@ def _train_on_stack(args, cfg: ExperimentConfig) -> int:
         print(f"[dlcfn-tpu] stack {args.stack!r} is {state.status.value}, "
               "not CREATE_COMPLETE", file=sys.stderr)
         return 1
-    if len(state.hosts) > 1:
+    try:
+        build_mesh(cfg.mesh, num_processes=len(state.hosts), index=0)
+    except (NotImplementedError, ValueError) as e:
         print(f"[dlcfn-tpu] ERROR: stack {args.stack!r} has "
-              f"{len(state.hosts)} hosts; the port trains on one host until "
-              f"the multi-host rendezvous is ported (ROADMAP A.10)",
-              file=sys.stderr)
+              f"{len(state.hosts)} hosts: {e}", file=sys.stderr)
         return 1
     if state.provisioner == "dryrun" and args.accelerator == "gpu":
         # A dry-run host is a local process on this machine's card.
@@ -267,9 +277,13 @@ def _train_on_stack(args, cfg: ExperimentConfig) -> int:
             return 1
 
     topo = slice_topology(state.slice_type)
+    # A dry-run stack's hosts are processes of this machine: their
+    # rendezvous takes a free local port, so two jobs never meet.
+    port = free_local_port() if state.provisioner == "dryrun" \
+        else DEFAULT_COORDINATOR_PORT
     spec = ClusterSpec(hosts=state.host_addresses(),
                        chips_per_host=topo.chips_per_host,
-                       hostfile=state.hostfile)
+                       coordinator_port=port, hostfile=state.hostfile)
     worker_argv = [
         sys.executable, "-m", "deeplearning_cfn_tpu_torch.train.worker",
         "--preset", args.preset, "--accelerator", args.accelerator,
@@ -1158,11 +1172,12 @@ def _cmd_doctor(args) -> int:
             report("hbm", True,
                    f"{(total - free) / 2**30:.2f} / {total / 2**30:.2f} "
                    f"GiB in use")
+            from ..parallel.mesh import build_mesh, describe
             from ..train.run import _describe
 
+            mesh = build_mesh()
             report("mesh", True,
-                   f"{_describe(torch.device('cuda', 0))}; no mesh until "
-                   f"ROADMAP A.10")
+                   f"{describe(mesh)}; {_describe(torch.device('cuda', 0))}")
         except Exception as e:
             report("backend", False, repr(e))
 

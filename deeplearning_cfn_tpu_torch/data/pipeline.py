@@ -1,5 +1,4 @@
-"""Dataset pipelines for one process — the port of
-``deeplearning_cfn_tpu/data/pipeline.py``.
+"""Dataset pipelines — the port of ``deeplearning_cfn_tpu/data/pipeline.py``.
 
 - Sources: :class:`ArraySource` (an in-memory dict of equal-length numpy
   arrays), :func:`synthetic_image_source` (the JAX package's learnable
@@ -17,10 +16,11 @@
   the native C++ ``dataio`` gather when ``use_native_loader`` is set and
   the library builds (crop and flip then come from dataio's SplitMix64
   stream); anything else gathers in Python (crop and flip from numpy's
-  ``RandomState``). One process only: the port has no multi-host sharding
-  yet (ROADMAP A.10), so the process index is 0 and the count 1. Given the
-  same source, seed and batch size it yields exactly the JAX pipeline's
-  batches.
+  ``RandomState``). Across processes each takes its contiguous slice of the
+  epoch's permutation (``process_index`` of ``process_count``, by default
+  the process group's) and seeds its augmentation with its index, as the
+  JAX pipeline does. Given the same source, seed, batch size and process
+  it yields exactly the JAX pipeline's batches.
 - :class:`DevicePrefetcher`: stages ``depth`` batches to the card ahead of
   the step loop, from pinned host memory with non-blocking copies on a side
   stream, so the host→device transfer overlaps the previous step's compute.
@@ -115,15 +115,19 @@ def augment_crop_flip(batch: Batch, rng: np.random.RandomState,
     return {**batch, "image": out}
 
 
-def _batch_seed(seed: int, epoch: int, start: int) -> int:
+def _batch_seed(seed: int, epoch: int, start: int, pidx: int = 0) -> int:
     """The (seed, epoch, batch offset, process) mix the JAX pipeline hands
-    to the native gather and to seeded sources, for process 0."""
-    return ((seed + 1) * 7919 + epoch * 2654435761 + start * 31) \
+    to the native gather and to seeded sources."""
+    return ((seed + 1) * 7919 + epoch * 2654435761 + start * 31 + pidx) \
         & (2**64 - 1)
 
 
 class DataPipeline:
-    """Shuffles, batches, augments and prefetches one process's batches.
+    """Shards, shuffles, batches, augments and prefetches one process's
+    batches. ``local_batch`` is the per-process batch; the epoch's indices
+    are sharded by ``process_index``/``process_count`` (the process
+    group's when not given) after a shuffle from the shared seed, so across
+    processes every example appears once per epoch.
 
     ``drop_remainder=False`` keeps the tail by PADDING the final batch
     (wrapped indices) and attaching an ``eval_mask`` key (1=real, 0=pad) to
@@ -137,7 +141,11 @@ class DataPipeline:
                  augment: Optional[Callable[[Batch, np.random.RandomState],
                                             Batch]] = None,
                  drop_remainder: bool = True, prefetch: int = 2,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None,
                  native: bool = True, num_workers: int = 4):
+        from ..parallel import mesh
+
         self.source = source
         self.local_batch = local_batch
         self.seed = seed
@@ -145,6 +153,10 @@ class DataPipeline:
         self.augment = augment
         self.drop_remainder = drop_remainder
         self.prefetch = prefetch
+        self.pidx = mesh.process_index() if process_index is None \
+            else process_index
+        self.pcount = mesh.process_count() if process_count is None \
+            else process_count
         self.num_workers = max(1, num_workers)
         # Sources exposing gather_seeded (ImageNet shards) do their own
         # augmentation/decode — the pipeline just hands them a seed.
@@ -161,25 +173,32 @@ class DataPipeline:
             self._native = dataio.available()
 
     @property
+    def _per_proc(self) -> int:
+        if self.drop_remainder:
+            return self.source.size // self.pcount
+        return -(-self.source.size // self.pcount)  # ceil
+
+    @property
     def steps_per_epoch(self) -> int:
         if self.drop_remainder:
-            return self.source.size // self.local_batch
-        return -(-self.source.size // self.local_batch)  # ceil
+            return self._per_proc // self.local_batch
+        return -(-self._per_proc // self.local_batch)  # ceil
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         idx = np.arange(self.source.size)
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(idx)
-        return idx
+        per_proc = self._per_proc
+        return idx[self.pidx * per_proc:(self.pidx + 1) * per_proc]
 
     def _gather_native(self, idx: np.ndarray, epoch: int, start: int
                        ) -> Batch:
         """GIL-free threaded gather (+ crop/flip) through dataio, seeded by
-        (pipeline seed, epoch, batch offset), so augmentation does not
-        depend on thread scheduling."""
+        (pipeline seed, epoch, batch offset, process), so augmentation does
+        not depend on thread scheduling."""
         from .. import dataio
 
-        seed = _batch_seed(self.seed, epoch, start)
+        seed = _batch_seed(self.seed, epoch, start, self.pidx)
         out: Batch = {}
         for k, v in self.source.arrays.items():
             if k == "image" and v.ndim == 4 and v.dtype == np.float32:
@@ -194,7 +213,8 @@ class DataPipeline:
 
     def _epoch_batches(self, epoch: int, start_batch: int = 0
                        ) -> Iterator[Batch]:
-        rng = np.random.RandomState((self.seed + 1) * 7919 + epoch * 31)
+        rng = np.random.RandomState((self.seed + 1) * 7919 + epoch * 31
+                                    + self.pidx)
         idx = self._epoch_indices(epoch)
         for start in range(start_batch * self.local_batch,
                            self.steps_per_epoch * self.local_batch,
@@ -214,7 +234,7 @@ class DataPipeline:
             if self._seeded:
                 batch = self.source.gather_seeded(
                     np.asarray(batch_idx, np.int64),
-                    _batch_seed(self.seed, epoch, start))
+                    _batch_seed(self.seed, epoch, start, self.pidx))
             elif self._native:
                 batch = self._gather_native(np.asarray(batch_idx, np.int32),
                                             epoch, start)
@@ -407,16 +427,20 @@ class DevicePrefetcher:
 
 def build_pipeline(cfg: DataConfig, local_batch: int, num_classes: int = 0,
                    seed: int = 0, train: bool = True,
-                   drop_remainder: bool = True) -> DataPipeline:
+                   drop_remainder: bool = True,
+                   process_index: Optional[int] = None,
+                   process_count: Optional[int] = None) -> DataPipeline:
     """The dataset's pipeline, with the JAX package's sources, seeds and
     defaults: real CIFAR-10 batches or ImageNet shards under
     ``data.data_dir`` (unless ``data.synthetic``), else the synthetic
     images (train seeds 17 / 29, eval 23 / 31); ``coco`` reads
-    ``<data_dir>/{train,eval}.npz`` or makes synthetic scenes (47 / 53)."""
+    ``<data_dir>/{train,eval}.npz`` or makes synthetic scenes (47 / 53).
+    ``process_index``/``process_count`` default to the process group's."""
     name = cfg.name
     common = dict(seed=seed, shuffle=train, prefetch=cfg.prefetch,
                   native=cfg.use_native_loader, num_workers=cfg.num_workers,
-                  drop_remainder=drop_remainder)
+                  drop_remainder=drop_remainder,
+                  process_index=process_index, process_count=process_count)
     want_real = bool(cfg.data_dir) and not cfg.synthetic \
         and os.path.isdir(cfg.data_dir)
     if name in ("cifar10", "imagenet"):

@@ -17,7 +17,11 @@ itself at the planned step on attempt 0 only (runtime/faults.py:
 ``chaos_kill_hook_from_env``; the launcher exports ``DLCFN_ATTEMPT``). The
 launcher restarts it; auto-resume restores the last committed step; the
 harness then compares per-step metrics.jsonl records and checks that no
-torn (uncommitted) step directory survives.
+torn (uncommitted) step directory survives. With ``hosts`` > 1 both jobs
+train data-parallel over that many local processes, and ``kill_process``
+names the one process that dies (``DLCFN_CHAOS_KILL_PROCESS``: once the
+step's checkpoint is committed); the launcher kills its peers, blocked in
+a collective, and restarts every process.
 
 Test-only by design — nothing imports this from the production paths;
 tests/test_torch_launch.py and ``chip_smoke.py`` drive it.
@@ -33,8 +37,8 @@ import re
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from ..runtime.cluster import ClusterSpec
-from ..runtime.faults import CHAOS_KILL_ENV
+from ..runtime.cluster import ClusterSpec, free_local_port, write_hostfile
+from ..runtime.faults import CHAOS_KILL_ENV, CHAOS_KILL_PROCESS_ENV
 from .launcher import JobLauncher, JobResult, LocalTransport
 
 
@@ -131,6 +135,8 @@ def run_crash_recovery(
     compare_keys: Tuple[str, ...] = ("loss",),
     extra_env: Optional[Dict[str, str]] = None,
     accelerator: str = "gpu",
+    hosts: int = 1,
+    kill_process: Optional[int] = None,
 ) -> ChaosReport:
     """Run the kill → restart → resume scenario and compare trajectories.
 
@@ -145,14 +151,22 @@ def run_crash_recovery(
 
     ``accelerator`` is the workers' ``--accelerator``: ``gpu`` (the
     default; a worker without a card exits nonzero, it never moves to the
-    CPU) or ``cpu``.
+    CPU) or ``cpu``. ``hosts`` local processes train each job
+    data-parallel; ``kill_process`` kills that one only (every process by
+    default).
     """
     if kill_at_step % ckpt_every != 0:
         raise ValueError(
             f"kill_at_step={kill_at_step} must be a multiple of "
             f"ckpt_every={ckpt_every} (the SIGKILL hook fires on "
             f"checkpoint-cadence boundaries)")
-    spec = ClusterSpec(hosts=["localhost"], process_id=0, chips_per_host=1)
+    # The hostfile carries the host list to the workers: each reads its
+    # local rank (and so its backend and card) from it.
+    names = ["127.0.0.1"] * hosts if hosts > 1 else ["localhost"]
+    spec = ClusterSpec(hosts=names, process_id=0, chips_per_host=1,
+                       coordinator_port=free_local_port(),
+                       hostfile=write_hostfile(
+                           os.path.join(workdir, "hosts"), names))
     launcher = JobLauncher(transport=LocalTransport(),
                            max_restarts=max_restarts, tail_rank0=False,
                            poll_interval_s=0.1)
@@ -173,7 +187,9 @@ def run_crash_recovery(
         _worker_argv(preset, chaos_dir, total_steps, ckpt_every, overrides,
                      accelerator),
         log_dir=os.path.join(workdir, "logs-chaos"),
-        extra_env={**base_env, CHAOS_KILL_ENV: str(kill_at_step)})
+        extra_env={**base_env, CHAOS_KILL_ENV: str(kill_at_step),
+                   **({} if kill_process is None else
+                      {CHAOS_KILL_PROCESS_ENV: str(kill_process)})})
 
     base_recs = _read_step_records(
         os.path.join(base_dir, model_sub, "metrics.jsonl"), compare_keys)

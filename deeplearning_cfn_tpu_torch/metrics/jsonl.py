@@ -16,11 +16,11 @@ from typing import Any, Dict, IO, List, Optional
 
 
 class MetricsWriter:
-    """Append-only JSONL writer. The port runs one process per engine, so
-    every writer writes (the JAX package asks ``jax.process_index()`` to
-    keep multi-host runs to one stream; ``all_processes`` is kept for the
-    same call signature). The file handle is opened lazily on the first
-    :meth:`write`.
+    """Append-only JSONL writer; no-op on non-zero processes of a process
+    group by default, so multi-process runs produce one metrics stream (the
+    reference's "rank 0 prints" convention). A process outside any group
+    (an engine, a fleet replica) is process 0. The process index and the
+    file handle are resolved lazily on the first :meth:`write`.
     """
 
     def __init__(self, path: Optional[str], also_stdout: bool = True,
@@ -28,12 +28,16 @@ class MetricsWriter:
         self._path = path
         self.also_stdout = also_stdout
         self._all_processes = all_processes
-        self._enabled = True
+        self._enabled: Optional[bool] = True if all_processes else None
         self._fh: Optional[IO[str]] = None
         self._opened = False
 
     @property
     def enabled(self) -> bool:
+        if self._enabled is None:
+            from ..parallel.mesh import process_index
+
+            self._enabled = process_index() == 0
         return self._enabled
 
     def _file(self) -> Optional[IO[str]]:

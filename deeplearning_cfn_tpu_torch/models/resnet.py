@@ -29,8 +29,11 @@ cuDNN's tensor-core convolutions want. What it keeps of Flax, exactly:
   ``convs.i``, ``BatchNorm_i`` → ``norms.i``; ``conv_proj``, ``norm_proj``,
   ``conv_init``, ``conv_init_s2d``, ``norm_init`` and ``head`` keep theirs.
 
-BatchNorm normalises over the whole batch on one device; the JAX package's
-mesh-wide (sync) statistics come with data parallelism (ROADMAP A.10).
+BatchNorm's statistics are mesh-wide, as in the JAX package, whose
+BatchNorm runs inside one program over the global batch: across processes
+the forward sums ``[Σx, Σx², count]`` in f32 over the process group and
+the backward sums the gradients of those sums (``parallel.global_sum``).
+With one process the statistics are the local means, as before.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import global_sum
+from ..parallel.mesh import process_count
 from . import register_model
 
 
@@ -117,9 +122,11 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
-                              min=0.0)
+            if process_count() > 1:
+                mean, mean_sq = self._global_moments(xf)
+            else:
+                mean, mean_sq = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if not self.freeze_stats:
                 m = self.momentum
                 with torch.no_grad():
@@ -132,6 +139,19 @@ class BatchNorm(nn.Module):
         y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] \
             + self.bias[None, :, None, None]
         return y.to(self.dtype)
+
+    @staticmethod
+    def _global_moments(xf: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(E[x], E[x²])`` per channel over every process's batch: one
+        differentiable sum of ``[Σx, Σx², count]``."""
+        channels = xf.shape[1]
+        count = torch.full((1,), float(xf.numel() // channels),
+                           dtype=torch.float32, device=xf.device)
+        sums = global_sum(torch.cat([xf.sum((0, 2, 3)),
+                                     (xf * xf).sum((0, 2, 3)), count]))
+        n = sums[-1]
+        return sums[:channels] / n, sums[channels:2 * channels] / n
 
 
 class Dense(nn.Module):

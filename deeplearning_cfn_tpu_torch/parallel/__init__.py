@@ -1,0 +1,28 @@
+"""Parallelism layer of the port: the mesh over the job's processes
+(``mesh.py``), the batch layout (``sharding.py``) and the collectives of
+data parallelism (``collectives.py``).
+
+The JAX package's collectives are XLA's, scheduled over ICI inside the
+compiled step. The port's are ``torch.distributed``'s over the process group
+that ``runtime.cluster.initialize`` joins: NCCL when every process of a
+machine has a card of its own, gloo otherwise. Data parallelism across
+processes is ported (the ``dcn_data`` and ``data`` axes); the other axes
+are ROADMAP A.10's.
+"""
+
+from .mesh import (  # noqa: F401
+    AXIS_ORDER,
+    BATCH_AXES,
+    Mesh,
+    MeshSpec,
+    build_mesh,
+    data_axis_size,
+    describe,
+    hosts_for_slice,
+    local_batch_size,
+    process_count,
+    process_index,
+    slice_chip_count,
+    validate_batch,
+)
+from .sharding import Elsewhere, batch_sharding, local_shard  # noqa: F401

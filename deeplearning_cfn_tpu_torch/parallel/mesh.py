@@ -1,0 +1,228 @@
+"""The mesh over the job's processes — the port of
+``deeplearning_cfn_tpu/parallel/mesh.py``.
+
+The JAX mesh is a ``jax.sharding.Mesh`` over every chip of the slice, and
+XLA schedules the collectives along its axes. The port runs one process per
+device (the reference's one rank per GPU), so its mesh is the process
+group: :class:`Mesh` holds the axis sizes, this process's coordinates and
+the count of processes, and the collectives go through
+``torch.distributed`` (``parallel/collectives.py``).
+
+What carries over exactly: :data:`AXIS_ORDER`, :data:`BATCH_AXES`,
+:class:`MeshSpec` and its ``resolve`` (the same errors for the same
+configs), :func:`data_axis_size`, :func:`local_batch_size`,
+:func:`validate_batch`, :func:`describe` (JAX's ``mesh[...] over N
+devices`` line), :func:`slice_chip_count` and :func:`hosts_for_slice`.
+
+Scope. Across processes only the batch axes (``dcn_data``, ``data``) are
+ported: a mesh that resolves with ``model``, ``spatial``, ``expert``,
+``pipe`` or ``seq`` above 1 over more than one process raises, naming the
+ROADMAP A.10 item that brings the axis. With one process the preset's mesh
+is ignored, as it always was: every preset trains on the one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+from ..config import MeshConfig
+
+# Axis order matters: 'dcn_data' outermost (slice boundaries are the
+# slowest links — only the one gradient allreduce hop should cross them),
+# then 'data' so per-host batches stay contiguous (each host feeds only its
+# local shard of the batch), then 'expert', 'model' innermost.
+AXIS_ORDER: Tuple[str, ...] = ("dcn_data", "pipe", "data", "expert",
+                               "spatial", "seq", "model")
+# Batch dim 0 shards over all of these jointly (JAX's rule; the port brings
+# 'dcn_data' and 'data' across processes, 'expert' is A.10's).
+BATCH_AXES: Tuple[str, ...] = ("dcn_data", "data", "expert")
+
+# The axes a multi-process mesh may not use yet, with the ROADMAP A.10 item
+# that brings each.
+UNPORTED_AXES: Dict[str, str] = {
+    "seq": "the seq axis: ring and Ulysses attention, bert_long, gpt_long",
+    "pipe": "the pipe axis: the GPipe schedule across devices",
+    "expert": "the expert axis: MoE dispatch across devices",
+    "model": "the model axis: tensor-parallel layers",
+    "spatial": "the spatial axis: Mask R-CNN's spatial shard",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Resolved logical mesh shape (all axes concrete, product == #devices)."""
+
+    data: int
+    model: int = 1
+    spatial: int = 1
+    dcn_data: int = 1
+    expert: int = 1
+    pipe: int = 1
+    seq: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return (self.data * self.model * self.spatial * self.dcn_data
+                * self.expert * self.pipe * self.seq)
+
+    def axis_sizes(self) -> Dict[str, int]:
+        return {"dcn_data": self.dcn_data, "pipe": self.pipe,
+                "data": self.data, "expert": self.expert,
+                "spatial": self.spatial, "seq": self.seq,
+                "model": self.model}
+
+    @classmethod
+    def resolve(cls, cfg: MeshConfig, num_devices: int) -> "MeshSpec":
+        """Resolve ``data = -1`` ("all remaining devices") against a device
+        count and validate divisibility — the topology math the reference did
+        by hand via ``$DEEPLEARNING_WORKERS_COUNT × GPUs``."""
+        model = cfg.model
+        spatial = cfg.spatial
+        expert = getattr(cfg, "expert", 1)
+        pipe = getattr(cfg, "pipe", 1)
+        seq = getattr(cfg, "seq", 1)
+        slices = getattr(cfg, "num_slices", 1)
+        if min(model, spatial, slices, expert, pipe, seq) < 1:
+            raise ValueError(f"mesh axes must be >=1, got {cfg}")
+        if num_devices % slices != 0:
+            raise ValueError(
+                f"num_slices={slices} does not divide device count "
+                f"{num_devices}")
+        per_slice = num_devices // slices
+        fixed = model * spatial * expert * pipe * seq
+        if per_slice % fixed != 0:
+            raise ValueError(
+                f"pipe*model*spatial*seq*expert={fixed} does not divide "
+                f"per-slice device count {per_slice}"
+            )
+        data = cfg.data
+        if data == -1:
+            data = per_slice // fixed
+        if data * fixed != per_slice:
+            raise ValueError(
+                f"mesh {pipe}x{data}x{expert}x{spatial}x{seq}x{model} != "
+                f"{per_slice} devices/slice; set data=-1 to auto-size"
+            )
+        return cls(data=data, model=model, spatial=spatial,
+                   dcn_data=slices, expert=expert, pipe=pipe, seq=seq)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The job's mesh: one device per process. ``shape`` maps every axis of
+    :data:`AXIS_ORDER` to its size; process ``process_index`` sits at
+    ``coords`` (row-major over :data:`AXIS_ORDER`, as JAX lays the device
+    array out), and its rows of a global batch are the
+    ``process_index``-th contiguous block."""
+
+    shape: Dict[str, int]
+    process_index: int = 0
+    process_count: int = 1
+
+    @property
+    def size(self) -> int:
+        """Devices in the mesh (one per process)."""
+        return math.prod(self.shape.values())
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        out, rest = {}, self.process_index
+        for axis in reversed(AXIS_ORDER):
+            out[axis] = rest % self.shape[axis]
+            rest //= self.shape[axis]
+        return {a: out[a] for a in AXIS_ORDER}
+
+
+def process_index() -> int:
+    """This process's rank in the job (0 without a process group)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """Processes in the job (1 without a process group)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
+
+
+def build_mesh(cfg: Optional[MeshConfig] = None,
+               num_processes: Optional[int] = None,
+               index: Optional[int] = None) -> Mesh:
+    """The mesh of this job: ``cfg`` resolved over the processes of the
+    process group (``num_processes`` and ``index`` default to it). One
+    process ignores ``cfg`` (every axis 1, as the one-device port always
+    trained); more resolve it as JAX does and refuse the axes not ported
+    (:data:`UNPORTED_AXES`)."""
+    n = process_count() if num_processes is None else num_processes
+    rank = process_index() if index is None else index
+    if n == 1:
+        return Mesh(shape=dict.fromkeys(AXIS_ORDER, 1))
+    spec = MeshSpec.resolve(cfg or MeshConfig(), n)
+    sizes = spec.axis_sizes()
+    for axis, item in UNPORTED_AXES.items():
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"mesh axis {axis}={sizes[axis]} over {n} processes needs "
+                f"{item}, not ported yet (ROADMAP A.10); the port's "
+                f"processes split the batch axes (dcn_data, data) only — "
+                f"set mesh.{axis}=1")
+    return Mesh(shape={a: sizes[a] for a in AXIS_ORDER},
+                process_index=rank, process_count=n)
+
+
+def data_axis_size(mesh: Mesh) -> int:
+    """Total batch-sharding ways: the 'data' axis times the cross-slice
+    'dcn_data' axis times the 'expert' axis."""
+    return (mesh.shape["data"] * mesh.shape.get("dcn_data", 1)
+            * mesh.shape.get("expert", 1))
+
+
+def local_batch_size(global_batch: int, mesh: Mesh) -> int:
+    """Per-process batch size: the global batch divided across the processes
+    that feed the data axes (Horovod's per-rank batch)."""
+    n_proc = mesh.process_count
+    if global_batch % n_proc != 0:
+        raise ValueError(
+            f"global batch {global_batch} not divisible by process count {n_proc}"
+        )
+    if global_batch % data_axis_size(mesh) != 0:
+        raise ValueError(
+            f"global batch {global_batch} not divisible by data-axis size "
+            f"{data_axis_size(mesh)}"
+        )
+    return global_batch // n_proc
+
+
+def validate_batch(global_batch: int, mesh: Mesh) -> None:
+    if global_batch % data_axis_size(mesh) != 0:
+        raise ValueError(
+            f"global batch {global_batch} must be divisible by the total "
+            f"data-parallel ways ({data_axis_size(mesh)})"
+        )
+
+
+def describe(mesh: Mesh) -> str:
+    """Human-readable topology line for logs (the JAX package's)."""
+    axes = ", ".join(f"{a}={s}" for a, s in mesh.shape.items())
+    return (f"mesh[{axes}] over {mesh.size} devices "
+            f"({mesh.process_count} processes, 1 local)")
+
+
+def slice_chip_count(slice_type: str) -> int:
+    """Chips in a TPU slice type string like 'v5p-8' (the number suffix is
+    the chip count for v5p/v4 naming)."""
+    try:
+        return int(slice_type.rsplit("-", 1)[1])
+    except (IndexError, ValueError) as e:
+        raise ValueError(f"cannot parse slice type {slice_type!r}") from e
+
+
+def hosts_for_slice(slice_type: str, chips_per_host: int = 4) -> int:
+    chips = slice_chip_count(slice_type)
+    return max(1, math.ceil(chips / chips_per_host))

@@ -1,6 +1,6 @@
 """Runtime layer for the port: device selection, the cluster env contract
-and rendezvous (one host until ROADMAP A.10), fault injection, the hang
-watchdog and profiler traces.
+and the rendezvous (``torch.distributed``'s process group), fault
+injection, the hang watchdog and profiler traces.
 
 Env-var contract (the JAX package's ``runtime/__init__.py``, unchanged):
 
@@ -19,6 +19,7 @@ profiler server; ``train.profile_steps`` writes the port's traces).
 
 from .cluster import (  # noqa: F401
     ClusterSpec,
+    choose_backend,
     cluster_env,
     current_cluster,
     initialize,
@@ -30,6 +31,7 @@ from .profiling import trace_steps  # noqa: F401
 
 __all__ = [
     "ClusterSpec",
+    "choose_backend",
     "cluster_env",
     "current_cluster",
     "initialize",

@@ -6,18 +6,21 @@ AutoScalingGroup, collects worker private IPs, writes the hostfile, exports
 ``DEEPLEARNING_WORKERS_*``, and every node cfn-signals a WaitCondition. Here
 the same information travels as a :class:`ClusterSpec` — written by the
 provisioner/launcher, read by every worker process. The env contract and the
-hostfile I/O are the JAX package's, unchanged. The rendezvous is one host
-only in this slice: :func:`initialize` is a no-op for one host and refuses
-more, because there the rendezvous becomes ``torch.distributed``'s
-``init_process_group`` (ROADMAP A.10).
+hostfile I/O are the JAX package's, unchanged. The rendezvous
+(:func:`initialize`) is ``torch.distributed.init_process_group`` at process
+0's ``coordinator``: NCCL when every process of this machine has a card of
+its own, gloo otherwise (the CPU, or processes that share a card — NCCL
+refuses two ranks on one GPU). The choice follows the topology alone and is
+printed; a failed init raises and is never retried on another backend.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import socket
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 # Env-var names. DLCFN_* mirror the reference's DEEPLEARNING_* contract.
 ENV_WORKERS_PATH = "DLCFN_WORKERS_PATH"
@@ -131,23 +134,74 @@ def current_cluster(environ: Optional[Dict[str, str]] = None
     return spec
 
 
-def initialize(spec: Optional[ClusterSpec] = None, timeout_s: int = 300
-               ) -> ClusterSpec:
-    """Join the job — the rebuild's `hvd.init()` / MPI_Init.
+def free_local_port() -> int:
+    """A free TCP port on this machine, for the rendezvous of a job whose
+    hosts are all local processes (a dry-run stack)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def choose_backend(spec: ClusterSpec, accelerator: str = "gpu",
+                   cards: int = 0) -> Tuple[str, str, str]:
+    """``(backend, device, why)`` of this process from the topology alone.
+
+    The local rank is the number of earlier hosts of the spec with this
+    process's host name (a dry-run stack lists one address many times). On
+    the CPU (``accelerator="cpu"``) the backend is gloo; on the card it is
+    NCCL with ``cuda:<local rank>`` when this machine's ``cards`` cover its
+    processes, and gloo with ``cuda:<local rank % cards>`` when processes
+    share a card."""
+    host = spec.hosts[spec.process_id]
+    local_rank = spec.hosts[:spec.process_id].count(host)
+    local_procs = spec.hosts.count(host)
+    if accelerator == "cpu":
+        return "gloo", "cpu", "the CPU"
+    if cards < 1:
+        raise RuntimeError(
+            "a CUDA card was asked for but this machine has none — pass "
+            "--accelerator cpu to run on the CPU")
+    if cards >= local_procs:
+        return ("nccl", f"cuda:{local_rank}",
+                f"{local_procs} process(es) on {cards} card(s): one each")
+    return ("gloo", f"cuda:{local_rank % cards}",
+            f"{local_procs} processes share {cards} card(s); NCCL takes "
+            f"one rank per card")
+
+
+_initialized = False
+
+
+def initialize(spec: Optional[ClusterSpec] = None, timeout_s: int = 300,
+               accelerator: str = "gpu") -> ClusterSpec:
+    """Join the job — the rebuild's ``hvd.init()`` / MPI_Init.
 
     Single-host (no contract in the environment, or a one-host contract) is
-    a no-op returning the spec. A multi-host spec raises: the port's
-    rendezvous (``torch.distributed.init_process_group`` against process 0's
-    ``coordinator``, with the world size and rank of the spec) is ROADMAP
-    A.10. ``timeout_s`` is kept for the JAX package's call signature.
-    """
+    a no-op returning the spec. A multi-host spec joins the process group
+    once (later calls return the spec): ``init_process_group`` at
+    ``tcp://<coordinator>`` with the spec's world size and rank and a
+    ``timeout_s`` timeout (a peer that never joins, or dies in a collective,
+    raises here or there instead of hanging), on the backend and card of
+    :func:`choose_backend`, which the process's first line names."""
+    global _initialized
     spec = spec if spec is not None else current_cluster()
     if spec is None:
         return ClusterSpec(hosts=[socket.gethostname()], process_id=0)
     spec.validate()
-    if spec.is_multi_host:
-        raise NotImplementedError(
-            f"a {spec.num_processes}-host job needs the multi-host "
-            f"rendezvous (torch.distributed.init_process_group at "
-            f"{spec.coordinator}), which is not ported yet (ROADMAP A.10)")
+    if not spec.is_multi_host or _initialized:
+        return spec
+    import torch
+    import torch.distributed as dist
+
+    cards = torch.cuda.device_count() if accelerator != "cpu" else 0
+    backend, device, why = choose_backend(spec, accelerator, cards)
+    print(f"[dlcfn-tpu] process {spec.process_id}/{spec.num_processes}: "
+          f"backend {backend}, device {device} ({why})", flush=True)
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(
+        backend, init_method=f"tcp://{spec.coordinator}",
+        world_size=spec.num_processes, rank=spec.process_id,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    _initialized = True
     return spec

@@ -55,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ..ckpt.store import Store
 
 CHAOS_KILL_ENV = "DLCFN_CHAOS_KILL_AT_STEP"
+CHAOS_KILL_PROCESS_ENV = "DLCFN_CHAOS_KILL_PROCESS"
 ATTEMPT_ENV = "DLCFN_ATTEMPT"  # set by launch/launcher.py per attempt
 
 
@@ -293,7 +294,9 @@ class FaultInjectionStore(Store):
         return f"fault-injection({self.inner.describe()})"
 
 
-def chaos_kill_hook_from_env() -> Optional[Callable]:
+def chaos_kill_hook_from_env(
+        committed: Optional[Callable[[int], bool]] = None
+) -> Optional[Callable]:
     """Build the SIGKILL-at-step training hook when the chaos env contract
     is armed (test harness only — launch/chaos.py sets it).
 
@@ -302,15 +305,29 @@ def chaos_kill_hook_from_env() -> Optional[Callable]:
     attempt runs to completion. SIGKILL — not sys.exit — because the point
     is an unclean death: no finalizers, no atexit, the exact failure the
     two-phase checkpoint commit must survive.
+
+    ``DLCFN_CHAOS_KILL_PROCESS=<i>`` kills process ``i`` of a multi-process
+    job only (``DLCFN_PROCESS_ID``), and only once ``committed(step)`` says
+    the step's checkpoint is committed (up to two minutes): process 0
+    commits once every process's marker is written, so the restarted job
+    resumes from that step, whatever the processes' timing.
     """
     kill_at = int(os.environ.get(CHAOS_KILL_ENV, "0") or 0)
     if kill_at <= 0:
         return None
     if os.environ.get(ATTEMPT_ENV, "0") != "0":
         return None
+    only = os.environ.get(CHAOS_KILL_PROCESS_ENV)
+    if only is not None and \
+            os.environ.get("DLCFN_PROCESS_ID", "0") != only:
+        return None
 
     def hook(step: int, state, metrics) -> None:
         if step >= kill_at:
+            if only is not None and committed is not None:
+                deadline = time.monotonic() + 120.0
+                while not committed(step) and time.monotonic() < deadline:
+                    time.sleep(0.05)
             print(f"[dlcfn-tpu] CHAOS: SIGKILL self at step {step} "
                   f"(planned {kill_at})", file=sys.stderr, flush=True)
             sys.stdout.flush()

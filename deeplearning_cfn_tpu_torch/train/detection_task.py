@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from ..config import ExperimentConfig
 from ..models import build_model
 from ..models.maskrcnn import MASK_ROI_SIZE, ROI_SIZE
+from ..parallel.collectives import gather_batches, global_total
 from ..ops.detection import (_bilinear_sample, decode_boxes, encode_boxes,
                              generate_anchors, iou_matrix,
                              multilevel_roi_align, nms_static, take_rows,
@@ -52,7 +53,10 @@ def _huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
 
 
 def _mean_where(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    return (values * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    """The weighted mean over the global batch (this process's share of it
+    across processes: ``train/task.py``)."""
+    return (values * weights).sum() / torch.clamp(
+        global_total(weights.sum()), min=1.0)
 
 
 def _sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -253,20 +257,25 @@ class DetectionTask:
                                   ev.detect_nms_iou)
         acc = DetectionAccumulator()
         s = self.image_size
+        per_batch = []
         with state.eval_weights():
             for batch in eval_iter_fn():
                 images = torch.from_numpy(batch["image"]).to(self.device)
                 det = {k: v.cpu().numpy()
                        for k, v in predict(images).items()}
                 emask = batch.get("eval_mask")
-                for i in range(det["boxes"].shape[0]):
-                    if emask is not None and emask[i] == 0:
-                        continue
-                    acc.add_image(
-                        det["boxes"][i], det["scores"][i],
-                        det["classes"][i], batch["boxes"][i],
-                        batch["labels"][i], pred_masks=det["masks"][i],
-                        gt_masks=batch["masks"][i], image_hw=(s, s))
+                per_batch.append([
+                    (det["boxes"][i], det["scores"][i], det["classes"][i],
+                     batch["boxes"][i], batch["labels"][i],
+                     det["masks"][i], batch["masks"][i])
+                    for i in range(det["boxes"].shape[0])
+                    if emask is None or emask[i] != 0])
+        # Across processes every one scores the whole eval set, in the
+        # global batch's order.
+        for box, score, cls, gt_box, gt_label, mask, gt_mask in \
+                gather_batches(per_batch):
+            acc.add_image(box, score, cls, gt_box, gt_label,
+                          pred_masks=mask, gt_masks=gt_mask, image_hw=(s, s))
         return acc.compute(with_masks=True)
 
     # -- loss -----------------------------------------------------------------

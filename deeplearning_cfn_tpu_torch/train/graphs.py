@@ -67,25 +67,32 @@ Signature = Tuple[Tuple[str, Tuple[int, ...], torch.dtype], ...]
 WARMUP_STEPS = 1
 
 
-def step_seed(seed: int, step: int) -> int:
-    """A well-mixed 63-bit seed for ``(seed, step)``."""
-    return int(np.random.SeedSequence([int(seed), int(step)])
+def step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
+    """A well-mixed 63-bit seed for ``(seed, step)``, or for ``(seed, step,
+    rank)``: each process of a data-parallel job draws its own rows'
+    masks."""
+    key = [int(seed), int(step)] + ([] if rank is None else [int(rank)])
+    return int(np.random.SeedSequence(key)
                .generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
 class StepGenerator(torch.Generator):
     """The dropout generator of a trainer: :meth:`reseed` sets it to
-    ``step_seed(seed, step)`` before every step, so a step's masks do not
-    depend on earlier steps, and a remat recompute rewinds it with
+    ``step_seed(seed, step)`` (``step_seed(seed, step, rank)`` for a
+    process of a data-parallel job) before every step, so a step's masks
+    do not depend on earlier steps, and a remat recompute rewinds it with
     :meth:`rewind_point` and :meth:`rewound`, which a CUDA graph can
     capture."""
 
-    def __new__(cls, device: torch.device, seed: int):
+    def __new__(cls, device: torch.device, seed: int,
+                rank: Optional[int] = None):
         return super().__new__(cls, device=device)
 
-    def __init__(self, device: torch.device, seed: int):
+    def __init__(self, device: torch.device, seed: int,
+                 rank: Optional[int] = None):
         super().__init__()
         self.seed = int(seed)
+        self.rank = rank
         # The offset at each remat entry of the last eager step (CUDA).
         self.offsets: List[int] = []
         # Set while a step is captured: one twin per entry in ``offsets``.
@@ -93,7 +100,7 @@ class StepGenerator(torch.Generator):
         self._entries = 0
 
     def reseed(self, step: int) -> None:
-        self.manual_seed(step_seed(self.seed, step))
+        self.manual_seed(step_seed(self.seed, step, self.rank))
         self._entries = 0
 
     def rewind_point(self):

@@ -44,6 +44,21 @@ statistics in Flax's layout.
 Checkpoints carry the optimizer's slots under the names of the optax state
 of the same chain (:meth:`Optimizer.named_slots`, :meth:`Optimizer.load_slots`;
 ``_OPTAX_STATE`` is the layout), so either package resumes the other's run.
+
+ZeRO-1 (``train.shard_opt_state`` across processes, the JAX
+``shard_opt_state``): every process still holds the whole parameters and
+the whole summed gradients, but each parameter's slots live on one process,
+its owner (:func:`zero1_owners`: largest parameters first, each to the
+process with the fewest elements so far, as
+``torch.distributed.optim.ZeroRedundancyOptimizer`` partitions). The clip
+reads every gradient; the rule updates the owned parameters only, and then
+each process broadcasts its parameters to the others in one flat buffer. A
+parameter's update is the same arithmetic on the same values as without
+ZeRO, so the result is the replicated update bit for bit, and LAMB's and
+LARS's trust ratios and Adafactor's factored moments stay whole (sharding a
+parameter's rows would need summed norms). Slot memory per process falls to
+about 1/N (:meth:`Optimizer.slot_bytes`). Checkpoints name every slot; a
+process writes the slots it owns.
 """
 
 from __future__ import annotations
@@ -56,6 +71,8 @@ import torch
 from torch import nn
 
 from ..config import OptimizerConfig, ScheduleConfig
+from ..parallel import mesh as _mesh
+from ..parallel.sharding import Elsewhere
 
 Schedule = Callable[[int], float]
 
@@ -427,17 +444,19 @@ class Adafactor(_Rule):
         self.clipping_threshold, self.min_scale = clipping_threshold, \
             min_scale
 
-    def _initial(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def slot_shapes(self, p: torch.Tensor) -> Dict[str, Tuple[int, ...]]:
+        """The shapes of ``p``'s slots (optax's, in Flax's layout)."""
         shape = tuple(_flax_view(p, self.kinds.get(p, "none")).shape)
-        zeros = lambda s: torch.zeros(s, dtype=p.dtype, device=p.device)
         dims = _factored_dims(shape, self.min_dim)
         if dims is None:
-            return {"v_row": zeros((1,)), "v_col": zeros((1,)),
-                    "v": zeros(shape)}
+            return {"v_row": (1,), "v_col": (1,), "v": shape}
         d1, d0 = dims
-        return {"v_row": zeros(shape[:d0] + shape[d0 + 1:]),
-                "v_col": zeros(shape[:d1] + shape[d1 + 1:]),
-                "v": zeros((1,))}
+        return {"v_row": shape[:d0] + shape[d0 + 1:],
+                "v_col": shape[:d1] + shape[d1 + 1:], "v": (1,)}
+
+    def _initial(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {k: torch.zeros(s, dtype=p.dtype, device=p.device)
+                for k, s in self.slot_shapes(p).items()}
 
     def slot(self, p: torch.Tensor, key: str) -> torch.Tensor:
         state = self.state.get(p, {})
@@ -485,26 +504,54 @@ class Adafactor(_Rule):
                 w.sub_(update)
 
 
+def zero1_owners(params: Sequence[torch.Tensor], world: int) -> List[int]:
+    """The owning process of each parameter under ZeRO-1: largest first
+    (ties by position), each to the process holding the fewest elements so
+    far (ties to the lowest index)."""
+    loads = [0] * world
+    owners = [0] * len(params)
+    for i in sorted(range(len(params)),
+                    key=lambda i: (-params[i].numel(), i)):
+        rank = min(range(world), key=lambda r: (loads[r], r))
+        owners[i] = rank
+        loads[rank] += params[i].numel()
+    return owners
+
+
 class Optimizer:
     """An update rule driven with optax's chain semantics (see the module
     docstring). ``count`` is the number of updates applied; ``lr`` and
     ``count_t`` are the f32 device scalars the rule reads, filled by
     :meth:`prepare`. ``kinds`` gives each parameter's Flax layout
     (``"dense"``, ``"conv"`` or ``"none"``, default ``"none"``); only
-    Adafactor reads it."""
+    Adafactor reads it. ``shard_opt_state`` over more than one process is
+    ZeRO-1 (see the module docstring); with one process it changes
+    nothing."""
 
     def __init__(self, cfg: OptimizerConfig, schedule: Schedule,
                  params: List[nn.Parameter],
-                 kinds: Optional[Dict[nn.Parameter, str]] = None):
+                 kinds: Optional[Dict[nn.Parameter, str]] = None,
+                 shard_opt_state: bool = False):
         name = cfg.name.lower()
         self.params = [p for p in params if p.requires_grad]
+        self.world, self.rank = _mesh.process_count(), _mesh.process_index()
+        # ZeRO-1: the owning process of each parameter (None: replicated).
+        self.owners: Optional[List[int]] = zero1_owners(
+            self.params, self.world) if shard_opt_state and \
+            self.world > 1 else None
+        self._owner_of = {} if self.owners is None else {
+            id(p): r for p, r in zip(self.params, self.owners)}
+        mine = [p for p in self.params if self.owns(p)]
         groups = [
-            {"params": [p for p in self.params if _decays(p)],
+            {"params": [p for p in mine if _decays(p)],
              "weight_decay": cfg.weight_decay, "trust_ratio": True},
-            {"params": [p for p in self.params if not _decays(p)],
+            {"params": [p for p in mine if not _decays(p)],
              "weight_decay": 0.0, "trust_ratio": False},
         ]
         groups = [g for g in groups if g["params"]]
+        if not groups:  # a process that owns no parameter
+            groups = [{"params": [], "weight_decay": 0.0,
+                       "trust_ratio": False}]
         device = self.params[0].device if self.params else None
         self.lr = torch.zeros((), dtype=torch.float32, device=device)
         self.count_t = torch.zeros((), dtype=torch.float32, device=device)
@@ -561,6 +608,53 @@ class Optimizer:
             factor = torch.clamp(self.grad_clip_norm / grad_norm, max=1.0)
             torch._foreach_mul_(grads, factor)
         self.inner.step()
+        if self.owners is not None:
+            self._broadcast_owned()
+
+    def owns(self, p: torch.Tensor) -> bool:
+        """Whether this process holds (and updates) ``p``'s slots."""
+        return self._owner_of.get(id(p), self.rank) == self.rank
+
+    @torch.no_grad()
+    def _broadcast_owned(self) -> None:
+        """ZeRO-1: every process's updated parameters to the others, one
+        flat broadcast per owning process."""
+        import torch.distributed as dist
+
+        for rank in range(self.world):
+            owned = [p for p, r in zip(self.params, self.owners)
+                     if r == rank]
+            if not owned:
+                continue
+            if rank == self.rank:
+                flat = torch.cat([p.reshape(-1) for p in owned])
+            else:
+                flat = torch.empty(sum(p.numel() for p in owned),
+                                   dtype=owned[0].dtype,
+                                   device=owned[0].device)
+            dist.broadcast(flat, src=rank)
+            if rank != self.rank:
+                offset = 0
+                for p in owned:
+                    p.copy_(flat[offset:offset + p.numel()].view_as(p))
+                    offset += p.numel()
+
+    def slot_bytes(self, owned_only: bool = True) -> int:
+        """Bytes of the optimizer's slots on this process (``owned_only``)
+        or of every parameter's slots (one process's without ZeRO-1), from
+        their shapes: slots are made at the first update."""
+        _, slots = _OPTAX_STATE[self.name]
+        total = 0
+        for p in self.params:
+            if owned_only and not self.owns(p):
+                continue
+            if self.name in _FLAX_SLOTS:
+                total += sum(math.prod(s) for s in
+                             self.inner.slot_shapes(p).values()) \
+                    * p.element_size()
+            else:
+                total += len(slots) * p.numel() * p.element_size()
+        return total
 
     def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
         """One update: :meth:`prepare`, :meth:`apply`, ``count += 1``."""
@@ -569,24 +663,43 @@ class Optimizer:
         self.count += 1
 
     def zero_grad(self) -> None:
-        self.inner.zero_grad(set_to_none=True)
+        """Every parameter's gradient to None (under ZeRO-1 the rule holds
+        the owned parameters only, and the others' gradients are summed
+        too)."""
+        for p in self.params:
+            p.grad = None
 
     # -- checkpoint slots (optax's names) -----------------------------------
 
     def named_slots(self, named_params: Sequence[Tuple[str, torch.Tensor,
-                                                       Callable]]):
+                                                       Callable]],
+                    writes_replicated: bool = True):
         """``(opt_state/... name, value)`` for every leaf of the optax state
         of this chain. ``named_params`` gives each parameter's Flax path
         (under ``params/``), the parameter, and the function that puts a
         tensor of its shape into Flax's layout. Slots not created yet (no
         update applied) are zeros, as optax's init makes them; slots kept
-        in Flax's layout (``_FLAX_SLOTS``) are named as they are."""
+        in Flax's layout (``_FLAX_SLOTS``) are named as they are. A leaf
+        this process does not write is an :class:`Elsewhere` (its shape
+        and dtype): under ZeRO-1 the slots of a parameter another process
+        owns, otherwise every slot, and the counts, unless
+        ``writes_replicated``."""
         counts, slots = _OPTAX_STATE[self.name]
         prefix = f"opt_state/{self._chain_index}/"
-        out = [(prefix + c, np.asarray(self.count, np.int32))
-               for c in counts]
+        count = np.asarray(self.count, np.int32) if writes_replicated \
+            else Elsewhere((), "int32")
+        out = [(prefix + c, count) for c in counts]
         for field, key in slots.items():
             for path, p, to_flax in named_params:
+                writes = self.owns(p) if self.owners is not None \
+                    else writes_replicated
+                if not writes:
+                    shape = self.inner.slot_shapes(p)[key] \
+                        if self.name in _FLAX_SLOTS \
+                        else tuple(to_flax(_shape_only(p)).shape)
+                    out.append((f"{prefix}{field}/{path}",
+                                Elsewhere(shape, _dtype_name(p.dtype))))
+                    continue
                 if self.name in _FLAX_SLOTS:
                     value = self.inner.slot(p, key).detach().to(
                         "cpu", copy=True).numpy()
@@ -609,6 +722,8 @@ class Optimizer:
         prefix = f"opt_state/{self._chain_index}/"
         self.count = int(leaves[prefix + counts[-1]])
         for path, p, from_flax in named_params:
+            if not self.owns(p):
+                continue
             state = self.inner.state[p]
             for field, key in slots.items():
                 value = leaves[f"{prefix}{field}/{path}"]
@@ -616,6 +731,17 @@ class Optimizer:
                     value = from_flax(value)
                 state[key] = torch.as_tensor(np.ascontiguousarray(value),
                                              dtype=p.dtype).to(p.device)
+
+
+def _shape_only(p: torch.Tensor) -> np.ndarray:
+    """A host array with ``p``'s shape and no storage of its own (a
+    stride-0 view of one element), to read a layout function's output
+    shape."""
+    return np.broadcast_to(np.zeros((), np.float32), tuple(p.shape))
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -626,8 +752,10 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 
 def build_optimizer(cfg: OptimizerConfig, schedule: Schedule,
-                    model: nn.Module) -> Optimizer:
+                    model: nn.Module,
+                    shard_opt_state: bool = False) -> Optimizer:
     from ..convert import flax_layout
 
     kinds = {t: kind for _, _, t, kind in flax_layout(model)}
-    return Optimizer(cfg, schedule, list(model.parameters()), kinds)
+    return Optimizer(cfg, schedule, list(model.parameters()), kinds,
+                     shard_opt_state=shard_opt_state)

@@ -1,5 +1,5 @@
 """Experiment runner: config in → trained model out — the port of
-``deeplearning_cfn_tpu/train/run.py`` for one device.
+``deeplearning_cfn_tpu/train/run.py``.
 
 ``run_experiment`` builds the task (model on the device, seeded init), the
 train and eval pipelines, the schedule and optimizer, the train state, and
@@ -22,9 +22,16 @@ tracer's registry. ``DLCFN_CHAOS_KILL_AT_STEP`` arms the chaos SIGKILL hook
 after the checkpoint hook (``runtime/faults.py``; the launcher's crash
 recovery test harness sets it).
 
-``run_eval`` evaluates a committed checkpoint without training.
+Across processes (a job that ``runtime.cluster.initialize`` joined) every
+process runs this function in lockstep on its own card: the mesh resolves
+over the processes (``parallel/mesh.py``), each pipeline yields this
+process's rows of the global batch, ``train.shard_opt_state`` shards the
+optimizer's slots (ZeRO-1), and every process writes its part of each
+checkpoint. Process 0 alone sweeps torn checkpoints, picks the step every
+process restores, prints, and writes ``metrics.jsonl``, the span records
+and ``metrics.prom``, as in the JAX package.
 
-Not in this slice: the mesh and multi-process runs (ROADMAP A.10).
+``run_eval`` evaluates a committed checkpoint without training.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from ..data.pipeline import build_pipeline
 from ..metrics.jsonl import MetricsWriter
 from ..obs.sinks import JsonlSink, write_prometheus
 from ..obs.trace import get_tracer, obs_enabled
+from ..parallel.collectives import broadcast_object
+from ..parallel.mesh import Mesh, build_mesh, describe, local_batch_size
 from ..runtime.faults import chaos_kill_hook_from_env
 from ..runtime.platform import resolve_device
 from .optim import build_optimizer, build_schedule
@@ -57,18 +66,23 @@ def _workdir_and_ckpt_dir(cfg: ExperimentConfig) -> Tuple[str, str]:
     return workdir, ckpt_dir
 
 
-def _describe(device: torch.device) -> str:
+def _describe(device: torch.device, mesh: Optional[Mesh] = None) -> str:
+    """The one device's line; across processes JAX's mesh line first."""
     if device.type == "cuda":
-        return (f"one device: {torch.cuda.get_device_name(device)} "
+        line = (f"one device: {torch.cuda.get_device_name(device)} "
                 f"({device})")
-    return "one device: cpu"
+    else:
+        line = "one device: cpu"
+    if mesh is None or mesh.process_count == 1:
+        return line
+    return f"{describe(mesh)}; process {mesh.process_index}: {line}"
 
 
-def _eval_pipe(cfg: ExperimentConfig, task):
+def _eval_pipe(cfg: ExperimentConfig, task, mesh: Mesh):
     eval_batch = cfg.train.eval_batch or cfg.train.global_batch
-    return build_pipeline(cfg.data, eval_batch, cfg.model.num_classes,
-                          seed=cfg.train.seed, train=False,
-                          drop_remainder=not task.exact_eval)
+    return build_pipeline(cfg.data, local_batch_size(eval_batch, mesh),
+                          cfg.model.num_classes, seed=cfg.train.seed,
+                          train=False, drop_remainder=not task.exact_eval)
 
 
 def _final_eval(cfg, task, trainer, state, eval_pipe) -> Dict[str, float]:
@@ -93,17 +107,19 @@ def run_eval(cfg: ExperimentConfig, step: int = 0,
         raise FileNotFoundError(
             f"no committed checkpoint to evaluate in {ckpt_dir}")
     dev = resolve_device(device)
+    mesh = build_mesh(cfg.mesh)
     task = build_task(cfg, dev)
-    eval_pipe = _eval_pipe(cfg, task)
+    eval_pipe = _eval_pipe(cfg, task, mesh)
     state = create_train_state(task.model, None,
                                ema=cfg.train.ema_decay > 0)
     manager = CheckpointManager(ckpt_dir,
                                 retry=retry_policy_from_config(cfg.checkpoint))
     leaves, at_step = manager.restore_or_none(state, step=step)
     state.load_named(leaves)
-    print(f"[dlcfn-tpu] evaluating checkpoint step {at_step} "
-          f"({_describe(dev)})")
-    metrics = _final_eval(cfg, task, Trainer(cfg, task, dev), state,
+    if mesh.process_index == 0:
+        print(f"[dlcfn-tpu] evaluating checkpoint step {at_step} "
+              f"({_describe(dev, mesh)})")
+    metrics = _final_eval(cfg, task, Trainer(cfg, task, dev, mesh), state,
                           eval_pipe)
     metrics["checkpoint_step"] = int(at_step)
     return metrics
@@ -119,11 +135,15 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     checkpoint hook (and before the chaos kill hook, when armed), as
     ``hook(step, state, last_record)``."""
     dev = resolve_device(device)
+    mesh = build_mesh(cfg.mesh)
+    lead = mesh.process_index == 0
     task = build_task(cfg, dev)
-    train_pipe = build_pipeline(cfg.data, cfg.train.global_batch,
+    train_pipe = build_pipeline(cfg.data,
+                                local_batch_size(cfg.train.global_batch,
+                                                 mesh),
                                 cfg.model.num_classes, seed=cfg.train.seed,
                                 train=True)
-    eval_pipe = _eval_pipe(cfg, task)
+    eval_pipe = _eval_pipe(cfg, task, mesh)
 
     steps_per_epoch = max(train_pipe.steps_per_epoch, 1)
     total_steps = (cfg.train.steps if cfg.train.steps > 0
@@ -136,9 +156,15 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(cfg.train.seed))
     task.init(gen)
-    optimizer = build_optimizer(cfg.optimizer, schedule, task.model)
+    optimizer = build_optimizer(cfg.optimizer, schedule, task.model,
+                                shard_opt_state=cfg.train.shard_opt_state)
     state = create_train_state(task.model, optimizer,
                                ema=cfg.train.ema_decay > 0)
+    if optimizer.owners is not None:
+        print(f"[dlcfn-tpu] process {mesh.process_index}: ZeRO-1 optimizer "
+              f"slots {optimizer.slot_bytes()} bytes on this process of "
+              f"{optimizer.slot_bytes(owned_only=False)} in all "
+              f"({mesh.process_count} processes)", flush=True)
 
     workdir, ckpt_dir = _workdir_and_ckpt_dir(cfg)
     ckpt_every = cfg.checkpoint.every_steps or steps_per_epoch
@@ -149,16 +175,22 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     if cfg.checkpoint.resume:
         # Sweep torn step directories of a dead attempt before anything
         # else touches the store: no save is in flight yet, and a re-save
-        # of a swept step must start from an empty directory.
-        orphans = manager.sweep_orphans()
-        if orphans:
-            print(f"[dlcfn-tpu] swept {len(orphans)} uncommitted checkpoint "
-                  f"dir(s): steps {orphans}")
-        leaves, at_step = manager.restore_or_none(state)
-        if leaves is not None:
+        # of a swept step must start from an empty directory. Process 0
+        # sweeps and picks the step that every process restores.
+        latest = None
+        if lead:
+            orphans = manager.sweep_orphans()
+            if orphans:
+                print(f"[dlcfn-tpu] swept {len(orphans)} uncommitted "
+                      f"checkpoint dir(s): steps {orphans}")
+            latest = latest_checkpoint(manager.store)
+        latest = broadcast_object(latest)
+        if latest is not None:
+            leaves, at_step = manager.restore_or_none(state, step=latest)
             state.load_named(leaves)
-            print(f"[dlcfn-tpu] resumed from step {at_step}")
-    trainer = Trainer(cfg, task, dev)
+            if lead:
+                print(f"[dlcfn-tpu] resumed from step {at_step}")
+    trainer = Trainer(cfg, task, dev, mesh)
 
     metrics_path = os.path.join(workdir, "metrics.jsonl")
     writer = MetricsWriter(metrics_path)
@@ -169,10 +201,11 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     if obs_enabled():
         span_sink = JsonlSink(MetricsWriter(metrics_path, also_stdout=False))
         get_tracer().add_sink(span_sink)
-    print(f"[dlcfn-tpu] {_describe(dev)}")
-    print(f"[dlcfn-tpu] total_steps={total_steps} "
-          f"steps_per_epoch={steps_per_epoch} "
-          f"global_batch={cfg.train.global_batch}")
+    if lead:
+        print(f"[dlcfn-tpu] {_describe(dev, mesh)}")
+        print(f"[dlcfn-tpu] total_steps={total_steps} "
+              f"steps_per_epoch={steps_per_epoch} "
+              f"global_batch={cfg.train.global_batch}")
 
     def ckpt_hook(step, st, _record):
         manager.save(step, st)
@@ -181,7 +214,8 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     # lands between a dispatched save and the next one — the torn-commit
     # window the recovery contract must survive.
     all_hooks = [ckpt_hook, *hooks]
-    chaos_hook = chaos_kill_hook_from_env()
+    chaos_hook = chaos_kill_hook_from_env(
+        committed=lambda step: step in manager.committed())
     if chaos_hook is not None:
         all_hooks.append(chaos_hook)
 
@@ -215,7 +249,7 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
         if span_sink is not None:
             get_tracer().remove_sink(span_sink)
             span_sink.close()
-        if obs_enabled():
+        if obs_enabled() and lead:
             # One end-of-run Prometheus text snapshot of every instrument
             # the tracer's registry accumulated (span_dur_s histograms
             # included): scrape-by-file, no server.

@@ -1,12 +1,14 @@
-"""Train state on one device — the port of
-``deeplearning_cfn_tpu/train/state.py``.
+"""Train state — the port of ``deeplearning_cfn_tpu/train/state.py``.
 
 The JAX state is an immutable pytree (step, params, batch_stats, opt_state,
 ema_params) that every step replaces. Here the model owns its parameters and
 the optimizer its slots, both updated in place (the JAX step donates its
 state buffers to the same effect); :class:`TrainState` holds them with the
-step counter and the optional EMA copy of the parameters. One device, no
-sharding: ZeRO-1 and the mesh belong to ROADMAP A.10. The JAX state's
+step counter and the optional EMA copy of the parameters. Every process
+holds the whole parameters; with ``train.shard_opt_state`` across
+processes each holds the slots of the parameters it owns (ZeRO-1,
+``train/optim.py``), where the JAX state shards each slot over the
+``data`` axis: the same update, another layout. The JAX state's
 ``batch_stats`` (BatchNorm running statistics) are the model's buffers
 here: a train-mode forward updates them in place, they are not parameters,
 and the EMA does not cover them, as in the JAX package. Nothing here rebinds
@@ -21,7 +23,9 @@ Flax's layout, through ``convert.flax_layout``), ``opt_state/...`` (the
 optax state of the same chain, ``Optimizer.named_slots``) and
 ``ema_params/...`` — so the JAX restore, which requires every leaf of its
 target, reads a port checkpoint, and :meth:`TrainState.load_named` loads a
-JAX one. A state built for evaluation only has no optimizer and names no
+JAX one. Across processes a leaf that another process writes is an
+``Elsewhere`` (shape and dtype): the replicated leaves are process 0's and
+a ZeRO-1 slot is its owner's. A state built for evaluation only has no optimizer and names no
 ``opt_state`` leaves (the JAX ``run_eval`` template has none either).
 """
 
@@ -36,6 +40,8 @@ import torch
 from torch import nn
 
 from ..convert import flax_layout, from_flax, to_flax
+from ..parallel.mesh import process_index
+from ..parallel.sharding import Elsewhere
 from .optim import Optimizer
 
 
@@ -63,21 +69,36 @@ class TrainState:
         return params, stats
 
     def named_leaves(self) -> List[Tuple[str, object]]:
-        """``(flax name, host array)`` for every leaf, copied off the
-        device now (into fresh host memory, also from a CPU tensor)."""
+        """``(flax name, host array)`` for every leaf this process writes,
+        copied off the device now (into fresh host memory, also from a CPU
+        tensor), and ``(flax name, Elsewhere)`` for the leaves another
+        process writes (see the module docstring)."""
         params, stats = self._layout()
         host = lambda t, kind: to_flax(
-            t.detach().to("cpu", copy=True).numpy(), kind)
-        out = [("step", np.asarray(self.step, np.int32))]
-        out += [(name, host(t, kind)) for name, _, t, kind in params]
-        out += [(name, host(t, kind)) for name, _, t, kind in stats]
+            t if isinstance(t, np.ndarray)
+            else t.detach().to("cpu", copy=True).numpy(), kind)
+        mine = process_index() == 0
+
+        def replicated(t, kind):
+            if mine:
+                return host(t, kind)
+            shape = to_flax(np.broadcast_to(np.zeros((), np.float32),
+                                            tuple(t.shape)), kind).shape
+            return Elsewhere(tuple(shape), str(t.dtype).replace("torch.",
+                                                                ""))
+
+        out = [("step", np.asarray(self.step, np.int32) if mine
+                else Elsewhere((), "int32"))]
+        out += [(name, replicated(t, kind)) for name, _, t, kind in params]
+        out += [(name, replicated(t, kind)) for name, _, t, kind in stats]
         if self.optimizer is not None:
             out += self.optimizer.named_slots(
                 [(name[len("params/"):], t,
                   lambda v, kind=kind: host(v, kind))
-                 for name, _, t, kind in params])
+                 for name, _, t, kind in params], writes_replicated=mine)
         if self.ema_params is not None:
-            out += [("ema_params/" + name[len("params/"):], host(e, kind))
+            out += [("ema_params/" + name[len("params/"):],
+                     replicated(e, kind))
                     for (name, _, _, kind), e in zip(params,
                                                      self.ema_params)]
         return out

@@ -5,7 +5,13 @@ GPT workloads.
 A task owns its model and gives the trainer
 ``loss_fn(batch, train, generator) -> (loss, aux)``: a global-batch mean loss
 and a dict of scalar metrics (on eval, ``eval_weight`` and per-metric
-``<name>__weight`` too). A task's ``eval_derived`` maps a metric name to a
+``<name>__weight`` too). Across processes each process holds a block of the
+global batch's rows, and a mean divides this process's sum by the count
+over every process (``parallel.collectives.global_total``), as the JAX
+loss, one program over the global batch, does: the processes' losses and
+metrics are then partials that add up to the global ones, and so do their
+gradients. A weight is this process's own count. Metrics that every process
+computes whole are listed in the task's ``replicated_metrics``. A task's ``eval_derived`` maps a metric name to a
 function of the aggregated eval metrics (the trainer adds it after the
 cross-batch aggregation). Detection (Mask R-CNN) is
 ``train/detection_task.py``. A model whose output carries MoE aux losses
@@ -28,6 +34,8 @@ from torch import nn
 
 from ..config import ExperimentConfig
 from ..models import build_model
+from ..parallel.collectives import gather_batches, global_total
+from ..parallel.mesh import process_count
 
 Batch = Dict[str, torch.Tensor]
 
@@ -157,7 +165,7 @@ class Seq2SeqTask:
         mask = batch["tgt_mask"].float() * ex_mask[:, None]
         ce = cross_entropy(logits, batch["tgt_out_ids"],
                            self.cfg.train.label_smoothing)
-        denom = torch.clamp(mask.sum(), min=1e-6)
+        denom = torch.clamp(global_total(mask.sum()), min=1e-6)
         loss = (ce * mask).sum() / denom
         hits = (torch.argmax(logits, -1) == batch["tgt_out_ids"]).float()
         aux = {"token_accuracy": (hits * mask).sum() / denom}
@@ -189,7 +197,7 @@ class Seq2SeqTask:
             else decoding.greedy_decode
         beam = decoding.beam_decode_cached if ev.use_kv_cache \
             else decoding.beam_decode
-        hyps, refs = [], []
+        per_batch = []
         with state.eval_weights() as model:
             for batch in eval_iter_fn():
                 dev = to_device(batch, self.device)
@@ -202,12 +210,15 @@ class Seq2SeqTask:
                 out = out.cpu().numpy()
                 tgt = np.asarray(batch["tgt_out_ids"])
                 emask = batch.get("eval_mask")
-                for i in range(out.shape[0]):
-                    if emask is not None and emask[i] == 0:
-                        continue
-                    hyps.append(strip_special(out[i]))
-                    refs.append(strip_special(tgt[i]))
-        return {"bleu": corpus_bleu(hyps, refs, smooth=True)}
+                per_batch.append([
+                    (strip_special(out[i]), strip_special(tgt[i]))
+                    for i in range(out.shape[0])
+                    if emask is None or emask[i] != 0])
+        # Across processes every one scores the whole eval set (the JAX
+        # task all-gathers the decoded ids).
+        pairs = gather_batches(per_batch)
+        return {"bleu": corpus_bleu([h for h, _ in pairs],
+                                    [r for _, r in pairs], smooth=True)}
 
 
 class ClassificationTask:
@@ -256,7 +267,7 @@ class ClassificationTask:
             if train and self.remat else apply(batch["image"])
         labels = batch["label"]
         mask = example_mask(batch, logits.shape[0])
-        denom = torch.clamp(mask.sum(), min=1e-6)
+        denom = torch.clamp(global_total(mask.sum()), min=1e-6)
         ce = cross_entropy(logits, labels, self.cfg.train.label_smoothing)
         loss = (ce * mask).sum() / denom
         correct = (torch.argmax(logits, -1) == labels).float()
@@ -327,9 +338,9 @@ class MlmTask:
         mask = example_mask(batch, batch["input_ids"].shape[0])
         weights = batch["mlm_weights"].float() * mask[:, None]
         mlm_ce = cross_entropy(out["mlm_logits"], batch["mlm_ids"])
-        token_denom = torch.clamp(weights.sum(), min=1e-6)
+        token_denom = torch.clamp(global_total(weights.sum()), min=1e-6)
         mlm_loss = (mlm_ce * weights).sum() / token_denom
-        example_denom = torch.clamp(mask.sum(), min=1e-6)
+        example_denom = torch.clamp(global_total(mask.sum()), min=1e-6)
         nsp_ce = cross_entropy(out["nsp_logits"], batch["nsp_label"])
         nsp_loss = (nsp_ce * mask).sum() / example_denom
         mlm_hits = (torch.argmax(out["mlm_logits"], -1)
@@ -371,6 +382,7 @@ class CausalLmTask:
     eval_derived = {
         "perplexity": lambda m: float(np.exp(min(m["ce_loss"], 20.0))),
     }
+    replicated_metrics = ("perplexity",)
 
     def __init__(self, cfg: ExperimentConfig, device: torch.device,
                  attention_impl: Optional[str] = None):
@@ -403,7 +415,7 @@ class CausalLmTask:
         mask = example_mask(batch, inputs.shape[0])
         weights = batch["loss_mask"].float() * mask[:, None]
         ce = cross_entropy(logits, targets)
-        denom = torch.clamp(weights.sum(), min=1e-6)
+        denom = torch.clamp(global_total(weights.sum()), min=1e-6)
         ce_loss = (ce * weights).sum() / denom
         hits = (torch.argmax(logits, -1) == targets).float()
         aux = {"token_accuracy": (hits * weights).sum() / denom}
@@ -414,7 +426,9 @@ class CausalLmTask:
             aux["moe_load_balance"] = moe_aux["load_balance"]
             aux["moe_router_z"] = moe_aux["router_z"]
         if train:
-            aux["perplexity"] = torch.exp(torch.clamp(ce_loss, max=20.0))
+            # Of the global CE: every process holds the whole value.
+            aux["perplexity"] = torch.exp(torch.clamp(
+                global_total(ce_loss.detach()), max=20.0))
         else:
             aux["ce_loss"] = ce_loss
             aux["eval_weight"] = weights.sum()
@@ -426,6 +440,13 @@ def build_task(cfg: ExperimentConfig, device: torch.device,
     """Task registry keyed by model family (NMT, ResNet, ViT, BERT and its
     MoE and pipelined trunks, GPT, Mask R-CNN)."""
     name = cfg.model.name
+    if process_count() > 1 and cfg.model.kwargs.get("num_experts", 0):
+        raise NotImplementedError(
+            f"model {name!r} with num_experts="
+            f"{cfg.model.kwargs['num_experts']} over {process_count()} "
+            f"processes: the router's load-balance statistics are the "
+            f"global batch's in the JAX step, and MoE across devices (the "
+            f"expert axis) is not ported yet (ROADMAP A.10)")
     if name.startswith("transformer_nmt"):
         return Seq2SeqTask(cfg, device, attention_impl)
     if name.startswith(("resnet", "vit")):

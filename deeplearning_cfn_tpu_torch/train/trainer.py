@@ -1,16 +1,28 @@
-"""The trainer — the port of ``deeplearning_cfn_tpu/train/trainer.py`` for
-one device.
+"""The trainer — the port of ``deeplearning_cfn_tpu/train/trainer.py``.
 
 The JAX step is one jitted program (forward, backward, psum, optimizer
-update). Here it is eager PyTorch on one card: the task's forward, autograd
-(through the flash kernels' ``autograd.Function``), and the optimizer's
-in-place update. What carries over exactly:
+update) over the mesh. Here it is eager PyTorch on one card per process:
+the task's forward, autograd (through the flash kernels' ``autograd.Function``),
+the gradients summed over the processes, and the optimizer's in-place
+update. What carries over exactly:
+
+- the mesh (``parallel/mesh.py``): the global batch must split over its
+  data ways (``validate_batch``), and each process trains its contiguous
+  block of rows. The task's loss is this process's share of the
+  global-batch mean (``train/task.py``), so the gradients, summed over the
+  processes in one flat buffer right after the backward and before the
+  clip, are the single-program gradients, and ``grad_norm`` is their global
+  norm. Metrics are summed over the processes once per log boundary (and
+  per eval batch), not per step. ``examples_per_sec_per_device`` divides by
+  the mesh's devices;
 
 - one dropout generator, reseeded to ``(seed, step)`` before every step, so
   a step's noise does not depend on earlier steps (the role of
   ``fold_in(rng, state.step)``); microbatches draw from it in turn;
 - gradient accumulation with the STRIDED microbatch split (row i goes to
-  microbatch i % accum) and uniform averaging of microbatch means;
+  microbatch i % accum) and uniform averaging of microbatch means. Applied
+  to each process's block it is JAX's split of the global batch while the
+  block's rows divide by ``accum``, which is checked;
 - ``grad_norm`` is the global norm of the unclipped (averaged) gradients;
 - ``train.step_window`` K > 1 runs fused windows of up to K steps
   (:meth:`Trainer.window_step`, metrics stacked ``[k]``), planned by
@@ -19,6 +31,9 @@ in-place update. What carries over exactly:
   CUDA graph per step (``train/graphs.py``; the first step eager, then the
   capture); on the CPU it runs k eager steps, the plain version. K = 1 is
   the per-step loop;
+- across processes each process draws its rows' dropout from a
+  ``(seed, step, process)`` stream, where the JAX step draws one mask over
+  the global batch: a difference kept on purpose (ROADMAP);
 - ``fit`` syncs only at ``log_every`` boundaries and once after the first
   window (whose time, kernel builds and graph capture included, is reported
   as ``compile_s`` and kept out of the throughput window), and writes the
@@ -60,6 +75,8 @@ import torch
 from ..config import ExperimentConfig
 from ..data.pipeline import DevicePrefetcher, to_device
 from ..obs.trace import span
+from ..parallel.collectives import all_reduce_sum_, reduce_scalars
+from ..parallel.mesh import build_mesh, validate_batch
 from .graphs import GraphedStep, StepGenerator
 from .optim import global_norm
 from .state import TrainState
@@ -84,20 +101,35 @@ def _plan_window(step: int, num_steps: int, window: int,
 
 
 class Trainer:
-    """Owns the train/eval steps and the step loop for one task on one
-    device. ``task.loss_fn(batch, train, generator) -> (loss, aux)`` must
-    return a batch-mean loss and scalar metrics."""
+    """Owns the train/eval steps and the step loop for one task on this
+    process's device. ``task.loss_fn(batch, train, generator) -> (loss,
+    aux)`` must return this process's share of the global-batch mean loss
+    and of each metric (the whole mean with one process)."""
 
-    def __init__(self, cfg: ExperimentConfig, task, device: torch.device):
+    def __init__(self, cfg: ExperimentConfig, task, device: torch.device,
+                 mesh=None):
         self.cfg = cfg
         self.task = task
         self.device = torch.device(device)
         self.eval_derived = dict(getattr(task, "eval_derived", None) or {})
+        self.mesh = mesh if mesh is not None else build_mesh(cfg.mesh)
+        self.world = self.mesh.process_count
+        # Metrics every process holds whole: taken from process 0, not
+        # summed.
+        self.replicated = ("grad_norm",
+                           *getattr(task, "replicated_metrics", ()))
+        gb = cfg.train.global_batch
+        validate_batch(gb, self.mesh)
         accum = cfg.train.grad_accum_steps
-        if accum < 1 or cfg.train.global_batch % accum != 0:
+        if accum < 1 or gb % accum != 0:
             raise ValueError(
-                f"global batch {cfg.train.global_batch} must be divisible "
+                f"global batch {gb} must be divisible "
                 f"by grad_accum_steps ({accum})")
+        if accum > 1:
+            # Each microbatch must still split over the data ways; then each
+            # process's block of rows divides by accum, and the strided
+            # split of the block is JAX's split of the global batch.
+            validate_batch(gb // accum, self.mesh)
         if cfg.train.grad_accum_unroll not in ("auto", "scan", "unroll"):
             # Checked on every build, as the JAX trainer does, so a typo
             # does not stay silent until accumulation is switched on.
@@ -108,6 +140,12 @@ class Trainer:
             raise ValueError(
                 f"train.step_window must be >= 1, got "
                 f"{cfg.train.step_window}")
+        if cfg.train.step_window > 1 and self.world > 1:
+            raise NotImplementedError(
+                f"train.step_window={cfg.train.step_window} over "
+                f"{self.world} processes: a window replays CUDA graphs, "
+                f"which cannot capture gloo's collectives, and NCCL under "
+                f"capture is not ported yet (ROADMAP A.10)")
         if cfg.train.device_prefetch < 0:
             raise ValueError(
                 f"train.device_prefetch must be >= 0, got "
@@ -118,7 +156,9 @@ class Trainer:
             # convs, unlike matmuls); the switch is process-wide.
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.generator = StepGenerator(self.device, cfg.train.seed)
+        self.generator = StepGenerator(
+            self.device, cfg.train.seed,
+            self.mesh.process_index if self.world > 1 else None)
         self.graphs = GraphedStep(self.device) if (
             cfg.train.step_window > 1 and self.device.type == "cuda") \
             else None
@@ -155,10 +195,12 @@ class Trainer:
         state.optimizer.prepare()
 
     def step_body(self, state: TrainState, batch: Dict) -> Metrics:
-        """The device work of a step: forward and backward, the global
-        norm, the update and the EMA. It reads no value from the host, so a
-        CUDA graph can capture it (``train/graphs.py``)."""
+        """The device work of a step: forward and backward, the gradients
+        summed over the processes, the global norm, the update and the EMA.
+        With one process it reads no value from the host, so a CUDA graph
+        can capture it (``train/graphs.py``)."""
         metrics = self.grads_and_metrics(state, batch, self.generator)
+        all_reduce_sum_(state.optimizer.grads())
         grad_norm = global_norm(state.optimizer.grads())
         state.update(self.cfg.train.ema_decay, grad_norm)
         metrics["grad_norm"] = grad_norm
@@ -313,21 +355,21 @@ class Trainer:
                     first_write = True
                     for w_end, w_metrics in to_realize:
                         with span("train.realize", step=w_end + 1):
-                            realized = {
-                                k_: float(v.reshape(-1)[-1])
-                                for k_, v in w_metrics.items()}
+                            realized = self._realize(w_metrics)
                         if first_write:
                             # Throughput covers everything dispatched since
                             # the last written boundary; the final flush's
                             # second record carries step metrics only.
                             tokens = None if window_tokens is None \
-                                else float(window_tokens)
+                                else self._realize(
+                                    {"tokens": window_tokens})["tokens"]
                             elapsed = time.perf_counter() - window_start
                             if window_examples > 0:
                                 realized["examples_per_sec"] = \
                                     window_examples / max(elapsed, 1e-9)
                                 realized["examples_per_sec_per_device"] = \
-                                    realized["examples_per_sec"]
+                                    realized["examples_per_sec"] \
+                                    / self.mesh.size
                                 realized["step_time_s"] = \
                                     elapsed / max(window_examples // gb, 1)
                                 if tokens is not None:
@@ -380,6 +422,14 @@ class Trainer:
             elif getattr(train_iter, "close", None) is not None:
                 train_iter.close()
 
+    def _realize(self, metrics: Metrics) -> Dict[str, float]:
+        """Host values of a step's (or the last of a window's) metrics:
+        summed over the processes in one collective, the replicated ones
+        taken from process 0."""
+        if self.world == 1:
+            return {k: float(v.reshape(-1)[-1]) for k, v in metrics.items()}
+        return reduce_scalars(metrics, self.replicated)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -389,14 +439,16 @@ class Trainer:
         """Weighted cross-batch aggregation: each batch's metrics carry
         their normalizer (``eval_weight``, or a per-metric
         ``<name>__weight``), so the result is the exact full-set metric.
+        Across processes each batch's metrics and weights are first summed
+        over the processes (each evaluates its rows of the global batch).
         ``watchdog`` is beaten after every realized batch."""
         totals: Dict[str, float] = {}
         wsums: Dict[str, float] = {}
         examples = 0.0
         eb = self.cfg.train.eval_batch or self.cfg.train.global_batch
         for batch in eval_iter:
-            metrics = {k: float(v) for k, v in self.eval_step(
-                state, to_device(batch, self.device)).items()}
+            metrics = self._realize(self.eval_step(
+                state, to_device(batch, self.device)))
             if watchdog is not None:
                 watchdog.beat()
             default_w = metrics.pop("eval_weight", float(eb))

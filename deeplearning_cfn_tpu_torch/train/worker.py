@@ -8,7 +8,11 @@ This is the process the launcher fans to every stack host (SURVEY.md §4.4) —
 the analogue of the per-rank ``python train.py`` that mpirun/launch.py spawned
 in the reference. It resolves its device (``--accelerator gpu``, the default,
 raises without a card; ``cpu`` runs on the CPU), joins the rendezvous (a no-op
-for one host; more hosts are ROADMAP A.10), then runs the experiment.
+for one host; with more it joins the process group, on this host's card,
+with the hang timeout ``train.hang_timeout_s`` as the group's timeout when
+it is set), then runs the experiment. At the end every process prints its
+flash kernel launches over its training steps after the first (their
+counts per step do not depend on the batch).
 
 ``--profiler-port`` is refused: the JAX worker starts a ``jax.profiler``
 server there, and torch has no counterpart. ``train.profile_steps`` writes
@@ -18,6 +22,7 @@ the port's traces.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import List, Optional
 
@@ -48,16 +53,54 @@ def main(argv: Optional[List[str]] = None) -> int:
             "jax.profiler.start_server there); set train.profile_steps=N for "
             "a Chrome trace of N steps under <workdir>/<preset>/profile")
 
-    device = resolve_device(args.accelerator)
-    spec = initialize()  # no-op for one host; more hosts raise (A.10)
-
+    resolve_device(args.accelerator)  # no card: raise before joining
     cfg = apply_overrides(get_preset(args.preset), args.overrides)
     cfg.stack.accelerator = args.accelerator
-    final = run_experiment(cfg, max_steps=args.max_steps, device=device)
+    timeout = cfg.train.hang_timeout_s if cfg.train.hang_timeout_s > 0 \
+        else 300
+    # No-op for one host; otherwise the rendezvous, which also picks this
+    # process's card.
+    spec = initialize(timeout_s=int(timeout), accelerator=args.accelerator)
+    device = resolve_device(args.accelerator)
+    launches = _LaunchTally()
+    final = run_experiment(cfg, max_steps=args.max_steps, device=device,
+                           hooks=(launches.hook,))
+    print(f"[dlcfn-tpu] worker {spec.process_id} {launches.line()}",
+          flush=True)
     if spec.process_id == 0:
         print(f"[dlcfn-tpu] worker {spec.process_id} final metrics: "
               f"{ {k: round(v, 4) for k, v in final.items()} }")
     return 0
+
+
+class _LaunchTally:
+    """The flash kernels' launch counters at the first and the last step
+    boundary of this run (a step hook), so that the count covers training
+    steps only: not the first step's, nor any eval's."""
+
+    def __init__(self):
+        self.first = self.last = None
+
+    @staticmethod
+    def _now():
+        from ..ops import attention as attn
+
+        return {"fwd": attn.flash_attention_forward.launches,
+                "dkdv": attn.flash_attn_bwd_dkdv.launches,
+                "dq": attn.flash_attn_bwd_dq.launches}
+
+    def hook(self, step, state, record) -> None:
+        now = (step, self._now())
+        self.first = self.first or now
+        self.last = now
+
+    def line(self) -> str:
+        if self.first is None or self.last[0] == self.first[0]:
+            return "flash kernel launches: no steps after the first"
+        steps = self.last[0] - self.first[0]
+        got = {k: self.last[1][k] - self.first[1][k] for k in self.last[1]}
+        return (f"flash kernel launches over steps {self.first[0] + 1}-"
+                f"{self.last[0]}: {json.dumps(got)} ({steps} steps)")
 
 
 if __name__ == "__main__":

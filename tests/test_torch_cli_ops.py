@@ -12,8 +12,10 @@ package's ``dlcfn-tpu``, on the CPU.
   ``tests/data/wmt_sliver.*`` write the JAX converters' files byte for byte;
 - ``train --stack`` on a one-host dry-run stack with ``--accelerator cpu``
   and a tiny NMT finishes through the launcher (its log at
-  ``attempt0-host0.log``, spans in its ``metrics.jsonl``); a two-host stack
-  returns 1 before any launch, naming ROADMAP A.10.
+  ``attempt0-host0.log``, spans in its ``metrics.jsonl``); on a two-host
+  stack a mesh the processes cannot carry (``mesh.model=2``) returns 1
+  before any launch, naming ROADMAP A.10 (the two-host run itself:
+  ``tests/test_torch_dist_cli.py``).
 """
 
 import json
@@ -298,7 +300,7 @@ def test_train_refuses_a_missing_or_multihost_stack_naming_a10(tmp_path,
     capsys.readouterr()
     assert main(["train", "--preset", "transformer_nmt_wmt", "--stack",
                  "two", "--state-dir", state, "--accelerator", "cpu",
-                 f"workdir={tmp_path / 'work'}"]) == 1
+                 f"workdir={tmp_path / 'work'}", "mesh.model=2"]) == 1
     err = capsys.readouterr().err
     assert "2 hosts" in err and "ROADMAP A.10" in err
     assert not (tmp_path / "work").exists()  # nothing was launched

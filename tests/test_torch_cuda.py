@@ -20,7 +20,10 @@ biased) against the plain versions, the tiny f32 ViT (with 5 Adafactor
 steps) and the tiny f32 BERT-MoE and GPT-MoE on the card against the CPU;
 and int8 serving: the bf16 ``QuantDense``/``QuantEmbed`` on the card against
 their f32 CPU versions, and the int8 paged write (codes within ±1) and a
-tiny int8 engine on the card against the CPU. This file imports no JAX, so it runs on a machine that has only PyTorch and
+tiny int8 engine on the card against the CPU; and data parallelism: two
+gloo processes on the card (``chip_smoke.py --dp-worker``) each launch the
+three kernels in their steps of a tiny f32 NMT, whose losses match one
+process on the same global batches. This file imports no JAX, so it runs on a machine that has only PyTorch and
 the CUDA toolkit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1085,3 +1088,36 @@ def test_int8_engine_tiny_f32_on_card_matches_cpu(cuda):
         tokens.append([list(eng.poll(r).tokens) for r in ids])
     assert tokens[0] == tokens[1]
     assert len({tuple(t) for t in tokens[0]}) > 1
+
+
+def test_two_processes_launch_the_kernels_and_match_one(cuda, tmp_path):
+    """Two gloo processes sharing the card, each on its half of every
+    global batch: every rank launches the forward and both backward kernels
+    in its steps, and the summed losses equal one process's on the whole
+    batches within 1e-5 relative (f32, TF32 off: the sums change order
+    only)."""
+    import os
+
+    import chip_smoke as cs
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    over = ["model.kwargs.hidden_size=128", "model.kwargs.num_layers=2",
+            "model.kwargs.num_heads=2", "model.kwargs.mlp_dim=256",
+            "model.kwargs.dropout_rate=0.0", "data.vocab_size=512",
+            "data.seq_len=32", "train.dtype=float32", "train.seed=0",
+            "train.global_batch=16", "data.num_train_examples=256",
+            "schedule.warmup_steps=2", "schedule.base_lr=1e-3"]
+    cfg = apply_overrides(get_preset("transformer_nmt_wmt"), over)
+    batches = cs.dp_batches(cfg, 3)
+    path = str(tmp_path / "batches.npz")
+    cs.save_batches(path, batches)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    ranks = cs.spawn_dp_workers(str(tmp_path), "dp", dict(
+        mode="fed", preset="transformer_nmt_wmt", overrides=over,
+        batches=path))
+    for rank in ranks:
+        assert all(n > 0 for n in rank["launches"].values()), rank
+        assert rank["losses"] == ranks[0]["losses"]
+    want, _ = cs.fed_run(torch, cfg, batches, "cuda")
+    np.testing.assert_allclose(ranks[0]["losses"], want, rtol=1e-5)

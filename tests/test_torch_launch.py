@@ -4,7 +4,8 @@ package's, on the CPU.
 
 - The cluster env contract: ``cluster_env`` and ``current_cluster`` give
   the JAX package's env blocks and specs; ``initialize`` is a no-op for one
-  host and refuses more, naming ROADMAP A.10.
+  host, and for more joins the process group once, at the spec's
+  coordinator, world size and rank, on the backend of ``choose_backend``.
 - Fault injection: the same scripted store operations through both
   ``FaultInjectionStore``s fire the same faults; a torn checkpoint commit
   leaves the same objects behind in both packages' stores, and the port
@@ -120,8 +121,24 @@ def test_initialize_is_one_host_and_refuses_more_naming_a10(monkeypatch):
     monkeypatch.setenv(t_cluster.ENV_COORDINATOR, "localhost:8476")
     monkeypatch.setenv(t_cluster.ENV_WORKERS_COUNT, "1")
     assert t_cluster.initialize().hosts == ["localhost"]
-    with pytest.raises(NotImplementedError, match="A.10"):
-        t_cluster.initialize(t_cluster.ClusterSpec(hosts=["a", "b"]))
+    # More hosts join the process group, once (a stand-in records the
+    # call); what is still refused across processes names A.10 at the mesh
+    # (tests/test_torch_dist.py).
+    import torch.distributed as dist
+
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **kw: calls.append((a, kw)))
+    monkeypatch.setattr(t_cluster, "_initialized", False)
+    two = t_cluster.ClusterSpec(hosts=["a", "b"], process_id=1,
+                                coordinator_port=9999)
+    assert t_cluster.initialize(two, timeout_s=7, accelerator="cpu") is two
+    assert t_cluster.initialize(two, accelerator="cpu") is two
+    assert len(calls) == 1
+    (backend,), kw = calls[0]
+    assert backend == "gloo" and kw["init_method"] == "tcp://a:9999"
+    assert (kw["world_size"], kw["rank"]) == (2, 1)
+    assert kw["timeout"].total_seconds() == 7
 
 
 # -- fault injection ----------------------------------------------------------
@@ -280,7 +297,7 @@ def test_run_experiment_arms_the_chaos_hook_after_the_checkpoint(
 # scenario (argv[1]) — "ok", "crash1" (rank 1 exits 7 on attempt 0 once
 # rank 0 has printed, and rank 0 waits to be killed), "exit3" (every rank
 # exits 3), "hang0" (exits the hang code on attempt 0), "kill" (rank 1 exits
-# 1, rank 0 sleeps an hour).
+# 1 once rank 0 has printed, and rank 0 sleeps until it is killed).
 HOST_PROGRAM = r"""
 import json, os, sys, time
 out, scenario = os.environ["OUT"], sys.argv[1]
@@ -306,7 +323,15 @@ if scenario == "exit3":
 if scenario == "hang0" and attempt == "0":
     sys.exit(89)
 if scenario == "kill":
-    sys.exit(1) if rank == 1 else time.sleep(3600)
+    # As for crash1: rank 0 has written its env and printed before rank 1
+    # fails, so the launcher's kill of the survivor never cuts them.
+    ready = os.path.join(os.path.dirname(out), "rank0-ready")
+    if rank == 0:
+        open(ready, "w").close()
+        time.sleep(3600)
+    while not os.path.exists(ready):
+        time.sleep(0.01)
+    sys.exit(1)
 print("RESUMED" if attempt != "0" else "DONE", "rank", rank)
 """
 
@@ -414,6 +439,9 @@ def test_launcher_runs_host_programs_as_jax_does(case, fake_ssh,
     assert res["log_dir"] == "BASE/logs"
     if scenario == "kill":
         assert not res["success"] and res["exit_codes"][1] == 1
+        first = next(e for e in got["events"]
+                     if e.get("event") == "launch_attempt")
+        assert first["exit_codes"] == [-15, 1]
         assert elapsed < 30  # the sleeper was killed, not waited out
     if scenario == "crash1":
         assert res["attempt_outcomes"] == ["crash", "ok"]
