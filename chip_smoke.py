@@ -377,6 +377,32 @@ order; a failing phase raises, so the exit code is nonzero:
    processes through ``run_experiment`` (global batch 64, 3 steps): finite
    losses, identical running statistics on both, the step time per
    process beside the card's name and power limit.
+29. the long presets on one process (ROADMAP A.10 part 2a; ``seq`` = 1, so
+   the trunks run the flash kernels on whole rows): the three kernels timed
+   at ``bert_long``'s [8,12,4096,64] (non-causal) and ``gpt_long``'s
+   [1,12,16384,64] (causal) as phase 8 times its shape, and held against
+   their plain versions with heads cut ([1,12,4096,64] and
+   [1,2,16384,64]: the plain versions hold S x S in f32) on their own scale
+   and the lse within 1e-3; ``cli train --preset bert_long_wikipedia``
+   (full width, bf16, batch 8 x 4096, 4 steps) and ``--preset
+   gpt_long_lm`` (batch 2 as the preset's 2 microbatches of 16384, 4
+   steps), each with finite losses and 12 launches of each kernel per
+   microbatch plus 12 forwards per eval batch, all ``tc``; ``cli generate``
+   from gpt_long's checkpoint (recompute mode: 12 ``tc`` forwards per new
+   token); the tiny f32 ``bert_long`` and ``gpt_long`` on the card against
+   the CPU (loss within 1e-5, gradients within 1e-4 of the norm, the three
+   kernels once per layer).
+30. the ``seq`` axis across 2 processes (ROADMAP A.10 part 2b) on phase
+   28a's dry-run stack, gloo-staged: ``cli train --stack`` with
+   ``mesh.seq=2`` for ``bert_long`` with ring attention and ``gpt_long``
+   with Ulysses (full width cut to 2 layers, 4096, bf16, 4 steps): the mesh
+   line says ``seq=2``, each process launches per step what
+   ``SEQ_PER_STEP`` says (the ring none, Ulysses the three kernels per
+   layer and microbatch); one process on the same global batches within
+   the job's ``SEQ_LOSS_REL_BOUND``, a control whose gradients are never
+   summed beyond it, the losses moving by ``SEQ_MOVE_FACTOR`` bounds; the
+   control's processes time the ring's rotations or Ulysses's all-to-alls,
+   the heads' gather and the gradient sum apart from the step.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -5272,6 +5298,107 @@ DP_RESNET50_CUTS = ["train.global_batch=64, 32 per process (preset 8192; "
                     f"{DP_RESNET50_STEPS} steps, warmup 1"]
 
 
+# Phase 29: the long presets on one process (seq = 1) at full width, bf16.
+# Their 12 self-attentions carry no bias: per microbatch the forward, dK/dV
+# and dQ kernels 12 times each (tc), the reference VJP never; per eval batch
+# 12 forwards; per generated position of gpt_long's recompute mode 12
+# forwards over the whole buffer (Sq >= 16, so tc, never decode).
+LONG_LAYERS, LONG_HEADS, LONG_STEPS = 12, 12, 4
+LONG_BERT_SEQ, LONG_BERT_BATCH, LONG_BERT_VOCAB = 4096, 8, 30522
+LONG_BERT_PRED = int(LONG_BERT_SEQ * 0.2)  # data/text.py MAX_PRED_FRACTION
+LONG_GPT_SEQ, LONG_GPT_BATCH, LONG_GPT_ACCUM = 16384, 2, 2
+LONG_GPT_VOCAB, LONG_GPT_PROMPT, LONG_GPT_NEW = 32768, 16, 8
+LONG_PER_MICRO = {"fwd": 12, "dkdv": 12, "dq": 12, "vjp": 0}
+# The kernels' timing rows at the main path's shapes, and the cut shapes at
+# which each is held against its plain version (the plain versions
+# materialise S x S in f32: 12 heads at 16384 keys would be 12.9 GB per
+# matrix).
+LONG_BERT_SHAPE = (LONG_BERT_BATCH, LONG_HEADS, LONG_BERT_SEQ, LONG_BERT_SEQ,
+                   HEAD_DIM)
+LONG_GPT_SHAPE = (1, LONG_HEADS, LONG_GPT_SEQ, LONG_GPT_SEQ, HEAD_DIM)
+LONG_BERT_CHECK = (1, LONG_HEADS, LONG_BERT_SEQ, LONG_BERT_SEQ, HEAD_DIM)
+LONG_GPT_CHECK = (1, 2, LONG_GPT_SEQ, LONG_GPT_SEQ, HEAD_DIM)
+LONG_COMMON = ["train.seed=0", "train.log_every_steps=1",
+               f"train.steps={LONG_STEPS}", "schedule.warmup_steps=2",
+               "train.eval_every_steps=1000000",
+               "checkpoint.every_steps=1000000"]
+LONG_BERT = [f"train.global_batch={LONG_BERT_BATCH}",
+             "data.num_train_examples=32", "data.num_eval_examples=8",
+             f"train.eval_batch={LONG_BERT_BATCH}"]
+LONG_GPT = [f"train.global_batch={LONG_GPT_BATCH}",
+            "data.num_train_examples=8", "data.num_eval_examples=2",
+            f"train.eval_batch={LONG_GPT_BATCH}"]
+LONG_CUTS = {
+    "bert_long_wikipedia": [
+        "train.global_batch=8 (preset 256; the JAX bench's one-chip cut)",
+        "seq = 1: one process, so mesh.seq=4 is ignored and the trunk runs "
+        "the flash kernels on whole rows",
+        f"train.steps={LONG_STEPS} (1 warm-up step, 3 timed)",
+        "schedule.warmup_steps=2 (preset 3000)",
+        "data.num_train_examples=32, eval on 8 sequences once at the end",
+        "train.shard_opt_state ignored (one device)"],
+    "gpt_long_lm": [
+        "train.global_batch=2 as the preset's grad_accum_steps=2, so one "
+        "sequence of 16384 per microbatch (preset 64)",
+        "seq = 1: one process, so mesh.seq=8 is ignored and the trunk runs "
+        "the flash kernels on whole rows",
+        f"train.steps={LONG_STEPS} (1 warm-up step, 3 timed)",
+        "schedule.warmup_steps=2 (preset 2000)",
+        "data.num_train_examples=8, eval on 2 sequences once at the end",
+        "train.shard_opt_state ignored (one device)"],
+}
+# The tiny f32 long trunks, card against CPU (head dim 16: the kernels take
+# 16..128).
+LONG_TINY = ["model.kwargs.hidden_size=64", "model.kwargs.num_layers=2",
+             "model.kwargs.num_heads=4", "model.kwargs.mlp_dim=128",
+             "model.kwargs.max_len=64", "data.vocab_size=512",
+             "data.seq_len=64", "train.dtype=float32",
+             "data.num_train_examples=16"]
+# Phase 30: the seq axis across 2 processes that share the card over gloo
+# (phase 28a's dry-run stack): bert_long with ring attention and gpt_long
+# with Ulysses, full width cut to 2 layers, at 4096, bf16, mesh (data=1,
+# seq=2): both processes take the same rows, each its half of every row.
+SEQ_STEPS = 4
+SEQ_COMMON = ["model.kwargs.num_layers=2", "train.seed=0",
+              "train.log_every_steps=1", "schedule.warmup_steps=1",
+              "train.eval_every_steps=1000000",
+              "checkpoint.every_steps=1000000", "mesh.seq=2"]
+SEQ_JOBS = {
+    "ring": ("bert_long_wikipedia", SEQ_COMMON + [
+        "model.kwargs.seq_impl=ring", "train.global_batch=4",
+        "data.num_train_examples=16", "data.num_eval_examples=4",
+        "train.eval_batch=4", "schedule.base_lr=1e-3"]),
+    "ulysses": ("gpt_long_lm", SEQ_COMMON + [
+        "model.kwargs.seq_impl=ulysses", "model.kwargs.max_len=4096",
+        "data.seq_len=4096", "train.global_batch=2",
+        "data.num_train_examples=8", "data.num_eval_examples=2",
+        "train.eval_batch=2", "schedule.base_lr=1e-3"]),
+}
+# Launches per step of each process: the ring computes its blocks with
+# plain products (no kernel); Ulysses runs the three kernels once per layer
+# per microbatch (2 layers, grad_accum_steps=2).
+SEQ_PER_STEP = {"ring": {"fwd": 0, "dkdv": 0, "dq": 0},
+                "ulysses": {"fwd": 4, "dkdv": 4, "dq": 4}}
+SEQ_CUTS = ["12 layers cut to 2 (full width: hidden 768, 12 heads, MLP "
+            "3072, the presets' vocabularies)",
+            "bert_long: batch 4, sequence 4096 (preset 256 x 4096, seq=4); "
+            "gpt_long: batch 2 as 2 microbatches of 1, sequence 4096 "
+            "(preset 64 x 16384, seq=8): two processes share one card",
+            f"{SEQ_STEPS} steps, warmup 1"]
+# 30's bound on |2-process loss - 1-process loss| / loss, per step, for
+# each job, set between two readings of this cell on the card (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md, phase 30): the sound run and the control, the
+# same two processes with their gradients never summed. The ring parts from
+# one process by 2.745e-4 (its f32 block products against the flash
+# kernels, bf16 rounding in other places), its control by 9.497e-2; Ulysses
+# (the same kernels on head groups) by 2.439e-6, its control by 1.226e-3.
+# The job fails when the control does not exceed its bound, or when the
+# stack's losses move by less than SEQ_MOVE_FACTOR bounds from the first
+# (largest change over the steps).
+SEQ_LOSS_REL_BOUND = {"ring": 3e-3, "ulysses": 1e-4}
+SEQ_MOVE_FACTOR = 10
+
+
 def dp_batches(cfg, steps, ranks=DP_RANKS):
     """The global batch of each of the first ``steps`` steps as a job of
     ``ranks`` processes sees it: process 0's pipeline batch, then process
@@ -5293,13 +5420,18 @@ def dp_batches(cfg, steps, ranks=DP_RANKS):
              for k in per_rank[0][s]} for s in range(steps)]
 
 
-def fed_run(torch, cfg, batches, device, init=None, step_s=None):
+def fed_run(torch, cfg, batches, device, init=None, step_s=None,
+            total_steps=None, comm_s=None):
     """``run_experiment``'s set-up (seeded init, schedule, optimizer,
     state, trainer) on ``device``, trained on the given global batches;
     across processes each trains its rows. ``init``, named leaves as
-    ``TrainState.load_named`` takes them, replaces the seeded state;
-    ``step_s``, a list, gets each step's wall seconds. Returns the per-step
-    losses (summed over the processes) and the state."""
+    ``TrainState.load_named`` takes them, replaces the seeded state (a
+    restored checkpoint's ``step`` included); ``step_s``, a list, gets each
+    step's wall seconds; ``total_steps`` sizes the schedule (default: the
+    number of batches); ``comm_s``, a list, gets after each step the
+    sequence collectives' seconds so far (``collectives.comm_timer``, when
+    on). Returns the per-step losses (summed over the processes) and the
+    state."""
     from deeplearning_cfn_tpu_torch.data.pipeline import to_device
     from deeplearning_cfn_tpu_torch.parallel import build_mesh, local_shard
     from deeplearning_cfn_tpu_torch.train.optim import build_optimizer, \
@@ -5314,7 +5446,7 @@ def fed_run(torch, cfg, batches, device, init=None, step_s=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(cfg.train.seed))
     task.init(gen)
-    schedule = build_schedule(cfg.schedule, len(batches),
+    schedule = build_schedule(cfg.schedule, total_steps or len(batches),
                               cfg.train.global_batch)
     state = create_train_state(
         task.model, build_optimizer(cfg.optimizer, schedule, task.model,
@@ -5331,6 +5463,11 @@ def fed_run(torch, cfg, batches, device, init=None, step_s=None):
         losses.append(trainer._realize(metrics)["loss"])
         if step_s is not None:
             step_s.append(time.perf_counter() - t0)
+        if comm_s is not None:
+            from deeplearning_cfn_tpu_torch.parallel.collectives import \
+                comm_timer
+
+            comm_s.append(dict(comm_timer.seconds))
     return losses, state
 
 
@@ -5345,12 +5482,14 @@ def bn_stats(torch, model):
 
 def dp_worker(spec_path, rank):
     """``chip_smoke.py --dp-worker SPEC RANK``: one process of a phase-28
-    job on the card (28c, 28e). It joins the group through
-    ``runtime.cluster.initialize`` (processes that share a card: gloo),
-    then either trains the given global batches (``fed``, strict
+    or phase-30 job on the card (28b-c, 28e, 30b, 30d). It joins the group
+    through ``runtime.cluster.initialize`` (processes that share a card:
+    gloo), then either trains the given global batches (``fed``, strict
     deterministic algorithms when asked) or runs ``run_experiment``
     (``run``), and writes its losses, step times, kernel launches and
-    BatchNorm statistics to ``<out>/rank<r>.json``/``.npy``."""
+    BatchNorm statistics to ``<out>/rank<r>.json``/``.npy``; with ``comm``
+    also the sequence collectives' seconds after each step and their
+    calls."""
     import numpy as np
     import torch
 
@@ -5365,6 +5504,12 @@ def dp_worker(spec_path, rank):
     out = {}
     if spec.get("grad_sum"):
         time_grad_sum(torch, spec["grad_sum"], out)
+    if spec.get("comm"):
+        from deeplearning_cfn_tpu_torch.parallel.collectives import \
+            comm_timer
+
+        comm_timer.enabled = True
+        out["comm_s"] = []
     initialize(ClusterSpec(hosts=["127.0.0.1"] * spec["ranks"],
                            process_id=rank, chips_per_host=1,
                            coordinator_port=spec["port"]),
@@ -5377,8 +5522,10 @@ def dp_worker(spec_path, rank):
             out["step_time_s"] = []
             out["losses"], state = fed_run(
                 torch, cfg, load_batches(spec["batches"]), device,
-                step_s=out["step_time_s"])
+                step_s=out["step_time_s"], comm_s=out.get("comm_s"))
             model = state.model
+            if spec.get("comm"):
+                out["comm_calls"] = comm_timer.calls
         else:
             from deeplearning_cfn_tpu_torch.train.run import run_experiment
 
@@ -5758,6 +5905,342 @@ def dp_phase(torch, root):
 
 
 
+def long_cli_train(torch, attn, preset, overrides, per_step, accum, seq,
+                   workdir_name):
+    """``cli train --preset PRESET`` in this process at full width, bf16,
+    with every count set to 0 first: finite losses, the launches of every
+    step and of the final eval (all ``tc``), step times from
+    ``metrics.jsonl``."""
+    workdir = fresh_workdir(workdir_name)
+    argv = ["train", "--preset", preset, f"workdir={workdir}",
+            *LONG_COMMON, *overrides]
+    for cut in LONG_CUTS[preset]:
+        log(f"  cut: {cut}")
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(attn, 0)
+    t0 = time.perf_counter()
+    rc, out = cli_inprocess(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched, by_variant = counts(attn), variant_counts(attn)
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0 or "final metrics" not in out:
+        raise AssertionError(f"cli train {preset}: rc {rc}\n{out[-3000:]}")
+    recs = read_jsonl(os.path.join(workdir, preset, "metrics.jsonl"))
+    steps = [r for r in recs if "loss" in r and "span" not in r
+             and "final_eval_loss" not in r]
+    losses = [r["loss"] for r in steps]
+    if len(losses) != LONG_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{preset}: bad losses {losses}")
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    cfg = apply_overrides(get_preset(preset), overrides)
+    eval_batches = math.ceil(cfg.data.num_eval_examples
+                             / cfg.train.eval_batch)
+    expect = {k: v * LONG_STEPS * accum for k, v in per_step.items()}
+    expect["fwd"] += LONG_LAYERS * eval_batches
+    log(f"  losses {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  launches over {LONG_STEPS} steps (accum {accum}) and the eval's "
+        f"{eval_batches} batch(es): {launched} (expected {expect}); by "
+        f"variant {by_variant}")
+    if launched != expect:
+        raise AssertionError(f"{preset} launches {launched} != {expect}")
+    if any(by_variant[k]["tc"] != launched[k] for k in ("fwd", "dkdv", "dq")):
+        raise AssertionError(f"{preset} launches off the tc variant: "
+                             f"{by_variant}")
+    timed = [r for r in steps[1:] if "step_time_s" in r]
+    p50 = lambda xs: sorted(xs)[len(xs) // 2]
+    step_s = p50([r["step_time_s"] for r in timed])
+    tokens_s = cfg.train.global_batch * seq / step_s
+    return dict(preset=preset, losses=losses, launches=launched,
+                variant_launches=by_variant, step_time_p50_s=step_s,
+                tokens_per_s_p50=tokens_s, first_step_s=steps[0]["compile_s"],
+                max_memory_allocated_bytes=peak, wall_s=wall,
+                final=out.strip().splitlines()[-1], cuts=LONG_CUTS[preset],
+                workdir=workdir, cfg=cfg)
+
+
+def long_mfu(torch, run, flops_per_seq):
+    """Add the forward FLOPs per token and the MFU share (3x the forward per
+    step, of 989 TFLOP/s dense bf16) to a phase-29 run."""
+    seq = run["cfg"].data.seq_len
+    seqs_s = run["cfg"].train.global_batch / run["step_time_p50_s"]
+    run["forward_mflop_per_token"] = flops_per_seq / seq / 1e6
+    run["mfu_share"] = seqs_s * 3 * flops_per_seq / BF16_FLOP_PER_S
+    log(f"  step time p50 {run['step_time_p50_s'] * 1e3:.2f} ms, tokens/s "
+        f"p50 {run['tokens_per_s_p50']:.1f}, MFU share {run['mfu_share']:.4f} "
+        f"({run['forward_mflop_per_token']:.1f} MFLOP forward per token, "
+        f"counted from the shapes), first step {run['first_step_s']:.2f} s, "
+        f"max_memory_allocated "
+        f"{run['max_memory_allocated_bytes'] / 2**30:.2f} GiB; run "
+        f"{run['wall_s']:.1f} s [{card_line()}]")
+    log(f"  {run['final']}")
+
+
+def long_generate(torch, attn, workdir):
+    """``cli generate --preset gpt_long_lm`` from phase 29's checkpoint,
+    greedy: recompute mode, 12 forward launches (tc) per new token."""
+    prompt = "The H100 port of"
+    assert len(prompt.encode()) == LONG_GPT_PROMPT
+    set_counts(attn, 0)
+    t0 = time.perf_counter()
+    rc, out = cli_inprocess(["generate", "--preset", "gpt_long_lm",
+                             "--prompt", prompt, "--max-new-tokens",
+                             str(LONG_GPT_NEW), f"workdir={workdir}",
+                             *LONG_COMMON, *LONG_GPT])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched, by_variant = counts(attn), variant_counts(attn)
+    log("  " + out.strip().replace("\n", "\n  "))
+    expect = LONG_LAYERS * LONG_GPT_NEW
+    log(f"  launches {launched}, by variant {by_variant} (expected {expect} "
+        f"tc: recompute mode); {wall:.2f} s with the restore")
+    if rc != 0 or "checkpoint step" not in out:
+        raise AssertionError(f"cli generate gpt_long: rc {rc}: {out!r}")
+    if launched != {"fwd": expect, "dkdv": 0, "dq": 0, "vjp": 0} or \
+            by_variant["fwd"]["tc"] != expect:
+        raise AssertionError(f"generate launches {launched} {by_variant}")
+    return dict(rc=rc, text=out.strip().splitlines()[-1], wall_s=wall,
+                launches=launched["fwd"], variant_launches=by_variant["fwd"])
+
+
+def long_parity(torch, attn):
+    """The tiny f32 bert_long and gpt_long (head dim 16) on the card against
+    the CPU, TF32 off: the loss within 1e-5 relative, every gradient within
+    1e-4 of the global norm, the three kernels once per layer (simt) and the
+    reference VJP never."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.train.task import CausalLmTask, MlmTask
+
+    out = {}
+    for preset, task_cls in (("bert_long_wikipedia", MlmTask),
+                             ("gpt_long_lm", CausalLmTask)):
+        cfg = apply_overrides(get_preset(preset), LONG_TINY)
+        cpu, card = _card_and_cpu(torch, task_cls, cfg)
+        batch = next(iter(build_pipeline(cfg.data, 4, cfg.model.num_classes,
+                                         seed=0).one_epoch()))
+        ref, _ = cpu.loss_fn(to_device(batch, torch.device("cpu")), True)
+        ref.backward()
+        before = counts(attn)
+        loss, _ = card.loss_fn(to_device(batch, torch.device(DEVICE)), True)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in counts(attn).items()}
+        loss_err = abs(loss.item() - ref.item()) / abs(ref.item())
+        grad_err = _grad_check(f"tiny {preset}", cpu.model, card.model)
+        log(f"  tiny f32 {cfg.model.name}, card vs CPU: loss {loss_err:.3e} "
+            f"relative (<= 1e-5), gradients {grad_err:.3e} of the norm (<= "
+            f"1e-4); launches {launched}")
+        if not loss_err <= 1e-5:
+            raise AssertionError(f"tiny {preset}: loss {loss_err}")
+        if launched != {"fwd": 2, "dkdv": 2, "dq": 2, "vjp": 0}:
+            raise AssertionError(f"tiny {preset} launches {launched}")
+        out[cfg.model.name] = dict(loss_rel_err=loss_err,
+                                   grad_err_of_norm=grad_err,
+                                   launches=launched)
+    return out
+
+
+def long_phase(torch, attn):
+    """Phase 29: the kernels at the two long shapes (timed at the main
+    path's shapes, held against the plain versions at the cut shapes), then
+    bert_long_wikipedia and gpt_long_lm through ``cli train``, ``cli
+    generate`` from gpt_long's checkpoint, and the tiny f32 trunks card
+    against CPU."""
+    import shutil
+
+    from deeplearning_cfn_tpu_torch.models.bert_long import \
+        forward_flops as bert_flops
+    from deeplearning_cfn_tpu_torch.models.lm import \
+        forward_flops as gpt_flops
+
+    rows = {}
+    for label, shape, check, causal in (
+            ("long_bert_self", LONG_BERT_SHAPE, LONG_BERT_CHECK, False),
+            ("long_gpt_self", LONG_GPT_SHAPE, LONG_GPT_CHECK, True)):
+        log(f"  {label}: timed at {list(shape)}, held against the plain "
+            f"versions at {list(check)} (the plain versions hold S x S in "
+            f"f32) [{card_line()}]")
+        torch.cuda.reset_peak_memory_stats()
+        rows[label] = time_training_kernels(torch, attn, shape, label,
+                                            (10, 2, 3, 1), causal=causal)
+        check_train_kernels(torch, attn, rows[label], check, causal=causal)
+        for row in rows[label].values():
+            row["checked_at"] = list(check)
+        log(f"  max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+
+    bert = long_cli_train(torch, attn, "bert_long_wikipedia", LONG_BERT,
+                          LONG_PER_MICRO, 1, LONG_BERT_SEQ, "smoke_long_bert")
+    from deeplearning_cfn_tpu_torch.models import build_model
+
+    meta = lambda name, classes, **kw: build_model(
+        name, classes, torch.bfloat16, device="meta", **kw)
+    long_mfu(torch, bert, bert_flops(
+        meta("bert_long", 2, vocab_size=LONG_BERT_VOCAB), LONG_BERT_SEQ,
+        LONG_BERT_PRED))
+    shutil.rmtree(bert.pop("workdir"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    gpt = long_cli_train(torch, attn, "gpt_long_lm", LONG_GPT,
+                         LONG_PER_MICRO, LONG_GPT_ACCUM, LONG_GPT_SEQ,
+                         "smoke_long_gpt")
+    long_mfu(torch, gpt, gpt_flops(
+        meta("gpt_long", 0, vocab_size=LONG_GPT_VOCAB, max_len=LONG_GPT_SEQ),
+        LONG_GPT_SEQ))
+    torch.cuda.empty_cache()
+    generated = long_generate(torch, attn, gpt["workdir"])
+    shutil.rmtree(gpt.pop("workdir"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    tiny = long_parity(torch, attn)
+    for run in (bert, gpt):
+        run.pop("cfg")
+    return dict(rows=rows, bert=bert, gpt=gpt, generate=generated,
+                tiny_f32_card_vs_cpu=tiny)
+
+
+def seq_stack_train(torch, root, name, accelerator="gpu"):
+    """30a/30c: ``cli train --stack`` on phase 28a's two-host dry-run stack
+    with ``mesh.seq=2``: each process's launches per step held to
+    :data:`SEQ_PER_STEP`, the mesh line, finite losses."""
+    preset, overrides = SEQ_JOBS[name]
+    workdir = os.path.join(root, f"seq_{name}_work")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "train",
+         "--preset", preset, "--stack", "dp", "--state-dir",
+         os.path.join(root, "dp_stacks"), "--max-steps", str(SEQ_STEPS),
+         "--accelerator", accelerator, f"workdir={workdir}", *overrides],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "job finished (restarts=0" not in out:
+        raise AssertionError(f"train --stack ({name}): rc "
+                             f"{proc.returncode}\n{out[-4000:]}")
+    run_dir = os.path.join(workdir, preset)
+    launches = {}
+    for r in range(DP_RANKS):
+        with open(os.path.join(run_dir, "logs",
+                               f"attempt0-host{r}.log")) as fh:
+            text = fh.read()
+        if r == 0:
+            mesh_line = [ln for ln in text.splitlines() if "mesh[" in ln]
+        counts_r, steps = worker_launches(text, r)
+        launches[f"rank{r}"] = counts_r
+        per_step = {k: v / steps for k, v in counts_r.items()}
+        log(f"  rank {r}: launches over {steps} steps {counts_r}, per step "
+            f"{per_step} (expected {SEQ_PER_STEP[name]})")
+        if accelerator == "gpu" and per_step != SEQ_PER_STEP[name]:
+            raise AssertionError(f"{name} rank {r} per-step launches "
+                                 f"{per_step} != {SEQ_PER_STEP[name]}")
+    if not mesh_line or "seq=2" not in mesh_line[0]:
+        raise AssertionError(f"no mesh line with seq=2: {mesh_line}")
+    recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    steps = [r for r in recs if "loss" in r and "span" not in r
+             and "final_eval_loss" not in r]
+    losses = [r["loss"] for r in steps]
+    if len(losses) != SEQ_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: bad losses {losses}")
+    log(f"  {mesh_line[0].strip()}")
+    log(f"  losses {' '.join(f'{x:.6f}' for x in losses)}; step p50 "
+        f"{step_p50(steps) * 1e3:.1f} ms (gloo-staged); job {wall:.1f} s "
+        f"[{card_line()}]")
+    return dict(losses=losses, launches=launches, wall_s=wall,
+                step_time_p50_s=step_p50(steps), mesh=mesh_line[0].strip())
+
+
+def seq_reference(torch, root, name, stacked, device=None):
+    """30b/30d: one process on the same global batches (both processes of
+    the seq group read every row); per-step losses within the job's
+    :data:`SEQ_LOSS_REL_BOUND`. The control, the same two processes with
+    their gradients never summed, must exceed it, and the stack run's
+    losses must move by :data:`SEQ_MOVE_FACTOR` bounds. The control's
+    processes time the sequence collectives (``comm_timer``, the card
+    synchronized around each exchange) apart from the step."""
+    import statistics
+
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    device = device or DEVICE
+    preset, overrides = SEQ_JOBS[name]
+    cfg = apply_overrides(get_preset(preset), overrides)
+    batches = dp_batches(cfg, SEQ_STEPS, ranks=1)
+    losses = fed_run(torch, cfg, batches, device)[0]
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    path = os.path.join(root, f"seq_{name}_batches.npz")
+    save_batches(path, batches)
+    control = spawn_dp_workers(root, f"seq_{name}_unsummed", dict(
+        mode="fed", preset=preset, overrides=overrides, batches=path,
+        grad_sum="discard", comm=True,
+        accelerator="gpu" if device != "cpu" else "cpu"))
+    relative = lambda got: [abs(a - b) / abs(b) for a, b in zip(got, losses)]
+    rel, ctl = relative(stacked["losses"]), relative(control[0]["losses"])
+    got = stacked["losses"]
+    moved = max(abs(x - got[0]) for x in got) / abs(got[0])
+    bound = SEQ_LOSS_REL_BOUND[name]
+    # Steps after the first (its warm-up), both processes.
+    kind = "ring" if name == "ring" else "ulysses"
+    per_step = lambda c, key: [b.get(key, 0.0) - a.get(key, 0.0) for a, b in
+                               zip(c["comm_s"][:-1], c["comm_s"][1:])]
+    timing = dict(
+        comm_kind=kind,
+        comm_p50_s=statistics.median(
+            s for c in control for s in per_step(c, kind)),
+        gather_p50_s=statistics.median(
+            s for c in control for s in per_step(c, "gather")),
+        grad_sum_p50_s=statistics.median(
+            s for c in control for s in c["grad_sum_s"][1:]),
+        step_p50_s=statistics.median(
+            s for c in control for s in c["step_time_s"][1:]),
+        comm_calls_per_step={k: v / SEQ_STEPS for k, v in
+                             control[0]["comm_calls"].items()})
+    log(f"  one process: {' '.join(f'{x:.6f}' for x in losses)}; max "
+        f"relative difference {max(rel):.3e} (bound {bound:.1e}); the "
+        f"control (gradients never summed): "
+        f"{' '.join(f'{x:.6f}' for x in control[0]['losses'])}, "
+        f"{max(ctl):.3e}; the stack's losses moved {moved:.3e} at most")
+    log(f"  gloo-staged {kind} exchanges p50 {timing['comm_p50_s'] * 1e3:.2f}"
+        f" ms per step ({timing['comm_calls_per_step']} calls per step), the "
+        f"heads' gather {timing['gather_p50_s'] * 1e3:.2f} ms, the gradient "
+        f"sum {timing['grad_sum_p50_s'] * 1e3:.2f} ms, of a step p50 "
+        f"{timing['step_p50_s'] * 1e3:.2f} ms (the control's processes, "
+        f"steps 2-{SEQ_STEPS}, the card synchronized around each exchange; "
+        f"cuts: {SEQ_CUTS}) [{card_line()}]")
+    checks = {"within the bound": max(rel) <= bound,
+              "the control beyond it": max(ctl) > bound,
+              "the losses moved": moved >= SEQ_MOVE_FACTOR * bound}
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: 2 processes against 1: {checks}; "
+                             f"relative {rel}, control {ctl}, moved {moved}")
+    return dict(losses=losses, max_rel=max(rel), bound=bound,
+                control_losses=control[0]["losses"], control_max_rel=max(ctl),
+                moved=moved, **timing)
+
+
+def seq_phase(torch, root):
+    """Phase 30: for ring (bert_long) and Ulysses (gpt_long), the stack run
+    and its one-process reference with the control, in ``root`` (phase 28a
+    made the stack)."""
+    torch.cuda.empty_cache()
+    out = {}
+    for name in SEQ_JOBS:
+        t = time.perf_counter()
+        stacked = seq_stack_train(torch, root, name)
+        torch.cuda.empty_cache()
+        out[name] = dict(stack=stacked,
+                         reference=seq_reference(torch, root, name, stacked))
+        out[name]["phase_s"] = time.perf_counter() - t
+        log(f"  {name} {out[name]['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2], int(sys.argv[3]))
@@ -5927,6 +6410,18 @@ def main() -> int:
                   "on 2 processes")
         dp = dp_phase(torch, root)
         log(f"  phase 28 {time.perf_counter() - t:.1f} s")
+
+        t = phase("29. the long presets on one process: bert_long_wikipedia "
+                  "at 4096 and gpt_long_lm at 16384 (full width, bf16), cli "
+                  "generate, the kernels at both shapes")
+        long = long_phase(torch, attn)
+        log(f"  phase 29 {time.perf_counter() - t:.1f} s")
+
+        t = phase("30. the seq axis across 2 processes: train --stack with "
+                  "mesh.seq=2, bert_long (ring) and gpt_long (Ulysses) at "
+                  "4096 against one process")
+        seq = seq_phase(torch, root)
+        log(f"  phase 30 {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row in (served, int8):
@@ -5937,9 +6432,12 @@ def main() -> int:
     # GPT's decode step, the verify span over the dense cache and the
     # paged span, and ViT's train shape (one call at each; BERT-MoE's and
     # the pipelined trunk's attention calls are BERT's shape).
+    long_rows = [long["rows"][label] for label in ("long_bert_self",
+                                                   "long_gpt_self")]
     rows = rows + [train_rows["flash_attn_fwd"], bert_row,
                    gpt_rows["flash_attn_fwd"], decode_row] + verify_rows \
-        + [vit_rows["flash_attn_fwd"]]
+        + [vit_rows["flash_attn_fwd"]] \
+        + [r["flash_attn_fwd"] for r in long_rows]
     timings = ("kernel_ms_before", "device_ms", "device_ms_strided",
                "device_ms_before", "plain_ms", "bound_ms", "library_ms",
                "library_device_ms")
@@ -5980,6 +6478,11 @@ def main() -> int:
         row = fleet["route_rollout"][verb]
         fwd_paths[f"fleet_{verb}"] = (row["launches"],
                                       row["variant_launches"])
+    for name in ("bert", "gpt"):
+        fwd_paths[f"long_{name}"] = (long[name]["launches"]["fwd"],
+                                     long[name]["variant_launches"]["fwd"])
+    fwd_paths["long_gpt_generate"] = (long["generate"]["launches"],
+                                      long["generate"]["variant_launches"])
     fwd = {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -5995,13 +6498,17 @@ def main() -> int:
                            gpt_rows["flash_attn_fwd"]["max_abs_err"],
                            decode_row["max_abs_err"],
                            *(r["max_abs_err"] for r in verify_rows),
-                           vit_rows["flash_attn_fwd"]["max_abs_err"]),
+                           vit_rows["flash_attn_fwd"]["max_abs_err"],
+                           *(r["flash_attn_fwd"]["max_abs_err"]
+                             for r in long_rows)),
         "max_abs_err_f32": errs["float32"],
         "max_abs_err_bf16": max(errs["bfloat16"], bert_row["max_abs_err"],
                                 gpt_rows["flash_attn_fwd"]["max_abs_err"],
                                 decode_row["max_abs_err"],
                                 *(r["max_abs_err"] for r in verify_rows),
-                                vit_rows["flash_attn_fwd"]["max_abs_err"]),
+                                vit_rows["flash_attn_fwd"]["max_abs_err"],
+                                *(r["flash_attn_fwd"]["max_abs_err"]
+                                  for r in long_rows)),
         "ms": sum(r["kernel_ms"] for r in rows),
         **{key: sum(r[key] for r in rows) for key in timings},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
@@ -6014,9 +6521,13 @@ def main() -> int:
             "fleet_up_net": {r: c["restarted"] for r, c in
                              fleet["fleet_up_net"]["replicas"].items()},
             # Phase 28a's two train --stack processes, over their steps
-            # after the first.
+            # after the first; phase 30's likewise (the ring launches no
+            # kernel: its blocks are plain products).
             "dp_train": {r: c["fwd"] for r, c in
-                         dp["28a"]["launches"].items()}},
+                         dp["28a"]["launches"].items()},
+            **{f"seq_{name}": {r: c["fwd"] for r, c in
+                               seq[name]["stack"]["launches"].items()}
+               for name in SEQ_JOBS}},
         "shapes": rows,
     }
     if sum(fwd["variant_launches"].values()) != fwd["launches"]:
@@ -6033,11 +6544,14 @@ def main() -> int:
     records = [fwd]
     for name, key in (("flash_attn_bwd_dkdv", "dkdv"),
                       ("flash_attn_bwd_dq", "dq")):
-        # The NMT training shape, GPT's and ViT's, one call at each.
-        shapes = [train_rows[name], gpt_rows[name], vit_rows[name]]
+        # The NMT training shape, GPT's, ViT's and the two long ones, one
+        # call at each.
+        shapes = [train_rows[name], gpt_rows[name], vit_rows[name],
+                  *(r[name] for r in long_rows)]
         paths = {"train": trained, "gpt_train": gpt, "vit_train": vit,
                  "vit_window": windows["vit_run"],
-                 "nmt_window": windows["nmt_run"]}
+                 "nmt_window": windows["nmt_run"],
+                 "long_bert": long["bert"], "long_gpt": long["gpt"]}
         records.append({
             "name": name, "route": "cuda",
             "source": f"deeplearning_cfn_tpu_torch/csrc/{name}.cu",
@@ -6051,14 +6565,19 @@ def main() -> int:
                 for v in trained["variant_launches"][key]},
             "max_abs_err": max(bwd_errs[name],
                                gpt_rows[name]["max_abs_err"],
-                               vit_rows[name]["max_abs_err"]),
+                               vit_rows[name]["max_abs_err"],
+                               *(r[name]["max_abs_err"] for r in long_rows)),
             "ms": sum(r["kernel_ms"] for r in shapes),
             **{t: sum(r[t] for r in shapes) for t in timings},
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in shapes) else "operations",
             # library_ms: SDPA's backward, one call giving dq, dk and dv.
-            "child_launches": {"dp_train": {
-                r: c[key] for r, c in dp["28a"]["launches"].items()}},
+            "child_launches": {
+                "dp_train": {r: c[key] for r, c in
+                             dp["28a"]["launches"].items()},
+                **{f"seq_{job}": {r: c[key] for r, c in
+                                  seq[job]["stack"]["launches"].items()}
+                   for job in SEQ_JOBS}},
             "shapes": shapes,
         })
         if sum(records[-1]["variant_launches"].values()) \
@@ -6092,6 +6611,8 @@ def main() -> int:
         "launched_training": launched,
         "fleet": fleet,
         "data_parallel": dp,
+        "long_presets": long,
+        "seq_parallel": seq,
         "script_s": time.perf_counter() - script_t0,
     }
     log(json.dumps({"summary": summary}))

@@ -43,11 +43,15 @@ times, each attempt resuming from the last committed checkpoint (logs in
 ``<workdir>/<preset>/logs/attempt<N>-host<I>.log`` and ``launch.jsonl``). A
 dry-run stack runs its host as a local process on the card (or the CPU with
 ``--accelerator cpu``; the JAX package forces the CPU there). A stack of
-several hosts trains data-parallel: every host's worker joins the process
-group at host 0 (a dry-run stack's hosts are local processes that share
-this machine's cards, on a free local port), and a preset whose mesh needs
-an axis other than the batch axes over those processes is refused before
-any launch (ROADMAP A.10). ``info`` and ``doctor`` report torch, CUDA, the
+several hosts trains data- and sequence-parallel: every host's worker
+joins the process group at host 0 (a dry-run stack's hosts are local
+processes that share this machine's cards, on a free local port), the mesh
+resolves over those processes (``mesh.seq`` > 1 splits each row's sequence
+for ``bert_long``/``gpt_long``), and a preset whose mesh needs the
+``pipe``, ``expert``, ``model`` or ``spatial`` axis over them is refused
+before any launch (ROADMAP A.10). ``generate`` collapses the preset's mesh
+(a ``gpt_long`` checkpoint generates on one device, recomputing the causal
+forward each step). ``info`` and ``doctor`` report torch, CUDA, the
 devices and the mesh of this process. Serve requests are JSONL lines
 ``{"src_ids": [...]}``, or ``{"text": "..."}`` with ``--vocab``
 (BPE-encoded, ``data/bpe.py``, plus EOS; each result line then carries the
@@ -345,6 +349,7 @@ def _cmd_generate(args) -> int:
     import torch
 
     from ..ckpt import CheckpointManager, latest_checkpoint
+    from ..config import MeshConfig
     from ..models.decoding import lm_generate
     from ..runtime.platform import resolve_device
     from ..train.run import _workdir_and_ckpt_dir
@@ -363,6 +368,11 @@ def _cmd_generate(args) -> int:
         print(f"[dlcfn-tpu] ERROR: no committed checkpoint in {ckpt_dir}",
               file=sys.stderr)
         return 1
+    # generate is a local inference verb: collapse every model axis, so a
+    # sequence-parallel trunk (gpt_long) runs whole rows on this device
+    # (the flash kernels, recompute mode) instead of the training pod's
+    # data×seq layout.
+    cfg.mesh = MeshConfig(data=-1)
     task = build_task(cfg, device)
     if not isinstance(task, CausalLmTask):
         print(f"[dlcfn-tpu] ERROR: model {cfg.model.name!r} is not a "

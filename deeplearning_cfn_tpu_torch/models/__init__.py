@@ -1,7 +1,8 @@
 """Model zoo of the port — the NMT family (slices 1–2), the ResNets
 (slice 5), BERT (slice 6), Mask R-CNN (slice 7), the GPT family (slice 8),
-and ViT, BERT and GPT with Mixture-of-Experts FFNs and the pipelined BERT
-trunk (slice 10). ``gpt_long`` is registered and raises, naming A.10.
+ViT, BERT and GPT with Mixture-of-Experts FFNs and the pipelined BERT
+trunk (slice 10), and the long-context ``bert_long`` and ``gpt_long``
+(slice 16).
 
 Registry maps ModelConfig.name → constructor, as in the JAX package.
 """
@@ -22,8 +23,8 @@ def register_model(name: str):
 
 
 def build_model(name: str, num_classes: int, dtype, **kwargs):
-    from . import (bert, lm, maskrcnn, pipelined, resnet,  # noqa: F401
-                   transformer_nmt, vit)
+    from . import (bert, bert_long, lm, maskrcnn, pipelined,  # noqa: F401
+                   resnet, transformer_nmt, vit)
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
@@ -31,7 +32,7 @@ def build_model(name: str, num_classes: int, dtype, **kwargs):
 
 
 def list_models():
-    from . import (bert, lm, maskrcnn, pipelined, resnet,  # noqa: F401
-                   transformer_nmt, vit)
+    from . import (bert, bert_long, lm, maskrcnn, pipelined,  # noqa: F401
+                   resnet, transformer_nmt, vit)
 
     return sorted(_REGISTRY)

@@ -20,9 +20,9 @@ convention at the default 2), and the outputs gain ``moe_load_balance`` and
 
 Module names follow the Flax tree (``encoder.layer.3`` for ``layer_3``), so
 ``convert.params_from_flax`` and ``convert.flax_layout`` carry the weights
-both ways. The pipelined trunk is ``models/pipelined.py``, with the same
-heads (:class:`PretrainHeads`); the long-context trunk belongs to ROADMAP
-A.10.
+both ways. The pipelined trunk is ``models/pipelined.py`` and the
+long-context one ``models/bert_long.py``, both with the same heads
+(:class:`PretrainHeads`).
 
 Batch contract (``data/text.py``): input_ids, input_mask, segment_ids
 [B, S]; mlm_positions [B, P].

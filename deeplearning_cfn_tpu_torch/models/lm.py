@@ -21,8 +21,12 @@ expert has one slot), so ``lm_generate`` drives a MoE GPT unchanged.
 
 Module names follow the Flax tree (``layer.3`` for ``layer_3``, ``token``,
 ``position``, ``embed_norm``, ``final_norm``), so ``convert.params_from_flax``
-and ``convert.flax_layout`` carry the weights both ways. Not ported:
-``gpt_long``'s sequence-parallel trunk (ROADMAP A.10), which raises.
+and ``convert.flax_layout`` carry the weights both ways.
+
+``LongCausalLm`` (``gpt_long``) is the same trunk with sequence-parallel
+attention over the mesh's ``seq`` axis (``models/bert_long.py``), its
+layers at JAX's flat root names; it has no decode step, so generation
+recomputes the whole causal forward each step.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from torch import nn
 
 from . import register_model
+from .bert_long import add_seq_layers, seq_layer, seq_positions
 from .transformer import (KvCache, LayerNorm, MoeAuxAccumulator,
                           TransformerLayer, dropout, init_flax_defaults,
                           is_moe_layer)
@@ -154,26 +159,102 @@ def gpt_tiny(num_classes: int = 0, dtype=torch.float32, *,
                   **kw)
 
 
+class LongCausalLm(nn.Module):
+    """Long-context causal LM: the GPT trunk with sequence-parallel
+    attention over the mesh's ``seq`` axis (``bert_long``'s
+    ``SeqParallelAttention``: ring or Ulysses, both causal-exact, or the
+    flash kernels with ``seq`` = 1). Pre-LN blocks, tied f32 logits,
+    post-embedding dropout: ``TransformerCausalLm``'s contract, with JAX's
+    flat root names (``token``, ``position``, ``embed_norm``,
+    ``layer_{i}_self_attn``, ``layer_{i}_self_attn_norm``, ``layer_{i}_mlp``,
+    ``layer_{i}_mlp_norm``, ``final_norm``).
+
+    With ``seq`` > 1 a process embeds its slice of each row (the position
+    table at the slice's offset), runs the layers on it and returns the
+    logits of its own positions, ``[B, S/n, V]``; :meth:`seq_slice` names
+    them, so the task takes the matching targets. There is no
+    ``decode_step``: ``lm_generate`` drives it in recompute mode."""
+
+    def __init__(self, vocab_size: int, hidden_size: int = 768,
+                 num_layers: int = 12, num_heads: int = 12,
+                 mlp_dim: int = 3072, max_len: int = 4096,
+                 dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.0, seq_impl: str = "ring",
+                 mesh=None, attention_impl: str = "auto"):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.mlp_dim = mlp_dim
+        self.max_len = max_len
+        self.dtype = dtype
+        self.dropout_rate = dropout_rate
+        self.mesh = mesh
+        self.token = nn.Embedding(vocab_size, hidden_size)
+        self.position = nn.Parameter(torch.empty(max_len, hidden_size))
+        self.embed_norm = LayerNorm(hidden_size, dtype)
+        add_seq_layers(self, num_layers, hidden_size, num_heads, mlp_dim,
+                       dtype, dropout_rate, seq_impl, mesh, attention_impl)
+        self.final_norm = LayerNorm(hidden_size, dtype)
+
+    def seq_slice(self, seq_len: int) -> slice:
+        """The positions of a row of ``seq_len`` whose logits
+        :meth:`forward` returns on this process."""
+        return seq_positions(self.mesh, seq_len)
+
+    def forward(self, tokens: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """f32 logits ``[B, S/n, V]`` of this process's positions of
+        ``tokens`` [B, S] (``[B, S, V]`` without a ``seq`` axis)."""
+        if not train:
+            generator = None
+        elif generator is None and self.dropout_rate > 0:
+            raise ValueError(
+                f"train=True with dropout_rate={self.dropout_rate} needs a "
+                f"torch.Generator for the dropout masks")
+        mine = self.seq_slice(tokens.shape[1])
+        x = self.token(tokens[:, mine]) + self.position[None, mine, :]
+        x = dropout(self.embed_norm(x.to(self.dtype)), self.dropout_rate,
+                    generator)
+        for i in range(self.num_layers):
+            attn, attn_norm, mlp, mlp_norm = seq_layer(self, i)
+            x = x + attn(attn_norm(x), causal=True, generator=generator)
+            x = x + mlp(mlp_norm(x), generator)
+        return torch.matmul(self.final_norm(x).float(), self.token.weight.t())
+
+
 @register_model("gpt_long")
-def gpt_long(num_classes: int = 0, dtype=torch.bfloat16, **kw):
-    raise NotImplementedError(
-        "gpt_long's sequence-parallel trunk (ring or Ulysses attention over "
-        "the seq mesh axis) is not ported yet (ROADMAP A.10)")
+def gpt_long(num_classes: int = 0, dtype=torch.bfloat16, *,
+             vocab_size: int = 32768, hidden_size: int = 768,
+             num_layers: int = 12, num_heads: int = 12, mlp_dim: int = 3072,
+             max_len: int = 4096, dropout_rate: float = 0.0,
+             seq_impl: str = "ring", mesh=None, attention_impl: str = "auto",
+             device: Optional[torch.device] = None):
+    """``LongCausalLm``; ``num_classes`` is unused (the vocab plays that
+    role)."""
+    del num_classes
+    with torch.device(device or "cpu"):
+        return LongCausalLm(vocab_size=vocab_size, hidden_size=hidden_size,
+                            num_layers=num_layers, num_heads=num_heads,
+                            mlp_dim=mlp_dim, max_len=max_len, dtype=dtype,
+                            dropout_rate=dropout_rate, seq_impl=seq_impl,
+                            mesh=mesh, attention_impl=attention_impl)
 
 
-def init_weights(model: TransformerCausalLm,
-                 generator: torch.Generator) -> None:
+def init_weights(model, generator: torch.Generator) -> None:
     """Seeded init with Flax's distributions (``init_flax_defaults``): the
     token table and the position table ``normal(0.02)``."""
     init_flax_defaults(model, generator,
                        (model.token.weight, model.position))
 
 
-def forward_flops(model: TransformerCausalLm, seq_len: int) -> int:
+def forward_flops(model, seq_len: int) -> int:
     """Multiply-add FLOPs (2 per MAC) of one sequence's forward, counted from
-    the model's shapes: per layer the four attention projections and the
-    two MLP products, QKᵀ and PV over the (query, key) pairs the causal
-    mask keeps, and the tied logits."""
+    the model's shapes (a ``TransformerCausalLm`` without MoE layers or a
+    ``LongCausalLm``): per layer the four attention projections and the two
+    MLP products, QKᵀ and PV over the (query, key) pairs the causal mask
+    keeps, and the tied logits."""
     h, s = model.hidden_size, seq_len
     pairs = s * (s + 1) // 2
     per_layer = 2 * s * (4 * h * h + 2 * h * model.mlp_dim) \

@@ -567,9 +567,12 @@ class Embed(nn.Module):
 
     def forward(self, ids: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.token(ids) + self.position[None, :ids.shape[1], :]
+                generator: Optional[torch.Generator] = None,
+                offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``offset``: the position of ``ids[:, 0]`` (a sequence-parallel
+        trunk embeds its slice of each row)."""
+        x = self.token(ids) \
+            + self.position[None, offset:offset + ids.shape[1], :]
         if self.segment is not None and segment_ids is not None:
             x = x + self.segment(segment_ids)
         x = dropout(self.norm(x.to(self.dtype)), self.dropout_rate,

@@ -1,13 +1,14 @@
 """Parallelism layer of the port: the mesh over the job's processes
-(``mesh.py``), the batch layout (``sharding.py``) and the collectives of
-data parallelism (``collectives.py``).
+(``mesh.py``), the batch and sequence layout (``sharding.py``) and the
+collectives (``collectives.py``).
 
 The JAX package's collectives are XLA's, scheduled over ICI inside the
 compiled step. The port's are ``torch.distributed``'s over the process group
 that ``runtime.cluster.initialize`` joins: NCCL when every process of a
 machine has a card of its own, gloo otherwise. Data parallelism across
-processes is ported (the ``dcn_data`` and ``data`` axes); the other axes
-are ROADMAP A.10's.
+processes is ported (the ``dcn_data`` and ``data`` axes), and so is
+sequence parallelism (the ``seq`` axis: ring and Ulysses attention in
+``ops/``); the other axes are ROADMAP A.10's.
 """
 
 from .mesh import (  # noqa: F401
@@ -25,4 +26,5 @@ from .mesh import (  # noqa: F401
     slice_chip_count,
     validate_batch,
 )
-from .sharding import Elsewhere, batch_sharding, local_shard  # noqa: F401
+from .sharding import (Elsewhere, batch_sharding, local_shard,  # noqa: F401
+                       seq_slice)

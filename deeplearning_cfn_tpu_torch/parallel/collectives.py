@@ -1,10 +1,13 @@
-"""The collectives of data parallelism over the process group.
+"""The collectives of data and sequence parallelism over the process group.
 
 The JAX step is one program over the global batch, so its sums run over the
 whole batch by construction and XLA inserts the ``psum``. The port's
-processes each hold a contiguous block of rows, and these functions make the
-same sums explicit, over every process of the group (the batch axes are the
-only ones a multi-process mesh has, ``parallel/mesh.py``):
+processes each hold a contiguous block of rows (and, with a ``seq`` axis, a
+slice of each row's sequence), and these functions make the same sums
+explicit: over every process of the job (the gradient sum, the loss's
+denominators, the metrics), or, for the sequence collectives, over a
+``group`` argument, a mesh's ``seq_group()``, the processes that share
+rows (``parallel/mesh.py``):
 
 - :func:`global_sum`: the sum of a tensor over the processes, differentiable
   (its backward sums the incoming gradients too: every process's loss
@@ -16,16 +19,25 @@ only ones a multi-process mesh has, ``parallel/mesh.py``):
 - :func:`reduce_scalars`: metrics summed in one collective (partials of a
   global mean add up to it), except those every process already holds;
 - :func:`broadcast_object`, :func:`all_gather_objects` and
-  :func:`gather_batches` for host values (decoded eval sets).
+  :func:`gather_batches` for host values (decoded eval sets);
+- over a ``seq`` group: :func:`send_recv` (ring attention's rotations),
+  :func:`all_to_all` (Ulysses's reswizzles) and :func:`gather_seq` (the
+  sequence slices of an activation gathered into whole rows, with a
+  gradient).
 
 Every function is the identity (no collective) with one process, so the
 one-device path computes exactly what it did before the mesh existed. The
 backend is the group's: gloo reduces CPU and CUDA tensors (a CUDA tensor
-staged through the host), NCCL CUDA tensors.
+staged through the host), NCCL CUDA tensors. The sequence collectives
+stage a CUDA tensor through host buffers themselves under gloo (its
+point-to-point and all-to-all take CPU tensors), and time the exchange
+when :data:`comm_timer` is on.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Any, Dict, List, Sequence
 
 import torch
@@ -37,6 +49,51 @@ def _dist():
     import torch.distributed as dist
 
     return dist
+
+
+class CommTimer:
+    """Seconds (and calls) of the sequence collectives by kind
+    (``"ring"``, ``"ulysses"``, ``"gather"``), counted while ``enabled``:
+    the card is synchronized before and after each exchange, so a time is
+    the exchange's alone, the host staging included. Off by default: the
+    synchronizations would serialize the step."""
+
+    def __init__(self):
+        self.enabled = False
+        self.seconds: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+
+    def reset(self) -> None:
+        self.seconds, self.calls = {}, {}
+
+    @contextlib.contextmanager
+    def measure(self, kind: str, device: torch.device):
+        if not self.enabled:
+            yield
+            return
+        sync = torch.cuda.synchronize if device.type == "cuda" \
+            else (lambda *a: None)
+        sync(device)
+        t0 = time.perf_counter()
+        yield
+        sync(device)
+        self.seconds[kind] = self.seconds.get(kind, 0.0) \
+            + time.perf_counter() - t0
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+
+
+comm_timer = CommTimer()
+
+
+def _staging(t: torch.Tensor, group) -> bool:
+    """Whether ``t`` crosses the group through a host buffer: a CUDA
+    tensor under gloo."""
+    return t.is_cuda and _dist().get_backend(group) == "gloo"
+
+
+def _to_wire(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.contiguous()
+    return t.cpu() if _staging(t, group) else t
 
 
 class _GlobalSum(torch.autograd.Function):
@@ -136,3 +193,76 @@ def gather_batches(per_batch: List[List[Any]]) -> List[Any]:
     gathered = all_gather_objects(per_batch)
     return [item for b in range(len(per_batch)) for proc in gathered
             for item in proc[b]]
+
+
+# -- over a seq group ---------------------------------------------------------
+
+
+def send_recv(tensors: Sequence[torch.Tensor], dst: int, src: int,
+              group) -> List[torch.Tensor]:
+    """Send ``tensors`` to rank ``dst`` and receive as many of the same
+    shapes and dtypes from rank ``src`` (global ranks of ``group``), in one
+    batch of point-to-point operations; the received tensors land on the
+    senders' device."""
+    dist = _dist()
+    wire = [_to_wire(t, group) for t in tensors]
+    got = [torch.empty_like(w) for w in wire]
+    ops = [dist.P2POp(dist.isend, w, dst, group=group) for w in wire] \
+        + [dist.P2POp(dist.irecv, g, src, group=group) for g in got]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [g.to(t.device) for g, t in zip(got, tensors)]
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``out[j]`` = process ``j``'s ``x[i]`` on process ``i`` of ``group``
+    (dim 0 of ``x`` is the group's size)."""
+    wire = _to_wire(x, group)
+    out = torch.empty_like(wire)
+    _dist().all_to_all_single(out, wire, group=group)
+    return out.to(x.device)
+
+
+def _all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    wire = _to_wire(x, group)
+    parts = [torch.empty_like(wire)
+             for _ in range(_dist().get_world_size(group))]
+    _dist().all_gather(parts, wire, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    wire = _to_wire(x, group)
+    if wire is x:
+        wire = x.clone()
+    _dist().all_reduce(wire, group=group)
+    return wire.to(x.device)
+
+
+class _SeqGather(torch.autograd.Function):
+    """Forward: the group's slices concatenated along ``dim`` in group
+    order. Backward: the incoming gradients summed over the group (every
+    process's loss reads the whole rows), then this process's slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, index):
+        ctx.dim, ctx.group, ctx.index = dim, group, index
+        ctx.local = x.shape[dim]
+        with comm_timer.measure("gather", x.device):
+            return _all_gather_cat(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with comm_timer.measure("gather", grad.device):
+            total = _all_reduce(grad, ctx.group)
+        mine = total.narrow(ctx.dim, ctx.index * ctx.local, ctx.local)
+        return mine.contiguous(), None, None, None
+
+
+def gather_seq(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """The whole rows of ``x`` from its ``seq`` slices: the slices of
+    every process of ``mesh``'s ``seq`` group concatenated along ``dim``,
+    with a gradient (``x`` itself without a ``seq`` axis)."""
+    if mesh.seq_ways == 1:
+        return x
+    return _SeqGather.apply(x, dim, mesh.seq_group(), mesh.seq_index)

@@ -14,18 +14,24 @@ configs), :func:`data_axis_size`, :func:`local_batch_size`,
 :func:`validate_batch`, :func:`describe` (JAX's ``mesh[...] over N
 devices`` line), :func:`slice_chip_count` and :func:`hosts_for_slice`.
 
-Scope. Across processes only the batch axes (``dcn_data``, ``data``) are
-ported: a mesh that resolves with ``model``, ``spatial``, ``expert``,
-``pipe`` or ``seq`` above 1 over more than one process raises, naming the
-ROADMAP A.10 item that brings the axis. With one process the preset's mesh
-is ignored, as it always was: every preset trains on the one device.
+Scope. Across processes the batch axes (``dcn_data``, ``data``) and the
+``seq`` axis are ported: the processes that differ only in their ``seq``
+coordinate form a ``seq`` group (:meth:`Mesh.seq_group`) and hold the same
+rows of the batch (:attr:`Mesh.data_index` of :attr:`Mesh.data_ways`); the
+long-context trunks split each row's sequence over the group (ring or
+Ulysses attention, ``ops/``). A mesh that resolves with ``model``,
+``spatial``, ``expert`` or ``pipe`` above 1 over more than one process
+raises, naming the ROADMAP A.10 item that brings the axis. With one process
+the preset's mesh is ignored, as it always was: every preset trains on the
+one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..config import MeshConfig
 
@@ -36,13 +42,13 @@ from ..config import MeshConfig
 AXIS_ORDER: Tuple[str, ...] = ("dcn_data", "pipe", "data", "expert",
                                "spatial", "seq", "model")
 # Batch dim 0 shards over all of these jointly (JAX's rule; the port brings
-# 'dcn_data' and 'data' across processes, 'expert' is A.10's).
+# 'dcn_data' and 'data' across processes, 'expert' is A.10's). The other
+# axes replicate the batch.
 BATCH_AXES: Tuple[str, ...] = ("dcn_data", "data", "expert")
 
 # The axes a multi-process mesh may not use yet, with the ROADMAP A.10 item
 # that brings each.
 UNPORTED_AXES: Dict[str, str] = {
-    "seq": "the seq axis: ring and Ulysses attention, bert_long, gpt_long",
     "pipe": "the pipe axis: the GPipe schedule across devices",
     "expert": "the expert axis: MoE dispatch across devices",
     "model": "the model axis: tensor-parallel layers",
@@ -134,6 +140,94 @@ class Mesh:
             rest //= self.shape[axis]
         return {a: out[a] for a in AXIS_ORDER}
 
+    @property
+    def data_ways(self) -> int:
+        """The blocks a global batch splits into (:func:`data_axis_size`)."""
+        return data_axis_size(self)
+
+    @property
+    def data_index(self) -> int:
+        """This process's block of a global batch: its coordinate over the
+        batch axes jointly, row-major (JAX's ``P(BATCH_AXES)`` on dim 0).
+        The processes of one ``seq`` group share it."""
+        c, idx = self.coords, 0
+        for axis in BATCH_AXES:
+            idx = idx * self.shape[axis] + c[axis]
+        return idx
+
+    @property
+    def seq_ways(self) -> int:
+        return self.shape["seq"]
+
+    @property
+    def seq_index(self) -> int:
+        """This process's place in the global sequence: its slice is the
+        ``seq_index``-th of ``seq_ways`` equal slices."""
+        return self.coords["seq"]
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        """The process at ``coords`` (row-major over :data:`AXIS_ORDER`)."""
+        rank = 0
+        for axis in AXIS_ORDER:
+            rank = rank * self.shape[axis] + coords[axis]
+        return rank
+
+    def _ranks_along(self, axes: Tuple[str, ...]) -> List[int]:
+        """The processes that share this one's coordinates outside
+        ``axes``, row-major over ``axes`` (in :data:`AXIS_ORDER`)."""
+        free = [a for a in AXIS_ORDER if a in axes]
+        return [self.rank_of({**self.coords, **dict(zip(free, at))})
+                for at in itertools.product(
+                    *(range(self.shape[a]) for a in free))]
+
+    @property
+    def seq_ranks(self) -> List[int]:
+        """The ranks of this process's ``seq`` group, in ``seq`` order."""
+        return self._ranks_along(("seq",))
+
+    @property
+    def data_ranks(self) -> List[int]:
+        """The ranks that hold this process's slice of the sequence, one
+        per block of the batch, in :attr:`data_index` order."""
+        return self._ranks_along(BATCH_AXES)
+
+    def seq_group(self):
+        """The process group of :attr:`seq_ranks` (ring and Ulysses
+        attention, the heads' gather); None with one process."""
+        return _groups(self)[0]
+
+    def data_group(self):
+        """The process group of :attr:`data_ranks`; None with one
+        process."""
+        return _groups(self)[1]
+
+
+# (shape, world) -> (seq group, data group) of this process.
+_GROUPS: Dict[tuple, tuple] = {}
+
+
+def _groups(mesh: Mesh) -> tuple:
+    """This process's ``seq`` and data groups, created once per mesh
+    shape. ``dist.new_group`` is collective over the world: every process
+    creates every group, in the same order, and keeps its own."""
+    if mesh.process_count == 1:
+        return None, None
+    key = (tuple(mesh.shape.items()), mesh.process_count)
+    if key not in _GROUPS:
+        import torch.distributed as dist
+
+        mine = []
+        for ranks_of in (lambda m: m.seq_ranks, lambda m: m.data_ranks):
+            groups = {}
+            for r in range(mesh.process_count):
+                ranks = tuple(ranks_of(dataclasses.replace(
+                    mesh, process_index=r)))
+                if ranks not in groups:
+                    groups[ranks] = dist.new_group(list(ranks))
+            mine.append(groups[tuple(ranks_of(mesh))])
+        _GROUPS[key] = tuple(mine)
+    return _GROUPS[key]
+
 
 def process_index() -> int:
     """This process's rank in the job (0 without a process group)."""
@@ -158,7 +252,9 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
     process group (``num_processes`` and ``index`` default to it). One
     process ignores ``cfg`` (every axis 1, as the one-device port always
     trained); more resolve it as JAX does and refuse the axes not ported
-    (:data:`UNPORTED_AXES`)."""
+    (:data:`UNPORTED_AXES`). The groups are made at first use
+    (:meth:`Mesh.seq_group`), so a mesh can be resolved without a process
+    group."""
     n = process_count() if num_processes is None else num_processes
     rank = process_index() if index is None else index
     if n == 1:
@@ -170,8 +266,8 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
             raise NotImplementedError(
                 f"mesh axis {axis}={sizes[axis]} over {n} processes needs "
                 f"{item}, not ported yet (ROADMAP A.10); the port's "
-                f"processes split the batch axes (dcn_data, data) only — "
-                f"set mesh.{axis}=1")
+                f"processes split the batch axes (dcn_data, data) and the "
+                f"seq axis only — set mesh.{axis}=1")
     return Mesh(shape={a: sizes[a] for a in AXIS_ORDER},
                 process_index=rank, process_count=n)
 
@@ -184,19 +280,15 @@ def data_axis_size(mesh: Mesh) -> int:
 
 
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:
-    """Per-process batch size: the global batch divided across the processes
-    that feed the data axes (Horovod's per-rank batch)."""
-    n_proc = mesh.process_count
-    if global_batch % n_proc != 0:
-        raise ValueError(
-            f"global batch {global_batch} not divisible by process count {n_proc}"
-        )
+    """Per-process batch size: the global batch divided over the data ways
+    (Horovod's per-rank batch); the processes of a ``seq`` group hold the
+    same rows."""
     if global_batch % data_axis_size(mesh) != 0:
         raise ValueError(
             f"global batch {global_batch} not divisible by data-axis size "
             f"{data_axis_size(mesh)}"
         )
-    return global_batch // n_proc
+    return global_batch // data_axis_size(mesh)
 
 
 def validate_batch(global_batch: int, mesh: Mesh) -> None:

@@ -4,9 +4,12 @@
 The JAX layout is a ``NamedSharding`` per tensor and the compiler inserts the
 collectives. Here every process holds the whole parameters (replicated: the
 reference's replica per GPU) and a contiguous block of the global batch's
-rows — process ``i`` of ``n`` the ``i``-th of ``n`` equal blocks, which is
-JAX's ``P(("dcn_data", "data"))`` layout of dim 0 over one device per
-process. JAX's param rules shard over the ``model`` axis, which a
+rows — the ``data_index``-th of ``data_ways`` equal blocks, which is JAX's
+``P(("dcn_data", "data", "expert"))`` layout of dim 0 over one device per
+process. The processes of one ``seq`` group hold the same rows, and a
+sequence-parallel trunk runs its ``seq_index``-th slice of each row's
+sequence (:func:`seq_slice`), JAX's ``P(batch, "seq", None)`` layout of the
+activations. JAX's param rules shard over the ``model`` axis, which a
 multi-process mesh refuses (``mesh.py``), so every parameter is replicated
 and no rule is read.
 """
@@ -29,10 +32,23 @@ class Elsewhere(NamedTuple):
 
 
 def batch_sharding(mesh: Mesh, global_batch: int) -> slice:
-    """This process's rows of a global batch of ``global_batch`` rows."""
+    """This process's rows of a global batch of ``global_batch`` rows (the
+    same rows for every process of a ``seq`` group)."""
     local = local_batch_size(global_batch, mesh)
-    start = mesh.process_index * local
+    start = mesh.data_index * local
     return slice(start, start + local)
+
+
+def seq_slice(mesh: Mesh, seq_len: int) -> slice:
+    """This process's positions of a sequence of ``seq_len``: the
+    ``seq_index``-th of ``seq_ways`` equal slices (all of it without a
+    ``seq`` axis)."""
+    n = mesh.seq_ways
+    if seq_len % n:
+        raise ValueError(f"sequence length {seq_len} not divisible by the "
+                         f"seq axis ({n} ways)")
+    local = seq_len // n
+    return slice(mesh.seq_index * local, (mesh.seq_index + 1) * local)
 
 
 def local_shard(array, mesh: Mesh):
@@ -41,4 +57,5 @@ def local_shard(array, mesh: Mesh):
     return array[batch_sharding(mesh, array.shape[0])]
 
 
-__all__ = ["BATCH_AXES", "Elsewhere", "batch_sharding", "local_shard"]
+__all__ = ["BATCH_AXES", "Elsewhere", "batch_sharding", "local_shard",
+           "seq_slice"]

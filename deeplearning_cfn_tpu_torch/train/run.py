@@ -25,9 +25,10 @@ recovery test harness sets it).
 Across processes (a job that ``runtime.cluster.initialize`` joined) every
 process runs this function in lockstep on its own card: the mesh resolves
 over the processes (``parallel/mesh.py``), each pipeline yields this
-process's rows of the global batch, ``train.shard_opt_state`` shards the
-optimizer's slots (ZeRO-1), and every process writes its part of each
-checkpoint. Process 0 alone sweeps torn checkpoints, picks the step every
+process's rows of the global batch (the same rows for the processes of a
+``seq`` group, which split each row's sequence), ``train.shard_opt_state``
+shards the optimizer's slots (ZeRO-1), and every process writes its part of
+each checkpoint. Process 0 alone sweeps torn checkpoints, picks the step every
 process restores, prints, and writes ``metrics.jsonl``, the span records
 and ``metrics.prom``, as in the JAX package.
 
@@ -78,11 +79,20 @@ def _describe(device: torch.device, mesh: Optional[Mesh] = None) -> str:
     return f"{describe(mesh)}; process {mesh.process_index}: {line}"
 
 
+def _pipeline(cfg: ExperimentConfig, mesh: Mesh, batch: int, **kw):
+    """This process's rows of every global batch of ``batch``: its block
+    (``mesh.data_index`` of ``mesh.data_ways``; the processes of a ``seq``
+    group read the same rows)."""
+    return build_pipeline(cfg.data, local_batch_size(batch, mesh),
+                          cfg.model.num_classes, seed=cfg.train.seed,
+                          process_index=mesh.data_index,
+                          process_count=mesh.data_ways, **kw)
+
+
 def _eval_pipe(cfg: ExperimentConfig, task, mesh: Mesh):
     eval_batch = cfg.train.eval_batch or cfg.train.global_batch
-    return build_pipeline(cfg.data, local_batch_size(eval_batch, mesh),
-                          cfg.model.num_classes, seed=cfg.train.seed,
-                          train=False, drop_remainder=not task.exact_eval)
+    return _pipeline(cfg, mesh, eval_batch, train=False,
+                     drop_remainder=not task.exact_eval)
 
 
 def _final_eval(cfg, task, trainer, state, eval_pipe) -> Dict[str, float]:
@@ -108,7 +118,7 @@ def run_eval(cfg: ExperimentConfig, step: int = 0,
             f"no committed checkpoint to evaluate in {ckpt_dir}")
     dev = resolve_device(device)
     mesh = build_mesh(cfg.mesh)
-    task = build_task(cfg, dev)
+    task = build_task(cfg, dev, mesh=mesh)
     eval_pipe = _eval_pipe(cfg, task, mesh)
     state = create_train_state(task.model, None,
                                ema=cfg.train.ema_decay > 0)
@@ -137,12 +147,8 @@ def run_experiment(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     dev = resolve_device(device)
     mesh = build_mesh(cfg.mesh)
     lead = mesh.process_index == 0
-    task = build_task(cfg, dev)
-    train_pipe = build_pipeline(cfg.data,
-                                local_batch_size(cfg.train.global_batch,
-                                                 mesh),
-                                cfg.model.num_classes, seed=cfg.train.seed,
-                                train=True)
+    task = build_task(cfg, dev, mesh=mesh)
+    train_pipe = _pipeline(cfg, mesh, cfg.train.global_batch, train=True)
     eval_pipe = _eval_pipe(cfg, task, mesh)
 
     steps_per_epoch = max(train_pipe.steps_per_epoch, 1)

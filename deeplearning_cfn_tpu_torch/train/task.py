@@ -10,7 +10,12 @@ global batch's rows, and a mean divides this process's sum by the count
 over every process (``parallel.collectives.global_total``), as the JAX
 loss, one program over the global batch, does: the processes' losses and
 metrics are then partials that add up to the global ones, and so do their
-gradients. A weight is this process's own count. Metrics that every process
+gradients. A weight is this process's own count. The processes of a ``seq``
+group hold the same rows: a model that returns a slice of each row's
+positions (``gpt_long``) has the task take that slice's targets, and a
+model that returns whole rows on each of them (every BERT trunk, the
+gathered ``bert_long`` included) has its weights divided by the ``seq``
+ways, so that every denominator counts each example and token once. Metrics that every process
 computes whole are listed in the task's ``replicated_metrics``. A task's ``eval_derived`` maps a metric name to a
 function of the aggregated eval metrics (the trainer adds it after the
 cross-batch aggregation). Detection (Mask R-CNN) is
@@ -35,7 +40,7 @@ from torch import nn
 from ..config import ExperimentConfig
 from ..models import build_model
 from ..parallel.collectives import gather_batches, global_total
-from ..parallel.mesh import process_count
+from ..parallel.mesh import Mesh, build_mesh, process_count
 
 Batch = Dict[str, torch.Tensor]
 
@@ -294,18 +299,18 @@ class MlmTask:
     ``bert_pipelined`` runs its stacked trunk as the plain layer scan on
     one device; the preset's ``n_microbatches`` and ``mesh.pipe`` are
     printed and ignored (the schedule across devices is ROADMAP A.10).
+    ``bert_long`` gets the mesh, as JAX gives it the trainer's mesh and
+    batch axes.
     """
 
     exact_eval = True
 
     def __init__(self, cfg: ExperimentConfig, device: torch.device,
-                 attention_impl: Optional[str] = None):
+                 attention_impl: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.device = device
-        if cfg.model.name == "bert_long":
-            raise NotImplementedError(
-                f"model {cfg.model.name!r} runs sequence-parallel attention "
-                f"over a device mesh, not ported yet (ROADMAP A.10)")
+        self.mesh = mesh if mesh is not None else build_mesh(cfg.mesh)
         if cfg.model.name == "bert_pipelined":
             print(f"[dlcfn-tpu] bert_pipelined on one device: the plain "
                   f"layer scan; n_microbatches="
@@ -319,6 +324,8 @@ class MlmTask:
         kwargs.setdefault("max_len", max(cfg.data.seq_len, 128))
         if attention_impl is not None:
             kwargs["attention_impl"] = attention_impl
+        if cfg.model.name == "bert_long":
+            kwargs.setdefault("mesh", self.mesh)
         self.model = build_model(cfg.model.name, cfg.model.num_classes,
                                  dtype, device=device, **kwargs)
         self.remat = cfg.train.remat
@@ -335,7 +342,10 @@ class MlmTask:
               batch["mlm_positions"])
         out = remat(self.model, apply, generator, *xs) \
             if train and self.remat else apply(*xs)
-        mask = example_mask(batch, batch["input_ids"].shape[0])
+        # Whole rows on every process of a seq group: each holds a 1/n
+        # share of them.
+        mask = example_mask(batch, batch["input_ids"].shape[0]) \
+            / self.mesh.seq_ways
         weights = batch["mlm_weights"].float() * mask[:, None]
         mlm_ce = cross_entropy(out["mlm_logits"], batch["mlm_ids"])
         token_denom = torch.clamp(global_total(weights.sum()), min=1e-6)
@@ -375,6 +385,9 @@ class CausalLmTask:
     token-weighted (``eval_weight`` is the batch's real token count) and
     include ``ce_loss``, from which ``eval_derived`` makes the exact
     perplexity after aggregation — a mean of per-batch exp(CE) is not one.
+    ``gpt_long`` gets the mesh, as JAX gives it the trainer's mesh and batch
+    axes; with a ``seq`` axis it returns the logits of this process's
+    positions, and the loss takes those positions' targets and weights.
     Batch contract: ``data/text.py:make_lm_source``.
     """
 
@@ -385,9 +398,11 @@ class CausalLmTask:
     replicated_metrics = ("perplexity",)
 
     def __init__(self, cfg: ExperimentConfig, device: torch.device,
-                 attention_impl: Optional[str] = None):
+                 attention_impl: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.device = device
+        self.mesh = mesh if mesh is not None else build_mesh(cfg.mesh)
         dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
             else torch.float32
         kwargs = dict(cfg.model.kwargs)
@@ -395,6 +410,8 @@ class CausalLmTask:
         kwargs.setdefault("max_len", max(cfg.data.seq_len, 128))
         if attention_impl is not None:
             kwargs["attention_impl"] = attention_impl
+        if cfg.model.name == "gpt_long":
+            kwargs.setdefault("mesh", self.mesh)
         self.model = build_model(cfg.model.name, 0, dtype, device=device,
                                  **kwargs)
         self.remat = cfg.train.remat
@@ -414,6 +431,13 @@ class CausalLmTask:
         logits, moe_aux = out if isinstance(out, tuple) else (out, None)
         mask = example_mask(batch, inputs.shape[0])
         weights = batch["loss_mask"].float() * mask[:, None]
+        if hasattr(self.model, "seq_slice"):
+            # This process's positions: the label of its last one is the
+            # next slice's first token, which the whole row holds.
+            mine = self.model.seq_slice(inputs.shape[1])
+            targets, weights = targets[:, mine], weights[:, mine]
+        else:
+            weights = weights / self.mesh.seq_ways
         ce = cross_entropy(logits, targets)
         denom = torch.clamp(global_total(weights.sum()), min=1e-6)
         ce_loss = (ce * weights).sum() / denom
@@ -436,9 +460,11 @@ class CausalLmTask:
 
 
 def build_task(cfg: ExperimentConfig, device: torch.device,
-               attention_impl: Optional[str] = None):
+               attention_impl: Optional[str] = None,
+               mesh: Optional[Mesh] = None):
     """Task registry keyed by model family (NMT, ResNet, ViT, BERT and its
-    MoE and pipelined trunks, GPT, Mask R-CNN)."""
+    MoE, pipelined and long-context trunks, GPT and its long-context trunk,
+    Mask R-CNN). ``mesh`` defaults to ``build_mesh(cfg.mesh)``."""
     name = cfg.model.name
     if process_count() > 1 and cfg.model.kwargs.get("num_experts", 0):
         raise NotImplementedError(
@@ -452,9 +478,9 @@ def build_task(cfg: ExperimentConfig, device: torch.device,
     if name.startswith(("resnet", "vit")):
         return ClassificationTask(cfg, device)
     if name.startswith("gpt"):
-        return CausalLmTask(cfg, device, attention_impl)
+        return CausalLmTask(cfg, device, attention_impl, mesh)
     if name.startswith("bert"):
-        return MlmTask(cfg, device, attention_impl)
+        return MlmTask(cfg, device, attention_impl, mesh)
     if name.startswith("maskrcnn"):
         from .detection_task import DetectionTask
 

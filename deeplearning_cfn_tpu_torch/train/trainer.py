@@ -8,9 +8,10 @@ update. What carries over exactly:
 
 - the mesh (``parallel/mesh.py``): the global batch must split over its
   data ways (``validate_batch``), and each process trains its contiguous
-  block of rows. The task's loss is this process's share of the
-  global-batch mean (``train/task.py``), so the gradients, summed over the
-  processes in one flat buffer right after the backward and before the
+  block of rows (the processes of a ``seq`` group the same block, each its
+  slice of the sequence). The task's loss is this process's share of the
+  global-batch mean (``train/task.py``), so the gradients, summed over
+  every process in one flat buffer right after the backward and before the
   clip, are the single-program gradients, and ``grad_norm`` is their global
   norm. Metrics are summed over the processes once per log boundary (and
   per eval batch), not per step. ``examples_per_sec_per_device`` divides by

@@ -15,7 +15,9 @@ package's, on the CPU.
   every parameter as the Flax tree does (shapes in Flax's layout);
 - the BERT variants: the MoE and pipelined presets build their tasks
   (``tests/test_torch_moe.py`` and ``tests/test_torch_pipelined.py`` hold
-  them against JAX); the long-context trunk refuses, naming A.10.
+  them against JAX), and the MoE trunk refuses across processes, naming
+  A.10; the long-context trunk builds (``tests/test_torch_long.py`` holds
+  it against JAX).
 
 Inputs are numpy arrays made from seeds and handed to both packages.
 """
@@ -155,7 +157,7 @@ def test_bert_base_shapes_and_names_match_flax():
         assert want[name] == shape, name
 
 
-def test_unported_bert_variants_name_their_roadmap_item():
+def test_unported_bert_variants_name_their_roadmap_item(monkeypatch):
     moe = build_task(apply_overrides(get_preset("bert_moe_wikipedia"), []),
                      torch.device("meta"))
     assert isinstance(moe, MlmTask)
@@ -165,6 +167,15 @@ def test_unported_bert_variants_name_their_roadmap_item():
         apply_overrides(get_preset("bert_pipelined_wikipedia"), []),
         torch.device("meta"))
     assert isinstance(pipelined, MlmTask)
+    # bert_long is ported (tests/test_torch_long.py); what still refuses is
+    # the MoE trunk across processes, naming A.10.
+    from deeplearning_cfn_tpu_torch.models.bert_long import LongBert
+    from deeplearning_cfn_tpu_torch.train import task as t_task
+
+    long = build_task(apply_overrides(get_preset("bert_long_wikipedia"), []),
+                      torch.device("meta"))
+    assert isinstance(long, MlmTask) and isinstance(long.model, LongBert)
+    monkeypatch.setattr(t_task, "process_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        build_task(apply_overrides(get_preset("bert_long_wikipedia"), []),
-                   torch.device("cpu"))
+        build_task(apply_overrides(get_preset("bert_moe_wikipedia"), []),
+                   torch.device("meta"))

@@ -23,8 +23,13 @@ their f32 CPU versions, and the int8 paged write (codes within ±1) and a
 tiny int8 engine on the card against the CPU; and data parallelism: two
 gloo processes on the card (``chip_smoke.py --dp-worker``) each launch the
 three kernels in their steps of a tiny f32 NMT, whose losses match one
-process on the same global batches. This file imports no JAX, so it runs on a machine that has only PyTorch and
-the CUDA toolkit:
+process on the same global batches; and the long-context trunks: the three
+kernels at ``bert_long``'s 4096 keys and ``gpt_long``'s 16384 causal keys
+(heads cut so the plain versions fit) against the plain versions, the tiny
+f32 ``bert_long`` and ``gpt_long`` on the card against the CPU, and two
+gloo processes on the card with ``mesh.seq=2`` (ring and Ulysses) against
+one process. This file imports no JAX, so it runs on a machine that has
+only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -1119,5 +1124,115 @@ def test_two_processes_launch_the_kernels_and_match_one(cuda, tmp_path):
     for rank in ranks:
         assert all(n > 0 for n in rank["launches"].values()), rank
         assert rank["losses"] == ranks[0]["losses"]
+    want, _ = cs.fed_run(torch, cfg, batches, "cuda")
+    np.testing.assert_allclose(ranks[0]["losses"], want, rtol=1e-5)
+
+
+# -- the long-context trunks ---------------------------------------------------
+
+
+@pytest.mark.parametrize("case", [(1, 12, 4096, False), (1, 2, 16384, True)],
+                         ids=["bert_long_4096", "gpt_long_16384"])
+def test_long_rows_match_plain_versions(cuda, case):
+    """The three kernels (tc) at the long trunks' rows: 64 KV tiles of 64
+    keys, or 256 with the causal tile skip and the heaviest-tiles-first
+    order over 256 query tiles, in the model's strided layout; O, the lse
+    and dK, dV, dQ against the plain versions on their own scale. Heads are
+    cut (12 at 16384 keys would be
+    12.9 GB per S x S matrix in the plain version)."""
+    b, h, s, causal = case
+    rng = np.random.default_rng(s)
+    args = _bwd_inputs(rng, (b, h, s, s, 64, causal, True), torch.bfloat16,
+                       cuda)
+    q, k, v = args[:3]
+    n = attn.flash_attention_forward.variant_launches["tc"]
+    out, lse = attn.flash_attention_forward(q, k, v, causal=causal,
+                                            return_lse=True)
+    assert attn.flash_attention_forward.variant_launches["tc"] == n + 1
+    ref = attn.attention_reference(q, k, v, causal=causal)
+    ref_lse = attn._reference_lse(q, k, None, causal, 1.0 / 8.0)
+    assert scaled_error(out, ref)["ok"], scaled_error(out, ref)
+    assert ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max() \
+        <= 1e-3
+    del out, ref
+    before = (attn.flash_attn_bwd_dkdv.variant_launches["tc"],
+              attn.flash_attn_bwd_dq.variant_launches["tc"])
+    got = attn.flash_attn_bwd_dkdv(*args) + (attn.flash_attn_bwd_dq(*args),)
+    assert (attn.flash_attn_bwd_dkdv.variant_launches["tc"],
+            attn.flash_attn_bwd_dq.variant_launches["tc"]) == \
+        (before[0] + 1, before[1] + 1)
+    want = attn.flash_bwd_dkdv_reference(*args) \
+        + (attn.flash_bwd_dq_reference(*args),)
+    for name, a, r in zip(("dk", "dv", "dq"), got, want):
+        assert scaled_error(a, r)["ok"], (name, scaled_error(a, r))
+
+
+_LONG_TINY = ["model.kwargs.hidden_size=64", "model.kwargs.num_layers=2",
+              "model.kwargs.num_heads=4", "model.kwargs.mlp_dim=128",
+              "model.kwargs.max_len=64", "data.vocab_size=512",
+              "data.seq_len=64", "train.dtype=float32",
+              "data.num_train_examples=32", "schedule.warmup_steps=1",
+              "schedule.base_lr=1e-3", "train.global_batch=8",
+              "train.seed=0"]
+
+
+@pytest.mark.parametrize("preset", ["bert_long_wikipedia", "gpt_long_lm"])
+def test_long_tiny_f32_on_card_matches_cpu(cuda, preset):
+    """The tiny f32 long trunk (head dim 16) through its task on the card
+    against the CPU, TF32 off: the loss within 1e-5 relative, every
+    gradient within 1e-4 of the global norm, the three kernels once per
+    layer."""
+    import chip_smoke as cs
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.data.pipeline import (build_pipeline,
+                                                          to_device)
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.train.task import CausalLmTask, MlmTask
+
+    cfg = apply_overrides(get_preset(preset), _LONG_TINY)
+    task_cls = MlmTask if preset.startswith("bert") else CausalLmTask
+    cpu, card = cs._card_and_cpu(torch, task_cls, cfg)
+    batch = next(iter(build_pipeline(cfg.data, 4, cfg.model.num_classes,
+                                     seed=0).one_epoch()))
+    ref, _ = cpu.loss_fn(to_device(batch, torch.device("cpu")), True)
+    ref.backward()
+    before = cs.counts(attn)
+    got, _ = card.loss_fn(to_device(batch, cuda), True)
+    got.backward()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in cs.counts(attn).items()}
+    assert launched == {"fwd": 2, "dkdv": 2, "dq": 2, "vjp": 0}
+    assert abs(float(got) - float(ref)) <= 1e-5 * abs(float(ref))
+    assert cs._grad_check(preset, cpu.model, card.model) <= 1e-4
+
+
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_seq_two_processes_on_card_match_one(cuda, impl, tmp_path):
+    """Two gloo processes sharing the card on a ``(data=1, seq=2)`` mesh,
+    each its half of every row: the tiny f32 ``gpt_long`` with ``impl``
+    matches one process on the same global batches within 1e-5 relative
+    (f32, TF32 off: the exchanged slices change the sums' order only); with
+    Ulysses each process launches the three kernels in its steps."""
+    import os
+
+    import chip_smoke as cs
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    over = _LONG_TINY + [f"model.kwargs.seq_impl={impl}", "mesh.seq=2"]
+    cfg = apply_overrides(get_preset("gpt_long_lm"), over)
+    batches = cs.dp_batches(cfg, 3, ranks=1)
+    path = str(tmp_path / "batches.npz")
+    cs.save_batches(path, batches)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    ranks = cs.spawn_dp_workers(str(tmp_path), "seq", dict(
+        mode="fed", preset="gpt_long_lm", overrides=over, batches=path,
+        comm=True))
+    for rank in ranks:
+        assert rank["losses"] == ranks[0]["losses"]
+        assert rank["comm_calls"].get(impl, 0) > 0
+        if impl == "ulysses":
+            assert all(n > 0 for n in rank["launches"].values()), rank
+    torch.backends.cuda.matmul.allow_tf32 = False
     want, _ = cs.fed_run(torch, cfg, batches, "cuda")
     np.testing.assert_allclose(ranks[0]["losses"], want, rtol=1e-5)

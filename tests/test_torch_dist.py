@@ -21,8 +21,12 @@ checkpoints) against the JAX package's ``data=2`` mesh, on the CPU.
   process 0 the replicated leaves) restores in JAX's ``restore_checkpoint``
   to the leaves the port reads, bit for bit, and within 1e-5 of JAX's own
   trained state; ZeRO-1's update equals the replicated one bit for bit;
+  and the other way: JAX's checkpoint of its ZeRO-1 BERT run, restored by
+  the two processes (each keeping the slots it owns), trains on as JAX
+  does (losses and every leaf within 1e-5);
 - (d) ``choose_backend`` on faked topologies, the mesh's refusals naming
-  ROADMAP A.10, ZeRO-1's ownership and slot bytes.
+  ROADMAP A.10, a ``(data, seq)`` mesh's coordinates and groups in JAX's
+  order, ZeRO-1's ownership and slot bytes.
 """
 
 import json
@@ -35,6 +39,7 @@ import numpy as np
 import pytest
 
 from deeplearning_cfn_tpu.ckpt import restore_checkpoint as j_restore
+from deeplearning_cfn_tpu.ckpt import save_checkpoint as j_save
 from deeplearning_cfn_tpu.config import MeshConfig
 from deeplearning_cfn_tpu.config import apply_overrides as j_overrides
 from deeplearning_cfn_tpu.data.pipeline import DataPipeline as JaxPipeline
@@ -61,6 +66,7 @@ from deeplearning_cfn_tpu_torch.runtime.cluster import ClusterSpec, \
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_dist_worker.py")
 STEPS = 3
+MORE = 2  # steps after the resumed JAX checkpoint
 
 NMT = ["model.kwargs.hidden_size=32", "model.kwargs.num_layers=2",
        "model.kwargs.num_heads=2", "model.kwargs.mlp_dim=64",
@@ -92,8 +98,8 @@ CASES = {
 }
 
 
-def _global_batches(name, cfg):
-    batches = [b for _, b in zip(range(STEPS), build_pipeline(
+def _global_batches(name, cfg, steps=STEPS):
+    batches = [b for _, b in zip(range(steps), build_pipeline(
         cfg.data, cfg.train.global_batch, cfg.model.num_classes,
         seed=0).one_epoch())]
     if name == "nmt":
@@ -108,7 +114,11 @@ def _global_batches(name, cfg):
     return batches
 
 
-def _jax_run(preset, over, batches):
+def _jax_run(preset, over, batches, more=(), ckpt=None):
+    """JAX's ``Trainer`` over a ``data=2`` mesh on ``batches``; with
+    ``more``, it then saves its checkpoint at that step into ``ckpt`` and
+    trains on over ``more`` with the same schedule, returning those losses
+    and that state too."""
     jcfg = j_overrides(j_preset(preset), over)
     mesh = j_build_mesh(MeshConfig(data=2), devices=jax.devices()[:2])
     task = j_build_task(jcfg, mesh=mesh)
@@ -125,7 +135,15 @@ def _jax_run(preset, over, batches):
         state, metrics = trainer.train_step(
             state, trainer.device_batch(b), jax.random.PRNGKey(1))
         losses.append(float(metrics["loss"]))
-    return init, losses, state
+    if not more:
+        return init, losses, state
+    j_save(ckpt, len(batches), state)
+    after, later = [], state
+    for b in more:
+        later, metrics = trainer.train_step(
+            later, trainer.device_batch(b), jax.random.PRNGKey(1))
+        after.append(float(metrics["loss"]))
+    return init, losses, state, (after, later)
 
 
 @pytest.fixture(scope="module")
@@ -136,7 +154,18 @@ def runs(tmp_path_factory):
     for name, (preset, over, jax_only, _, _) in CASES.items():
         cfg = apply_overrides(get_preset(preset), over)
         batches = _global_batches(name, cfg)
-        init, losses, state = _jax_run(preset, over + jax_only, batches)
+        if name == "bert_zero1":
+            # JAX's ZeRO-1 run also checkpoints at STEPS and trains on.
+            more = _global_batches(name, cfg, STEPS + MORE)[STEPS:]
+            init, losses, state, resumed = _jax_run(
+                preset, over + jax_only, batches, more,
+                str(root / "jax-zero1-ckpt"))
+            jax_side["bert_from_jax"] = resumed
+            np.savez(root / "bert_from_jax-batches.npz",
+                     **{f"{i}/{k}": v for i, b in enumerate(more)
+                        for k, v in b.items()})
+        else:
+            init, losses, state = _jax_run(preset, over + jax_only, batches)
         jax_side[name] = (losses, state)
         np.savez(root / f"{name}-init.npz", **init)
         np.savez(root / f"{name}-batches.npz",
@@ -149,6 +178,11 @@ def runs(tmp_path_factory):
     # The same BERT run with replicated slots, for ZeRO-1's bitwise check.
     cases.append(dict(cases[-1], name="bert_replicated", ckpt=None,
                       overrides=BERT + ["train.shard_opt_state=false"]))
+    # Two processes resume JAX's ZeRO-1 checkpoint and train on.
+    cases.append(dict(cases[-2], name="bert_from_jax", ckpt=None,
+                      restore=str(root / "jax-zero1-ckpt"),
+                      restore_step=STEPS, total_steps=STEPS,
+                      batches=str(root / "bert_from_jax-batches.npz")))
     spec = root / "spec.json"
     spec.write_text(json.dumps(dict(world=2, port=free_local_port(),
                                     out=str(root), cases=cases)))
@@ -167,13 +201,15 @@ def runs(tmp_path_factory):
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-4000:]
     port_side = {}
-    for name in [*CASES, "bert_replicated"]:
-        leaves = {}
+    for name in [*CASES, "bert_replicated", "bert_from_jax"]:
+        leaves, owned = {}, []
         for r in range(2):
             with np.load(root / f"{name}-p{r}.npz") as data:
                 leaves.update({k: data[k] for k in data.files})
+                owned.append({k for k in data.files
+                              if k.startswith("opt_state/")})
         port_side[name] = (json.loads((root / f"{name}.json").read_text()),
-                           leaves)
+                           leaves, owned)
     return dict(root=root, jax=jax_side, port=port_side, outs=outs)
 
 
@@ -181,7 +217,7 @@ def runs(tmp_path_factory):
 def test_two_processes_train_as_jax_data2_mesh(runs, name):
     _, _, _, loss_rtol, tol = CASES[name]
     j_losses, j_state = runs["jax"][name]
-    record, leaves = runs["port"][name]
+    record, leaves, _ = runs["port"][name]
     np.testing.assert_allclose(record["losses"], j_losses, rtol=loss_rtol)
     assert record["losses"][-1] < record["losses"][0]
     want = {n: np.asarray(v) for n, v in flatten_with_names(
@@ -204,8 +240,8 @@ def test_two_processes_train_as_jax_data2_mesh(runs, name):
 
 
 def test_zero1_update_equals_the_replicated_update_bit_for_bit(runs):
-    zero, zero_leaves = runs["port"]["bert_zero1"]
-    rep, rep_leaves = runs["port"]["bert_replicated"]
+    zero, zero_leaves, _ = runs["port"]["bert_zero1"]
+    rep, rep_leaves, _ = runs["port"]["bert_replicated"]
     assert zero["losses"] == rep["losses"]
     assert rep["slot_bytes"] == rep["slot_bytes_all"] == \
         zero["slot_bytes_all"]
@@ -240,6 +276,32 @@ def test_two_process_checkpoint_restores_in_jax(runs):
         if n.endswith("key/bias") or "key/bias" in n:
             continue
         np.testing.assert_allclose(v, trained[n], rtol=1e-5, atol=1e-5,
+                                   err_msg=n)
+
+
+def test_two_processes_resume_a_jax_zero1_checkpoint(runs):
+    """JAX's checkpoint of the BERT run on a ``data=2`` mesh with
+    ``shard_opt_state=True`` (one process wrote every leaf), restored by the
+    two port processes: each keeps the LAMB slots it owns
+    (``zero1_owners``), and they train on as JAX does — losses within 1e-5
+    relative, then every leaf either process holds within 1e-5 of JAX's
+    state after the same steps."""
+    j_losses, j_state = runs["jax"]["bert_from_jax"]
+    record, leaves, owned = runs["port"]["bert_from_jax"]
+    np.testing.assert_allclose(record["losses"], j_losses, rtol=1e-5)
+    assert len(record["losses"]) == MORE
+    # Each process holds the slots it owns, as in the port's own ZeRO-1
+    # run (zero1_owners), and no slot twice.
+    _, _, zero_owned = runs["port"]["bert_zero1"]
+    assert owned == zero_owned and all(owned)
+    assert not owned[0] & owned[1]
+    want = {n: np.asarray(v) for n, v in flatten_with_names(j_state)[0]
+            if v is not None}
+    assert int(want["step"]) == STEPS + MORE
+    compared = [n for n in leaves if "key/bias" not in n]
+    assert len(compared) > 20 and set(compared) <= set(want)
+    for n in compared:
+        np.testing.assert_allclose(leaves[n], want[n], rtol=1e-5, atol=1e-5,
                                    err_msg=n)
 
 
@@ -298,8 +360,7 @@ def test_backend_without_a_card_raises():
         choose_backend(ClusterSpec(hosts=["a", "b"]), "gpu", 0)
 
 
-@pytest.mark.parametrize("axis", ["model", "spatial", "expert", "pipe",
-                                  "seq"])
+@pytest.mark.parametrize("axis", ["model", "spatial", "expert", "pipe"])
 def test_mesh_refuses_a_non_batch_axis_across_processes(axis):
     cfg = MeshConfig(data=-1, **{axis: 2})
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
@@ -318,6 +379,45 @@ def test_mesh_resolves_the_batch_axes_as_jax():
     assert dict(j_mesh.shape) == mesh.shape
     with pytest.raises(ValueError, match="data=-1 to auto-size"):
         build_mesh(MeshConfig(data=3), num_processes=2, index=0)
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_mesh_resolves_data_and_seq_coordinates_as_jax(rank):
+    """``(data=-1, seq=2)`` over 4 processes: each process sits where JAX's
+    mesh puts the device of its index, its seq group is the devices along
+    JAX's ``seq`` axis and its data group the devices along ``data``, and
+    the processes of a seq group take the same rows of a batch (JAX's batch
+    spec shards dim 0 over the batch axes only)."""
+    from deeplearning_cfn_tpu.parallel.sharding import \
+        batch_sharding as j_batch_sharding
+    from deeplearning_cfn_tpu_torch.parallel import batch_sharding, \
+        seq_slice
+
+    cfg = MeshConfig(data=-1, seq=2)
+    j_mesh = j_build_mesh(cfg, devices=jax.devices()[:4])
+    ids = np.vectorize(lambda d: d.id)(j_mesh.devices)
+    names = j_mesh.axis_names
+    mesh = build_mesh(cfg, num_processes=4, index=rank)
+    assert dict(j_mesh.shape) == mesh.shape
+    at = tuple(mesh.coords[a] for a in names)
+    assert ids[at] == rank
+
+    def along(axis):
+        i = names.index(axis)
+        return [int(x) for x in ids[at[:i] + (slice(None),) + at[i + 1:]]]
+
+    assert mesh.seq_ranks == along("seq")
+    assert mesh.data_ranks == along("data")
+    assert (mesh.data_index, mesh.data_ways) == (at[names.index("data")], 2)
+    assert (mesh.seq_index, mesh.seq_ways) == (at[names.index("seq")], 2)
+    assert j_batch_sharding(j_mesh, 1).spec[0] == "data"
+    rows = batch_sharding(mesh, 8)
+    assert (rows.start, rows.stop) == (4 * mesh.data_index,
+                                       4 * mesh.data_index + 4)
+    assert seq_slice(mesh, 32) == slice(16 * mesh.seq_index,
+                                        16 * mesh.seq_index + 16)
+    assert build_mesh(cfg, num_processes=4, index=rank ^ 1).data_index \
+        == mesh.data_index  # the other process of the seq group
 
 
 @pytest.mark.parametrize("slice_type", ["v5p-8", "v4-32", "v5e-4",

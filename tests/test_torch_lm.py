@@ -16,8 +16,9 @@ CPU in f32.
   recompute mode equal to the cached one, sampling seeded, in range and
   keeping every logit tied at the top-k cut, and the refusals;
 - ``Bpe``/``train_bpe``: the same merges, ids and text as the JAX package's;
-- MoE builds (``tests/test_torch_moe.py`` holds it against JAX);
-  ``gpt_long`` refuses, naming A.10.
+- MoE builds (``tests/test_torch_moe.py`` holds it against JAX), and
+  across processes refuses, naming A.10; ``gpt_long`` builds without a
+  decode step (``tests/test_torch_long.py`` holds it against JAX).
 
 Inputs are numpy arrays made from seeds and handed to both packages.
 """
@@ -226,11 +227,22 @@ def test_flax_layout_names_every_gpt_small_leaf():
         sum(p.numel() for p in tm.parameters())
 
 
-def test_refusals_name_their_roadmap_items():
+def test_refusals_name_their_roadmap_items(monkeypatch):
     moe = build_model("gpt_tiny", 0, torch.float32, num_experts=2)
     assert [lyr.num_experts for lyr in moe.layer] == [0, 2]
+    # gpt_long is ported (tests/test_torch_long.py); a MoE GPT across
+    # processes still refuses, naming A.10.
+    assert not hasattr(type(build_model("gpt_long", 0, torch.float32)),
+                       "decode_step")
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+    from deeplearning_cfn_tpu_torch.train import task as t_task
+
+    monkeypatch.setattr(t_task, "process_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        build_model("gpt_long", 0, torch.float32)
+        t_task.build_task(apply_overrides(get_preset("gpt_small_lm"), [
+            "model.name=gpt_tiny", "model.kwargs.num_experts=2"]),
+            torch.device("meta"))
 
 
 # -- generation ---------------------------------------------------------------

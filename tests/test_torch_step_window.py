@@ -265,6 +265,12 @@ PRESETS = {
     "bert_moe_wikipedia": ["model.name=bert_tiny"] + BERT_WIDTHS + MOE,
     "bert_pipelined_wikipedia": BERT_WIDTHS
     + ["model.kwargs.n_microbatches=2"],
+    "bert_long_wikipedia": BERT_WIDTHS + ["data.num_train_examples=16"],
+    "gpt_long_lm": ["model.kwargs.hidden_size=32", "model.kwargs.num_layers=2",
+                    "model.kwargs.num_heads=2", "model.kwargs.mlp_dim=64",
+                    "model.kwargs.max_len=32", "data.vocab_size=512",
+                    "data.seq_len=16", "train.global_batch=4",
+                    "data.num_train_examples=16"],
 }
 
 

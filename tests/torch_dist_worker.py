@@ -1,16 +1,22 @@
-"""One process of a data-parallel group for ``tests/test_torch_dist.py``.
+"""One process of a multi-process group for ``tests/test_torch_dist.py`` and
+``tests/test_torch_seq.py``.
 
     python tests/torch_dist_worker.py SPEC.json RANK
 
 joins a gloo group of ``world`` processes on the CPU through the port's
-``runtime.cluster.initialize`` (at ``127.0.0.1:<port>``), then runs every
-case of the spec in turn: the preset with the case's overrides, the initial
-state from a file of JAX-named leaves (``TrainState.load_named``), and the
-given global batches, of which this process trains its contiguous rows
-through the port's ``Trainer`` (``chip_smoke.fed_run``). Each case writes
+``runtime.cluster.initialize`` (at ``127.0.0.1:<port>``). It first runs the
+spec's ``ops`` (sequence-parallel attention over the whole group as one
+``seq`` group: this process's slice of seeded global Q, K, V, the output
+and the gradients of a seeded projection of it, to
+``<out>/<op>-p<rank>.npz``), then every case in turn: the preset with the
+case's overrides (its mesh resolved over the group), the initial state from
+a file of JAX-named leaves (``TrainState.load_named``) or, with
+``restore``, from a committed checkpoint of either package, and the given
+global batches, of which this process trains its rows through the port's
+``Trainer`` (``chip_smoke.fed_run``). Each case writes
 ``<out>/<case>-p<rank>.npz`` (the leaves this process holds) and, on
 process 0, ``<out>/<case>.json`` (the per-step losses summed over the
-processes); with ``ckpt`` every process writes its part of a checkpoint of
+processes, and the sequence collectives' calls); with ``ckpt`` every process writes its part of a checkpoint of
 the final state there. Imports torch, the port and ``chip_smoke`` only.
 """
 
@@ -30,10 +36,21 @@ def run_case(case, out_dir, rank):
     from deeplearning_cfn_tpu_torch.presets import get_preset
 
     cfg = apply_overrides(get_preset(case["preset"]), case["overrides"])
-    with np.load(case["init"]) as init:
-        losses, state = chip_smoke.fed_run(
-            torch, cfg, chip_smoke.load_batches(case["batches"]), "cpu",
-            init=dict(init))
+    if case.get("restore"):
+        from deeplearning_cfn_tpu_torch.ckpt import read_leaves
+
+        init = read_leaves(case["restore"], case["restore_step"])
+    else:
+        with np.load(case["init"]) as data:
+            init = dict(data)
+    from deeplearning_cfn_tpu_torch.parallel.collectives import comm_timer
+
+    comm_timer.reset()
+    comm_timer.enabled = True
+    losses, state = chip_smoke.fed_run(
+        torch, cfg, chip_smoke.load_batches(case["batches"]), "cpu",
+        init=init, total_steps=case.get("total_steps"))
+    comm_timer.enabled = False
     leaves = {name: value for name, value in state.named_leaves()
               if not isinstance(value, Elsewhere)}
     np.savez(os.path.join(out_dir, f"{case['name']}-p{rank}.npz"), **leaves)
@@ -41,11 +58,35 @@ def run_case(case, out_dir, rank):
         save_checkpoint(case["ckpt"], state.step, state)
     if rank == 0:
         with open(os.path.join(out_dir, f"{case['name']}.json"), "w") as fh:
-            json.dump({"losses": losses,
+            json.dump({"losses": losses, "comm_calls": comm_timer.calls,
                        "slot_bytes": state.optimizer.slot_bytes(),
                        "slot_bytes_all":
                            state.optimizer.slot_bytes(owned_only=False)},
                       fh)
+
+
+def run_op(op, out_dir, rank):
+    from deeplearning_cfn_tpu_torch.config import MeshConfig
+    from deeplearning_cfn_tpu_torch.ops.ring_attention import \
+        ring_attention_sharded
+    from deeplearning_cfn_tpu_torch.ops.ulysses import \
+        ulysses_attention_sharded
+    from deeplearning_cfn_tpu_torch.parallel import build_mesh, seq_slice
+
+    mesh = build_mesh(MeshConfig(data=1, seq=op["world"]))
+    fn = {"ring": ring_attention_sharded,
+          "ulysses": ulysses_attention_sharded}[op["impl"]]
+    rng = np.random.RandomState(op["seed"])
+    q, k, v, w = (rng.standard_normal(op["shape"]).astype(np.float32)
+                  for _ in range(4))
+    mine = seq_slice(mesh, op["shape"][2])
+    q, k, v = (torch.from_numpy(t[:, :, mine].copy()).requires_grad_()
+               for t in (q, k, v))
+    out = fn(q, k, v, mesh, causal=op["causal"])
+    (out * torch.from_numpy(w[:, :, mine].copy())).sum().backward()
+    np.savez(os.path.join(out_dir, f"{op['name']}-p{rank}.npz"),
+             out=out.detach().numpy(), dq=q.grad.numpy(),
+             dk=k.grad.numpy(), dv=v.grad.numpy())
 
 
 def main(spec_path, rank):
@@ -59,6 +100,8 @@ def main(spec_path, rank):
                            process_id=rank, chips_per_host=1,
                            coordinator_port=spec["port"]),
                timeout_s=120, accelerator="cpu")
+    for op in spec.get("ops", ()):
+        run_op(dict(op, world=spec["world"]), spec["out"], rank)
     for case in spec["cases"]:
         run_case(case, spec["out"], rank)
     import torch.distributed as dist
