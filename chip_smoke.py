@@ -403,6 +403,21 @@ order; a failing phase raises, so the exit code is nonzero:
    summed beyond it, the losses moving by ``SEQ_MOVE_FACTOR`` bounds; the
    control's processes time the ring's rotations or Ulysses's all-to-alls,
    the heads' gather and the gradient sum apart from the step.
+31. the ``pipe`` and ``expert`` axes across 4 processes (ROADMAP A.10 parts
+   2c + 2d) on a four-host dry-run stack (``--slice-type v5p-16``),
+   gloo-staged, at full width (hidden 768, 12 layers, 12 heads, MLP 3072,
+   vocab 30522, sequence 128, bf16, batch 64, 4 steps): ``cli train
+   --stack`` of ``bert_pipelined_wikipedia`` on ``(data=1, pipe=4)`` (three
+   layers per process, the GPipe schedule over 8 microbatches) and of
+   ``bert_moe_wikipedia`` on ``(data=1, expert=4)`` (two of the 8 experts
+   per process, dropout 0): the mesh line says ``pipe=4`` or ``expert=4``,
+   each process launches the forward kernel per step as
+   ``PE_PER_STEP`` says (24: 3 layers x 8 microbatches; 12: 12 layers) and
+   prints its peak device memory; one process on the same global batches
+   within the job's ``PE_LOSS_REL_BOUND``, a control whose gradients are
+   never summed beyond it, the losses moving by ``PE_MOVE_FACTOR`` bounds;
+   the control's processes time the stage hops and the masked sum, or the
+   all-to-alls, and the gradient sum apart from the step.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -582,8 +597,8 @@ VIT_TINY = ["model.name=vit_tiny", "model.num_classes=10",
 # experts in every other layer, top-2, capacity factor 1.25 (40 slots per
 # expert at sequence 128). Its attention calls are BERT-base's.
 MOE_CUTS = BERT_CUTS + [
-    "mesh.expert=8 ignored (one device holds every expert; the expert "
-    "axis is ROADMAP A.10)"]
+    "mesh.expert=8 ignored (one device holds every expert; phase 31 "
+    "splits them over 4 processes)"]
 # Phase 22's tiny f32 MoE models (tests/test_torch_moe.py's configs).
 MOE_TINY = ["model.kwargs.num_experts=4", "model.kwargs.moe_every=2",
             "model.kwargs.moe_top_k=2", "model.kwargs.moe_capacity_factor=0.5",
@@ -600,8 +615,8 @@ MOE_GPT_TINY = ["model.name=gpt_tiny", "model.kwargs.max_len=64",
 # calls.
 PIPE_CUTS = BERT_CUTS + [
     "model.kwargs.n_microbatches=8 and mesh.pipe=4 ignored (one device "
-    "runs the plain layer scan; the GPipe schedule across devices is "
-    "ROADMAP A.10)"]
+    "runs the plain layer scan; phase 31 runs the GPipe schedule over 4 "
+    "processes)"]
 # Phase 24: train.step_window=4 (ROADMAP A.5b): each run twice from one seed
 # and the same batches, K = 1 (eager steps) then K = 4 (windows whose steps
 # replay one captured CUDA graph, after the eager warm-up step). The batches
@@ -5397,6 +5412,46 @@ SEQ_CUTS = ["12 layers cut to 2 (full width: hidden 768, 12 heads, MLP "
 # (largest change over the steps).
 SEQ_LOSS_REL_BOUND = {"ring": 3e-3, "ulysses": 1e-4}
 SEQ_MOVE_FACTOR = 10
+# Phase 31: the pipe and expert axes across 4 processes that share the card
+# over gloo (a four-host dry-run stack), at full width: the pipelined BERT
+# on (data=1, pipe=4), three layers per process under the GPipe schedule
+# with the preset's 8 microbatches, and BERT-MoE on (data=1, expert=4), two
+# of the 8 experts per process (dropout 0: each process would draw its own
+# masks). Both read the same global batches as one process would.
+PE_RANKS, PE_STEPS = 4, 4
+PE_COMMON = ["train.seed=0", "train.log_every_steps=1",
+             "schedule.warmup_steps=0", "schedule.base_lr=1e-3",
+             "train.global_batch=64", "data.num_train_examples=256",
+             "data.num_eval_examples=64", "train.eval_batch=64",
+             "train.eval_every_steps=1000000",
+             "checkpoint.every_steps=1000000", "mesh.data=1"]
+PE_JOBS = {
+    "pipe": ("bert_pipelined_wikipedia", PE_COMMON + ["mesh.pipe=4"]),
+    "expert": ("bert_moe_wikipedia", PE_COMMON + [
+        "mesh.expert=4", "model.kwargs.dropout_rate=0.0"]),
+}
+# Launches per step of each process: the forward kernel once per layer it
+# holds and microbatch it runs (the biased backward takes the reference
+# VJP, as in phases 13, 22 and 23).
+PE_PER_STEP = {"pipe": {"fwd": 24, "dkdv": 0, "dq": 0},
+               "expert": {"fwd": 12, "dkdv": 0, "dq": 0}}
+PE_CUTS = ["global batch 64 (preset 1024): four processes share one card",
+           "bert_moe_wikipedia on expert=4 (preset 8; two experts per "
+           "process), dropout 0 (preset 0.1)",
+           f"{PE_STEPS} steps, no warmup, the final eval on 64 examples"]
+# 31's bound on |4-process loss - 1-process loss| / loss, per step, for
+# each job, set between two readings of this cell on the card (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md, phase 31): the sound run and the control,
+# the same four processes with their gradients never summed. The pipelined
+# trunk parts from one process by 6.686e-5 (bf16 GEMMs over 8-row
+# microbatches against the whole batch's), its control by 5.497e-4 (LAMB
+# normalises the heads' quartered gradients, so the control sits close);
+# BERT-MoE by 3.292e-5, its control by 8.743e-3 (each process's update
+# from its quarter of the batch). The job fails when the control does not
+# exceed its bound, or when the stack's losses move by less than
+# PE_MOVE_FACTOR bounds from the first (largest change over the steps).
+PE_LOSS_REL_BOUND = {"pipe": 2e-4, "expert": 3e-4}
+PE_MOVE_FACTOR = 10
 
 
 def dp_batches(cfg, steps, ranks=DP_RANKS):
@@ -5568,20 +5623,20 @@ def time_grad_sum(torch, mode, out):
     sync = torch.cuda.synchronize if torch.cuda.is_available() \
         else (lambda: None)
 
-    def timed(tensors):
+    def timed(tensors, groups=None):
         tensors = list(tensors)
         if mode == "discard":
             tensors = [t.clone() for t in tensors]
         sync()
         t0 = time.perf_counter()
-        real(tensors)
+        real(tensors, groups)
         sync()
         times.append(time.perf_counter() - t0)
 
     trainer.all_reduce_sum_ = timed
 
 
-def spawn_dp_workers(root, name, spec, timeout=600):
+def spawn_dp_workers(root, name, spec, timeout=600, ranks=DP_RANKS):
     """The ``--dp-worker`` processes of one job; their results by rank."""
     import numpy as np
 
@@ -5589,14 +5644,14 @@ def spawn_dp_workers(root, name, spec, timeout=600):
 
     out = os.path.join(root, name)
     os.makedirs(out, exist_ok=True)
-    spec = dict(spec, ranks=DP_RANKS, port=free_local_port(), out=out)
+    spec = dict(spec, ranks=ranks, port=free_local_port(), out=out)
     path = os.path.join(out, "spec.json")
     with open(path, "w") as fh:
         json.dump(spec, fh)
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--dp-worker",
          path, str(r)], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(DP_RANKS)]
+        stderr=subprocess.STDOUT, text=True) for r in range(ranks)]
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -5607,7 +5662,7 @@ def spawn_dp_workers(root, name, spec, timeout=600):
             raise AssertionError(f"{name} rank {r}: rc {p.returncode}\n"
                                  f"{text[-4000:]}")
     results = []
-    for r in range(DP_RANKS):
+    for r in range(ranks):
         with open(os.path.join(out, f"rank{r}.json")) as fh:
             res = json.load(fh)
         res["bn_stats"] = np.load(os.path.join(out, f"rank{r}.npy"))
@@ -6241,6 +6296,164 @@ def seq_phase(torch, root):
     return out
 
 
+def pe_stack_train(torch, root, name, accelerator="gpu"):
+    """31a/31c: ``cli train --stack`` on a four-host dry-run stack with the
+    job's mesh: each process's launches per step held to
+    :data:`PE_PER_STEP`, its peak device memory, the mesh line, finite
+    losses."""
+    import re
+
+    preset, overrides = PE_JOBS[name]
+    state_dir = os.path.join(root, "pe_stacks")
+    if not os.path.isdir(state_dir):
+        rc, out = cli_inprocess(["stack", "create", "--name", "pe",
+                                 "--slice-type", "v5p-16", "--provisioner",
+                                 "dryrun", "--state-dir", state_dir])
+        if rc != 0 or f"CREATE_COMPLETE: {PE_RANKS} hosts" not in out:
+            raise AssertionError(f"stack create: rc {rc}\n{out}")
+    workdir = os.path.join(root, f"pe_{name}_work")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "train",
+         "--preset", preset, "--stack", "pe", "--state-dir", state_dir,
+         "--max-steps", str(PE_STEPS), "--accelerator", accelerator,
+         f"workdir={workdir}", *overrides],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "job finished (restarts=0" not in out:
+        raise AssertionError(f"train --stack ({name}): rc "
+                             f"{proc.returncode}\n{out[-4000:]}")
+    run_dir = os.path.join(workdir, preset)
+    launches, peak = {}, {}
+    for r in range(PE_RANKS):
+        with open(os.path.join(run_dir, "logs",
+                               f"attempt0-host{r}.log")) as fh:
+            text = fh.read()
+        if r == 0:
+            mesh_line = [ln for ln in text.splitlines() if "mesh[" in ln]
+        counts_r, steps = worker_launches(text, r)
+        launches[f"rank{r}"] = counts_r
+        m = re.search(rf"worker {r} peak device memory (\d+) bytes", text)
+        if accelerator == "gpu" and m is None:
+            raise AssertionError(f"{name} rank {r} printed no peak memory")
+        peak[f"rank{r}"] = int(m.group(1)) if m else 0
+        per_step = {k: v / steps for k, v in counts_r.items()}
+        log(f"  rank {r}: launches over {steps} steps {counts_r}, per step "
+            f"{per_step} (expected {PE_PER_STEP[name]}); peak "
+            f"{peak[f'rank{r}'] / 2**30:.2f} GiB")
+        if accelerator == "gpu" and per_step != PE_PER_STEP[name]:
+            raise AssertionError(f"{name} rank {r} per-step launches "
+                                 f"{per_step} != {PE_PER_STEP[name]}")
+    axis = f"{name}={PE_RANKS}"
+    if not mesh_line or axis not in mesh_line[0]:
+        raise AssertionError(f"no mesh line with {axis}: {mesh_line}")
+    recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    steps = [r for r in recs if "loss" in r and "span" not in r
+             and "final_eval_loss" not in r]
+    losses = [r["loss"] for r in steps]
+    if len(losses) != PE_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: bad losses {losses}")
+    log(f"  {mesh_line[0].strip()}")
+    log(f"  losses {' '.join(f'{x:.6f}' for x in losses)}; step p50 "
+        f"{step_p50(steps) * 1e3:.1f} ms (gloo-staged, 4 processes on one "
+        f"card); job {wall:.1f} s [{card_line()}]")
+    return dict(losses=losses, launches=launches, peak_bytes=peak,
+                wall_s=wall, step_time_p50_s=step_p50(steps),
+                mesh=mesh_line[0].strip())
+
+
+def pe_reference(torch, root, name, stacked, device=None):
+    """31b/31d: one process on the same global batches; per-step losses
+    within the job's :data:`PE_LOSS_REL_BOUND`. The control, the same four
+    processes with their gradients never summed, must exceed it, and the
+    stack run's losses must move by :data:`PE_MOVE_FACTOR` bounds. The
+    control's processes time the pipe or expert collectives
+    (``comm_timer``, the card synchronized around each exchange) and the
+    gradient sum apart from the step."""
+    import statistics
+
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.parallel import build_mesh
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    device = device or DEVICE
+    preset, overrides = PE_JOBS[name]
+    cfg = apply_overrides(get_preset(preset), overrides)
+    ways = build_mesh(cfg.mesh, num_processes=PE_RANKS, index=0).data_ways
+    batches = dp_batches(cfg, PE_STEPS, ranks=ways)
+    losses = fed_run(torch, cfg, batches, device)[0]
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    path = os.path.join(root, f"pe_{name}_batches.npz")
+    save_batches(path, batches)
+    control = spawn_dp_workers(root, f"pe_{name}_unsummed", dict(
+        mode="fed", preset=preset, overrides=overrides, batches=path,
+        grad_sum="discard", comm=True,
+        accelerator="gpu" if device != "cpu" else "cpu"), ranks=PE_RANKS)
+    relative = lambda got: [abs(a - b) / abs(b) for a, b in zip(got, losses)]
+    rel, ctl = relative(stacked["losses"]), relative(control[0]["losses"])
+    got = stacked["losses"]
+    moved = max(abs(x - got[0]) for x in got) / abs(got[0])
+    bound = PE_LOSS_REL_BOUND[name]
+    # Steps after the first (its warm-up), every process.
+    per_step = lambda c, key: [b.get(key, 0.0) - a.get(key, 0.0) for a, b in
+                               zip(c["comm_s"][:-1], c["comm_s"][1:])]
+    timing = dict(
+        comm_p50_s=statistics.median(
+            s for c in control for s in per_step(c, name)),
+        grad_sum_p50_s=statistics.median(
+            s for c in control for s in c["grad_sum_s"][1:]),
+        step_p50_s=statistics.median(
+            s for c in control for s in c["step_time_s"][1:]),
+        comm_calls_per_step={k: v / PE_STEPS for k, v in
+                             control[0]["comm_calls"].items()})
+    timing["comm_share"] = timing["comm_p50_s"] / timing["step_p50_s"]
+    what = "stage hops and masked sums" if name == "pipe" \
+        else "all-to-alls"
+    log(f"  one process: {' '.join(f'{x:.6f}' for x in losses)}; max "
+        f"relative difference {max(rel):.3e} (bound {bound:.1e}); the "
+        f"control (gradients never summed): "
+        f"{' '.join(f'{x:.6f}' for x in control[0]['losses'])}, "
+        f"{max(ctl):.3e}; the stack's losses moved {moved:.3e} at most")
+    log(f"  gloo-staged {what} p50 {timing['comm_p50_s'] * 1e3:.2f} ms per "
+        f"step ({timing['comm_share']:.1%} of the step; "
+        f"{timing['comm_calls_per_step']} calls per step), the gradient sum "
+        f"{timing['grad_sum_p50_s'] * 1e3:.2f} ms, of a step p50 "
+        f"{timing['step_p50_s'] * 1e3:.2f} ms (the control's processes, "
+        f"steps 2-{PE_STEPS}, the card synchronized around each exchange; "
+        f"cuts: {PE_CUTS}) [{card_line()}]")
+    checks = {"within the bound": max(rel) <= bound,
+              "the control beyond it": max(ctl) > bound,
+              "the losses moved": moved >= PE_MOVE_FACTOR * bound}
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: 4 processes against 1: {checks}; "
+                             f"relative {rel}, control {ctl}, moved {moved}")
+    return dict(losses=losses, max_rel=max(rel), bound=bound,
+                control_losses=control[0]["losses"], control_max_rel=max(ctl),
+                moved=moved, **timing)
+
+
+def pe_phase(torch, root):
+    """Phase 31: for the pipe axis (bert_pipelined) and the expert axis
+    (bert_moe), the stack run and its one-process reference with the
+    control, in ``root``."""
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
+    torch.cuda.empty_cache()
+    out = {}
+    for name in PE_JOBS:
+        t = time.perf_counter()
+        stacked = pe_stack_train(torch, root, name)
+        torch.cuda.empty_cache()
+        out[name] = dict(stack=stacked,
+                         reference=pe_reference(torch, root, name, stacked))
+        out[name]["phase_s"] = time.perf_counter() - t
+        log(f"  {name} {out[name]['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2], int(sys.argv[3]))
@@ -6422,6 +6635,12 @@ def main() -> int:
                   "4096 against one process")
         seq = seq_phase(torch, root)
         log(f"  phase 30 {time.perf_counter() - t:.1f} s")
+
+        t = phase("31. the pipe and expert axes across 4 processes: train "
+                  "--stack of bert_pipelined on pipe=4 and bert_moe on "
+                  "expert=4 (full width, bf16) against one process")
+        pipe_expert = pe_phase(torch, root)
+        log(f"  phase 31 {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row in (served, int8):
@@ -6527,7 +6746,13 @@ def main() -> int:
                          dp["28a"]["launches"].items()},
             **{f"seq_{name}": {r: c["fwd"] for r, c in
                                seq[name]["stack"]["launches"].items()}
-               for name in SEQ_JOBS}},
+               for name in SEQ_JOBS},
+            # Phase 31's four train --stack processes of each job, over
+            # their steps after the first.
+            **{f"pipe_expert_{name}": {
+                r: c["fwd"] for r, c in
+                pipe_expert[name]["stack"]["launches"].items()}
+               for name in PE_JOBS}},
         "shapes": rows,
     }
     if sum(fwd["variant_launches"].values()) != fwd["launches"]:
@@ -6577,7 +6802,11 @@ def main() -> int:
                              dp["28a"]["launches"].items()},
                 **{f"seq_{job}": {r: c[key] for r, c in
                                   seq[job]["stack"]["launches"].items()}
-                   for job in SEQ_JOBS}},
+                   for job in SEQ_JOBS},
+                **{f"pipe_expert_{job}": {
+                    r: c[key] for r, c in
+                    pipe_expert[job]["stack"]["launches"].items()}
+                   for job in PE_JOBS}},
             "shapes": shapes,
         })
         if sum(records[-1]["variant_launches"].values()) \
@@ -6613,6 +6842,7 @@ def main() -> int:
         "data_parallel": dp,
         "long_presets": long,
         "seq_parallel": seq,
+        "pipe_expert_parallel": pipe_expert,
         "script_s": time.perf_counter() - script_t0,
     }
     log(json.dumps({"summary": summary}))

@@ -12,10 +12,11 @@ restores the other's checkpoints:
   the JAX ``TrainState``) with its shape and dtype, and the process count;
   ``manifest_p<i>.json`` maps each name process ``i`` wrote to its array
   ``<name>::0`` in ``shards_p<i>.npz`` and the index range that array
-  covers — the whole leaf, since a port process writes whole leaves:
-  process 0 the replicated ones, each process the ZeRO-1 slots it owns
-  (a leaf another process writes is an ``Elsewhere``, named in the
-  manifest only);
+  covers: the whole leaf for a replicated leaf (process 0's) or a ZeRO-1
+  slot (its owner's), a range of dim 0 for a piece of a leaf split over
+  ``pipe`` or ``expert`` (a ``Rows``: its stage's layers, its experts).
+  A leaf another process writes is an ``Elsewhere``, named in the
+  manifest only;
 - the two-phase commit: each process's shard object and manifest, then its
   ``DONE_p<i>`` marker; process 0 writes ``COMMIT`` once every process's
   marker exists. Restore sees committed steps only.
@@ -43,7 +44,7 @@ import numpy as np
 
 from ..obs.trace import span
 from ..parallel.mesh import process_count, process_index
-from ..parallel.sharding import Elsewhere
+from ..parallel.sharding import Elsewhere, Rows
 from .store import RetryPolicy, Store, open_store
 
 _MANIFEST = "manifest.json"
@@ -58,8 +59,8 @@ def _step_key(step: int) -> str:
 
 
 def _host_leaves(state) -> List[Tuple[str, Any]]:
-    """(name, host array, None or Elsewhere) for every leaf of ``state``.
-    Tensors are
+    """(name, host array, None, Rows or Elsewhere) for every leaf of
+    ``state``. Tensors are
     copied now (a CPU tensor too: its numpy view would follow the next
     step); numpy leaves are the caller's, to leave unchanged until the
     write is done (``TrainState.named_leaves`` hands over fresh copies)."""
@@ -67,7 +68,7 @@ def _host_leaves(state) -> List[Tuple[str, Any]]:
         else list(state.items())
     out = []
     for name, leaf in items:
-        if isinstance(leaf, Elsewhere):
+        if isinstance(leaf, (Elsewhere, Rows)):
             out.append((name, leaf))
             continue
         if leaf is not None and hasattr(leaf, "detach"):
@@ -97,15 +98,21 @@ def save_checkpoint(directory: StoreOrPath, step: int, state,
         if data is None:
             tree_manifest["leaves"][name] = {"kind": "none"}
             continue
+        start, rows = 0, data
+        if isinstance(data, Rows):
+            start, rows = data.start, np.asarray(data.data)
+            data = Elsewhere(data.shape, str(rows.dtype))
         tree_manifest["leaves"][name] = {
             "kind": "array", "shape": list(data.shape),
             "dtype": str(data.dtype)}
-        if isinstance(data, Elsewhere):
+        if isinstance(rows, Elsewhere):
             continue
         akey = f"{name}::0"
-        arrays[akey] = data
-        proc_manifest["leaves"][name] = [
-            {"key": akey, "index": [[0, int(s)] for s in data.shape]}]
+        arrays[akey] = rows
+        index = [[0, int(s)] for s in rows.shape]
+        if index:
+            index[0] = [start, start + int(rows.shape[0])]
+        proc_manifest["leaves"][name] = [{"key": akey, "index": index}]
 
     def write_files():
         retries_before = int(getattr(store, "retries_total", 0))

@@ -43,13 +43,14 @@ times, each attempt resuming from the last committed checkpoint (logs in
 ``<workdir>/<preset>/logs/attempt<N>-host<I>.log`` and ``launch.jsonl``). A
 dry-run stack runs its host as a local process on the card (or the CPU with
 ``--accelerator cpu``; the JAX package forces the CPU there). A stack of
-several hosts trains data- and sequence-parallel: every host's worker
-joins the process group at host 0 (a dry-run stack's hosts are local
-processes that share this machine's cards, on a free local port), the mesh
-resolves over those processes (``mesh.seq`` > 1 splits each row's sequence
-for ``bert_long``/``gpt_long``), and a preset whose mesh needs the
-``pipe``, ``expert``, ``model`` or ``spatial`` axis over them is refused
-before any launch (ROADMAP A.10). ``generate`` collapses the preset's mesh
+several hosts trains data-, sequence-, pipeline- and expert-parallel:
+every host's worker joins the process group at host 0 (a dry-run stack's
+hosts are local processes that share this machine's cards, on a free
+local port), the mesh resolves over those processes (``mesh.seq`` > 1
+splits each row's sequence for ``bert_long``/``gpt_long``, ``mesh.pipe``
+> 1 the pipelined trunk's layers into GPipe stages, ``mesh.expert`` > 1 a
+MoE trunk's experts), and a preset whose mesh needs the ``model`` or
+``spatial`` axis over them is refused before any launch (ROADMAP A.10). ``generate`` collapses the preset's mesh
 (a ``gpt_long`` checkpoint generates on one device, recomputing the causal
 forward each step). ``info`` and ``doctor`` report torch, CUDA, the
 devices and the mesh of this process. Serve requests are JSONL lines

@@ -16,7 +16,10 @@ heads follow Flax's numerics:
 With ``num_experts > 0`` every ``moe_every``-th layer's FFN is a
 Mixture-of-Experts FFN (``models/moe.py``; GShard's every-other-layer
 convention at the default 2), and the outputs gain ``moe_load_balance`` and
-``moe_router_z``, the per-layer means of the MoE layers' aux losses.
+``moe_router_z``, the per-layer means of the MoE layers' aux losses. Its
+``mesh`` (the task's) goes down to the MoE layers: across processes they
+split the experts over the ``expert`` axis and take the router's
+statistics over the global batch.
 
 Module names follow the Flax tree (``encoder.layer.3`` for ``layer_3``), so
 ``convert.params_from_flax`` and ``convert.flax_layout`` carry the weights
@@ -54,7 +57,8 @@ class BertEncoder(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  dropout_rate: float = 0.0, attention_impl: str = "auto",
                  num_experts: int = 0, moe_every: int = 2,
-                 moe_capacity_factor: float = 1.25, moe_top_k: int = 2):
+                 moe_capacity_factor: float = 1.25, moe_top_k: int = 2,
+                 mesh=None):
         super().__init__()
         self.embed = Embed(vocab_size, hidden_size, max_len, num_segments=2,
                            dtype=dtype, dropout_rate=dropout_rate)
@@ -65,7 +69,7 @@ class BertEncoder(nn.Module):
                              num_experts=num_experts if is_moe_layer(
                                  i, num_experts, moe_every) else 0,
                              moe_capacity_factor=moe_capacity_factor,
-                             moe_top_k=moe_top_k)
+                             moe_top_k=moe_top_k, mesh=mesh)
             for i in range(num_layers)])
 
     def forward(self, input_ids, input_mask, segment_ids,
@@ -116,7 +120,8 @@ class BertPretrain(PretrainHeads):
                  max_len: int = 512, dtype: torch.dtype = torch.bfloat16,
                  dropout_rate: float = 0.0, attention_impl: str = "auto",
                  num_experts: int = 0, moe_every: int = 2,
-                 moe_capacity_factor: float = 1.25, moe_top_k: int = 2):
+                 moe_capacity_factor: float = 1.25, moe_top_k: int = 2,
+                 mesh=None):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
@@ -128,7 +133,8 @@ class BertPretrain(PretrainHeads):
         self.encoder = BertEncoder(vocab_size, hidden_size, num_layers,
                                    num_heads, mlp_dim, max_len, dtype,
                                    dropout_rate, attention_impl, num_experts,
-                                   moe_every, moe_capacity_factor, moe_top_k)
+                                   moe_every, moe_capacity_factor, moe_top_k,
+                                   mesh)
         self._init_heads(vocab_size, hidden_size, num_classes, dtype)
 
     def forward(self, input_ids, input_mask, segment_ids, mlm_positions,
@@ -167,14 +173,14 @@ def bert_base(num_classes: int = 2, dtype=torch.bfloat16, *,
               dropout_rate: float = 0.0, attention_impl: str = "auto",
               num_experts: int = 0, moe_every: int = 2,
               moe_capacity_factor: float = 1.25, moe_top_k: int = 2,
-              device: Optional[torch.device] = None):
+              mesh=None, device: Optional[torch.device] = None):
     return _build(num_classes, dtype, device, vocab_size=vocab_size,
                   hidden_size=hidden_size, num_layers=num_layers,
                   num_heads=num_heads, mlp_dim=mlp_dim, max_len=max_len,
                   dropout_rate=dropout_rate, attention_impl=attention_impl,
                   num_experts=num_experts, moe_every=moe_every,
                   moe_capacity_factor=moe_capacity_factor,
-                  moe_top_k=moe_top_k)
+                  moe_top_k=moe_top_k, mesh=mesh)
 
 
 @register_model("bert_tiny")

@@ -17,7 +17,9 @@ With ``num_experts > 0`` every ``moe_every``-th block's FFN is a
 Mixture-of-Experts FFN (``models/moe.py``) and ``forward`` returns
 ``(logits, moe_aux)``, the per-layer mean of the MoE layers' aux losses, as
 the JAX module does; ``decode_step`` drops the aux (at one position each
-expert has one slot), so ``lm_generate`` drives a MoE GPT unchanged.
+expert has one slot), so ``lm_generate`` drives a MoE GPT unchanged. Its
+``mesh`` (the task's) goes down to the MoE layers, as in ``models/bert.py``
+(JAX ``lm.py`` shares BERT's MoE rules).
 
 Module names follow the Flax tree (``layer.3`` for ``layer_3``, ``token``,
 ``position``, ``embed_norm``, ``final_norm``), so ``convert.params_from_flax``
@@ -52,7 +54,8 @@ class TransformerCausalLm(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  dropout_rate: float = 0.0, attention_impl: str = "auto",
                  num_experts: int = 0, moe_every: int = 2,
-                 moe_capacity_factor: float = 1.25, moe_top_k: int = 2):
+                 moe_capacity_factor: float = 1.25, moe_top_k: int = 2,
+                 mesh=None):
         super().__init__()
         self.num_experts = num_experts
         self.vocab_size = vocab_size
@@ -73,7 +76,7 @@ class TransformerCausalLm(nn.Module):
                              num_experts=num_experts if is_moe_layer(
                                  i, num_experts, moe_every) else 0,
                              moe_capacity_factor=moe_capacity_factor,
-                             moe_top_k=moe_top_k)
+                             moe_top_k=moe_top_k, mesh=mesh)
             for i in range(num_layers)])
         self.final_norm = LayerNorm(hidden_size, dtype)
 

@@ -1,4 +1,4 @@
-"""Pipeline-parallel BERT's model on one device — the port of
+"""Pipeline-parallel BERT — the port of
 ``deeplearning_cfn_tpu/models/pipelined.py``.
 
 ``PipelinedBert`` has ``BertPretrain``'s contract (the MLM+NSP heads of
@@ -16,11 +16,15 @@ card: the flash forward kernel, and under grad the reference-VJP
 recompute), the tanh ``gelu``, and the block's own ``_layer_norm`` (f32
 statistics, the biased two-pass variance, eps 1e-6; not ``LayerNorm``).
 
-On one device ``PipeStack`` runs the plain layer scan (``ops.pipeline.
-scan_layers``), which is what the JAX module runs whenever its mesh has no
-live ``pipe`` axis. ``mesh``, ``n_microbatches`` and ``batch_spec`` are
-accepted and unused here (the schedule across devices, ``gpipe``, is ROADMAP
-A.10). Dropout is not supported (rate must be 0), as in the JAX package.
+Given a ``mesh`` with a ``pipe`` axis above 1, ``PipeStack`` holds only its
+stage's L/S layers (the rows ``parallel.sharding.PARAM_RULES`` give it) and
+runs them under ``ops.pipeline.gpipe`` with the preset's
+``n_microbatches``; ``num_layers`` must divide over the stages, as in JAX.
+The embeddings and heads run replicated over ``pipe``. Without one (one
+process, or a mesh whose ``pipe`` is 1) it runs the plain layer scan
+(``ops.pipeline.scan_layers``), which is what the JAX module runs whenever
+its mesh has no live ``pipe`` axis. Dropout is not supported (rate must be
+0), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ from torch import nn
 
 from . import register_model
 from ..ops import fused_attention
-from ..ops.pipeline import scan_layers
+from ..ops.pipeline import gpipe, scan_layers
+from ..parallel.sharding import piece_rows
 from .bert import PretrainHeads, init_weights as _init_bert
 from .transformer import Embed, padding_bias
 
@@ -92,18 +97,28 @@ def _stack_shapes(f: int, m: int):
 
 
 class PipeStack(nn.Module):
-    """Owns the stacked trunk parameters and runs them as one stage."""
+    """Owns the stacked trunk parameters (this stage's rows of them under a
+    ``pipe`` axis) and runs them as one stage, or as its stage of
+    ``gpipe``."""
 
     def __init__(self, num_layers: int, features: int, num_heads: int,
                  mlp_dim: int, dtype: torch.dtype = torch.bfloat16,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", mesh=None,
+                 n_microbatches: int = 4):
         super().__init__()
         self.num_heads, self.dtype = num_heads, dtype
         self.attention_impl = attention_impl
+        self.num_layers, self.n_microbatches = num_layers, n_microbatches
+        self.mesh = mesh if mesh is not None and mesh.pipe_ways > 1 else None
+        if self.mesh is not None and num_layers % self.mesh.pipe_ways:
+            raise ValueError(
+                f"num_layers={num_layers} not divisible by pipe axis "
+                f"{self.mesh.pipe_ways}")
+        rows = piece_rows(self.mesh, "pipe", num_layers)
         self.inits = {}
         for name, shape, init in _stack_shapes(features, mlp_dim):
-            self.register_parameter(
-                name, nn.Parameter(torch.empty((num_layers,) + shape)))
+            self.register_parameter(name, nn.Parameter(
+                torch.empty((rows.stop - rows.start,) + shape)))
             self.inits[name] = init
         self._stage = scan_layers(
             lambda lp, st: _block(self.num_heads, self.attention_impl, lp,
@@ -111,7 +126,11 @@ class PipeStack(nn.Module):
 
     def forward(self, h: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         params = {name: getattr(self, name) for name in self.inits}
-        return self._stage(params, {"h": h.to(self.dtype), "bias": bias})["h"]
+        state = {"h": h.to(self.dtype), "bias": bias}
+        if self.mesh is None:
+            return self._stage(params, state)["h"]
+        return gpipe(self._stage, params, state, mesh=self.mesh,
+                     n_microbatches=self.n_microbatches)["h"]
 
 
 class PipelinedBert(PretrainHeads):
@@ -121,7 +140,8 @@ class PipelinedBert(PretrainHeads):
                  hidden_size: int = 768, num_layers: int = 12,
                  num_heads: int = 12, mlp_dim: int = 3072,
                  max_len: int = 512, dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.0, attention_impl: str = "auto"):
+                 dropout_rate: float = 0.0, attention_impl: str = "auto",
+                 mesh=None, n_microbatches: int = 4):
         super().__init__()
         if dropout_rate:
             raise ValueError("pipelined trunk does not support dropout; "
@@ -136,7 +156,8 @@ class PipelinedBert(PretrainHeads):
         self.embed = Embed(vocab_size, hidden_size, max_len, num_segments=2,
                            dtype=dtype)
         self.pipe_stack = PipeStack(num_layers, hidden_size, num_heads,
-                                    mlp_dim, dtype, attention_impl)
+                                    mlp_dim, dtype, attention_impl, mesh,
+                                    n_microbatches)
         self._init_heads(vocab_size, hidden_size, num_classes, dtype)
 
     def forward(self, input_ids, input_mask, segment_ids, mlm_positions,
@@ -159,14 +180,15 @@ def bert_pipelined(num_classes: int = 2, dtype=torch.bfloat16, *,
                    dropout_rate: float = 0.0, attention_impl: str = "auto",
                    mesh=None, n_microbatches: int = 4, batch_spec="data",
                    device: Optional[torch.device] = None):
-    del mesh, n_microbatches, batch_spec  # the schedule across devices
+    del batch_spec  # JAX's; each process feeds its own rows
     with torch.device(device or "cpu"):
         return PipelinedBert(vocab_size=vocab_size, num_classes=num_classes,
                              hidden_size=hidden_size, num_layers=num_layers,
                              num_heads=num_heads, mlp_dim=mlp_dim,
                              max_len=max_len, dtype=dtype,
                              dropout_rate=dropout_rate,
-                             attention_impl=attention_impl)
+                             attention_impl=attention_impl, mesh=mesh,
+                             n_microbatches=n_microbatches)
 
 
 def init_weights(model: PipelinedBert, generator: torch.Generator) -> None:
@@ -174,16 +196,22 @@ def init_weights(model: PipelinedBert, generator: torch.Generator) -> None:
     ``bert.init_weights``; every stacked kernel [L, in, out]
     ``variance_scaling(1, "fan_avg", "uniform")`` over its last two dims
     (limit √(6 / (in + out))), the stacked biases 0 and LayerNorm scales 1.
-    Runs on the model's device with ``generator``."""
+    Runs on the model's device with ``generator``. A stage draws every
+    layer's kernels and keeps its own, so each stage's layers are the
+    one-process model's."""
     _init_bert(model, generator)
     stack = model.pipe_stack
+    rows = piece_rows(stack.mesh, "pipe", stack.num_layers)
     with torch.no_grad():
         for name, init in stack.inits.items():
             p = getattr(stack, name)
             if init == "kernel":
                 fan_in, fan_out = p.shape[-2:]
                 limit = math.sqrt(6.0 / (fan_in + fan_out))
-                p.uniform_(-limit, limit, generator=generator)
+                whole = torch.empty((stack.num_layers,) + p.shape[1:],
+                                    dtype=p.dtype, device=p.device)
+                whole.uniform_(-limit, limit, generator=generator)
+                p.copy_(whole[rows])
             else:
                 p.fill_(1.0 if init == "ones" else 0.0)
 

@@ -422,7 +422,9 @@ class TransformerLayer(nn.Module):
 
     ``num_experts > 0`` swaps the dense FFN for a Mixture-of-Experts FFN
     (``moe_mlp``, ``models/moe.py``; its norm keeps the name ``mlp_norm``)
-    and makes ``forward`` return ``(x, moe_aux)``, as the JAX layer does.
+    and makes ``forward`` return ``(x, moe_aux)``, as the JAX layer does;
+    ``mesh`` is the MoE layer's (its experts and router statistics across
+    processes).
     """
 
     def __init__(self, features: int, num_heads: int, mlp_dim: int,
@@ -430,7 +432,7 @@ class TransformerLayer(nn.Module):
                  cross_attention: bool = False,
                  attention_impl: str = "auto", dropout_rate: float = 0.0,
                  num_experts: int = 0, moe_capacity_factor: float = 1.25,
-                 moe_top_k: int = 2):
+                 moe_top_k: int = 2, mesh=None):
         super().__init__()
         self.prenorm = prenorm
         attn = lambda: MultiHeadAttention(features, num_heads, dtype,
@@ -447,7 +449,8 @@ class TransformerLayer(nn.Module):
             from .moe import MoeMlp
 
             self.moe_mlp = MoeMlp(features, num_experts, mlp_dim,
-                                  moe_capacity_factor, moe_top_k, dtype)
+                                  moe_capacity_factor, moe_top_k, dtype,
+                                  mesh)
         else:
             self.mlp = Mlp(features, mlp_dim, dtype, dropout_rate)
         self.mlp_norm = ln()

@@ -6,9 +6,12 @@ The JAX package's collectives are XLA's, scheduled over ICI inside the
 compiled step. The port's are ``torch.distributed``'s over the process group
 that ``runtime.cluster.initialize`` joins: NCCL when every process of a
 machine has a card of its own, gloo otherwise. Data parallelism across
-processes is ported (the ``dcn_data`` and ``data`` axes), and so is
+processes is ported (the ``dcn_data`` and ``data`` axes), and so are
 sequence parallelism (the ``seq`` axis: ring and Ulysses attention in
-``ops/``); the other axes are ROADMAP A.10's.
+``ops/``), pipeline parallelism (the ``pipe`` axis: ``ops/pipeline.py``'s
+GPipe schedule) and expert parallelism (the ``expert`` axis:
+``models/moe.py``'s all-to-all dispatch); the ``model`` and ``spatial``
+axes are ROADMAP A.10's.
 """
 
 from .mesh import (  # noqa: F401
@@ -26,5 +29,5 @@ from .mesh import (  # noqa: F401
     slice_chip_count,
     validate_batch,
 )
-from .sharding import (Elsewhere, batch_sharding, local_shard,  # noqa: F401
-                       seq_slice)
+from .sharding import (Elsewhere, Piece, Rows, batch_sharding,  # noqa: F401
+                       local_shard, param_pieces, seq_slice)

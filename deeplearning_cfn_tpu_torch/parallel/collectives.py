@@ -9,13 +9,16 @@ denominators, the metrics), or, for the sequence collectives, over a
 ``group`` argument, a mesh's ``seq_group()``, the processes that share
 rows (``parallel/mesh.py``):
 
-- :func:`global_sum`: the sum of a tensor over the processes, differentiable
-  (its backward sums the incoming gradients too: every process's loss
-  depends on the sum) — BatchNorm's statistics;
+- :func:`global_sum`: the sum of a tensor over the processes (or a
+  group), differentiable (its backward sums the incoming gradients too:
+  every process's loss depends on the sum) — BatchNorm's statistics, the
+  MoE router's;
 - :func:`global_total`: the same without a gradient — the denominators of a
   global-batch mean (token, mask and example counts);
 - :func:`all_reduce_sum_`: gradients summed in place, in one flat buffer per
-  dtype;
+  dtype and group: each over the processes that hold the same leaf (the
+  world for a replicated one, ``Mesh.holders_group`` for a piece of a
+  split one);
 - :func:`reduce_scalars`: metrics summed in one collective (partials of a
   global mean add up to it), except those every process already holds;
 - :func:`broadcast_object`, :func:`all_gather_objects` and
@@ -23,22 +26,27 @@ rows (``parallel/mesh.py``):
 - over a ``seq`` group: :func:`send_recv` (ring attention's rotations),
   :func:`all_to_all` (Ulysses's reswizzles) and :func:`gather_seq` (the
   sequence slices of an activation gathered into whole rows, with a
-  gradient).
+  gradient);
+- over a ``pipe`` group: :func:`exchange` (GPipe's stage hops, forward and
+  backward: ``ops/pipeline.py``) and :func:`masked_sum` (the last stage's
+  output on every stage, with a gradient);
+- over an ``expert`` group: :func:`all_to_all_grad` (:func:`all_to_all`
+  with its inverse as the backward: MoE's dispatch and combine).
 
 Every function is the identity (no collective) with one process, so the
 one-device path computes exactly what it did before the mesh existed. The
 backend is the group's: gloo reduces CPU and CUDA tensors (a CUDA tensor
-staged through the host), NCCL CUDA tensors. The sequence collectives
-stage a CUDA tensor through host buffers themselves under gloo (its
-point-to-point and all-to-all take CPU tensors), and time the exchange
-when :data:`comm_timer` is on.
+staged through the host), NCCL CUDA tensors. The sequence, pipe and
+expert collectives stage a CUDA tensor through host buffers themselves
+under gloo (its point-to-point and all-to-all take CPU tensors), and time
+the exchange when :data:`comm_timer` is on.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -52,8 +60,9 @@ def _dist():
 
 
 class CommTimer:
-    """Seconds (and calls) of the sequence collectives by kind
-    (``"ring"``, ``"ulysses"``, ``"gather"``), counted while ``enabled``:
+    """Seconds (and calls) of the sequence, pipe and expert collectives by
+    kind (``"ring"``, ``"ulysses"``, ``"gather"``, ``"pipe"``,
+    ``"expert"``), counted while ``enabled``:
     the card is synchronized before and after each exchange, so a time is
     the exchange's alone, the host staging included. Off by default: the
     synchronizations would serialize the step."""
@@ -98,50 +107,63 @@ def _to_wire(t: torch.Tensor, group) -> torch.Tensor:
 
 class _GlobalSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         out = x.clone()
-        _dist().all_reduce(out)
+        _dist().all_reduce(out, group=group)
         return out
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         # d(Σ_s loss_s)/dx_r = Σ_s dloss_s/dy, y = Σ_r x_r on every process.
         out = grad.contiguous().clone()
-        _dist().all_reduce(out)
-        return out
+        _dist().all_reduce(out, group=ctx.group)
+        return out, None
 
 
-def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the processes, with a gradient (``x`` itself with
+def global_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the processes (or over ``group``), with a gradient
+    (``x`` itself with one process)."""
+    if process_count() == 1:
+        return x
+    return _GlobalSum.apply(x, group)
+
+
+def global_total(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the processes (or over ``group``), without a
+    gradient: the count a global-batch mean divides by (``x`` itself with
     one process)."""
     if process_count() == 1:
         return x
-    return _GlobalSum.apply(x)
-
-
-def global_total(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the processes, without a gradient: the count a
-    global-batch mean divides by (``x`` itself with one process)."""
-    if process_count() == 1:
-        return x
     out = x.detach().clone()
-    _dist().all_reduce(out)
+    _dist().all_reduce(out, group=group)
     return out
 
 
-def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> None:
-    """Sum ``tensors`` over the processes in place: one collective per
-    dtype, over a flat buffer of all of them (no-op with one process)."""
+WORLD = "world"  # all_reduce_sum_'s group of a replicated tensor
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor],
+                    groups: Optional[Sequence[Any]] = None) -> None:
+    """Sum ``tensors`` in place, each over its entry of ``groups``:
+    :data:`WORLD` (every process; the default for all), a process group,
+    or None (this process alone: left as it is). One collective per group
+    and dtype, over a flat buffer of its tensors, the groups in order of
+    first appearance (the same on every process that shares one). No-op
+    with one process."""
     if process_count() == 1 or not tensors:
         return
-    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
-    for t in tensors:
-        by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        _dist().all_reduce(flat)
+    if groups is None:
+        groups = [WORLD] * len(tensors)
+    buckets: Dict[tuple, List[torch.Tensor]] = {}
+    for t, g in zip(tensors, groups):
+        if g is not None:
+            buckets.setdefault((id(g), t.dtype), [g]).append(t)
+    for group, *members in buckets.values():
+        flat = torch.cat([t.reshape(-1) for t in members])
+        _dist().all_reduce(flat, group=None if group is WORLD else group)
         offset = 0
-        for t in group:
+        for t in members:
             n = t.numel()
             t.copy_(flat[offset:offset + n].view_as(t))
             offset += n
@@ -266,3 +288,81 @@ def gather_seq(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
     if mesh.seq_ways == 1:
         return x
     return _SeqGather.apply(x, dim, mesh.seq_group(), mesh.seq_index)
+
+
+# -- over a pipe group --------------------------------------------------------
+
+
+def exchange(sends: Sequence[torch.Tensor], dst: Optional[int],
+             like: Sequence[torch.Tensor], src: Optional[int],
+             group) -> List[torch.Tensor]:
+    """One batch of point-to-point operations over ``group``: ``sends`` to
+    global rank ``dst`` (nothing when None) and as many tensors as ``like``
+    (their shapes and dtypes, on their device) from rank ``src`` (nothing,
+    and ``[]`` back, when None). A stage hop of the GPipe schedule,
+    forward (to the next stage) or backward (to the previous one)."""
+    dist = _dist()
+    ops, got = [], []
+    if dst is not None:
+        ops += [dist.P2POp(dist.isend, _to_wire(t, group), dst, group=group)
+                for t in sends]
+    if src is not None:
+        got = [torch.empty(t.shape, dtype=t.dtype,
+                           device="cpu" if _staging(t, group) else t.device)
+               for t in like]
+        ops += [dist.P2POp(dist.irecv, g, src, group=group) for g in got]
+    if ops:
+        with comm_timer.measure("pipe", (list(sends) + list(like))[0].device):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+    return [g.to(t.device) for g, t in zip(got, like)]
+
+
+class _MaskedSum(torch.autograd.Function):
+    """Forward: ``x`` of the process where ``keep`` holds, on every process
+    of ``group`` (the others give zeros). Backward: the incoming gradients
+    summed over the group (every process's loss reads the result), on the
+    process that kept its ``x``; zeros elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x, keep, group):
+        ctx.keep, ctx.group = keep, group
+        with comm_timer.measure("pipe", x.device):
+            return _all_reduce(x if keep else torch.zeros_like(x), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with comm_timer.measure("pipe", grad.device):
+            total = _all_reduce(grad, ctx.group)
+        return (total if ctx.keep else torch.zeros_like(total)), None, None
+
+
+def masked_sum(x: torch.Tensor, keep: bool, group) -> torch.Tensor:
+    """The ``x`` of the one process of ``group`` with ``keep`` true, on
+    each of them, with a gradient (JAX's masked ``psum`` over ``pipe``)."""
+    return _MaskedSum.apply(x, keep, group)
+
+
+# -- over an expert group -----------------------------------------------------
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`; its backward is the same exchange of the
+    gradients (the transpose of a permutation of dim-0 blocks)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        with comm_timer.measure("expert", x.device):
+            return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with comm_timer.measure("expert", grad.device):
+            return all_to_all(grad, ctx.group), None
+
+
+def all_to_all_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_to_all` over ``group`` with a gradient: ``out[j]`` is
+    process ``j``'s ``x[i]`` on process ``i``."""
+    return _AllToAll.apply(x, group)

@@ -14,16 +14,22 @@ configs), :func:`data_axis_size`, :func:`local_batch_size`,
 :func:`validate_batch`, :func:`describe` (JAX's ``mesh[...] over N
 devices`` line), :func:`slice_chip_count` and :func:`hosts_for_slice`.
 
-Scope. Across processes the batch axes (``dcn_data``, ``data``) and the
-``seq`` axis are ported: the processes that differ only in their ``seq``
-coordinate form a ``seq`` group (:meth:`Mesh.seq_group`) and hold the same
-rows of the batch (:attr:`Mesh.data_index` of :attr:`Mesh.data_ways`); the
-long-context trunks split each row's sequence over the group (ring or
-Ulysses attention, ``ops/``). A mesh that resolves with ``model``,
-``spatial``, ``expert`` or ``pipe`` above 1 over more than one process
-raises, naming the ROADMAP A.10 item that brings the axis. With one process
-the preset's mesh is ignored, as it always was: every preset trains on the
-one device.
+Scope. Across processes the batch axes (``dcn_data``, ``data``,
+``expert``), the ``seq`` axis, the ``pipe`` axis and the ``expert`` axis
+are ported. The processes that differ only in their ``seq`` coordinate form
+a ``seq`` group (:meth:`Mesh.seq_group`) and hold the same rows of the
+batch (:attr:`Mesh.data_index` of :attr:`Mesh.data_ways`); the long-context
+trunks split each row's sequence over the group (ring or Ulysses attention,
+``ops/``). The processes of a ``pipe`` group (:meth:`Mesh.pipe_group`) also
+hold the same rows, and each holds its stage's layers (``ops/pipeline.py``).
+The ``expert`` axis is a batch axis, as in JAX: the processes of an
+``expert`` group read different rows and each holds its experts
+(``models/moe.py``). A leaf split over an axis is held whole by the
+processes that share this process's coordinate on it
+(:meth:`Mesh.holders_group`). A mesh that resolves with ``model`` or
+``spatial`` above 1 over more than one process raises, naming the ROADMAP
+A.10 item that brings the axis. With one process the preset's mesh is
+ignored, as it always was: every preset trains on the one device.
 """
 
 from __future__ import annotations
@@ -41,16 +47,13 @@ from ..config import MeshConfig
 # local shard of the batch), then 'expert', 'model' innermost.
 AXIS_ORDER: Tuple[str, ...] = ("dcn_data", "pipe", "data", "expert",
                                "spatial", "seq", "model")
-# Batch dim 0 shards over all of these jointly (JAX's rule; the port brings
-# 'dcn_data' and 'data' across processes, 'expert' is A.10's). The other
-# axes replicate the batch.
+# Batch dim 0 shards over all of these jointly (JAX's rule). The other axes
+# replicate the batch.
 BATCH_AXES: Tuple[str, ...] = ("dcn_data", "data", "expert")
 
 # The axes a multi-process mesh may not use yet, with the ROADMAP A.10 item
 # that brings each.
 UNPORTED_AXES: Dict[str, str] = {
-    "pipe": "the pipe axis: the GPipe schedule across devices",
-    "expert": "the expert axis: MoE dispatch across devices",
     "model": "the model axis: tensor-parallel layers",
     "spatial": "the spatial axis: Mask R-CNN's spatial shard",
 }
@@ -149,7 +152,7 @@ class Mesh:
     def data_index(self) -> int:
         """This process's block of a global batch: its coordinate over the
         batch axes jointly, row-major (JAX's ``P(BATCH_AXES)`` on dim 0).
-        The processes of one ``seq`` group share it."""
+        The processes of one ``seq`` or ``pipe`` group share it."""
         c, idx = self.coords, 0
         for axis in BATCH_AXES:
             idx = idx * self.shape[axis] + c[axis]
@@ -172,7 +175,34 @@ class Mesh:
             rank = rank * self.shape[axis] + coords[axis]
         return rank
 
-    def _ranks_along(self, axes: Tuple[str, ...]) -> List[int]:
+    @property
+    def pipe_ways(self) -> int:
+        return self.shape["pipe"]
+
+    @property
+    def pipe_index(self) -> int:
+        """This process's stage: it holds the ``pipe_index``-th of
+        ``pipe_ways`` equal slices of each stacked layer leaf."""
+        return self.coords["pipe"]
+
+    @property
+    def expert_ways(self) -> int:
+        return self.shape["expert"]
+
+    @property
+    def expert_index(self) -> int:
+        """This process's experts: the ``expert_index``-th of
+        ``expert_ways`` equal slices of each stacked expert leaf."""
+        return self.coords["expert"]
+
+    @property
+    def replicas(self) -> int:
+        """The processes that hold each row of a batch (those that differ
+        only outside :data:`BATCH_AXES`: the ``seq`` and ``pipe``
+        groups)."""
+        return self.size // self.data_ways
+
+    def ranks_along(self, axes: Tuple[str, ...]) -> List[int]:
         """The processes that share this one's coordinates outside
         ``axes``, row-major over ``axes`` (in :data:`AXIS_ORDER`)."""
         free = [a for a in AXIS_ORDER if a in axes]
@@ -183,49 +213,95 @@ class Mesh:
     @property
     def seq_ranks(self) -> List[int]:
         """The ranks of this process's ``seq`` group, in ``seq`` order."""
-        return self._ranks_along(("seq",))
+        return self.ranks_along(("seq",))
 
     @property
     def data_ranks(self) -> List[int]:
-        """The ranks that hold this process's slice of the sequence, one
-        per block of the batch, in :attr:`data_index` order."""
-        return self._ranks_along(BATCH_AXES)
+        """The ranks that hold this process's slice of the sequence and its
+        stage, one per block of the batch, in :attr:`data_index` order."""
+        return self.ranks_along(BATCH_AXES)
+
+    @property
+    def pipe_ranks(self) -> List[int]:
+        """The ranks of this process's ``pipe`` group, in stage order."""
+        return self.ranks_along(("pipe",))
+
+    @property
+    def expert_ranks(self) -> List[int]:
+        """The ranks of this process's ``expert`` group, in ``expert``
+        order."""
+        return self.ranks_along(("expert",))
+
+    def holder_ranks(self, axis: str) -> List[int]:
+        """The ranks that hold the same slice of a leaf split over
+        ``axis`` as this process: those with its coordinate on ``axis``."""
+        return self.ranks_along(_all_but(axis))
+
+    def group(self, axes: Tuple[str, ...]):
+        """The process group of :meth:`ranks_along` ``axes`` (one of
+        :data:`_PARTITIONS`); None when this process is alone in it."""
+        return _groups(self)[axes]
 
     def seq_group(self):
         """The process group of :attr:`seq_ranks` (ring and Ulysses
-        attention, the heads' gather); None with one process."""
-        return _groups(self)[0]
+        attention, the heads' gather)."""
+        return self.group(("seq",))
 
     def data_group(self):
-        """The process group of :attr:`data_ranks`; None with one
-        process."""
-        return _groups(self)[1]
+        """The process group of :attr:`data_ranks` (the MoE router's
+        statistics)."""
+        return self.group(BATCH_AXES)
+
+    def pipe_group(self):
+        """The process group of :attr:`pipe_ranks` (the stage hops and the
+        masked sum of the last stage's output)."""
+        return self.group(("pipe",))
+
+    def expert_group(self):
+        """The process group of :attr:`expert_ranks` (the MoE
+        all-to-alls)."""
+        return self.group(("expert",))
+
+    def holders_group(self, axis: str):
+        """The process group of :meth:`holder_ranks` (the gradient sum of a
+        leaf split over ``axis``)."""
+        return self.group(_all_but(axis))
 
 
-# (shape, world) -> (seq group, data group) of this process.
-_GROUPS: Dict[tuple, tuple] = {}
+def _all_but(axis: str) -> Tuple[str, ...]:
+    return tuple(a for a in AXIS_ORDER if a != axis)
 
 
-def _groups(mesh: Mesh) -> tuple:
-    """This process's ``seq`` and data groups, created once per mesh
-    shape. ``dist.new_group`` is collective over the world: every process
-    creates every group, in the same order, and keeps its own."""
+# The partitions of the processes that the port's collectives run over:
+# each process belongs to one group of each.
+_PARTITIONS: Tuple[Tuple[str, ...], ...] = (
+    ("seq",), BATCH_AXES, ("pipe",), ("expert",), _all_but("pipe"),
+    _all_but("expert"))
+# (shape, world) -> {partition: this process's group or None}.
+_GROUPS: Dict[tuple, dict] = {}
+
+
+def _groups(mesh: Mesh) -> dict:
+    """This process's group in each of :data:`_PARTITIONS`, all created at
+    the first use of any, once per mesh shape. ``dist.new_group`` is
+    collective over the world: every process creates every group of more
+    than one process, in the same order, and keeps its own."""
     if mesh.process_count == 1:
-        return None, None
+        return dict.fromkeys(_PARTITIONS)
     key = (tuple(mesh.shape.items()), mesh.process_count)
     if key not in _GROUPS:
         import torch.distributed as dist
 
-        mine = []
-        for ranks_of in (lambda m: m.seq_ranks, lambda m: m.data_ranks):
+        mine = {}
+        for axes in _PARTITIONS:
             groups = {}
             for r in range(mesh.process_count):
-                ranks = tuple(ranks_of(dataclasses.replace(
-                    mesh, process_index=r)))
-                if ranks not in groups:
+                ranks = tuple(dataclasses.replace(
+                    mesh, process_index=r).ranks_along(axes))
+                if len(ranks) > 1 and ranks not in groups:
                     groups[ranks] = dist.new_group(list(ranks))
-            mine.append(groups[tuple(ranks_of(mesh))])
-        _GROUPS[key] = tuple(mine)
+            mine[axes] = groups.get(tuple(mesh.ranks_along(axes)))
+        _GROUPS[key] = mine
     return _GROUPS[key]
 
 
@@ -253,7 +329,7 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
     process ignores ``cfg`` (every axis 1, as the one-device port always
     trained); more resolve it as JAX does and refuse the axes not ported
     (:data:`UNPORTED_AXES`). The groups are made at first use
-    (:meth:`Mesh.seq_group`), so a mesh can be resolved without a process
+    (:meth:`Mesh.group`), so a mesh can be resolved without a process
     group."""
     n = process_count() if num_processes is None else num_processes
     rank = process_index() if index is None else index
@@ -266,8 +342,8 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
             raise NotImplementedError(
                 f"mesh axis {axis}={sizes[axis]} over {n} processes needs "
                 f"{item}, not ported yet (ROADMAP A.10); the port's "
-                f"processes split the batch axes (dcn_data, data) and the "
-                f"seq axis only — set mesh.{axis}=1")
+                f"processes split the batch axes (dcn_data, data, expert) "
+                f"and the seq and pipe axes only — set mesh.{axis}=1")
     return Mesh(shape={a: sizes[a] for a in AXIS_ORDER},
                 process_index=rank, process_count=n)
 
@@ -281,8 +357,8 @@ def data_axis_size(mesh: Mesh) -> int:
 
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:
     """Per-process batch size: the global batch divided over the data ways
-    (Horovod's per-rank batch); the processes of a ``seq`` group hold the
-    same rows."""
+    (Horovod's per-rank batch); the processes of a ``seq`` or ``pipe`` group
+    hold the same rows."""
     if global_batch % data_axis_size(mesh) != 0:
         raise ValueError(
             f"global batch {global_batch} not divisible by data-axis size "

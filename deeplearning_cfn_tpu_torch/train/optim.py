@@ -59,6 +59,18 @@ LARS's trust ratios and Adafactor's factored moments stay whole (sharding a
 parameter's rows would need summed norms). Slot memory per process falls to
 about 1/N (:meth:`Optimizer.slot_bytes`). Checkpoints name every slot; a
 process writes the slots it owns.
+Leaves split over the ``pipe`` or ``expert`` axis (``pieces``,
+``parallel.sharding.param_pieces``): each process holds its piece of such
+a parameter. The rules stay the logical leaf's, as ``optax`` applies them
+to JAX's sharded leaf: LAMB's and LARS's trust ratios sum ``‖p‖²`` and
+``‖u‖²`` over the leaf's pieces (``Piece.peers``) before the ratio, and
+:func:`global_norm` counts every piece once and every replicated leaf
+once. Under ZeRO-1 a piece's owner is one of the processes that hold it,
+at the same place among them for every piece of the leaf
+(:func:`zero1_owners`), so the owners of a leaf's pieces sum its norms
+together, and each broadcasts its pieces to their other holders.
+Adafactor's factored moments of a piece are refused (its block RMS is
+the whole leaf's).
 """
 
 from __future__ import annotations
@@ -72,7 +84,8 @@ from torch import nn
 
 from ..config import OptimizerConfig, ScheduleConfig
 from ..parallel import mesh as _mesh
-from ..parallel.sharding import Elsewhere
+from ..parallel.collectives import WORLD
+from ..parallel.sharding import Elsewhere, Piece, Rows, param_pieces
 
 Schedule = Callable[[int], float]
 
@@ -188,6 +201,31 @@ class _Rule(torch.optim.Optimizer):
                  **defaults):
         super().__init__(groups, dict(weight_decay=0.0, **defaults))
         self.lr, self.count = lr, count
+        self.pieces: Dict[int, Piece] = {}  # set by Optimizer
+
+    def _norms(self, params, tensors) -> torch.Tensor:
+        """The L2 norm of each of ``tensors`` (one per parameter of
+        ``params``); for a parameter that holds a piece of its leaf, the
+        norm over all the pieces (their squares summed over
+        ``Piece.peers``, one collective per group)."""
+        norms = torch.stack(torch._foreach_norm(tensors))
+        split: Dict[int, Tuple[object, List[int]]] = {}
+        for i, p in enumerate(params):
+            piece = self.pieces.get(id(p))
+            if piece is not None and piece.peers() is not None:
+                split.setdefault(id(piece.peers()),
+                                 (piece.peers(), []))[1].append(i)
+        if not split:
+            return norms
+        import torch.distributed as dist
+
+        norms = norms.clone()
+        for group, idx in split.values():
+            at = torch.tensor(idx, device=norms.device)
+            sq = norms[at].square()
+            dist.all_reduce(sq, group=group)
+            norms[at] = sq.sqrt()
+        return norms
 
     def _slots(self, params, key: str) -> List[torch.Tensor]:
         """The ``key`` slot of each parameter, zeros where not created yet
@@ -318,8 +356,8 @@ class Lars(_Rule):
                 updates = torch._foreach_add(updates, params,
                                              alpha=group["weight_decay"])
             if group["trust_ratio"]:
-                p_norm = torch.stack(torch._foreach_norm(params))
-                u_norm = torch.stack(torch._foreach_norm(updates))
+                p_norm = self._norms(params, params)
+                u_norm = self._norms(params, updates)
                 ratio = group["trust_coefficient"] * p_norm / u_norm
                 ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                     torch.ones_like(ratio), ratio)
@@ -380,8 +418,8 @@ class Lamb(_Rule):
             if group["weight_decay"]:
                 torch._foreach_add_(updates, params,
                                     alpha=group["weight_decay"])
-            p_norm = torch.stack(torch._foreach_norm(params))
-            u_norm = torch.stack(torch._foreach_norm(updates))
+            p_norm = self._norms(params, params)
+            u_norm = self._norms(params, updates)
             ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                 torch.ones_like(p_norm), p_norm / u_norm)
             torch._foreach_mul_(updates, list(ratio.unbind()))
@@ -504,17 +542,37 @@ class Adafactor(_Rule):
                 w.sub_(update)
 
 
-def zero1_owners(params: Sequence[torch.Tensor], world: int) -> List[int]:
+def zero1_owners(params: Sequence[torch.Tensor], world: int,
+                 pieces: Optional[Dict[int, Piece]] = None) -> List[int]:
     """The owning process of each parameter under ZeRO-1: largest first
     (ties by position), each to the process holding the fewest elements so
-    far (ties to the lowest index)."""
+    far (ties to the lowest index). A parameter that holds a piece of its
+    leaf (``pieces``) goes to one of the processes that hold that piece:
+    the same place among the holders for every piece of the leaf, the
+    place whose busiest process holds the fewest elements so far. Every
+    process computes every process's loads, so all agree."""
+    pieces = pieces or {}
     loads = [0] * world
     owners = [0] * len(params)
     for i in sorted(range(len(params)),
                     key=lambda i: (-params[i].numel(), i)):
-        rank = min(range(world), key=lambda r: (loads[r], r))
-        owners[i] = rank
-        loads[rank] += params[i].numel()
+        n = params[i].numel()
+        piece = pieces.get(id(params[i]))
+        if piece is None:
+            rank = min(range(world), key=lambda r: (loads[r], r))
+            loads[rank] += n
+            owners[i] = rank
+            continue
+        mesh = piece.mesh
+        # holders[j][k]: the k-th holder of the piece at coordinate j.
+        holders = [_mesh.Mesh(mesh.shape, mesh.rank_of(
+            {**mesh.coords, piece.axis: j}), world).holder_ranks(piece.axis)
+            for j in range(mesh.shape[piece.axis])]
+        k = min(range(len(holders[0])),
+                key=lambda k: (max(loads[h[k]] for h in holders), k))
+        for h in holders:
+            loads[h[k]] += n
+        owners[i] = mesh.holder_ranks(piece.axis)[k]
     return owners
 
 
@@ -531,13 +589,20 @@ class Optimizer:
     def __init__(self, cfg: OptimizerConfig, schedule: Schedule,
                  params: List[nn.Parameter],
                  kinds: Optional[Dict[nn.Parameter, str]] = None,
-                 shard_opt_state: bool = False):
+                 shard_opt_state: bool = False,
+                 pieces: Optional[Dict[int, Piece]] = None):
         name = cfg.name.lower()
         self.params = [p for p in params if p.requires_grad]
         self.world, self.rank = _mesh.process_count(), _mesh.process_index()
+        self.pieces = dict(pieces or {})
+        if self.pieces and name in _FLAX_SLOTS:
+            raise NotImplementedError(
+                f"optimizer {name!r} with leaves split over the pipe or "
+                f"expert axis: its factored moments and block RMS are the "
+                f"whole leaf's")
         # ZeRO-1: the owning process of each parameter (None: replicated).
         self.owners: Optional[List[int]] = zero1_owners(
-            self.params, self.world) if shard_opt_state and \
+            self.params, self.world, self.pieces) if shard_opt_state and \
             self.world > 1 else None
         self._owner_of = {} if self.owners is None else {
             id(p): r for p, r in zip(self.params, self.owners)}
@@ -575,6 +640,7 @@ class Optimizer:
             self.inner = Adafactor(groups, *hyper, kinds=kinds or {})
         else:
             raise ValueError(f"unknown optimizer {cfg.name!r}")
+        self.inner.pieces = self.pieces
         self.name = name
         self.schedule = schedule
         self.grad_clip_norm = cfg.grad_clip_norm
@@ -587,6 +653,23 @@ class Optimizer:
 
     def grads(self) -> List[torch.Tensor]:
         return [p.grad for p in self.params if p.grad is not None]
+
+    def grad_pieces(self) -> List[Optional[Piece]]:
+        """The :class:`Piece` of each of :meth:`grads` (None: replicated)."""
+        return [self.pieces.get(id(p)) for p in self.params
+                if p.grad is not None]
+
+    def grad_groups(self) -> List[object]:
+        """The group each of :meth:`grads` is summed over: the processes
+        that hold the same leaf (``collectives.WORLD`` for a replicated
+        one)."""
+        return [WORLD if pc is None else pc.holders()
+                for pc in self.grad_pieces()]
+
+    def grad_norm(self) -> torch.Tensor:
+        """:func:`global_norm` of :meth:`grads`, every piece counted
+        once."""
+        return global_norm(self.grads(), self.grad_pieces())
 
     def prepare(self) -> None:
         """Write this update's learning rate, ``schedule(count)``, and the
@@ -603,7 +686,7 @@ class Optimizer:
         if self.grad_clip_norm > 0:
             grads = self.grads()
             if grad_norm is None:
-                grad_norm = global_norm(grads)
+                grad_norm = self.grad_norm()
             # optax: g if norm < max_norm else g / norm * max_norm.
             factor = torch.clamp(self.grad_clip_norm / grad_norm, max=1.0)
             torch._foreach_mul_(grads, factor)
@@ -617,27 +700,43 @@ class Optimizer:
 
     @torch.no_grad()
     def _broadcast_owned(self) -> None:
-        """ZeRO-1: every process's updated parameters to the others, one
-        flat broadcast per owning process."""
+        """ZeRO-1: every process's updated parameters to the others that
+        hold them: one flat broadcast per owning process, over the world
+        for the replicated ones, then over each holders group for the
+        pieces."""
         import torch.distributed as dist
 
-        for rank in range(self.world):
-            owned = [p for p, r in zip(self.params, self.owners)
-                     if r == rank]
-            if not owned:
-                continue
+        def send(owned, rank, group):
             if rank == self.rank:
                 flat = torch.cat([p.reshape(-1) for p in owned])
             else:
                 flat = torch.empty(sum(p.numel() for p in owned),
                                    dtype=owned[0].dtype,
                                    device=owned[0].device)
-            dist.broadcast(flat, src=rank)
+            dist.broadcast(flat, src=rank, group=group)
             if rank != self.rank:
                 offset = 0
                 for p in owned:
                     p.copy_(flat[offset:offset + p.numel()].view_as(p))
                     offset += p.numel()
+
+        for rank in range(self.world):
+            owned = [p for p, r in zip(self.params, self.owners)
+                     if r == rank and id(p) not in self.pieces]
+            if owned:
+                send(owned, rank, None)
+        split: Dict[str, List[Tuple[torch.Tensor, int]]] = {}
+        for p, r in zip(self.params, self.owners):
+            if id(p) in self.pieces:
+                split.setdefault(self.pieces[id(p)].axis, []).append((p, r))
+        for axis, held in split.items():
+            piece = self.pieces[id(held[0][0])]
+            if piece.holders() is None:
+                continue
+            for rank in piece.mesh.holder_ranks(axis):
+                owned = [p for p, r in held if r == rank]
+                if owned:
+                    send(owned, rank, piece.holders())
 
     def slot_bytes(self, owned_only: bool = True) -> int:
         """Bytes of the optimizer's slots on this process (``owned_only``)
@@ -691,12 +790,18 @@ class Optimizer:
         out = [(prefix + c, count) for c in counts]
         for field, key in slots.items():
             for path, p, to_flax in named_params:
-                writes = self.owns(p) if self.owners is not None \
-                    else writes_replicated
+                piece = self.pieces.get(id(p))
+                if self.owners is not None:
+                    writes = self.owns(p)
+                else:
+                    writes = writes_replicated if piece is None \
+                        else piece.writes
                 if not writes:
                     shape = self.inner.slot_shapes(p)[key] \
                         if self.name in _FLAX_SLOTS \
                         else tuple(to_flax(_shape_only(p)).shape)
+                    if piece is not None:
+                        shape = (piece.whole,) + shape[1:]
                     out.append((f"{prefix}{field}/{path}",
                                 Elsewhere(shape, _dtype_name(p.dtype))))
                     continue
@@ -708,7 +813,11 @@ class Optimizer:
                 value = self.inner.state.get(p, {}).get(key)
                 if value is None:
                     value = torch.zeros_like(p)
-                out.append((f"{prefix}{field}/{path}", to_flax(value)))
+                value = to_flax(value)
+                if piece is not None:
+                    value = Rows(value, piece.start,
+                                 (piece.whole,) + value.shape[1:])
+                out.append((f"{prefix}{field}/{path}", value))
         return out
 
     def load_slots(self, leaves: Dict[str, np.ndarray],
@@ -725,12 +834,17 @@ class Optimizer:
             if not self.owns(p):
                 continue
             state = self.inner.state[p]
+            piece = self.pieces.get(id(p))
             for field, key in slots.items():
                 value = leaves[f"{prefix}{field}/{path}"]
+                if piece is not None:
+                    value = piece.of(value)
                 if self.name not in _FLAX_SLOTS:
                     value = from_flax(value)
-                state[key] = torch.as_tensor(np.ascontiguousarray(value),
-                                             dtype=p.dtype).to(p.device)
+                # A copy: the update writes the slot in place, and the
+                # leaves are the caller's (a JAX state's are read-only).
+                state[key] = torch.tensor(np.ascontiguousarray(value),
+                                          dtype=p.dtype).to(p.device)
 
 
 def _shape_only(p: torch.Tensor) -> np.ndarray:
@@ -744,11 +858,33 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every gradient (optax ``global_norm``), on the device."""
+def global_norm(grads: List[torch.Tensor],
+                pieces: Optional[Sequence[Optional[Piece]]] = None
+                ) -> torch.Tensor:
+    """L2 norm over every gradient (optax ``global_norm``), on the device.
+    ``pieces`` gives each gradient's :class:`Piece` (None: replicated): a
+    piece's squares are summed over its leaf's pieces (``Piece.peers``), so
+    every process gets the norm of the logical gradients."""
     if not grads:
         return torch.zeros(())
-    return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+    if not pieces or all(pc is None for pc in pieces):
+        return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+    import torch.distributed as dist
+
+    norm = lambda ts: torch.nn.utils.get_total_norm(ts, norm_type=2.0)
+    replicated = [g for g, pc in zip(grads, pieces) if pc is None]
+    total = norm(replicated).square() if replicated \
+        else grads[0].new_zeros((), dtype=torch.float32)
+    split: Dict[int, Tuple[object, List[torch.Tensor]]] = {}
+    for g, pc in zip(grads, pieces):
+        if pc is not None:
+            split.setdefault(id(pc.peers()), (pc.peers(), []))[1].append(g)
+    for group, gs in split.values():
+        sq = norm(gs).square()
+        if group is not None:
+            dist.all_reduce(sq, group=group)
+        total = total + sq
+    return total.sqrt()
 
 
 def build_optimizer(cfg: OptimizerConfig, schedule: Schedule,
@@ -758,4 +894,5 @@ def build_optimizer(cfg: OptimizerConfig, schedule: Schedule,
 
     kinds = {t: kind for _, _, t, kind in flax_layout(model)}
     return Optimizer(cfg, schedule, list(model.parameters()), kinds,
-                     shard_opt_state=shard_opt_state)
+                     shard_opt_state=shard_opt_state,
+                     pieces=param_pieces(model))

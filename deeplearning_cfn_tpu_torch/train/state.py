@@ -25,7 +25,12 @@ optax state of the same chain, ``Optimizer.named_slots``) and
 target, reads a port checkpoint, and :meth:`TrainState.load_named` loads a
 JAX one. Across processes a leaf that another process writes is an
 ``Elsewhere`` (shape and dtype): the replicated leaves are process 0's and
-a ZeRO-1 slot is its owner's. A state built for evaluation only has no optimizer and names no
+a ZeRO-1 slot is its owner's. A parameter that holds a piece of a leaf
+split over ``pipe`` or ``expert`` (``parallel.sharding.param_pieces``) is
+named as its ``Rows`` of the whole leaf, written by the first of the
+piece's holders (its slots by their owner), and ``load_named`` takes this
+process's rows of a whole leaf: the weights carry over between one process
+and any mesh, and between either package's checkpoints. A state built for evaluation only has no optimizer and names no
 ``opt_state`` leaves (the JAX ``run_eval`` template has none either).
 """
 
@@ -41,7 +46,7 @@ from torch import nn
 
 from ..convert import flax_layout, from_flax, to_flax
 from ..parallel.mesh import process_index
-from ..parallel.sharding import Elsewhere
+from ..parallel.sharding import Elsewhere, Rows, param_pieces
 from .optim import Optimizer
 
 
@@ -74,22 +79,29 @@ class TrainState:
         tensor), and ``(flax name, Elsewhere)`` for the leaves another
         process writes (see the module docstring)."""
         params, stats = self._layout()
+        pieces = param_pieces(self.model)
         host = lambda t, kind: to_flax(
             t if isinstance(t, np.ndarray)
             else t.detach().to("cpu", copy=True).numpy(), kind)
         mine = process_index() == 0
 
-        def replicated(t, kind):
-            if mine:
-                return host(t, kind)
+        def replicated(t, kind, param=None):
+            piece = None if param is None else pieces.get(id(param))
+            writes = mine if piece is None else piece.writes
             shape = to_flax(np.broadcast_to(np.zeros((), np.float32),
                                             tuple(t.shape)), kind).shape
-            return Elsewhere(tuple(shape), str(t.dtype).replace("torch.",
-                                                                ""))
+            if piece is not None:
+                shape = (piece.whole,) + tuple(shape[1:])
+            if not writes:
+                return Elsewhere(tuple(shape), str(t.dtype).replace(
+                    "torch.", ""))
+            if piece is not None:
+                return Rows(host(t, kind), piece.start, tuple(shape))
+            return host(t, kind)
 
         out = [("step", np.asarray(self.step, np.int32) if mine
                 else Elsewhere((), "int32"))]
-        out += [(name, replicated(t, kind)) for name, _, t, kind in params]
+        out += [(name, replicated(t, kind, t)) for name, _, t, kind in params]
         out += [(name, replicated(t, kind)) for name, _, t, kind in stats]
         if self.optimizer is not None:
             out += self.optimizer.named_slots(
@@ -98,32 +110,41 @@ class TrainState:
                  for name, _, t, kind in params], writes_replicated=mine)
         if self.ema_params is not None:
             out += [("ema_params/" + name[len("params/"):],
-                     replicated(e, kind))
-                    for (name, _, _, kind), e in zip(params,
+                     replicated(e, kind, t))
+                    for (name, _, t, kind), e in zip(params,
                                                      self.ema_params)]
         return out
 
     @torch.no_grad()
     def load_named(self, leaves: Dict[str, np.ndarray]) -> None:
         """Load leaves named as :meth:`named_leaves` names them (a restored
-        checkpoint of either package) into the live tensors."""
+        checkpoint of either package, whole leaves) into the live tensors;
+        a parameter that holds a piece takes its rows."""
         params, stats = self._layout()
+        pieces = param_pieces(self.model)
 
-        def put(dst: torch.Tensor, value: np.ndarray, kind: str) -> None:
-            src = np.ascontiguousarray(from_flax(np.asarray(value), kind))
+        def put(dst: torch.Tensor, value: np.ndarray, kind: str,
+                param=None) -> None:
+            value = from_flax(np.asarray(value), kind)
+            if id(param) in pieces:
+                value = pieces[id(param)].of(value)
+            src = np.ascontiguousarray(value)
+            if not src.flags.writeable:
+                src = src.copy()
             dst.copy_(torch.from_numpy(src).to(dst.dtype))
 
         self.step = int(leaves["step"])
         for name, _, t, kind in params + stats:
-            put(t, leaves[name], kind)
+            put(t, leaves[name], kind, t)
         if self.optimizer is not None:
             self.optimizer.load_slots(
                 leaves, [(name[len("params/"):], t,
                           lambda v, kind=kind: from_flax(v, kind))
                          for name, _, t, kind in params])
         if self.ema_params is not None:
-            for (name, _, _, kind), e in zip(params, self.ema_params):
-                put(e, leaves["ema_params/" + name[len("params/"):]], kind)
+            for (name, _, t, kind), e in zip(params, self.ema_params):
+                put(e, leaves["ema_params/" + name[len("params/"):]], kind,
+                    t)
 
     def update(self, ema_decay: float = 0.0,
                grad_norm: Optional[torch.Tensor] = None) -> None:

@@ -11,17 +11,20 @@ over every process (``parallel.collectives.global_total``), as the JAX
 loss, one program over the global batch, does: the processes' losses and
 metrics are then partials that add up to the global ones, and so do their
 gradients. A weight is this process's own count. The processes of a ``seq``
-group hold the same rows: a model that returns a slice of each row's
-positions (``gpt_long``) has the task take that slice's targets, and a
-model that returns whole rows on each of them (every BERT trunk, the
-gathered ``bert_long`` included) has its weights divided by the ``seq``
-ways, so that every denominator counts each example and token once. Metrics that every process
+or ``pipe`` group hold the same rows (``Mesh.replicas`` of them each): a
+model that returns a slice of each row's positions (``gpt_long``) has the
+task take that slice's targets, and a model that returns whole rows on
+each of them (every BERT trunk, the gathered ``bert_long`` and the
+pipelined trunk's last stage included) has its weights divided by the
+replicas, so that every denominator counts each example and token once. Metrics that every process
 computes whole are listed in the task's ``replicated_metrics``. A task's ``eval_derived`` maps a metric name to a
 function of the aggregated eval metrics (the trainer adds it after the
 cross-batch aggregation). Detection (Mask R-CNN) is
 ``train/detection_task.py``. A model whose output carries MoE aux losses
 adds them to the objective at the ST-MoE weights (``MOE_LOAD_BALANCE_WEIGHT``,
-``MOE_ROUTER_Z_WEIGHT``), as the JAX tasks do.
+``MOE_ROUTER_Z_WEIGHT``), as the JAX tasks do; a MoE trunk and the
+pipelined trunk get the task's mesh (their experts or layers across
+processes, and the router's global-batch statistics).
 
 ``train.remat`` recomputes the train forward in the backward, where the JAX
 tasks wrap it in ``jax.checkpoint`` (:func:`remat`).
@@ -40,7 +43,7 @@ from torch import nn
 from ..config import ExperimentConfig
 from ..models import build_model
 from ..parallel.collectives import gather_batches, global_total
-from ..parallel.mesh import Mesh, build_mesh, process_count
+from ..parallel.mesh import Mesh, build_mesh
 
 Batch = Dict[str, torch.Tensor]
 
@@ -296,11 +299,12 @@ class MlmTask:
     as ``moe_load_balance`` and ``moe_router_z``). Eval metrics carry their
     own weights: the MLM ones by token (``mlm_loss__weight``,
     ``mlm_accuracy__weight``), the rest by example (``eval_weight``).
-    ``bert_pipelined`` runs its stacked trunk as the plain layer scan on
-    one device; the preset's ``n_microbatches`` and ``mesh.pipe`` are
-    printed and ignored (the schedule across devices is ROADMAP A.10).
-    ``bert_long`` gets the mesh, as JAX gives it the trainer's mesh and
-    batch axes.
+    ``bert_pipelined`` gets the mesh and runs its stacked trunk under the
+    GPipe schedule across a ``pipe`` axis; on one process it runs the plain
+    layer scan, and the preset's ``n_microbatches`` and ``mesh.pipe`` are
+    printed as ignored. ``bert_long`` and a MoE trunk get the mesh, as JAX
+    gives the long and pipelined trunks the trainer's mesh and batch axes
+    (and GSPMD the MoE layers).
     """
 
     exact_eval = True
@@ -311,12 +315,13 @@ class MlmTask:
         self.cfg = cfg
         self.device = device
         self.mesh = mesh if mesh is not None else build_mesh(cfg.mesh)
-        if cfg.model.name == "bert_pipelined":
+        if cfg.model.name == "bert_pipelined" and \
+                self.mesh.pipe_ways == 1:
             print(f"[dlcfn-tpu] bert_pipelined on one device: the plain "
                   f"layer scan; n_microbatches="
                   f"{cfg.model.kwargs.get('n_microbatches', 4)} and "
                   f"mesh.pipe={cfg.mesh.pipe} are ignored (the GPipe "
-                  f"schedule across devices is ROADMAP A.10)")
+                  f"schedule runs across the processes of a pipe axis)")
         dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
             else torch.float32
         kwargs = dict(cfg.model.kwargs)
@@ -324,7 +329,8 @@ class MlmTask:
         kwargs.setdefault("max_len", max(cfg.data.seq_len, 128))
         if attention_impl is not None:
             kwargs["attention_impl"] = attention_impl
-        if cfg.model.name == "bert_long":
+        if cfg.model.name in ("bert_long", "bert_pipelined") or \
+                kwargs.get("num_experts", 0):
             kwargs.setdefault("mesh", self.mesh)
         self.model = build_model(cfg.model.name, cfg.model.num_classes,
                                  dtype, device=device, **kwargs)
@@ -342,10 +348,10 @@ class MlmTask:
               batch["mlm_positions"])
         out = remat(self.model, apply, generator, *xs) \
             if train and self.remat else apply(*xs)
-        # Whole rows on every process of a seq group: each holds a 1/n
-        # share of them.
+        # Whole rows on every process of a seq or pipe group: each holds a
+        # 1/n share of them.
         mask = example_mask(batch, batch["input_ids"].shape[0]) \
-            / self.mesh.seq_ways
+            / self.mesh.replicas
         weights = batch["mlm_weights"].float() * mask[:, None]
         mlm_ce = cross_entropy(out["mlm_logits"], batch["mlm_ids"])
         token_denom = torch.clamp(global_total(weights.sum()), min=1e-6)
@@ -410,7 +416,7 @@ class CausalLmTask:
         kwargs.setdefault("max_len", max(cfg.data.seq_len, 128))
         if attention_impl is not None:
             kwargs["attention_impl"] = attention_impl
-        if cfg.model.name == "gpt_long":
+        if cfg.model.name == "gpt_long" or kwargs.get("num_experts", 0):
             kwargs.setdefault("mesh", self.mesh)
         self.model = build_model(cfg.model.name, 0, dtype, device=device,
                                  **kwargs)
@@ -437,7 +443,7 @@ class CausalLmTask:
             mine = self.model.seq_slice(inputs.shape[1])
             targets, weights = targets[:, mine], weights[:, mine]
         else:
-            weights = weights / self.mesh.seq_ways
+            weights = weights / self.mesh.replicas
         ce = cross_entropy(logits, targets)
         denom = torch.clamp(global_total(weights.sum()), min=1e-6)
         ce_loss = (ce * weights).sum() / denom
@@ -466,13 +472,6 @@ def build_task(cfg: ExperimentConfig, device: torch.device,
     MoE, pipelined and long-context trunks, GPT and its long-context trunk,
     Mask R-CNN). ``mesh`` defaults to ``build_mesh(cfg.mesh)``."""
     name = cfg.model.name
-    if process_count() > 1 and cfg.model.kwargs.get("num_experts", 0):
-        raise NotImplementedError(
-            f"model {name!r} with num_experts="
-            f"{cfg.model.kwargs['num_experts']} over {process_count()} "
-            f"processes: the router's load-balance statistics are the "
-            f"global batch's in the JAX step, and MoE across devices (the "
-            f"expert axis) is not ported yet (ROADMAP A.10)")
     if name.startswith("transformer_nmt"):
         return Seq2SeqTask(cfg, device, attention_impl)
     if name.startswith(("resnet", "vit")):

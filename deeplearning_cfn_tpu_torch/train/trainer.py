@@ -9,11 +9,14 @@ update. What carries over exactly:
 - the mesh (``parallel/mesh.py``): the global batch must split over its
   data ways (``validate_batch``), and each process trains its contiguous
   block of rows (the processes of a ``seq`` group the same block, each its
-  slice of the sequence). The task's loss is this process's share of the
-  global-batch mean (``train/task.py``), so the gradients, summed over
-  every process in one flat buffer right after the backward and before the
-  clip, are the single-program gradients, and ``grad_norm`` is their global
-  norm. Metrics are summed over the processes once per log boundary (and
+  slice of the sequence; those of a ``pipe`` group the same block, each its
+  stage). The task's loss is this process's share of the global-batch mean
+  (``train/task.py``), so the gradients, summed right after the backward
+  and before the clip — a replicated leaf's over every process, a piece of
+  a leaf split over ``pipe`` or ``expert`` over the processes that hold
+  that piece, in one flat buffer per group — are the single-program
+  gradients, and ``grad_norm`` is their global norm (every piece counted
+  once, ``Optimizer.grad_norm``). Metrics are summed over the processes once per log boundary (and
   per eval batch), not per step. ``examples_per_sec_per_device`` divides by
   the mesh's devices;
 
@@ -79,7 +82,6 @@ from ..obs.trace import span
 from ..parallel.collectives import all_reduce_sum_, reduce_scalars
 from ..parallel.mesh import build_mesh, validate_batch
 from .graphs import GraphedStep, StepGenerator
-from .optim import global_norm
 from .state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -201,8 +203,9 @@ class Trainer:
         With one process it reads no value from the host, so a CUDA graph
         can capture it (``train/graphs.py``)."""
         metrics = self.grads_and_metrics(state, batch, self.generator)
-        all_reduce_sum_(state.optimizer.grads())
-        grad_norm = global_norm(state.optimizer.grads())
+        all_reduce_sum_(state.optimizer.grads(),
+                        state.optimizer.grad_groups())
+        grad_norm = state.optimizer.grad_norm()
         state.update(self.cfg.train.ema_decay, grad_norm)
         metrics["grad_norm"] = grad_norm
         return metrics

@@ -12,7 +12,8 @@ for one host; with more it joins the process group, on this host's card,
 with the hang timeout ``train.hang_timeout_s`` as the group's timeout when
 it is set), then runs the experiment. At the end every process prints its
 flash kernel launches over its training steps after the first (their
-counts per step do not depend on the batch).
+counts per step do not depend on the batch) and, on a card, its peak device
+memory.
 
 ``--profiler-port`` is refused: the JAX worker starts a ``jax.profiler``
 server there, and torch has no counterpart. ``train.profile_steps`` writes
@@ -67,6 +68,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                            hooks=(launches.hook,))
     print(f"[dlcfn-tpu] worker {spec.process_id} {launches.line()}",
           flush=True)
+    if device.type == "cuda":
+        import torch
+
+        print(f"[dlcfn-tpu] worker {spec.process_id} peak device memory "
+              f"{torch.cuda.max_memory_allocated(device)} bytes", flush=True)
     if spec.process_id == 0:
         print(f"[dlcfn-tpu] worker {spec.process_id} final metrics: "
               f"{ {k: round(v, 4) for k, v in final.items()} }")

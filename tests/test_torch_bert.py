@@ -15,9 +15,10 @@ package's, on the CPU.
   every parameter as the Flax tree does (shapes in Flax's layout);
 - the BERT variants: the MoE and pipelined presets build their tasks
   (``tests/test_torch_moe.py`` and ``tests/test_torch_pipelined.py`` hold
-  them against JAX), and the MoE trunk refuses across processes, naming
-  A.10; the long-context trunk builds (``tests/test_torch_long.py`` holds
-  it against JAX).
+  them against JAX), and the MoE task builds across processes on the
+  preset's ``expert=8`` mesh, each process holding one expert of every MoE
+  layer (``tests/test_torch_pipe_expert.py`` trains it); the long-context
+  trunk builds (``tests/test_torch_long.py`` holds it against JAX).
 
 Inputs are numpy arrays made from seeds and handed to both packages.
 """
@@ -157,7 +158,7 @@ def test_bert_base_shapes_and_names_match_flax():
         assert want[name] == shape, name
 
 
-def test_unported_bert_variants_name_their_roadmap_item(monkeypatch):
+def test_unported_bert_variants_name_their_roadmap_item():
     moe = build_task(apply_overrides(get_preset("bert_moe_wikipedia"), []),
                      torch.device("meta"))
     assert isinstance(moe, MlmTask)
@@ -167,15 +168,23 @@ def test_unported_bert_variants_name_their_roadmap_item(monkeypatch):
         apply_overrides(get_preset("bert_pipelined_wikipedia"), []),
         torch.device("meta"))
     assert isinstance(pipelined, MlmTask)
-    # bert_long is ported (tests/test_torch_long.py); what still refuses is
-    # the MoE trunk across processes, naming A.10.
+    # bert_long is ported (tests/test_torch_long.py), and so is the MoE
+    # trunk across processes: on the preset's expert=8 mesh over 8
+    # processes each holds one expert of every MoE layer and the router
+    # whole.
     from deeplearning_cfn_tpu_torch.models.bert_long import LongBert
-    from deeplearning_cfn_tpu_torch.train import task as t_task
+    from deeplearning_cfn_tpu_torch.parallel import build_mesh, param_pieces
 
     long = build_task(apply_overrides(get_preset("bert_long_wikipedia"), []),
                       torch.device("meta"))
     assert isinstance(long, MlmTask) and isinstance(long.model, LongBert)
-    monkeypatch.setattr(t_task, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        build_task(apply_overrides(get_preset("bert_moe_wikipedia"), []),
-                   torch.device("meta"))
+    cfg = apply_overrides(get_preset("bert_moe_wikipedia"), [])
+    mesh = build_mesh(cfg.mesh, num_processes=8, index=3)
+    task = build_task(cfg, torch.device("meta"), mesh=mesh)
+    moe = task.model.encoder.layer[1].moe_mlp
+    assert moe.num_experts == 8 and tuple(moe.w_in.shape) == (1, 768, 3072)
+    assert tuple(moe.router.weight.shape) == (8, 768)
+    pieces = param_pieces(task.model)
+    assert len(pieces) == 4 * 6  # w_in, b_in, w_out, b_out of 6 layers
+    assert {(p.axis, p.start, p.stop, p.whole) for p in pieces.values()} \
+        == {("expert", 3, 4, 8)}

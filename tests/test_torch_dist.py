@@ -25,8 +25,9 @@ checkpoints) against the JAX package's ``data=2`` mesh, on the CPU.
   the two processes (each keeping the slots it owns), trains on as JAX
   does (losses and every leaf within 1e-5);
 - (d) ``choose_backend`` on faked topologies, the mesh's refusals naming
-  ROADMAP A.10, a ``(data, seq)`` mesh's coordinates and groups in JAX's
-  order, ZeRO-1's ownership and slot bytes.
+  ROADMAP A.10 (``model``, ``spatial``), a ``(data, seq)`` mesh's and the
+  pipe and expert presets' meshes' coordinates and groups in JAX's order,
+  ZeRO-1's ownership and slot bytes.
 """
 
 import json
@@ -360,7 +361,7 @@ def test_backend_without_a_card_raises():
         choose_backend(ClusterSpec(hosts=["a", "b"]), "gpu", 0)
 
 
-@pytest.mark.parametrize("axis", ["model", "spatial", "expert", "pipe"])
+@pytest.mark.parametrize("axis", ["model", "spatial"])
 def test_mesh_refuses_a_non_batch_axis_across_processes(axis):
     cfg = MeshConfig(data=-1, **{axis: 2})
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
@@ -418,6 +419,66 @@ def test_mesh_resolves_data_and_seq_coordinates_as_jax(rank):
                                         16 * mesh.seq_index + 16)
     assert build_mesh(cfg, num_processes=4, index=rank ^ 1).data_index \
         == mesh.data_index  # the other process of the seq group
+
+
+# name: (mesh, processes); the preset meshes of bert_moe_wikipedia and
+# bert_pipelined_wikipedia, and the pipelined one with two data ways.
+RESOLVED = {"expert8": (dict(data=-1, expert=8), 8),
+            "pipe4": (dict(data=-1, pipe=4), 4),
+            "data2_pipe4": (dict(data=2, pipe=4), 8)}
+
+
+@pytest.mark.parametrize("name,rank", [(n, r) for n, (_, w) in
+                                       RESOLVED.items() for r in range(w)])
+def test_mesh_resolves_pipe_and_expert_coordinates_as_jax(name, rank):
+    """Each process sits where JAX's mesh puts the device of its index; its
+    pipe, expert, data and holder groups are the devices along JAX's axes;
+    the rows it reads are its block over the batch axes (``expert`` one of
+    them, ``pipe`` not: a pipe group reads the same rows); its piece of a
+    split leaf is the rows at its coordinate."""
+    from deeplearning_cfn_tpu.parallel.sharding import \
+        batch_sharding as j_batch_sharding
+    from deeplearning_cfn_tpu_torch.parallel import batch_sharding
+    from deeplearning_cfn_tpu_torch.parallel.sharding import piece_rows
+
+    axes, world = RESOLVED[name]
+    cfg = MeshConfig(**axes)
+    j_mesh = j_build_mesh(cfg, devices=jax.devices()[:world])
+    ids = np.vectorize(lambda d: d.id)(j_mesh.devices)
+    names = j_mesh.axis_names
+    mesh = build_mesh(cfg, num_processes=world, index=rank)
+    assert dict(j_mesh.shape) == mesh.shape
+    at = tuple(mesh.coords[a] for a in names)
+    assert ids[at] == rank
+
+    def along(*axes_):
+        idx = tuple(slice(None) if a in axes_ else at[i]
+                    for i, a in enumerate(names))
+        return [int(x) for x in ids[idx].reshape(-1)]
+
+    assert mesh.pipe_ranks == along("pipe")
+    assert mesh.expert_ranks == along("expert")
+    assert mesh.data_ranks == along("dcn_data", "data", "expert")
+    for axis in ("pipe", "expert"):
+        others = [a for a in names if a != axis]
+        assert mesh.holder_ranks(axis) == along(*others)
+    spec = j_batch_sharding(j_mesh, 1).spec[0]
+    spec = {spec} if isinstance(spec, str) else set(spec)
+    assert {a for a in ("data", "expert") if mesh.shape[a] > 1} <= spec \
+        <= {"dcn_data", "data", "expert"}
+    ways = mesh.shape["data"] * mesh.shape["expert"]
+    assert mesh.data_ways == ways and mesh.replicas == world // ways
+    rows = batch_sharding(mesh, 16)
+    assert rows == slice(16 // ways * mesh.data_index,
+                         16 // ways * (mesh.data_index + 1))
+    assert mesh.data_index == mesh.coords["data"] * mesh.shape["expert"] \
+        + mesh.coords["expert"]
+    assert piece_rows(mesh, "pipe", 12) == slice(
+        12 // mesh.pipe_ways * mesh.pipe_index,
+        12 // mesh.pipe_ways * (mesh.pipe_index + 1))
+    assert piece_rows(mesh, "expert", 8) == slice(
+        8 // mesh.expert_ways * mesh.expert_index,
+        8 // mesh.expert_ways * (mesh.expert_index + 1))
 
 
 @pytest.mark.parametrize("slice_type", ["v5p-8", "v4-32", "v5e-4",

@@ -227,22 +227,27 @@ def test_flax_layout_names_every_gpt_small_leaf():
         sum(p.numel() for p in tm.parameters())
 
 
-def test_refusals_name_their_roadmap_items(monkeypatch):
+def test_refusals_name_their_roadmap_items():
     moe = build_model("gpt_tiny", 0, torch.float32, num_experts=2)
     assert [lyr.num_experts for lyr in moe.layer] == [0, 2]
-    # gpt_long is ported (tests/test_torch_long.py); a MoE GPT across
-    # processes still refuses, naming A.10.
+    # gpt_long is ported (tests/test_torch_long.py), and so is a MoE GPT
+    # across processes: on an expert=2 mesh each process holds one expert
+    # of every MoE layer (the JAX lm shares BERT's MoE rules).
     assert not hasattr(type(build_model("gpt_long", 0, torch.float32)),
                        "decode_step")
     from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.parallel import build_mesh
     from deeplearning_cfn_tpu_torch.presets import get_preset
     from deeplearning_cfn_tpu_torch.train import task as t_task
 
-    monkeypatch.setattr(t_task, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        t_task.build_task(apply_overrides(get_preset("gpt_small_lm"), [
-            "model.name=gpt_tiny", "model.kwargs.num_experts=2"]),
-            torch.device("meta"))
+    cfg = apply_overrides(get_preset("gpt_small_lm"), [
+        "model.name=gpt_tiny", "model.kwargs.num_experts=2",
+        "mesh.expert=2"])
+    mesh = build_mesh(cfg.mesh, num_processes=2, index=1)
+    task = t_task.build_task(cfg, torch.device("meta"), mesh=mesh)
+    moe = task.model.layer[1].moe_mlp
+    assert moe.mesh is mesh and moe.ways == 2
+    assert tuple(moe.w_out.shape) == (1, 128, 64)
 
 
 # -- generation ---------------------------------------------------------------

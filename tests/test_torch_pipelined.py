@@ -13,7 +13,9 @@
   the stacked LayerNorm scales and biases included, and a 3-step LAMB
   trajectory with weight decay 0.1 ends within 1e-5 of JAX's;
 - ``scan_layers`` equals a loop over the layers, forward and gradient;
-  ``gpipe`` raises naming ROADMAP A.10; dropout is refused;
+  ``gpipe`` on one process (one stage, 4 microbatches) equals the scan,
+  forward and gradient (``tests/test_torch_pipe_expert.py`` runs it across
+  processes); dropout is refused;
 - ``MlmTask`` builds the ``bert_pipelined_wikipedia`` preset (printing that
   ``n_microbatches`` and ``mesh.pipe`` are ignored on one device), and
   ``flax_layout`` names every leaf of the full-width model as the Flax tree
@@ -220,8 +222,27 @@ def test_scan_layers_equals_a_loop():
 
 
 def test_gpipe_raises_and_dropout_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        gpipe(None, {}, {}, mesh=None, n_microbatches=4)
+    from deeplearning_cfn_tpu_torch.parallel.mesh import build_mesh as \
+        t_build_mesh
+
+    rng = np.random.RandomState(1)
+    stack = {"w": torch.tensor(rng.normal(0, 0.5, (3, 4, 4)),
+                               dtype=torch.float32, requires_grad=True),
+             "b": torch.tensor(rng.normal(0, 0.5, (3, 4)),
+                               dtype=torch.float32, requires_grad=True)}
+    stage = scan_layers(lambda p, st: {"h": torch.tanh(st["h"] @ p["w"]
+                                                       + p["b"])})
+    x = torch.tensor(rng.normal(0, 1, (8, 4)), dtype=torch.float32)
+    mesh = t_build_mesh(num_processes=1)
+    got = gpipe(stage, stack, {"h": x}, mesh=mesh, n_microbatches=4)["h"]
+    want = stage(stack, {"h": x})["h"]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    g_got = torch.autograd.grad(got.sum(), list(stack.values()))
+    g_want = torch.autograd.grad(want.sum(), list(stack.values()))
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="microbatches"):
+        gpipe(stage, stack, {"h": x}, mesh=mesh, n_microbatches=3)
     with pytest.raises(ValueError, match="dropout"):
         build_model("bert_pipelined", 2, torch.float32, dropout_rate=0.1,
                     **TINY_KW)

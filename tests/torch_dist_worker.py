@@ -1,5 +1,5 @@
-"""One process of a multi-process group for ``tests/test_torch_dist.py`` and
-``tests/test_torch_seq.py``.
+"""One process of a multi-process group for ``tests/test_torch_dist.py``,
+``tests/test_torch_seq.py`` and ``tests/test_torch_pipe_expert.py``.
 
     python tests/torch_dist_worker.py SPEC.json RANK
 
@@ -8,13 +8,17 @@ joins a gloo group of ``world`` processes on the CPU through the port's
 spec's ``ops`` (sequence-parallel attention over the whole group as one
 ``seq`` group: this process's slice of seeded global Q, K, V, the output
 and the gradients of a seeded projection of it, to
-``<out>/<op>-p<rank>.npz``), then every case in turn: the preset with the
+``<out>/<op>-p<rank>.npz``; with ``kind`` ``gpipe`` or ``moe``, the GPipe
+schedule of a seeded stage function or a seeded ``MoeMlp`` on the op's
+mesh, this process's rows and pieces, with the same outputs), then every
+case in turn: the preset with the
 case's overrides (its mesh resolved over the group), the initial state from
 a file of JAX-named leaves (``TrainState.load_named``) or, with
 ``restore``, from a committed checkpoint of either package, and the given
 global batches, of which this process trains its rows through the port's
 ``Trainer`` (``chip_smoke.fed_run``). Each case writes
-``<out>/<case>-p<rank>.npz`` (the leaves this process holds) and, on
+``<out>/<case>-p<rank>.npz`` (the leaves this process holds; a piece of
+a split leaf as ``<name>::<first row>``) and, on
 process 0, ``<out>/<case>.json`` (the per-step losses summed over the
 processes, and the sequence collectives' calls); with ``ckpt`` every process writes its part of a checkpoint of
 the final state there. Imports torch, the port and ``chip_smoke`` only.
@@ -51,8 +55,14 @@ def run_case(case, out_dir, rank):
         torch, cfg, chip_smoke.load_batches(case["batches"]), "cpu",
         init=init, total_steps=case.get("total_steps"))
     comm_timer.enabled = False
-    leaves = {name: value for name, value in state.named_leaves()
-              if not isinstance(value, Elsewhere)}
+    from deeplearning_cfn_tpu_torch.parallel import Rows
+
+    leaves = {}
+    for name, value in state.named_leaves():
+        if isinstance(value, Rows):
+            leaves[f"{name}::{value.start}"] = value.data
+        elif not isinstance(value, Elsewhere):
+            leaves[name] = value
     np.savez(os.path.join(out_dir, f"{case['name']}-p{rank}.npz"), **leaves)
     if case.get("ckpt"):
         save_checkpoint(case["ckpt"], state.step, state)
@@ -65,7 +75,86 @@ def run_case(case, out_dir, rank):
                       fh)
 
 
+def run_gpipe(op, out_dir, rank):
+    """``gpipe`` of ``tanh(h @ w + b)`` layers stacked [L, F, F] on the
+    op's mesh: this process's stage and rows; the loss, a seeded projection
+    of the output, is divided by the pipe ways (each stage computes it)."""
+    from deeplearning_cfn_tpu_torch.config import MeshConfig
+    from deeplearning_cfn_tpu_torch.ops.pipeline import gpipe, scan_layers
+    from deeplearning_cfn_tpu_torch.parallel import batch_sharding, \
+        build_mesh
+
+    mesh = build_mesh(MeshConfig(**op["mesh"]))
+    rng = np.random.RandomState(op["seed"])
+    b, f, layers = op["shape"]
+    w = rng.normal(0, 0.5, (layers, f, f)).astype(np.float32)
+    bias = rng.normal(0, 0.5, (layers, f)).astype(np.float32)
+    x = rng.standard_normal((b, f)).astype(np.float32)
+    proj = rng.standard_normal((b, f)).astype(np.float32)
+    rows = batch_sharding(mesh, b)
+    n = layers // mesh.pipe_ways
+    mine = slice(mesh.pipe_index * n, (mesh.pipe_index + 1) * n)
+    params = {"w": torch.tensor(w[mine], requires_grad=True),
+              "b": torch.tensor(bias[mine], requires_grad=True)}
+    xt = torch.tensor(x[rows], requires_grad=True)
+    stage = scan_layers(lambda p, st: {"h": torch.tanh(st["h"] @ p["w"]
+                                                       + p["b"])})
+    out = gpipe(stage, params, {"h": xt}, mesh=mesh,
+                n_microbatches=op["m"])["h"]
+    ((out * torch.from_numpy(proj[rows])).sum()
+     / mesh.pipe_ways).backward()
+    np.savez(os.path.join(out_dir, f"{op['name']}-p{rank}.npz"),
+             out=out.detach().numpy(), dx=xt.grad.numpy(),
+             dw=params["w"].grad.numpy(), db=params["b"].grad.numpy(),
+             rows=[rows.start, rows.stop], layers=[mine.start, mine.stop])
+
+
+def run_moe(op, out_dir, rank):
+    """A seeded f32 ``MoeMlp`` on the op's mesh: this process's rows and
+    experts; the loss is a seeded projection of the output plus the two
+    aux losses (this process's shares of them)."""
+    from deeplearning_cfn_tpu_torch.config import MeshConfig
+    from deeplearning_cfn_tpu_torch.models.moe import MoeMlp
+    from deeplearning_cfn_tpu_torch.parallel import batch_sharding, \
+        build_mesh
+
+    mesh = build_mesh(MeshConfig(**op["mesh"]))
+    b, s, f, e, m = op["shape"]
+    rng = np.random.RandomState(op["seed"])
+    x = rng.standard_normal((b, s, f)).astype(np.float32)
+    proj = rng.standard_normal((b, s, f)).astype(np.float32)
+    weights = {k: rng.normal(0, 0.5, shape).astype(np.float32)
+               for k, shape in (("router", (e, f)), ("w_in", (e, f, m)),
+                                ("b_in", (e, m)), ("w_out", (e, m, f)),
+                                ("b_out", (e, f)))}
+    moe = MoeMlp(f, e, m, dtype=torch.float32, mesh=mesh)
+    experts = slice(mesh.expert_index * e // mesh.expert_ways,
+                    (mesh.expert_index + 1) * e // mesh.expert_ways)
+    with torch.no_grad():
+        moe.router.weight.copy_(torch.from_numpy(weights["router"]))
+        for k in ("w_in", "b_in", "w_out", "b_out"):
+            getattr(moe, k).copy_(torch.from_numpy(weights[k][experts]))
+    rows = batch_sharding(mesh, b)
+    xt = torch.tensor(x[rows], requires_grad=True)
+    y, aux = moe(xt)
+    ((y * torch.from_numpy(proj[rows])).sum() + aux["load_balance"]
+     + aux["router_z"]).backward()
+    np.savez(os.path.join(out_dir, f"{op['name']}-p{rank}.npz"),
+             out=y.detach().numpy(), dx=xt.grad.numpy(),
+             load_balance=aux["load_balance"].item(),
+             router_z=aux["router_z"].item(),
+             router=moe.router.weight.grad.numpy(),
+             **{k: getattr(moe, k).grad.numpy()
+                for k in ("w_in", "b_in", "w_out", "b_out")},
+             rows=[rows.start, rows.stop],
+             experts=[experts.start, experts.stop])
+
+
 def run_op(op, out_dir, rank):
+    if op.get("kind") == "gpipe":
+        return run_gpipe(op, out_dir, rank)
+    if op.get("kind") == "moe":
+        return run_moe(op, out_dir, rank)
     from deeplearning_cfn_tpu_torch.config import MeshConfig
     from deeplearning_cfn_tpu_torch.ops.ring_attention import \
         ring_attention_sharded
