@@ -395,7 +395,7 @@ order; a failing phase raises, so the exit code is nonzero:
 30. the ``seq`` axis across 2 processes (ROADMAP A.10 part 2b) on phase
    28a's dry-run stack, gloo-staged: ``cli train --stack`` with
    ``mesh.seq=2`` for ``bert_long`` with ring attention and ``gpt_long``
-   with Ulysses (full width cut to 2 layers, 4096, bf16, 4 steps): the mesh
+   with Ulysses (full width cut to 2 layers, 4096, bf16, 3 steps): the mesh
    line says ``seq=2``, each process launches per step what
    ``SEQ_PER_STEP`` says (the ring none, Ulysses the three kernels per
    layer and microbatch); one process on the same global batches within
@@ -406,7 +406,7 @@ order; a failing phase raises, so the exit code is nonzero:
 31. the ``pipe`` and ``expert`` axes across 4 processes (ROADMAP A.10 parts
    2c + 2d) on a four-host dry-run stack (``--slice-type v5p-16``),
    gloo-staged, at full width (hidden 768, 12 layers, 12 heads, MLP 3072,
-   vocab 30522, sequence 128, bf16, batch 64, 4 steps): ``cli train
+   vocab 30522, sequence 128, bf16, batch 64, 3 steps): ``cli train
    --stack`` of ``bert_pipelined_wikipedia`` on ``(data=1, pipe=4)`` (three
    layers per process, the GPipe schedule over 8 microbatches) and of
    ``bert_moe_wikipedia`` on ``(data=1, expert=4)`` (two of the 8 experts
@@ -418,6 +418,23 @@ order; a failing phase raises, so the exit code is nonzero:
    never summed beyond it, the losses moving by ``PE_MOVE_FACTOR`` bounds;
    the control's processes time the stage hops and the masked sum, or the
    all-to-alls, and the gradient sum apart from the step.
+32. the ``model`` and ``spatial`` axes across 2 processes (ROADMAP A.10
+   part 2e) on phase 28a's dry-run stack, gloo-staged: ``cli train
+   --stack`` of ``gpt_small_lm`` at full width with ``mesh.model=2``
+   (``(data=1, model=2)``: 6 of the 12 heads and 1536 of the 3072 hidden
+   units per process, bf16, batch 16 x 1024, 4 steps, dropout 0) and of
+   ``maskrcnn_coco`` on its published mesh (``data=-1, spatial=2`` over 2
+   processes: each its 512 rows of every 1024² image, bf16, batch 8, 3
+   steps): the mesh line says ``model=2`` or ``spatial=2``, each process
+   launches per step what ``TS_PER_STEP`` says (12 of each kernel, one
+   per layer, for GPT; none for Mask R-CNN) and prints its step p50 and
+   peak device memory; one process on the same global batches within the
+   job's ``TS_LOSS_REL_BOUND``, a control whose gradients are never summed
+   beyond it, the losses moving by ``TS_MOVE_FACTOR`` bounds; the control's
+   processes time the ``model`` group's sums, or the conv halos and the
+   pyramid's gather, apart from the step; and the three kernels timed and
+   held against their plain versions at the per-process shape
+   [16,6,1024,64] causal.
 
 ``python3 chip_smoke.py --profile`` instead profiles steady greedy decode
 ticks, ``--profile-train`` steady full-width bf16 NMT train steps, and
@@ -440,6 +457,10 @@ three kernels, the patch convolution, the bf16 GEMMs, layer norm, dropout
 and AdamW), and for BERT
 and GPT the same step with ``train.remat`` in turns (step time, peak
 memory, kernel launches); none prints a result line.
+
+The script keeps the bytecode of what its processes import under
+``deeplearning_cfn_tpu_torch/_build/pycache`` (``keep_bytecode``), so
+that the processes it starts do not each compile torch from source.
 
 Every ``run_experiment`` phase trains in a fresh workdir under
 ``deeplearning_cfn_tpu_torch/_build/`` and saves its checkpoint only at the
@@ -5373,7 +5394,7 @@ LONG_TINY = ["model.kwargs.hidden_size=64", "model.kwargs.num_layers=2",
 # (phase 28a's dry-run stack): bert_long with ring attention and gpt_long
 # with Ulysses, full width cut to 2 layers, at 4096, bf16, mesh (data=1,
 # seq=2): both processes take the same rows, each its half of every row.
-SEQ_STEPS = 4
+SEQ_STEPS = 3
 SEQ_COMMON = ["model.kwargs.num_layers=2", "train.seed=0",
               "train.log_every_steps=1", "schedule.warmup_steps=1",
               "train.eval_every_steps=1000000",
@@ -5418,7 +5439,7 @@ SEQ_MOVE_FACTOR = 10
 # with the preset's 8 microbatches, and BERT-MoE on (data=1, expert=4), two
 # of the 8 experts per process (dropout 0: each process would draw its own
 # masks). Both read the same global batches as one process would.
-PE_RANKS, PE_STEPS = 4, 4
+PE_RANKS, PE_STEPS = 4, 3
 PE_COMMON = ["train.seed=0", "train.log_every_steps=1",
              "schedule.warmup_steps=0", "schedule.base_lr=1e-3",
              "train.global_batch=64", "data.num_train_examples=256",
@@ -5452,6 +5473,59 @@ PE_CUTS = ["global batch 64 (preset 1024): four processes share one card",
 # PE_MOVE_FACTOR bounds from the first (largest change over the steps).
 PE_LOSS_REL_BOUND = {"pipe": 2e-4, "expert": 3e-4}
 PE_MOVE_FACTOR = 10
+# Phase 32: the model and spatial axes across 2 processes that share the
+# card over gloo (phase 28a's dry-run stack): gpt_small_lm at full width on
+# (data=1, model=2), each process with 6 of the 12 heads and half of each
+# MLP, and maskrcnn_coco on its published mesh (data=-1, spatial=2 over 2
+# processes: data=1), each process on its 512 rows of every image. Both
+# read the same global batches as one process would.
+TS_RANKS = 2
+TS_STEPS = {"model": 4, "spatial": 3}
+TS_COMMON = ["train.seed=0", "train.log_every_steps=1",
+             "schedule.warmup_steps=1", "train.eval_every_steps=1000000",
+             "checkpoint.every_steps=1000000"]
+TS_JOBS = {
+    "model": ("gpt_small_lm", TS_COMMON + [
+        f"train.global_batch={GPT_BATCH}", "schedule.base_lr=3e-3",
+        "model.kwargs.dropout_rate=0.0", "data.num_eval_examples=16",
+        "train.eval_batch=16", "mesh.model=2"]),
+    "spatial": ("maskrcnn_coco", TS_COMMON + [
+        f"train.global_batch={MRCNN_BATCH}", f"schedule.base_lr={MRCNN_LR}",
+        "data.num_train_examples=24", "data.num_eval_examples=8",
+        "train.eval_batch=8", "eval.detect_topk=100"]),
+}
+# Launches per step of each process: GPT's 12 causal self-attentions, each
+# on its 6 heads (the forward, dK/dV and dQ kernels once per layer); Mask
+# R-CNN launches no kernel of ours.
+TS_PER_STEP = {"model": {"fwd": 12, "dkdv": 12, "dq": 12},
+               "spatial": {"fwd": 0, "dkdv": 0, "dq": 0}}
+TS_SHAPE = (GPT_BATCH, GPT_HEADS // 2, GPT_SEQ, GPT_SEQ, HEAD_DIM)
+TS_CUTS = ["gpt_small_lm: batch 16 x 1024 (preset 512), 4 steps, warmup 1, "
+           "dropout 0 (preset 0.1; the sound run and one process must draw "
+           "the same masks), mesh.model=2 (no preset sets it), the final "
+           "eval on 16 sequences",
+           "maskrcnn_coco: batch 8 (preset 64) at 1024², 3 steps, warmup "
+           "1, 24 training and 8 eval images",
+           "two processes share one card over gloo"]
+# 32's bound on |2-process loss - 1-process loss| / loss, per step, for
+# each job, set between two readings of this cell on the card (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md, phase 32): the sound run and the control,
+# the same two processes with their gradients never summed. GPT on the
+# model axis parts from one process by 1.105e-5 (bf16 products over half
+# the heads and hidden units, summed in bf16), its control by 7.365e-4
+# (AdamW's first steps move by the gradient's sign, which the partial
+# gradients of the replicated leaves mostly keep); Mask R-CNN on the
+# spatial axis by 1.666e-3 to 5.336e-3 over five calls (3.365e-4 already
+# at the first step, before any update: bf16 convolutions over 512-row
+# halves round apart from whole images', and the proposals' top-k
+# follows; the third step's loss wanders between calls, on both sides,
+# with the atomics of ROI-align's backward), its control by 1.344e-1 to
+# 1.414e-1. The job fails when the control does not exceed its bound, or
+# when the stack's losses move by less than the job's TS_MOVE_FACTOR
+# bounds from the first (largest change over the steps; Mask R-CNN's
+# three steps moved 2.188e-1 to 2.214e-1).
+TS_LOSS_REL_BOUND = {"model": 5e-5, "spatial": 2e-2}
+TS_MOVE_FACTOR = {"model": 10, "spatial": 5}
 
 
 def dp_batches(cfg, steps, ranks=DP_RANKS):
@@ -6454,6 +6528,187 @@ def pe_phase(torch, root):
     return out
 
 
+def ts_stack_train(torch, root, name, accelerator="gpu"):
+    """32a/32c: ``cli train --stack`` on phase 28a's two-host dry-run
+    stack with the job's mesh: each process's launches per step held to
+    :data:`TS_PER_STEP`, its step p50 and peak device memory, the mesh
+    line, finite losses."""
+    import re
+
+    preset, overrides = TS_JOBS[name]
+    workdir = os.path.join(root, f"ts_{name}_work")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "train",
+         "--preset", preset, "--stack", "dp", "--state-dir",
+         os.path.join(root, "dp_stacks"), "--max-steps",
+         str(TS_STEPS[name]), "--accelerator", accelerator,
+         f"workdir={workdir}", *overrides],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "job finished (restarts=0" not in out:
+        raise AssertionError(f"train --stack ({name}): rc "
+                             f"{proc.returncode}\n{out[-4000:]}")
+    run_dir = os.path.join(workdir, preset)
+    launches, peak, step_s = {}, {}, {}
+    for r in range(TS_RANKS):
+        with open(os.path.join(run_dir, "logs",
+                               f"attempt0-host{r}.log")) as fh:
+            text = fh.read()
+        if r == 0:
+            mesh_line = [ln for ln in text.splitlines() if "mesh[" in ln]
+        counts_r, steps = worker_launches(text, r)
+        launches[f"rank{r}"] = counts_r
+        m = re.search(rf"worker {r} peak device memory (\d+) bytes", text)
+        t = re.search(rf"worker {r} step time p50 ([0-9.e+-]+) s", text)
+        if accelerator == "gpu" and (m is None or t is None):
+            raise AssertionError(f"{name} rank {r} printed no peak memory "
+                                 f"or step time")
+        peak[f"rank{r}"] = int(m.group(1)) if m else 0
+        step_s[f"rank{r}"] = float(t.group(1)) if t else 0.0
+        per_step = {k: v / steps for k, v in counts_r.items()}
+        log(f"  rank {r}: step p50 {step_s[f'rank{r}'] * 1e3:.2f} ms; "
+            f"launches over {steps} steps {counts_r}, per step {per_step} "
+            f"(expected {TS_PER_STEP[name]}); peak "
+            f"{peak[f'rank{r}'] / 2**30:.2f} GiB [{card_line()}]")
+        if accelerator == "gpu" and per_step != TS_PER_STEP[name]:
+            raise AssertionError(f"{name} rank {r} per-step launches "
+                                 f"{per_step} != {TS_PER_STEP[name]}")
+    axis = f"{name}=2"
+    if not mesh_line or axis not in mesh_line[0]:
+        raise AssertionError(f"no mesh line with {axis}: {mesh_line}")
+    recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    steps = [r for r in recs if "loss" in r and "span" not in r
+             and "final_eval_loss" not in r]
+    losses = [r["loss"] for r in steps]
+    if len(losses) != TS_STEPS[name] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: bad losses {losses}")
+    log(f"  {mesh_line[0].strip()}")
+    log(f"  losses {' '.join(f'{x:.6f}' for x in losses)}; job {wall:.1f} s "
+        f"[{card_line()}]")
+    return dict(losses=losses, launches=launches, peak_bytes=peak,
+                step_time_p50_s=step_s, wall_s=wall,
+                mesh=mesh_line[0].strip())
+
+
+def ts_reference(torch, root, name, stacked, device=None):
+    """32b/32d: one process on the same global batches; per-step losses
+    within the job's :data:`TS_LOSS_REL_BOUND`. The control, the same two
+    processes with their gradients never summed, must exceed it, and the
+    stack run's losses must move by the job's :data:`TS_MOVE_FACTOR`
+    bounds. The control's processes time the ``model`` group's sums, or
+    the halos and the pyramid's gather (``comm_timer``, the card
+    synchronized around each exchange), and the gradient sum apart from
+    the step."""
+    import statistics
+
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    device = device or DEVICE
+    preset, overrides = TS_JOBS[name]
+    steps = TS_STEPS[name]
+    cfg = apply_overrides(get_preset(preset), overrides)
+    batches = dp_batches(cfg, steps, ranks=1)
+    losses = fed_run(torch, cfg, batches, device)[0]
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    path = os.path.join(root, f"ts_{name}_batches.npz")
+    save_batches(path, batches)
+    control = spawn_dp_workers(root, f"ts_{name}_unsummed", dict(
+        mode="fed", preset=preset, overrides=overrides, batches=path,
+        grad_sum="discard", comm=True,
+        accelerator="gpu" if device != "cpu" else "cpu"), ranks=TS_RANKS)
+    relative = lambda got: [abs(a - b) / abs(b) for a, b in zip(got, losses)]
+    rel, ctl = relative(stacked["losses"]), relative(control[0]["losses"])
+    got = stacked["losses"]
+    moved = max(abs(x - got[0]) for x in got) / abs(got[0])
+    bound = TS_LOSS_REL_BOUND[name]
+    kinds = ("model",) if name == "model" else ("halo", "spatial")
+    # Steps after the first (its warm-up), per process.
+    per_step = lambda c, key: [b.get(key, 0.0) - a.get(key, 0.0) for a, b in
+                               zip(c["comm_s"][:-1], c["comm_s"][1:])]
+    p50 = lambda xs: statistics.median(xs) if xs else 0.0
+    timing = dict(
+        comm_p50_s={f"rank{r}": {k: p50(per_step(c, k)) for k in kinds}
+                    for r, c in enumerate(control)},
+        grad_sum_p50_s={f"rank{r}": p50(c["grad_sum_s"][1:])
+                        for r, c in enumerate(control)},
+        step_p50_s={f"rank{r}": p50(c["step_time_s"][1:])
+                    for r, c in enumerate(control)},
+        comm_calls_per_step={k: v / steps for k, v in
+                             control[0]["comm_calls"].items()})
+    what = "the model group's sums" if name == "model" \
+        else "the conv halos (halo) and the pyramid's gather (spatial)"
+    log(f"  one process: {' '.join(f'{x:.6f}' for x in losses)}; max "
+        f"relative difference {max(rel):.3e} (bound {bound:.1e}); the "
+        f"control (gradients never summed): "
+        f"{' '.join(f'{x:.6f}' for x in control[0]['losses'])}, "
+        f"{max(ctl):.3e}; the stack's losses moved {moved:.3e} at most")
+    for r in range(TS_RANKS):
+        key = f"rank{r}"
+        comm = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
+                         timing["comm_p50_s"][key].items())
+        log(f"  rank {r}: gloo-staged {what} p50 per step: {comm}; the "
+            f"gradient sum {timing['grad_sum_p50_s'][key] * 1e3:.2f} ms; "
+            f"of a step p50 {timing['step_p50_s'][key] * 1e3:.2f} ms (the "
+            f"control's steps 2-{steps}, the card synchronized around each "
+            f"exchange) [{card_line()}]")
+    log(f"  calls per step {timing['comm_calls_per_step']}; cuts: "
+        f"{TS_CUTS}")
+    checks = {"within the bound": max(rel) <= bound,
+              "the control beyond it": max(ctl) > bound,
+              "the losses moved": moved >= TS_MOVE_FACTOR[name] * bound}
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: 2 processes against 1: {checks}; "
+                             f"relative {rel}, control {ctl}, moved {moved}")
+    return dict(losses=losses, max_rel=max(rel), bound=bound,
+                control_losses=control[0]["losses"], control_max_rel=max(ctl),
+                moved=moved, **timing)
+
+
+def ts_phase(torch, attn, root):
+    """Phase 32: for the model axis (gpt_small_lm) and the spatial axis
+    (maskrcnn_coco), the stack run and its one-process reference with the
+    control, in ``root`` (phase 28a made the stack); then the three
+    kernels timed and held against their plain versions at the model
+    axis's per-process shape."""
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
+    torch.cuda.empty_cache()
+    out = {}
+    for name in TS_JOBS:
+        t = time.perf_counter()
+        stacked = ts_stack_train(torch, root, name)
+        torch.cuda.empty_cache()
+        out[name] = dict(stack=stacked,
+                         reference=ts_reference(torch, root, name, stacked))
+        out[name]["phase_s"] = time.perf_counter() - t
+        log(f"  {name} {out[name]['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+    rows = time_training_kernels(torch, attn, TS_SHAPE, "gpt_tp_self",
+                                 (20, 3, 5, 2))
+    check_train_kernels(torch, attn, rows, TS_SHAPE)
+    out["rows"] = rows
+    return out
+
+
+def keep_bytecode() -> None:
+    """Let this process and every process it starts cache the bytecode of
+    what they import under the checkout's ``_build/pycache``. An
+    environment that sets ``PYTHONDONTWRITEBYTECODE`` and ships no
+    ``.pyc`` files makes each new process compile torch's ~1900 modules
+    from source again (7.4 s of a worker's 25 s start on the H100's host);
+    the cache leaves the installed packages untouched."""
+    prefix = os.path.join(REPO, "deeplearning_cfn_tpu_torch", "_build",
+                          "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2], int(sys.argv[3]))
@@ -6489,6 +6744,7 @@ def main() -> int:
         print("chip_smoke.py: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    keep_bytecode()
     sys.path.insert(0, REPO)
     from deeplearning_cfn_tpu_torch import kernels
     from deeplearning_cfn_tpu_torch.ops import attention as attn
@@ -6641,6 +6897,13 @@ def main() -> int:
                   "expert=4 (full width, bf16) against one process")
         pipe_expert = pe_phase(torch, root)
         log(f"  phase 31 {time.perf_counter() - t:.1f} s")
+
+        t = phase("32. the model and spatial axes across 2 processes: train "
+                  "--stack of gpt_small_lm with mesh.model=2 and of "
+                  "maskrcnn_coco on its spatial=2 mesh (full width, bf16) "
+                  "against one process")
+        model_spatial = ts_phase(torch, attn, root)
+        log(f"  phase 32 {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row in (served, int8):
@@ -6656,7 +6919,8 @@ def main() -> int:
     rows = rows + [train_rows["flash_attn_fwd"], bert_row,
                    gpt_rows["flash_attn_fwd"], decode_row] + verify_rows \
         + [vit_rows["flash_attn_fwd"]] \
-        + [r["flash_attn_fwd"] for r in long_rows]
+        + [r["flash_attn_fwd"] for r in long_rows] \
+        + [model_spatial["rows"]["flash_attn_fwd"]]
     timings = ("kernel_ms_before", "device_ms", "device_ms_strided",
                "device_ms_before", "plain_ms", "bound_ms", "library_ms",
                "library_device_ms")
@@ -6719,7 +6983,9 @@ def main() -> int:
                            *(r["max_abs_err"] for r in verify_rows),
                            vit_rows["flash_attn_fwd"]["max_abs_err"],
                            *(r["flash_attn_fwd"]["max_abs_err"]
-                             for r in long_rows)),
+                             for r in long_rows),
+                           model_spatial["rows"]["flash_attn_fwd"][
+                               "max_abs_err"]),
         "max_abs_err_f32": errs["float32"],
         "max_abs_err_bf16": max(errs["bfloat16"], bert_row["max_abs_err"],
                                 gpt_rows["flash_attn_fwd"]["max_abs_err"],
@@ -6727,7 +6993,9 @@ def main() -> int:
                                 *(r["max_abs_err"] for r in verify_rows),
                                 vit_rows["flash_attn_fwd"]["max_abs_err"],
                                 *(r["flash_attn_fwd"]["max_abs_err"]
-                                  for r in long_rows)),
+                                  for r in long_rows),
+                                model_spatial["rows"]["flash_attn_fwd"][
+                                    "max_abs_err"]),
         "ms": sum(r["kernel_ms"] for r in rows),
         **{key: sum(r[key] for r in rows) for key in timings},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
@@ -6748,11 +7016,15 @@ def main() -> int:
                                seq[name]["stack"]["launches"].items()}
                for name in SEQ_JOBS},
             # Phase 31's four train --stack processes of each job, over
-            # their steps after the first.
+            # their steps after the first; phase 32's two likewise.
             **{f"pipe_expert_{name}": {
                 r: c["fwd"] for r, c in
                 pipe_expert[name]["stack"]["launches"].items()}
-               for name in PE_JOBS}},
+               for name in PE_JOBS},
+            **{f"model_spatial_{name}": {
+                r: c["fwd"] for r, c in
+                model_spatial[name]["stack"]["launches"].items()}
+               for name in TS_JOBS}},
         "shapes": rows,
     }
     if sum(fwd["variant_launches"].values()) != fwd["launches"]:
@@ -6769,10 +7041,11 @@ def main() -> int:
     records = [fwd]
     for name, key in (("flash_attn_bwd_dkdv", "dkdv"),
                       ("flash_attn_bwd_dq", "dq")):
-        # The NMT training shape, GPT's, ViT's and the two long ones, one
-        # call at each.
+        # The NMT training shape, GPT's, ViT's, the two long ones and
+        # GPT's per-process shape on the model axis, one call at each.
         shapes = [train_rows[name], gpt_rows[name], vit_rows[name],
-                  *(r[name] for r in long_rows)]
+                  *(r[name] for r in long_rows),
+                  model_spatial["rows"][name]]
         paths = {"train": trained, "gpt_train": gpt, "vit_train": vit,
                  "vit_window": windows["vit_run"],
                  "nmt_window": windows["nmt_run"],
@@ -6791,7 +7064,8 @@ def main() -> int:
             "max_abs_err": max(bwd_errs[name],
                                gpt_rows[name]["max_abs_err"],
                                vit_rows[name]["max_abs_err"],
-                               *(r[name]["max_abs_err"] for r in long_rows)),
+                               *(r[name]["max_abs_err"] for r in long_rows),
+                               model_spatial["rows"][name]["max_abs_err"]),
             "ms": sum(r["kernel_ms"] for r in shapes),
             **{t: sum(r[t] for r in shapes) for t in timings},
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
@@ -6806,7 +7080,11 @@ def main() -> int:
                 **{f"pipe_expert_{job}": {
                     r: c[key] for r, c in
                     pipe_expert[job]["stack"]["launches"].items()}
-                   for job in PE_JOBS}},
+                   for job in PE_JOBS},
+                **{f"model_spatial_{job}": {
+                    r: c[key] for r, c in
+                    model_spatial[job]["stack"]["launches"].items()}
+                   for job in TS_JOBS}},
             "shapes": shapes,
         })
         if sum(records[-1]["variant_launches"].values()) \
@@ -6843,6 +7121,8 @@ def main() -> int:
         "long_presets": long,
         "seq_parallel": seq,
         "pipe_expert_parallel": pipe_expert,
+        "model_spatial_parallel": {k: v for k, v in model_spatial.items()
+                                   if k != "rows"},
         "script_s": time.perf_counter() - script_t0,
     }
     log(json.dumps({"summary": summary}))

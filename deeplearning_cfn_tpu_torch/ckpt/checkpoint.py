@@ -13,8 +13,9 @@ restores the other's checkpoints:
   ``manifest_p<i>.json`` maps each name process ``i`` wrote to its array
   ``<name>::0`` in ``shards_p<i>.npz`` and the index range that array
   covers: the whole leaf for a replicated leaf (process 0's) or a ZeRO-1
-  slot (its owner's), a range of dim 0 for a piece of a leaf split over
-  ``pipe`` or ``expert`` (a ``Rows``: its stage's layers, its experts).
+  slot (its owner's), a range of one dim for a piece of a leaf split over
+  ``pipe``, ``model`` or ``expert`` (a ``Rows``: its stage's layers, its
+  heads' columns or rows, its experts).
   A leaf another process writes is an ``Elsewhere``, named in the
   manifest only;
 - the two-phase commit: each process's shard object and manifest, then its
@@ -98,9 +99,9 @@ def save_checkpoint(directory: StoreOrPath, step: int, state,
         if data is None:
             tree_manifest["leaves"][name] = {"kind": "none"}
             continue
-        start, rows = 0, data
+        start, dim, rows = 0, 0, data
         if isinstance(data, Rows):
-            start, rows = data.start, np.asarray(data.data)
+            start, dim, rows = data.start, data.dim, np.asarray(data.data)
             data = Elsewhere(data.shape, str(rows.dtype))
         tree_manifest["leaves"][name] = {
             "kind": "array", "shape": list(data.shape),
@@ -111,7 +112,7 @@ def save_checkpoint(directory: StoreOrPath, step: int, state,
         arrays[akey] = rows
         index = [[0, int(s)] for s in rows.shape]
         if index:
-            index[0] = [start, start + int(rows.shape[0])]
+            index[dim] = [start, start + int(rows.shape[dim])]
         proc_manifest["leaves"][name] = [{"key": akey, "index": index}]
 
     def write_files():
@@ -292,16 +293,16 @@ def read_leaves(directory: StoreOrPath, step: int,
             if data.shape == shape:
                 return data
         out = np.zeros(shape, dtype=entry["dtype"])
-        covered = np.zeros(shape[0], dtype=bool) if shape else None
+        covered = np.zeros(shape, dtype=bool)
         for p, e in entries:
             idx = tuple(slice(a, b) for a, b in e["index"])
             out[idx] = load(p)[e["key"]]
-            if covered is not None and idx:
-                covered[idx[0]] = True
-        if covered is not None and not covered.all():
+            covered[idx] = True
+        if not covered.all():
             raise ValueError(
                 f"leaf {name!r}: shards cover only {int(covered.sum())}/"
-                f"{len(covered)} rows — corrupt or incomplete checkpoint")
+                f"{covered.size} entries — corrupt or incomplete "
+                f"checkpoint")
         return out
 
     try:

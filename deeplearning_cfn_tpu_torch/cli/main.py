@@ -43,14 +43,16 @@ times, each attempt resuming from the last committed checkpoint (logs in
 ``<workdir>/<preset>/logs/attempt<N>-host<I>.log`` and ``launch.jsonl``). A
 dry-run stack runs its host as a local process on the card (or the CPU with
 ``--accelerator cpu``; the JAX package forces the CPU there). A stack of
-several hosts trains data-, sequence-, pipeline- and expert-parallel:
-every host's worker joins the process group at host 0 (a dry-run stack's
-hosts are local processes that share this machine's cards, on a free
-local port), the mesh resolves over those processes (``mesh.seq`` > 1
-splits each row's sequence for ``bert_long``/``gpt_long``, ``mesh.pipe``
-> 1 the pipelined trunk's layers into GPipe stages, ``mesh.expert`` > 1 a
-MoE trunk's experts), and a preset whose mesh needs the ``model`` or
-``spatial`` axis over them is refused before any launch (ROADMAP A.10). ``generate`` collapses the preset's mesh
+several hosts trains on every mesh axis: every host's worker joins the
+process group at host 0 (a dry-run stack's hosts are local processes that
+share this machine's cards, on a free local port), the mesh resolves over
+those processes (``mesh.seq`` > 1 splits each row's sequence for
+``bert_long``/``gpt_long``, ``mesh.pipe`` > 1 the pipelined trunk's
+layers into GPipe stages, ``mesh.expert`` > 1 a MoE trunk's experts,
+``mesh.model`` > 1 the transformers' heads and hidden units,
+``mesh.spatial`` > 1 Mask R-CNN's image rows), and ``train.step_window``
+> 1 over them is refused before any launch (ROADMAP A.10). ``generate``
+collapses the preset's mesh
 (a ``gpt_long`` checkpoint generates on one device, recomputing the causal
 forward each step). ``info`` and ``doctor`` report torch, CUDA, the
 devices and the mesh of this process. Serve requests are JSONL lines
@@ -254,6 +256,7 @@ def _train_on_stack(args, cfg: ExperimentConfig) -> int:
     from ..provision.topology import slice_topology
     from ..runtime.cluster import DEFAULT_COORDINATOR_PORT, ClusterSpec, \
         free_local_port
+    from ..train.trainer import check_window
 
     store = StackStore(args.state_dir)
     state = store.load_or_none(args.stack)
@@ -267,6 +270,7 @@ def _train_on_stack(args, cfg: ExperimentConfig) -> int:
         return 1
     try:
         build_mesh(cfg.mesh, num_processes=len(state.hosts), index=0)
+        check_window(cfg.train.step_window, len(state.hosts))
     except (NotImplementedError, ValueError) as e:
         print(f"[dlcfn-tpu] ERROR: stack {args.stack!r} has "
               f"{len(state.hosts)} hosts: {e}", file=sys.stderr)

@@ -17,9 +17,10 @@ With ``num_experts > 0`` every ``moe_every``-th layer's FFN is a
 Mixture-of-Experts FFN (``models/moe.py``; GShard's every-other-layer
 convention at the default 2), and the outputs gain ``moe_load_balance`` and
 ``moe_router_z``, the per-layer means of the MoE layers' aux losses. Its
-``mesh`` (the task's) goes down to the MoE layers: across processes they
-split the experts over the ``expert`` axis and take the router's
-statistics over the global batch.
+``mesh`` (the task's) goes down to every layer: across processes the MoE
+layers split the experts over the ``expert`` axis and take the router's
+statistics over the global batch, and the attention and MLP split their
+heads and hidden units over the ``model`` axis.
 
 Module names follow the Flax tree (``encoder.layer.3`` for ``layer_3``), so
 ``convert.params_from_flax`` and ``convert.flax_layout`` carry the weights
@@ -43,7 +44,7 @@ from torch import nn
 from . import register_model
 from .moe import init_moe_, moe_flops
 from .transformer import Dense, Embed, LayerNorm, MoeAuxAccumulator, \
-    TransformerLayer, is_moe_layer, padding_bias
+    TransformerLayer, is_moe_layer, padding_bias, xavier_uniform_
 
 
 class BertEncoder(nn.Module):
@@ -216,9 +217,7 @@ def init_weights(model: PretrainHeads, generator: torch.Generator) -> None:
                 if any(mod is h for h in heads):
                     _lecun_normal_(mod.weight, generator)
                 else:
-                    fan_out, fan_in = mod.weight.shape
-                    limit = (6.0 / (fan_in + fan_out)) ** 0.5
-                    mod.weight.uniform_(-limit, limit, generator=generator)
+                    xavier_uniform_(mod, generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, LayerNorm):

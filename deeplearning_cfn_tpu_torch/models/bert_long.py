@@ -13,7 +13,12 @@ self-attention a :class:`SeqParallelAttention`:
   (``ops/ring_attention.py``: K/V rotate around the ``seq`` group, no
   head-count constraint) or ``"ulysses"`` (``ops/ulysses.py``: two
   all-to-alls around the flash kernels; needs the heads divisible by the
-  ``seq`` ways). Another name raises ``KeyError``, as in JAX.
+  ``seq`` ways). Another name raises ``KeyError``, as in JAX;
+- with ``model`` > 1 each process holds ``num_heads / model`` heads
+  (``models/transformer.py``'s tensor-parallel layers) and the ring or
+  Ulysses runs on those; Ulysses then needs the heads divisible by
+  ``model × seq``, and a model that does not divide them is refused when
+  it is built, with the numbers.
 
 Packed-sequence contract: no padding bias (``input_mask`` is ignored; the
 synthetic MLM source emits full-length sequences), so a slice of a row
@@ -66,9 +71,19 @@ class SeqParallelAttention(MultiHeadAttention):
                  attention_impl: str = "auto", dropout_rate: float = 0.0,
                  seq_impl: str = "ring", mesh=None):
         super().__init__(features, num_heads, dtype, attention_impl,
-                         dropout_rate)
+                         dropout_rate, mesh)
         self.seq_impl = seq_impl
         self.mesh = mesh
+        if seq_impl == "ulysses" and mesh is not None and \
+                mesh.model_ways > 1 and \
+                num_heads % (mesh.model_ways * mesh.seq_ways):
+            raise ValueError(
+                f"ulysses attention needs num_heads ({num_heads}) divisible "
+                f"by model x seq ({mesh.model_ways} x {mesh.seq_ways} = "
+                f"{mesh.model_ways * mesh.seq_ways}): each process holds "
+                f"{num_heads} / {mesh.model_ways} heads and swaps them over "
+                f"{mesh.seq_ways} sequence slices; use ring attention for "
+                f"head counts that don't divide")
 
     def _attend(self, q, k, v, bias, causal):
         # Packed-sequence contract: no padding bias (it would have to travel
@@ -109,7 +124,7 @@ def add_seq_layers(module: torch.nn.Module, num_layers: int,
         setattr(module, f"layer_{i}_self_attn_norm",
                 LayerNorm(hidden_size, dtype))
         setattr(module, f"layer_{i}_mlp",
-                Mlp(hidden_size, mlp_dim, dtype, dropout_rate))
+                Mlp(hidden_size, mlp_dim, dtype, dropout_rate, mesh))
         setattr(module, f"layer_{i}_mlp_norm", LayerNorm(hidden_size, dtype))
 
 

@@ -112,8 +112,9 @@ class TransformerCausalLm(nn.Module):
         return self._logits(x)
 
     def init_cache(self, batch: int) -> List[KvCache]:
-        """Per-layer KV caches [B, H, max_len, D] (zeros, compute dtype)."""
-        shape = (batch, self.num_heads, self.max_len,
+        """Per-layer KV caches [B, H, max_len, D] (zeros, compute dtype; H
+        the heads each attention of this process holds)."""
+        shape = (batch, self.layer[0].self_attn.num_heads, self.max_len,
                  self.hidden_size // self.num_heads)
         return [(torch.zeros(shape, dtype=self.dtype, device=self.device),
                  torch.zeros(shape, dtype=self.dtype, device=self.device))

@@ -33,6 +33,20 @@ Layout and what is kept of Flax:
 
 ``init_weights`` draws Flax's initial distributions from an explicit
 generator; ``forward_flops`` counts the forward FLOPs from the shapes.
+
+The ``spatial`` axis (``maskrcnn_coco``'s ``MeshConfig(data=-1,
+spatial=2)``): with a ``mesh`` whose ``spatial`` axis is above 1, each
+process gets its rows of every image (the trainer's ``local_batch``), the
+trunk and the FPN run on them (their convs and the pool with halos,
+``models/resnet.py``; the FPN's upsample and P6's ``[::2]`` are local),
+and then each pyramid level is gathered over the ``spatial`` group
+(``parallel.collectives.gather_rows``, whose backward is a
+reduce-scatter). The RPN and everything after it (anchors, proposals,
+ROI-align, the heads) run on the whole pyramid, the same on each process
+of the group. Every level must split evenly and P5's rows must stay even
+for P6's stride, so each process's rows must be a multiple of 64: the
+image size a multiple of 64 × ``spatial``, which is refused otherwise
+(128 is the smallest over two processes).
 """
 
 from __future__ import annotations
@@ -47,6 +61,7 @@ from torch import nn
 
 from . import register_model
 from . import resnet
+from ..parallel.collectives import gather_rows
 from .resnet import BatchNorm, BottleneckBlock, Conv, max_pool_same
 from .transformer import Dense
 
@@ -63,9 +78,10 @@ class ResNetFeatures(nn.Module):
     """ResNet-50 trunk returning C2..C5 (the port's ResNet blocks)."""
 
     def __init__(self, stage_sizes=(3, 4, 6, 3), num_filters: int = 64,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, mesh=None):
         super().__init__()
         self.dtype = dtype
+        self.split_mesh = mesh
         self.stage_sizes = list(stage_sizes)
         self.conv_init = Conv(3, num_filters, 7, 2, dtype)
         self.norm_init = BatchNorm(num_filters, dtype)
@@ -86,7 +102,7 @@ class ResNetFeatures(nn.Module):
         x = images.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         x = torch.relu(self.norm_init(self.conv_init(x), train))
-        x = max_pool_same(x, 3, 2)
+        x = max_pool_same(x, 3, 2, self.split_mesh)
         feats = {}
         k = 0
         for i, count in enumerate(self.stage_sizes):
@@ -226,12 +242,20 @@ class MaskRCNN(nn.Module):
     its ROI-aligns."""
 
     def __init__(self, num_classes: int, dtype: torch.dtype = torch.bfloat16,
-                 num_anchors_per_cell: int = 3):
+                 num_anchors_per_cell: int = 3, mesh=None):
         super().__init__()
         self.num_classes = num_classes
         self.dtype = dtype
-        self.backbone = ResNetFeatures(dtype=dtype)
+        # Split rows only where the axis is real: a one-way mesh runs the
+        # plain path.
+        self.split_mesh = mesh if mesh is not None and \
+            mesh.spatial_ways > 1 else None
+        self.backbone = ResNetFeatures(dtype=dtype, mesh=self.split_mesh)
         self.fpn = FPN(self.backbone.out_features, dtype)
+        for trunk in (self.backbone, self.fpn):
+            for mod in trunk.modules():
+                if isinstance(mod, Conv):
+                    mod.mesh = self.split_mesh
         self.rpn = RpnHead(num_anchors_per_cell, dtype)
         self.box_head = BoxHead(num_classes, dtype=dtype)
         self.mask_head = MaskHead(num_classes, dtype)
@@ -240,8 +264,22 @@ class MaskRCNN(nn.Module):
                 ) -> Dict[str, object]:
         """images [B,H,W,3] → {"pyramid": {2..6: [B,C,H,W]},
         "rpn_logits": [B, A] f32, "rpn_deltas": [B, A, 4] f32}, the levels
-        concatenated in ascending order (``generate_anchors``' layout)."""
+        concatenated in ascending order (``generate_anchors``' layout).
+        Over a ``spatial`` axis ``images`` are this process's rows and the
+        pyramid comes back whole."""
+        mesh = self.split_mesh
+        if mesh is not None and images.shape[1] % 64:
+            ways = mesh.spatial_ways
+            raise ValueError(
+                f"images of {images.shape[1] * ways} rows over the spatial "
+                f"axis ({ways} ways): each process's rows must be a "
+                f"multiple of 64, so the image size a multiple of "
+                f"{64 * ways} (the smallest is {64 * ways})")
         pyramid = self.fpn(self.backbone(images, train))
+        if mesh is not None:
+            pyramid = {lvl: gather_rows(p, mesh).contiguous(
+                memory_format=torch.channels_last)
+                for lvl, p in pyramid.items()}
         outs = [self.rpn(pyramid[lvl])
                 for lvl in range(MIN_LEVEL, MAX_LEVEL + 1)]
         return {"pyramid": pyramid,

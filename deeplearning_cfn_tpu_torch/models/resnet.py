@@ -33,7 +33,22 @@ BatchNorm's statistics are mesh-wide, as in the JAX package, whose
 BatchNorm runs inside one program over the global batch: across processes
 the forward sums ``[Σx, Σx², count]`` in f32 over the process group and
 the backward sums the gradients of those sums (``parallel.global_sum``).
-With one process the statistics are the local means, as before.
+With one process the statistics are the local means, as before. Over a
+``spatial`` axis each process holds its rows of every image, so the sum
+over every process counts each pixel once; the processes of a ``model``
+group count their (identical) pixels once each, which leaves the means
+as they are.
+
+The ``spatial`` axis (Mask R-CNN's trunk, where XLA inserts the halos): a
+``Conv`` or :func:`max_pool_same` given a ``mesh`` whose ``spatial`` axis
+is above 1 runs on this process's rows of each image (dim 2, in group
+order) and takes the rows its windows need from its neighbours
+(``parallel.collectives.halo_rows``): as many as the **whole** image's
+SAME pads (:func:`same_pads` of the global height; the stem's 7×7/2 on
+1024 rows pads 2 above and 3 below, so the first process takes 3 rows from
+below and the second 2 from above), the image's edges padded with zeros
+(−∞ for the pool). A strided window needs each process's first global row
+to fall on the stride, so the local height must divide by it.
 """
 
 from __future__ import annotations
@@ -45,7 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.collectives import global_sum
+from ..parallel.collectives import global_sum, halo_rows
 from ..parallel.mesh import process_count
 from . import register_model
 
@@ -58,13 +73,29 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _split_rows(mesh) -> bool:
+    return mesh is not None and mesh.spatial_ways > 1
+
+
 def _pad_same(x: torch.Tensor, kernel: int, stride: int,
-              value: float = 0.0) -> Tuple[torch.Tensor, Tuple[int, int]]:
+              value: float = 0.0, mesh=None
+              ) -> Tuple[torch.Tensor, Tuple[int, int]]:
     """``x`` [B,C,H,W] and the symmetric padding left for the op: a
     symmetric SAME pad stays the op's own ``padding``; an asymmetric one is
-    applied here with ``value``."""
-    (h0, h1), (w0, w1) = (same_pads(x.shape[2], kernel, stride),
-                          same_pads(x.shape[3], kernel, stride))
+    applied here with ``value``. With rows split over ``mesh``'s
+    ``spatial`` axis, the rows come from the neighbours as the whole
+    image's pads ask (the module docstring)."""
+    w0, w1 = same_pads(x.shape[3], kernel, stride)
+    if _split_rows(mesh):
+        h = x.shape[2]
+        if h % stride:
+            raise ValueError(
+                f"a stride-{stride} window over {h} rows per process: each "
+                f"process's rows must divide by the stride")
+        h0, h1 = same_pads(h * mesh.spatial_ways, kernel, stride)
+        x = halo_rows(x, h0, h1, mesh, value)
+        return F.pad(x, (w0, w1, 0, 0), value=value), (0, 0)
+    h0, h1 = same_pads(x.shape[2], kernel, stride)
     if h0 == h1 and w0 == w1:
         return x, (h0, w0)
     return F.pad(x, (w0, w1, h0, h1), value=value), (0, 0)
@@ -73,7 +104,11 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int,
 class Conv(nn.Module):
     """Flax ``nn.Conv(use_bias=bias, padding="SAME", dtype=dtype)``: f32
     weight (OIHW) and bias, the input, weight and bias cast to ``dtype`` at
-    every call (Flax's ``promote_dtype``)."""
+    every call (Flax's ``promote_dtype``). ``mesh``, set by a model whose
+    trunk splits image rows (``models/maskrcnn.py``), makes it run on this
+    process's rows with halos (the module docstring)."""
+
+    mesh = None
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, dtype: torch.dtype = torch.bfloat16,
@@ -96,8 +131,15 @@ class Conv(nn.Module):
             # on a channels_last input, which corrupts the heap (torch
             # 2.13).
             s = self.stride
+            if _split_rows(self.mesh) and x.shape[2] % s:
+                raise ValueError(
+                    f"a stride-{s} 1x1 conv over {x.shape[2]} rows per "
+                    f"process: each process's first row must fall on the "
+                    f"stride")
             return F.conv2d(x[:, :, ::s, ::s], w, b)
-        x, pad = _pad_same(x, self.kernel, self.stride)
+        if self.kernel == 1:
+            return F.conv2d(x, w, b)
+        x, pad = _pad_same(x, self.kernel, self.stride, mesh=self.mesh)
         return F.conv2d(x, w, b, stride=self.stride, padding=pad)
 
 
@@ -236,10 +278,11 @@ def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
 
 
 def max_pool_same(x: torch.Tensor, kernel: int = 3,
-                  stride: int = 2) -> torch.Tensor:
+                  stride: int = 2, mesh=None) -> torch.Tensor:
     """Flax ``nn.max_pool(x, (k, k), (s, s), padding="SAME")``: the pad is
-    −∞, asymmetric as the convs'."""
-    x, pad = _pad_same(x, kernel, stride, value=-math.inf)
+    −∞, asymmetric as the convs'; with ``mesh``, over this process's rows
+    with halos, as :class:`Conv`."""
+    x, pad = _pad_same(x, kernel, stride, value=-math.inf, mesh=mesh)
     return F.max_pool2d(x, kernel, stride, padding=pad)
 
 

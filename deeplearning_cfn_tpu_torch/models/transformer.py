@@ -30,6 +30,21 @@ requantized on every write and dequantized in the gather.
 
 ``QuantDense`` and ``QuantEmbed`` are the int8 weight-only layers of the
 quantized serving copy (``serve/quant.py:quantize_model``).
+
+Tensor parallelism (a ``mesh`` with ``model`` > 1, training across
+processes): JAX's ``TRANSFORMER_PARAM_RULES`` split the query, key, value
+and ``mlp_in`` kernels by their output features and the ``attn_out`` and
+``mlp_out`` kernels by their input features, and GSPMD inserts the sums.
+Here a ``Dense`` with ``split="column"`` holds its process's share of the
+output features (and uses its columns of the whole, replicated bias), and
+one with ``split="row"`` its share of the input features: its partial
+products are summed over the ``model`` group
+(``parallel.collectives.model_sum``, in the compute dtype, as GSPMD sums
+the partial products of a bf16 product) before the whole bias is added
+once. So ``MultiHeadAttention`` holds ``num_heads / model`` heads
+(its per-row KV cache too) and runs ``fused_attention`` on them, and
+``Mlp`` its share of ``mlp_dim``; everything else is replicated over the
+group. Serving's paged path stays one process, as JAX's ``Engine`` does.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused_attention
+from ..parallel.collectives import model_copy, model_sum
 
 _NEG_INF = -1e30
 
@@ -59,22 +75,74 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
 
+def model_ways(mesh) -> int:
+    """The ``model`` axis's size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.model_ways
+
+
 class Dense(nn.Module):
     """``y = x @ W.T + b`` with f32 params, computed in ``dtype``
-    (``use_bias=False``: no ``b``, as the MoE router)."""
+    (``use_bias=False``: no ``b``, as the MoE router). With ``split`` and a
+    ``mesh`` whose ``model`` axis is above 1 it is this process's share of
+    a tensor-parallel layer (the module docstring): ``"column"`` holds
+    ``out_features / model`` output features, ``"row"`` ``in_features /
+    model`` input features; the bias stays whole."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.bfloat16, use_bias: bool = True):
+                 dtype: torch.dtype = torch.bfloat16, use_bias: bool = True,
+                 split: Optional[str] = None, mesh=None):
         super().__init__()
         self.dtype = dtype
+        self.split = split if model_ways(mesh) > 1 else None
+        bias = out_features  # whole, split or not
+        if self.split is not None:
+            # The leaf rules (parallel.sharding.PARAM_RULES) size the piece
+            # from this module's mesh.
+            self.mesh = mesh
+            ways = mesh.model_ways
+            dim = out_features if self.split == "column" else in_features
+            if dim % ways:
+                raise ValueError(f"{dim} features do not split over the "
+                                 f"model axis ({ways} ways)")
+            if self.split == "column":
+                out_features //= ways
+            else:
+                in_features //= ways
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.register_parameter(
-            "bias", nn.Parameter(torch.zeros(out_features)) if use_bias
-            else None)
+            "bias", nn.Parameter(torch.zeros(bias)) if use_bias else None)
+
+    def piece_of(self, whole: torch.Tensor) -> torch.Tensor:
+        """This process's piece of the whole ``[out, in]`` weight (all of
+        it unless split)."""
+        if self.split is None:
+            return whole
+        dim = 0 if self.split == "column" else 1
+        n = self.weight.shape[dim]
+        return whole.narrow(dim, self.mesh.model_index * n, n)
+
+    @property
+    def whole_shape(self) -> Tuple[int, int]:
+        """The whole layer's ``[out, in]`` weight shape."""
+        out, inp = self.weight.shape
+        if self.split == "column":
+            out *= self.mesh.model_ways
+        elif self.split == "row":
+            inp *= self.mesh.model_ways
+        return out, inp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        w = self.weight.to(self.dtype)
+        if self.split == "column":
+            n = self.weight.shape[0]
+            at = self.mesh.model_index * n
+            b = None if b is None else b[at:at + n]
+            return F.linear(model_copy(x, self.mesh).to(self.dtype), w, b)
+        if self.split == "row":
+            y = model_sum(F.linear(x.to(self.dtype), w), self.mesh)
+            return y if b is None else y + b
+        return F.linear(x.to(self.dtype), w, b)
 
 
 class QuantDense(nn.Module):
@@ -187,24 +255,35 @@ def _span_positions(pos: torch.Tensor, s: int, limit: int):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self- or cross-attention over [B, S, H*D] activations."""
+    """Self- or cross-attention over [B, S, H*D] activations. With a
+    ``mesh`` whose ``model`` axis is above 1, ``num_heads`` is the heads
+    this process holds (``H / model``): its query, key and value columns
+    and its rows of ``attn_out``."""
 
     def __init__(self, features: int, num_heads: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 attention_impl: str = "auto", dropout_rate: float = 0.0):
+                 attention_impl: str = "auto", dropout_rate: float = 0.0,
+                 mesh=None):
         super().__init__()
         if features % num_heads:
             raise ValueError(f"hidden size {features} not divisible by "
                              f"{num_heads} heads")
-        self.num_heads = num_heads
+        ways = model_ways(mesh)
+        if num_heads % ways:
+            raise ValueError(f"{num_heads} heads do not split over the "
+                             f"model axis ({ways} ways)")
+        self.num_heads = num_heads // ways
         self.head_dim = features // num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
         self.dropout_rate = dropout_rate
-        self.query = Dense(features, features, dtype)
-        self.key = Dense(features, features, dtype)
-        self.value = Dense(features, features, dtype)
-        self.attn_out = Dense(features, features, dtype)
+        column = lambda: Dense(features, features, dtype, split="column",
+                               mesh=mesh)
+        self.query = column()
+        self.key = column()
+        self.value = column()
+        self.attn_out = Dense(features, features, dtype, split="row",
+                              mesh=mesh)
 
     def _split(self, t: torch.Tensor) -> torch.Tensor:  # [B,S,F] -> [B,H,S,D]
         b, s, _ = t.shape
@@ -398,13 +477,18 @@ def _put_selected(pool: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
 
 
 class Mlp(nn.Module):
+    """The FFN; with a ``mesh`` whose ``model`` axis is above 1, this
+    process's ``mlp_dim / model`` hidden units."""
+
     def __init__(self, features: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, mesh=None):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.mlp_in = Dense(features, mlp_dim, dtype)
-        self.mlp_out = Dense(mlp_dim, features, dtype)
+        self.mlp_in = Dense(features, mlp_dim, dtype, split="column",
+                            mesh=mesh)
+        self.mlp_out = Dense(mlp_dim, features, dtype, split="row",
+                             mesh=mesh)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -424,7 +508,8 @@ class TransformerLayer(nn.Module):
     (``moe_mlp``, ``models/moe.py``; its norm keeps the name ``mlp_norm``)
     and makes ``forward`` return ``(x, moe_aux)``, as the JAX layer does;
     ``mesh`` is the MoE layer's (its experts and router statistics across
-    processes).
+    processes) and both sublayers' (their heads and hidden units over the
+    ``model`` axis).
     """
 
     def __init__(self, features: int, num_heads: int, mlp_dim: int,
@@ -436,7 +521,8 @@ class TransformerLayer(nn.Module):
         super().__init__()
         self.prenorm = prenorm
         attn = lambda: MultiHeadAttention(features, num_heads, dtype,
-                                          attention_impl, dropout_rate)
+                                          attention_impl, dropout_rate,
+                                          mesh)
         ln = lambda: LayerNorm(features, dtype)
         self.self_attn = attn()
         self.self_attn_norm = ln()
@@ -452,7 +538,7 @@ class TransformerLayer(nn.Module):
                                   moe_capacity_factor, moe_top_k, dtype,
                                   mesh)
         else:
-            self.mlp = Mlp(features, mlp_dim, dtype, dropout_rate)
+            self.mlp = Mlp(features, mlp_dim, dtype, dropout_rate, mesh)
         self.mlp_norm = ln()
 
     def _residual(self, x, sub, norm):
@@ -524,6 +610,17 @@ class MoeAuxAccumulator:
         return {k: v / max(self.n, 1) for k, v in self.totals.items()}
 
 
+def xavier_uniform_(dense: Dense, generator: torch.Generator) -> None:
+    """Flax's ``xavier_uniform`` kernel of ``dense``, drawn whole (a
+    tensor-parallel piece takes its part of the whole draw, so the
+    generator's stream and the layer are one process's)."""
+    fan_out, fan_in = dense.whole_shape
+    limit = (6.0 / (fan_in + fan_out)) ** 0.5
+    whole = torch.empty(dense.whole_shape, device=dense.weight.device)
+    whole.uniform_(-limit, limit, generator=generator)
+    dense.weight.copy_(dense.piece_of(whole))
+
+
 def init_flax_defaults(model: nn.Module, generator: torch.Generator,
                        tables) -> None:
     """The Flax init of the encoder-decoder, decoder-only and ViT families:
@@ -536,9 +633,7 @@ def init_flax_defaults(model: nn.Module, generator: torch.Generator,
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, Dense):
-                fan_out, fan_in = mod.weight.shape
-                limit = (6.0 / (fan_in + fan_out)) ** 0.5
-                mod.weight.uniform_(-limit, limit, generator=generator)
+                xavier_uniform_(mod, generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, LayerNorm):

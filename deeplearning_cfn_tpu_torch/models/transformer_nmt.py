@@ -100,7 +100,8 @@ class TransformerNMT(nn.Module):
     def __init__(self, vocab_size: int = 32000, hidden_size: int = 512,
                  num_layers: int = 6, num_heads: int = 8, mlp_dim: int = 2048,
                  max_len: int = 512, dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.0, attention_impl: str = "auto"):
+                 dropout_rate: float = 0.0, attention_impl: str = "auto",
+                 mesh=None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.vocab_size = vocab_size
@@ -115,7 +116,7 @@ class TransformerNMT(nn.Module):
         layer = lambda cross: TransformerLayer(
             hidden_size, num_heads, mlp_dim, dtype, prenorm=True,
             cross_attention=cross, attention_impl=attention_impl,
-            dropout_rate=dropout_rate)
+            dropout_rate=dropout_rate, mesh=mesh)
         self.enc = nn.ModuleList([layer(False) for _ in range(num_layers)])
         self.enc_norm = LayerNorm(hidden_size, dtype)
         self.dec = nn.ModuleList([layer(True) for _ in range(num_layers)])
@@ -127,9 +128,16 @@ class TransformerNMT(nn.Module):
 
     # -- caches ------------------------------------------------------------
 
+    @property
+    def local_heads(self) -> int:
+        """The heads each attention of this process holds (``num_heads``
+        over the mesh's ``model`` axis)."""
+        return self.dec[0].self_attn.num_heads
+
     def init_cache(self, batch: int) -> List[KvCache]:
-        """Per-layer dense decoder caches [B, H, max_len, D] (zeros)."""
-        shape = (batch, self.num_heads, self.max_len,
+        """Per-layer dense decoder caches [B, H, max_len, D] (zeros; H the
+        heads this process holds)."""
+        shape = (batch, self.local_heads, self.max_len,
                  self.hidden_size // self.num_heads)
         return [(torch.zeros(shape, dtype=self.dtype, device=self.device),
                  torch.zeros(shape, dtype=self.dtype, device=self.device))
@@ -280,14 +288,14 @@ def transformer_nmt(num_classes: int = 0, dtype=torch.bfloat16, *,
                     num_layers: int = 6, num_heads: int = 8,
                     mlp_dim: int = 2048, max_len: int = 512,
                     dropout_rate: float = 0.0, attention_impl: str = "auto",
-                    device: Optional[torch.device] = None):
+                    mesh=None, device: Optional[torch.device] = None):
     del num_classes  # vocab_size plays that role
     with torch.device(device or "cpu"):
         return TransformerNMT(
             vocab_size=vocab_size, hidden_size=hidden_size,
             num_layers=num_layers, num_heads=num_heads, mlp_dim=mlp_dim,
             max_len=max_len, dtype=dtype, dropout_rate=dropout_rate,
-            attention_impl=attention_impl)
+            attention_impl=attention_impl, mesh=mesh)
 
 
 @register_model("transformer_nmt_tiny")

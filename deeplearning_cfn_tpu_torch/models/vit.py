@@ -38,7 +38,8 @@ class VisionTransformer(nn.Module):
                  patch_size: int = 16, hidden_size: int = 384,
                  num_layers: int = 12, num_heads: int = 6,
                  mlp_dim: int = 1536, dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.0, attention_impl: str = "auto"):
+                 dropout_rate: float = 0.0, attention_impl: str = "auto",
+                 mesh=None):
         super().__init__()
         if image_size % patch_size:
             raise ValueError(f"image {image_size}x{image_size} not divisible "
@@ -54,7 +55,7 @@ class VisionTransformer(nn.Module):
         self.layer = nn.ModuleList([
             TransformerLayer(hidden_size, num_heads, mlp_dim, dtype,
                              prenorm=True, attention_impl=attention_impl,
-                             dropout_rate=dropout_rate)
+                             dropout_rate=dropout_rate, mesh=mesh)
             for _ in range(num_layers)])
         self.final_norm = LayerNorm(hidden_size, dtype)
         self.head = Dense(hidden_size, num_classes, torch.float32)

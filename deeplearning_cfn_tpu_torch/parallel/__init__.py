@@ -10,8 +10,10 @@ processes is ported (the ``dcn_data`` and ``data`` axes), and so are
 sequence parallelism (the ``seq`` axis: ring and Ulysses attention in
 ``ops/``), pipeline parallelism (the ``pipe`` axis: ``ops/pipeline.py``'s
 GPipe schedule) and expert parallelism (the ``expert`` axis:
-``models/moe.py``'s all-to-all dispatch); the ``model`` and ``spatial``
-axes are ROADMAP A.10's.
+``models/moe.py``'s all-to-all dispatch), tensor parallelism (the
+``model`` axis: ``models/transformer.py``'s column and row pieces) and
+Mask R-CNN's spatial shard (the ``spatial`` axis: ``models/resnet.py``'s
+halos, ``models/maskrcnn.py``'s gathered pyramid).
 """
 
 from .mesh import (  # noqa: F401
@@ -30,4 +32,4 @@ from .mesh import (  # noqa: F401
     validate_batch,
 )
 from .sharding import (Elsewhere, Piece, Rows, batch_sharding,  # noqa: F401
-                       local_shard, param_pieces, seq_slice)
+                       local_shard, param_pieces, seq_slice, spatial_slice)

@@ -31,7 +31,27 @@ rows (``parallel/mesh.py``):
   backward: ``ops/pipeline.py``) and :func:`masked_sum` (the last stage's
   output on every stage, with a gradient);
 - over an ``expert`` group: :func:`all_to_all_grad` (:func:`all_to_all`
-  with its inverse as the backward: MoE's dispatch and combine).
+  with its inverse as the backward: MoE's dispatch and combine);
+- over a ``model`` group, the conjugate pair of tensor parallelism:
+  :func:`model_copy` into the column-parallel products and
+  :func:`model_sum` after the row-parallel ones;
+- over a ``spatial`` group: :func:`halo_rows` (a conv's or a pool's rows
+  from the neighbours, the halo's gradient sent back and added) and
+  :func:`gather_rows` (the groups' rows gathered into whole images, the
+  backward a reduce-scatter).
+
+The gradient convention of every collective here is the trainer's: a
+process's loss is its share of the global loss (its rows' loss divided by
+``Mesh.replicas``), and each gradient is summed, right after the backward,
+over the processes that hold its leaf. So a tensor every process of a group
+holds (the input of a column-parallel product, the output of the sum) has,
+on each process, a part of its gradient, and the parts add up over the
+group: :func:`model_copy` is the identity both ways, and :func:`model_sum`
+and :func:`gather_rows` sum the parts in their backward, where each process
+needs the whole gradient of its own piece. (Megatron's textbook pair puts
+the sum in the copy's backward instead and sums nothing over the model
+group afterwards; mixed with this trainer it would scale gradients by the
+group's size.)
 
 Every function is the identity (no collective) with one process, so the
 one-device path computes exactly what it did before the mesh existed. The
@@ -60,9 +80,10 @@ def _dist():
 
 
 class CommTimer:
-    """Seconds (and calls) of the sequence, pipe and expert collectives by
-    kind (``"ring"``, ``"ulysses"``, ``"gather"``, ``"pipe"``,
-    ``"expert"``), counted while ``enabled``:
+    """Seconds (and calls) of the sequence, pipe, expert, model and spatial
+    collectives by kind (``"ring"``, ``"ulysses"``, ``"gather"``,
+    ``"pipe"``, ``"expert"``, ``"model"``, ``"halo"``, ``"spatial"``),
+    counted while ``enabled``:
     the card is synchronized before and after each exchange, so a time is
     the exchange's alone, the host staging included. Off by default: the
     synchronizations would serialize the step."""
@@ -206,13 +227,23 @@ def all_gather_objects(obj: Any) -> List[Any]:
     return out
 
 
-def gather_batches(per_batch: List[List[Any]]) -> List[Any]:
+def gather_batches(per_batch: List[List[Any]], mesh=None) -> List[Any]:
     """Items collected batch by batch on every process, in the global
     batch's order: batch 0's items of process 0, then of process 1, ...,
-    then batch 1's (``per_batch`` flattened with one process)."""
+    then batch 1's (``per_batch`` flattened with one process). With a
+    ``mesh``, only the processes at coordinate 0 of every axis outside the
+    batch axes count, one for each block of rows, so a row that a ``seq``,
+    ``pipe``, ``model`` or ``spatial`` group holds on each of its processes
+    counts once."""
     if process_count() == 1:
         return [item for batch in per_batch for item in batch]
     gathered = all_gather_objects(per_batch)
+    if mesh is not None:
+        from .mesh import BATCH_AXES, Mesh
+
+        gathered = [proc for r, proc in enumerate(gathered) if all(
+            c == 0 for a, c in Mesh(mesh.shape, r, mesh.process_count)
+            .coords.items() if a not in BATCH_AXES)]
     return [item for b in range(len(per_batch)) for proc in gathered
             for item in proc[b]]
 
@@ -261,24 +292,25 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return wire.to(x.device)
 
 
-class _SeqGather(torch.autograd.Function):
+class _GroupGather(torch.autograd.Function):
     """Forward: the group's slices concatenated along ``dim`` in group
     order. Backward: the incoming gradients summed over the group (every
-    process's loss reads the whole rows), then this process's slice."""
+    process's loss reads the whole rows), then this process's slice: a
+    reduce-scatter. ``kind`` names the exchange for :data:`comm_timer`."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, index):
-        ctx.dim, ctx.group, ctx.index = dim, group, index
+    def forward(ctx, x, dim, group, index, kind):
+        ctx.dim, ctx.group, ctx.index, ctx.kind = dim, group, index, kind
         ctx.local = x.shape[dim]
-        with comm_timer.measure("gather", x.device):
+        with comm_timer.measure(kind, x.device):
             return _all_gather_cat(x, dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        with comm_timer.measure("gather", grad.device):
+        with comm_timer.measure(ctx.kind, grad.device):
             total = _all_reduce(grad, ctx.group)
         mine = total.narrow(ctx.dim, ctx.index * ctx.local, ctx.local)
-        return mine.contiguous(), None, None, None
+        return mine.contiguous(), None, None, None, None
 
 
 def gather_seq(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
@@ -287,7 +319,8 @@ def gather_seq(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
     with a gradient (``x`` itself without a ``seq`` axis)."""
     if mesh.seq_ways == 1:
         return x
-    return _SeqGather.apply(x, dim, mesh.seq_group(), mesh.seq_index)
+    return _GroupGather.apply(x, dim, mesh.seq_group(), mesh.seq_index,
+                              "gather")
 
 
 # -- over a pipe group --------------------------------------------------------
@@ -366,3 +399,144 @@ def all_to_all_grad(x: torch.Tensor, group) -> torch.Tensor:
     """:func:`all_to_all` over ``group`` with a gradient: ``out[j]`` is
     process ``j``'s ``x[i]`` on process ``i``."""
     return _AllToAll.apply(x, group)
+
+
+# -- over a model group -------------------------------------------------------
+
+
+def model_copy(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x``, which every process of ``mesh``'s ``model`` group holds, into
+    this process's column-parallel products. The identity both ways: each
+    process's gradient of ``x`` is the part through its own columns, and
+    the parts add up over the group (the module docstring's
+    convention)."""
+    del mesh
+    return x
+
+
+class _ModelSum(torch.autograd.Function):
+    """Forward: ``x`` summed over the group. Backward: the incoming
+    gradients summed over the group, so each process's row-parallel piece
+    gets the whole gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        with comm_timer.measure("model", x.device):
+            return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with comm_timer.measure("model", grad.device):
+            return _all_reduce(grad, ctx.group), None
+
+
+def model_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The partial products of ``mesh``'s ``model`` group summed, after
+    the row-parallel products, with a gradient (``x`` itself without a
+    ``model`` axis)."""
+    if mesh is None or mesh.model_ways == 1:
+        return x
+    return _ModelSum.apply(x, mesh.model_group())
+
+
+# -- over a spatial group -----------------------------------------------------
+
+
+def _neighbour_swap(up: Optional[torch.Tensor], down: Optional[torch.Tensor],
+                    prev: Optional[int], nxt: Optional[int],
+                    up_like: Optional[torch.Tensor],
+                    down_like: Optional[torch.Tensor], group, device):
+    """One batch of point-to-point operations: ``up`` to rank ``prev`` and
+    ``down`` to rank ``nxt`` (each when that neighbour exists), and from
+    them tensors shaped as ``up_like`` (from ``prev``) and ``down_like``
+    (from ``nxt``). Returns ``(from prev, from next)``, None where there is
+    no neighbour."""
+    dist = _dist()
+    ops, got = [], [None, None]
+    for t, peer in ((up, prev), (down, nxt)):
+        if peer is not None and t is not None and t.numel():
+            ops.append(dist.P2POp(dist.isend, _to_wire(t, group), peer,
+                                  group=group))
+    for i, (like, peer) in enumerate(((up_like, prev), (down_like, nxt))):
+        if peer is not None and like is not None and like.numel():
+            got[i] = torch.empty(
+                like.shape, dtype=like.dtype,
+                device="cpu" if _staging(like, group) else like.device)
+            ops.append(dist.P2POp(dist.irecv, got[i], peer, group=group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [None if g is None else g.to(device) for g in got]
+
+
+class _Halo(torch.autograd.Function):
+    """Forward: ``x`` [B, C, h, W] with ``top`` rows above it (the previous
+    process's last rows, or ``value`` on the first) and ``bottom`` rows
+    below (the next process's first rows, or ``value`` on the last).
+    Backward: the halos' gradients go back to the processes whose rows
+    they were and are added there."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, value, group, prev, nxt):
+        ctx.top, ctx.bottom, ctx.group = top, bottom, group
+        ctx.prev, ctx.nxt = prev, nxt
+        h = x.shape[2]
+        with comm_timer.measure("halo", x.device):
+            from_prev, from_next = _neighbour_swap(
+                x[:, :, :bottom], x[:, :, h - top:], prev, nxt,
+                x[:, :, h - top:], x[:, :, :bottom], group, x.device)
+        fill = lambda n: x.new_full(x.shape[:2] + (n,) + x.shape[3:], value)
+        above = fill(top) if from_prev is None else from_prev
+        below = fill(bottom) if from_next is None else from_next
+        return torch.cat([above, x, below], 2).contiguous(
+            memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, grad):
+        top, bottom = ctx.top, ctx.bottom
+        h = grad.shape[2] - top - bottom
+        g_top, g_bottom = grad[:, :, :top], grad[:, :, top + h:]
+        mine = grad[:, :, top:top + h].clone()
+        with comm_timer.measure("halo", grad.device):
+            # The previous process's bottom halo was this one's first rows;
+            # the next one's top halo its last rows.
+            from_prev, from_next = _neighbour_swap(
+                g_top, g_bottom, ctx.prev, ctx.nxt, g_bottom, g_top,
+                ctx.group, grad.device)
+        if from_prev is not None:
+            mine[:, :, :bottom] += from_prev
+        if from_next is not None:
+            mine[:, :, h - top:] += from_next
+        return mine, None, None, None, None, None, None
+
+
+def halo_rows(x: torch.Tensor, top: int, bottom: int, mesh,
+              value: float = 0.0) -> torch.Tensor:
+    """This process's rows of ``x`` [B, C, h, W] (dim 2 split over
+    ``mesh``'s ``spatial`` group, in group order) with ``top`` rows of its
+    upper neighbour above and ``bottom`` rows of its lower one below, as a
+    window of the whole image sees them: the first process's ``top`` and
+    the last one's ``bottom`` rows are the image's SAME padding,
+    ``value``. With a gradient."""
+    ways, at = mesh.spatial_ways, mesh.spatial_index
+    if max(top, bottom) > x.shape[2]:
+        raise ValueError(f"a halo of {max(top, bottom)} rows needs more than "
+                         f"the {x.shape[2]} rows each of the {ways} spatial "
+                         f"processes holds")
+    ranks = mesh.spatial_ranks
+    prev = ranks[at - 1] if at > 0 else None
+    nxt = ranks[at + 1] if at < ways - 1 else None
+    return _Halo.apply(x, top, bottom, value, mesh.spatial_group(), prev,
+                       nxt)
+
+
+def gather_rows(x: torch.Tensor, mesh, dim: int = 2) -> torch.Tensor:
+    """The whole images of ``x`` from the rows of every process of
+    ``mesh``'s ``spatial`` group, concatenated along ``dim`` in group
+    order, with a gradient whose backward is a reduce-scatter (``x``
+    itself without a ``spatial`` axis)."""
+    if mesh is None or mesh.spatial_ways == 1:
+        return x
+    return _GroupGather.apply(x, dim, mesh.spatial_group(),
+                              mesh.spatial_index, "spatial")

@@ -14,21 +14,22 @@ configs), :func:`data_axis_size`, :func:`local_batch_size`,
 :func:`validate_batch`, :func:`describe` (JAX's ``mesh[...] over N
 devices`` line), :func:`slice_chip_count` and :func:`hosts_for_slice`.
 
-Scope. Across processes the batch axes (``dcn_data``, ``data``,
-``expert``), the ``seq`` axis, the ``pipe`` axis and the ``expert`` axis
-are ported. The processes that differ only in their ``seq`` coordinate form
-a ``seq`` group (:meth:`Mesh.seq_group`) and hold the same rows of the
-batch (:attr:`Mesh.data_index` of :attr:`Mesh.data_ways`); the long-context
-trunks split each row's sequence over the group (ring or Ulysses attention,
-``ops/``). The processes of a ``pipe`` group (:meth:`Mesh.pipe_group`) also
-hold the same rows, and each holds its stage's layers (``ops/pipeline.py``).
+Scope. Across processes every axis is ported. The batch axes (``dcn_data``,
+``data``, ``expert``) split the global batch's rows; the processes that
+differ only outside them hold the same rows (:attr:`Mesh.data_index` of
+:attr:`Mesh.data_ways`, :attr:`Mesh.replicas` of them each). Of those, a
+``seq`` group (:meth:`Mesh.seq_group`) splits each row's sequence (ring or
+Ulysses attention, ``ops/``); a ``pipe`` group (:meth:`Mesh.pipe_group`)
+holds a stage each (``ops/pipeline.py``); a ``model`` group
+(:meth:`Mesh.model_group`) splits the heads of each attention and the
+hidden units of each MLP (tensor parallelism, ``models/transformer.py``);
+a ``spatial`` group (:meth:`Mesh.spatial_group`) splits each image's rows
+(Mask R-CNN's trunk and FPN with halo exchanges, ``models/resnet.py``).
 The ``expert`` axis is a batch axis, as in JAX: the processes of an
 ``expert`` group read different rows and each holds its experts
 (``models/moe.py``). A leaf split over an axis is held whole by the
 processes that share this process's coordinate on it
-(:meth:`Mesh.holders_group`). A mesh that resolves with ``model`` or
-``spatial`` above 1 over more than one process raises, naming the ROADMAP
-A.10 item that brings the axis. With one process the preset's mesh is
+(:meth:`Mesh.holders_group`). With one process the preset's mesh is
 ignored, as it always was: every preset trains on the one device.
 """
 
@@ -52,11 +53,8 @@ AXIS_ORDER: Tuple[str, ...] = ("dcn_data", "pipe", "data", "expert",
 BATCH_AXES: Tuple[str, ...] = ("dcn_data", "data", "expert")
 
 # The axes a multi-process mesh may not use yet, with the ROADMAP A.10 item
-# that brings each.
-UNPORTED_AXES: Dict[str, str] = {
-    "model": "the model axis: tensor-parallel layers",
-    "spatial": "the spatial axis: Mask R-CNN's spatial shard",
-}
+# that brings each: none.
+UNPORTED_AXES: Dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,10 +194,30 @@ class Mesh:
         return self.coords["expert"]
 
     @property
+    def model_ways(self) -> int:
+        return self.shape["model"]
+
+    @property
+    def model_index(self) -> int:
+        """This process's heads and hidden units: the ``model_index``-th of
+        ``model_ways`` equal slices of each tensor-parallel layer."""
+        return self.coords["model"]
+
+    @property
+    def spatial_ways(self) -> int:
+        return self.shape["spatial"]
+
+    @property
+    def spatial_index(self) -> int:
+        """This process's rows of an image: the ``spatial_index``-th of
+        ``spatial_ways`` equal slices of its height."""
+        return self.coords["spatial"]
+
+    @property
     def replicas(self) -> int:
         """The processes that hold each row of a batch (those that differ
-        only outside :data:`BATCH_AXES`: the ``seq`` and ``pipe``
-        groups)."""
+        only outside :data:`BATCH_AXES`: the ``pipe``, ``spatial``,
+        ``seq`` and ``model`` groups)."""
         return self.size // self.data_ways
 
     def ranks_along(self, axes: Tuple[str, ...]) -> List[int]:
@@ -225,6 +243,17 @@ class Mesh:
     def pipe_ranks(self) -> List[int]:
         """The ranks of this process's ``pipe`` group, in stage order."""
         return self.ranks_along(("pipe",))
+
+    @property
+    def model_ranks(self) -> List[int]:
+        """The ranks of this process's ``model`` group, in ``model``
+        order."""
+        return self.ranks_along(("model",))
+
+    @property
+    def spatial_ranks(self) -> List[int]:
+        """The ranks of this process's ``spatial`` group, in row order."""
+        return self.ranks_along(("spatial",))
 
     @property
     def expert_ranks(self) -> List[int]:
@@ -262,6 +291,16 @@ class Mesh:
         all-to-alls)."""
         return self.group(("expert",))
 
+    def model_group(self):
+        """The process group of :attr:`model_ranks` (the sums after the
+        row-parallel products)."""
+        return self.group(("model",))
+
+    def spatial_group(self):
+        """The process group of :attr:`spatial_ranks` (the conv halos and
+        the pyramid's gather)."""
+        return self.group(("spatial",))
+
     def holders_group(self, axis: str):
         """The process group of :meth:`holder_ranks` (the gradient sum of a
         leaf split over ``axis``)."""
@@ -276,7 +315,7 @@ def _all_but(axis: str) -> Tuple[str, ...]:
 # each process belongs to one group of each.
 _PARTITIONS: Tuple[Tuple[str, ...], ...] = (
     ("seq",), BATCH_AXES, ("pipe",), ("expert",), _all_but("pipe"),
-    _all_but("expert"))
+    _all_but("expert"), ("model",), _all_but("model"), ("spatial",))
 # (shape, world) -> {partition: this process's group or None}.
 _GROUPS: Dict[tuple, dict] = {}
 
@@ -327,8 +366,8 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
     """The mesh of this job: ``cfg`` resolved over the processes of the
     process group (``num_processes`` and ``index`` default to it). One
     process ignores ``cfg`` (every axis 1, as the one-device port always
-    trained); more resolve it as JAX does and refuse the axes not ported
-    (:data:`UNPORTED_AXES`). The groups are made at first use
+    trained); more resolve it as JAX does (:meth:`MeshSpec.resolve`). The
+    groups are made at first use
     (:meth:`Mesh.group`), so a mesh can be resolved without a process
     group."""
     n = process_count() if num_processes is None else num_processes
@@ -341,9 +380,8 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"mesh axis {axis}={sizes[axis]} over {n} processes needs "
-                f"{item}, not ported yet (ROADMAP A.10); the port's "
-                f"processes split the batch axes (dcn_data, data, expert) "
-                f"and the seq and pipe axes only — set mesh.{axis}=1")
+                f"{item}, not ported yet (ROADMAP A.10) — set "
+                f"mesh.{axis}=1")
     return Mesh(shape={a: sizes[a] for a in AXIS_ORDER},
                 process_index=rank, process_count=n)
 
@@ -357,8 +395,8 @@ def data_axis_size(mesh: Mesh) -> int:
 
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:
     """Per-process batch size: the global batch divided over the data ways
-    (Horovod's per-rank batch); the processes of a ``seq`` or ``pipe`` group
-    hold the same rows."""
+    (Horovod's per-rank batch); the processes of a ``seq``, ``pipe``,
+    ``model`` or ``spatial`` group hold the same rows."""
     if global_batch % data_axis_size(mesh) != 0:
         raise ValueError(
             f"global batch {global_batch} not divisible by data-axis size "

@@ -12,14 +12,19 @@ of the activations.
 
 Parameters are replicated (the reference's replica per GPU) except where
 one of :data:`PARAM_RULES` — the port's copy of the JAX package's
-``models/pipelined.py:PARAM_RULES`` and ``models/moe.py:MOE_PARAM_RULES`` —
-splits a leaf's dim 0 over the ``pipe`` or ``expert`` axis: there each
-process holds the :class:`Piece` at its coordinate on that axis (its
-stage's layers of a ``[L, ...]`` stack, its experts of an ``[E, ...]``
-stack), as JAX's ``P("pipe")`` and ``P("expert", ...)`` do; the processes
-with the same coordinate hold the same piece (``Mesh.holders_group``). JAX's
-``model``-axis rules shard over an axis that a multi-process mesh refuses
-(``mesh.py``), so no copy of them is kept.
+``models/pipelined.py:PARAM_RULES``, ``models/transformer.py:
+TRANSFORMER_PARAM_RULES`` and ``models/moe.py:MOE_PARAM_RULES`` — splits
+one dim of a leaf over the ``pipe``, ``model`` or ``expert`` axis: there
+each process holds the :class:`Piece` at its coordinate on that axis (its
+stage's layers of a ``[L, ...]`` stack, its heads' columns of a query
+kernel or its rows of an ``attn_out`` kernel, its experts of an ``[E,
+...]`` stack), as JAX's ``P("pipe")``, ``P(None, "model")``, ``P("model",
+None)`` and ``P("expert", ...)`` do; the processes with the same coordinate
+hold the same piece (``Mesh.holders_group``). A rule names the dim of the
+leaf in Flax's layout (``convert.flax_layout``), where the JAX rules name
+it; the port's ``Dense`` weight is the transposed ``[out, in]``. A model
+with no leaf that a rule matches (ResNet, Mask R-CNN, the pipelined trunk
+on a ``model`` axis) replicates over that axis, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,16 +36,24 @@ import numpy as np
 
 from .mesh import BATCH_AXES, Mesh, local_batch_size
 
-# (regex searched in a leaf's Flax path, mesh axis its dim 0 splits over):
-# the JAX package's rules for the pipe axis (``pipe_stack/ -> P("pipe")``)
-# and the expert axis (the stacked expert weights; the router stays
-# replicated).
-PARAM_RULES: Tuple[Tuple[str, str], ...] = (
-    (r"pipe_stack/", "pipe"),
-    (r"moe_mlp/w_in", "expert"),
-    (r"moe_mlp/w_out", "expert"),
-    (r"moe_mlp/b_in", "expert"),
-    (r"moe_mlp/b_out", "expert"),
+# (regex searched in a leaf's Flax path, mesh axis, the dim of the Flax
+# leaf that splits over it): the JAX package's rules for the pipe axis
+# (``pipe_stack/ -> P("pipe")``), the model axis (the Megatron column and
+# row split: the attention and MLP input kernels split their output
+# features, the output kernels their input features; they match
+# ``/kernel`` only, so every bias stays replicated) and the expert axis
+# (the stacked expert weights; the router stays replicated), the first
+# match winning.
+PARAM_RULES: Tuple[Tuple[str, str, int], ...] = (
+    (r"pipe_stack/", "pipe", 0),
+    (r"(query|key|value)/kernel", "model", 1),
+    (r"attn_out/kernel", "model", 0),
+    (r"mlp_in/kernel", "model", 1),
+    (r"mlp_out/kernel", "model", 0),
+    (r"moe_mlp/w_in", "expert", 0),
+    (r"moe_mlp/w_out", "expert", 0),
+    (r"moe_mlp/b_in", "expert", 0),
+    (r"moe_mlp/b_out", "expert", 0),
 )
 
 
@@ -56,30 +69,47 @@ class Elsewhere(NamedTuple):
 
 
 class Rows(NamedTuple):
-    """The rows ``start:start + len(data)`` of dim 0 of a state leaf of
-    global ``shape`` that this process holds and writes (its piece of a
-    leaf split over ``pipe`` or ``expert``)."""
+    """The range ``start:start + data.shape[dim]`` of dim ``dim`` of a
+    state leaf of global ``shape`` (Flax's layout) that this process holds
+    and writes (its piece of a leaf split over ``pipe``, ``model`` or
+    ``expert``)."""
 
     data: np.ndarray
     start: int
     shape: Tuple[int, ...]
+    dim: int = 0
 
 
 class Piece(NamedTuple):
-    """This process's piece of a parameter split over mesh ``axis``: rows
-    ``start:stop`` of dim 0 of the logical leaf, which has ``whole`` rows.
-    ``mesh`` gives its groups: ``mesh.holders_group(axis)`` holds the same
-    piece, ``mesh.group((axis,))`` one of each piece."""
+    """This process's piece of a parameter split over mesh ``axis``: the
+    range ``start:stop`` of dim ``dim`` of the logical leaf in Flax's
+    layout, which has ``whole`` entries along it. ``mesh`` gives its
+    groups: ``mesh.holders_group(axis)`` holds the same piece,
+    ``mesh.group((axis,))`` one of each piece."""
 
     axis: str
     start: int
     stop: int
     whole: int
     mesh: Mesh
+    dim: int = 0
 
     def of(self, whole: np.ndarray) -> np.ndarray:
-        """This piece of a whole leaf."""
-        return whole[self.start:self.stop]
+        """This piece of a whole leaf (Flax's layout)."""
+        at = [slice(None)] * whole.ndim
+        at[self.dim] = slice(self.start, self.stop)
+        return whole[tuple(at)]
+
+    def shape(self, piece_shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The whole leaf's shape from this piece's (Flax's layout)."""
+        out = list(piece_shape)
+        out[self.dim] = self.whole
+        return tuple(out)
+
+    def rows(self, data: np.ndarray) -> Rows:
+        """This piece's ``data`` (Flax's layout) as the :class:`Rows` of
+        the whole leaf that a checkpoint writes."""
+        return Rows(data, self.start, self.shape(data.shape), self.dim)
 
     def holders(self):
         return self.mesh.holders_group(self.axis)
@@ -95,12 +125,12 @@ class Piece(NamedTuple):
             self.mesh.process_index
 
 
-def leaf_axis(name: str) -> Optional[str]:
-    """The mesh axis that :data:`PARAM_RULES` split leaf ``name``'s dim 0
-    over (the first rule that matches), or None."""
-    for pattern, axis in PARAM_RULES:
+def leaf_axis(name: str) -> Optional[Tuple[str, int]]:
+    """``(mesh axis, Flax dim)`` of the first of :data:`PARAM_RULES` that
+    matches leaf ``name``, or None."""
+    for pattern, axis, dim in PARAM_RULES:
         if re.search(pattern, name):
-            return axis
+            return axis, dim
     return None
 
 
@@ -115,23 +145,26 @@ def param_pieces(model) -> Dict[int, Piece]:
               if getattr(mod, "mesh", None) is not None
               for p in mod.parameters(recurse=False)}
     out = {}
-    for name, _, t, _ in flax_layout(model):
-        mesh, axis = meshes.get(id(t)), leaf_axis(name)
-        if mesh is None or axis is None or mesh.shape[axis] == 1:
+    for name, _, t, kind in flax_layout(model):
+        mesh, rule = meshes.get(id(t)), leaf_axis(name)
+        if mesh is None or rule is None or mesh.shape[rule[0]] == 1:
             continue
-        rows, at = t.shape[0], mesh.coords[axis]
-        out[id(t)] = Piece(axis, at * rows, (at + 1) * rows,
-                           rows * mesh.shape[axis], mesh)
+        axis, dim = rule
+        # The port's Dense weight is Flax's kernel transposed.
+        n, at = t.shape[1 - dim if kind == "dense" else dim], \
+            mesh.coords[axis]
+        out[id(t)] = Piece(axis, at * n, (at + 1) * n, n * mesh.shape[axis],
+                           mesh, dim)
     return out
 
 
 def piece_rows(mesh: Optional[Mesh], axis: str, whole: int) -> slice:
-    """This process's rows of a leaf of ``whole`` rows split over ``axis``
-    (all of them without a mesh or with one way)."""
+    """This process's range of a dim of ``whole`` entries split over
+    ``axis`` (all of it without a mesh or with one way)."""
     ways = 1 if mesh is None else mesh.shape[axis]
     if whole % ways:
-        raise ValueError(f"{whole} rows do not split over the {axis} axis "
-                         f"({ways} ways)")
+        raise ValueError(f"{whole} entries do not split over the {axis} "
+                         f"axis ({ways} ways)")
     at = 0 if mesh is None else mesh.coords[axis]
     n = whole // ways
     return slice(at * n, (at + 1) * n)
@@ -157,6 +190,20 @@ def seq_slice(mesh: Mesh, seq_len: int) -> slice:
     return slice(mesh.seq_index * local, (mesh.seq_index + 1) * local)
 
 
+def spatial_slice(array, mesh: Mesh, dim: int):
+    """This process's slice of dim ``dim`` of ``array`` (an image's
+    height): the ``spatial_index``-th of ``spatial_ways`` equal slices,
+    JAX's ``P(batch, "spatial", ...)`` layout."""
+    n, ways = array.shape[dim], mesh.spatial_ways
+    if n % ways:
+        raise ValueError(f"{n} rows do not split over the spatial axis "
+                         f"({ways} ways)")
+    at = [slice(None)] * array.ndim
+    at[dim] = slice(mesh.spatial_index * n // ways,
+                    (mesh.spatial_index + 1) * n // ways)
+    return array[tuple(at)]
+
+
 def local_shard(array, mesh: Mesh):
     """This process's contiguous rows of a global-batch ``array`` (the
     inverse view of JAX's ``make_array_from_process_local_data``)."""
@@ -165,4 +212,4 @@ def local_shard(array, mesh: Mesh):
 
 __all__ = ["BATCH_AXES", "Elsewhere", "PARAM_RULES", "Piece", "Rows",
            "batch_sharding", "leaf_axis", "local_shard", "param_pieces",
-           "piece_rows", "seq_slice"]
+           "piece_rows", "seq_slice", "spatial_slice"]

@@ -23,6 +23,13 @@ in Python over images, boxes or classes:
 All losses are means over their own weight sums, with ``eval_mask`` (the
 padded eval tail) zero-weighting padded images. ``train.remat`` is ignored,
 as the JAX task ignores it.
+
+Over a ``spatial`` axis (``spatial_dim``, ``spatial_keys``: the trainer
+gives each process its rows of ``image``; the GT boxes and masks stay
+whole), the model returns the whole pyramid on every process of the group,
+so the losses, the proposals and the predictions are the whole images'
+on each of them: their weights are divided by ``Mesh.replicas``, and the
+decoded eval set counts each image once.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from ..config import ExperimentConfig
 from ..models import build_model
 from ..models.maskrcnn import MASK_ROI_SIZE, ROI_SIZE
 from ..parallel.collectives import gather_batches, global_total
+from ..parallel.mesh import Mesh, build_mesh
+from ..parallel.sharding import spatial_slice
 from ..ops.detection import (_bilinear_sample, decode_boxes, encode_boxes,
                              generate_anchors, iou_matrix,
                              multilevel_roi_align, nms_static, take_rows,
@@ -81,9 +90,15 @@ class DetectionTask:
 
     exact_eval = True  # consume the padded full eval set (COCO protocol)
 
-    def __init__(self, cfg: ExperimentConfig, device: torch.device):
+    def __init__(self, cfg: ExperimentConfig, device: torch.device,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.device = device
+        self.mesh = mesh if mesh is not None else build_mesh(cfg.mesh)
+        # JAX's: shard image H over the 'spatial' mesh axis (the masks'
+        # dim 1 is a box count).
+        self.spatial_dim = 1
+        self.spatial_keys = ("image",)
         dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
             else torch.float32
         kw = dict(cfg.model.kwargs)
@@ -95,7 +110,7 @@ class DetectionTask:
         self.nms_iou = float(kw.pop("nms_iou", 0.7))
         anchor_scale = float(kw.pop("anchor_scale", 8.0))
         self.model = build_model(cfg.model.name, cfg.model.num_classes,
-                                 dtype, device=device, **kw)
+                                 dtype, device=device, mesh=self.mesh, **kw)
         s = self.image_size
         self.anchors = generate_anchors(
             (s, s), strides=[STRIDES[l] for l in LEVELS],
@@ -260,7 +275,11 @@ class DetectionTask:
         per_batch = []
         with state.eval_weights():
             for batch in eval_iter_fn():
-                images = torch.from_numpy(batch["image"]).to(self.device)
+                images = torch.from_numpy(batch["image"])
+                if self.mesh.spatial_ways > 1:
+                    images = spatial_slice(images, self.mesh,
+                                           self.spatial_dim)
+                images = images.to(self.device)
                 det = {k: v.cpu().numpy()
                        for k, v in predict(images).items()}
                 emask = batch.get("eval_mask")
@@ -271,9 +290,9 @@ class DetectionTask:
                     for i in range(det["boxes"].shape[0])
                     if emask is None or emask[i] != 0])
         # Across processes every one scores the whole eval set, in the
-        # global batch's order.
+        # global batch's order, each image once.
         for box, score, cls, gt_box, gt_label, mask, gt_mask in \
-                gather_batches(per_batch):
+                gather_batches(per_batch, self.mesh):
             acc.add_image(box, score, cls, gt_box, gt_label,
                           pred_masks=mask, gt_masks=gt_mask, image_hw=(s, s))
         return acc.compute(with_masks=True)
@@ -291,7 +310,7 @@ class DetectionTask:
         gt_valid = (gt_labels > 0).float()
         # Padded eval-tail images weigh zero in every loss and metric;
         # matching stays per image, so they never touch real ones.
-        ex = example_mask(batch, images.shape[0])
+        ex = example_mask(batch, images.shape[0]) / self.mesh.replicas
         out = self.model(images, train=train)
 
         with torch.no_grad():

@@ -69,8 +69,8 @@ WARMUP_STEPS = 1
 
 def step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
     """A well-mixed 63-bit seed for ``(seed, step)``, or for ``(seed, step,
-    rank)``: each process of a data-parallel job draws its own rows'
-    masks."""
+    rank)``: each block of rows of a data-parallel job (the trainer passes
+    ``Mesh.data_index``) draws its own masks."""
     key = [int(seed), int(step)] + ([] if rank is None else [int(rank)])
     return int(np.random.SeedSequence(key)
                .generate_state(1, np.uint64)[0] >> np.uint64(1))
@@ -78,8 +78,9 @@ def step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
 
 class StepGenerator(torch.Generator):
     """The dropout generator of a trainer: :meth:`reseed` sets it to
-    ``step_seed(seed, step)`` (``step_seed(seed, step, rank)`` for a
-    process of a data-parallel job) before every step, so a step's masks
+    ``step_seed(seed, step)`` (``step_seed(seed, step, rank)`` for the
+    processes of a block of rows of a data-parallel job) before every
+    step, so a step's masks
     do not depend on earlier steps, and a remat recompute rewinds it with
     :meth:`rewind_point` and :meth:`rewound`, which a CUDA graph can
     capture."""

@@ -59,9 +59,9 @@ LARS's trust ratios and Adafactor's factored moments stay whole (sharding a
 parameter's rows would need summed norms). Slot memory per process falls to
 about 1/N (:meth:`Optimizer.slot_bytes`). Checkpoints name every slot; a
 process writes the slots it owns.
-Leaves split over the ``pipe`` or ``expert`` axis (``pieces``,
-``parallel.sharding.param_pieces``): each process holds its piece of such
-a parameter. The rules stay the logical leaf's, as ``optax`` applies them
+Leaves split over the ``pipe``, ``model`` or ``expert`` axis (``pieces``,
+``parallel.sharding.param_pieces``, along any dim): each process holds its
+piece of such a parameter. The rules stay the logical leaf's, as ``optax`` applies them
 to JAX's sharded leaf: LAMB's and LARS's trust ratios sum ``‖p‖²`` and
 ``‖u‖²`` over the leaf's pieces (``Piece.peers``) before the ratio, and
 :func:`global_norm` counts every piece once and every replicated leaf
@@ -85,7 +85,7 @@ from torch import nn
 from ..config import OptimizerConfig, ScheduleConfig
 from ..parallel import mesh as _mesh
 from ..parallel.collectives import WORLD
-from ..parallel.sharding import Elsewhere, Piece, Rows, param_pieces
+from ..parallel.sharding import Elsewhere, Piece, param_pieces
 
 Schedule = Callable[[int], float]
 
@@ -596,10 +596,11 @@ class Optimizer:
         self.world, self.rank = _mesh.process_count(), _mesh.process_index()
         self.pieces = dict(pieces or {})
         if self.pieces and name in _FLAX_SLOTS:
+            axes = sorted({pc.axis for pc in self.pieces.values()})
             raise NotImplementedError(
-                f"optimizer {name!r} with leaves split over the pipe or "
-                f"expert axis: its factored moments and block RMS are the "
-                f"whole leaf's")
+                f"optimizer {name!r} with leaves split over the "
+                f"{' and '.join(axes)} axis: its factored moments and "
+                f"block RMS are the whole leaf's")
         # ZeRO-1: the owning process of each parameter (None: replicated).
         self.owners: Optional[List[int]] = zero1_owners(
             self.params, self.world, self.pieces) if shard_opt_state and \
@@ -801,7 +802,7 @@ class Optimizer:
                         if self.name in _FLAX_SLOTS \
                         else tuple(to_flax(_shape_only(p)).shape)
                     if piece is not None:
-                        shape = (piece.whole,) + shape[1:]
+                        shape = piece.shape(shape)
                     out.append((f"{prefix}{field}/{path}",
                                 Elsewhere(shape, _dtype_name(p.dtype))))
                     continue
@@ -815,8 +816,7 @@ class Optimizer:
                     value = torch.zeros_like(p)
                 value = to_flax(value)
                 if piece is not None:
-                    value = Rows(value, piece.start,
-                                 (piece.whole,) + value.shape[1:])
+                    value = piece.rows(value)
                 out.append((f"{prefix}{field}/{path}", value))
         return out
 

@@ -26,10 +26,11 @@ target, reads a port checkpoint, and :meth:`TrainState.load_named` loads a
 JAX one. Across processes a leaf that another process writes is an
 ``Elsewhere`` (shape and dtype): the replicated leaves are process 0's and
 a ZeRO-1 slot is its owner's. A parameter that holds a piece of a leaf
-split over ``pipe`` or ``expert`` (``parallel.sharding.param_pieces``) is
-named as its ``Rows`` of the whole leaf, written by the first of the
-piece's holders (its slots by their owner), and ``load_named`` takes this
-process's rows of a whole leaf: the weights carry over between one process
+split over ``pipe``, ``model`` or ``expert``
+(``parallel.sharding.param_pieces``) is named as its ``Rows`` of the whole
+leaf (a range of the split dim), written by the first of the piece's
+holders (its slots by their owner), and ``load_named`` takes this
+process's range of a whole leaf: the weights carry over between one process
 and any mesh, and between either package's checkpoints. A state built for evaluation only has no optimizer and names no
 ``opt_state`` leaves (the JAX ``run_eval`` template has none either).
 """
@@ -46,7 +47,7 @@ from torch import nn
 
 from ..convert import flax_layout, from_flax, to_flax
 from ..parallel.mesh import process_index
-from ..parallel.sharding import Elsewhere, Rows, param_pieces
+from ..parallel.sharding import Elsewhere, param_pieces
 from .optim import Optimizer
 
 
@@ -91,12 +92,12 @@ class TrainState:
             shape = to_flax(np.broadcast_to(np.zeros((), np.float32),
                                             tuple(t.shape)), kind).shape
             if piece is not None:
-                shape = (piece.whole,) + tuple(shape[1:])
+                shape = piece.shape(shape)
             if not writes:
                 return Elsewhere(tuple(shape), str(t.dtype).replace(
                     "torch.", ""))
             if piece is not None:
-                return Rows(host(t, kind), piece.start, tuple(shape))
+                return piece.rows(host(t, kind))
             return host(t, kind)
 
         out = [("step", np.asarray(self.step, np.int32) if mine
@@ -119,15 +120,16 @@ class TrainState:
     def load_named(self, leaves: Dict[str, np.ndarray]) -> None:
         """Load leaves named as :meth:`named_leaves` names them (a restored
         checkpoint of either package, whole leaves) into the live tensors;
-        a parameter that holds a piece takes its rows."""
+        a parameter that holds a piece takes its range."""
         params, stats = self._layout()
         pieces = param_pieces(self.model)
 
         def put(dst: torch.Tensor, value: np.ndarray, kind: str,
                 param=None) -> None:
-            value = from_flax(np.asarray(value), kind)
+            value = np.asarray(value)
             if id(param) in pieces:
                 value = pieces[id(param)].of(value)
+            value = from_flax(value, kind)
             src = np.ascontiguousarray(value)
             if not src.flags.writeable:
                 src = src.copy()

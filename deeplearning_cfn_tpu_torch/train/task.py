@@ -10,21 +10,24 @@ global batch's rows, and a mean divides this process's sum by the count
 over every process (``parallel.collectives.global_total``), as the JAX
 loss, one program over the global batch, does: the processes' losses and
 metrics are then partials that add up to the global ones, and so do their
-gradients. A weight is this process's own count. The processes of a ``seq``
-or ``pipe`` group hold the same rows (``Mesh.replicas`` of them each): a
-model that returns a slice of each row's positions (``gpt_long``) has the
-task take that slice's targets, and a model that returns whole rows on
-each of them (every BERT trunk, the gathered ``bert_long`` and the
-pipelined trunk's last stage included) has its weights divided by the
-replicas, so that every denominator counts each example and token once. Metrics that every process
+gradients. A weight is this process's own count. The processes of a
+``seq``, ``pipe``, ``model`` or ``spatial`` group hold the same rows
+(``Mesh.replicas`` of them each): a model that returns a slice of each
+row's positions (``gpt_long``) has the task take that slice's targets, and
+a model that returns whole rows on each of them (every other model: the
+gathered ``bert_long``, the pipelined trunk's last stage and the
+tensor-parallel layers' summed outputs included) has its weights divided
+by the replicas, so that every denominator counts each example and token
+once. Metrics that every process
 computes whole are listed in the task's ``replicated_metrics``. A task's ``eval_derived`` maps a metric name to a
 function of the aggregated eval metrics (the trainer adds it after the
 cross-batch aggregation). Detection (Mask R-CNN) is
 ``train/detection_task.py``. A model whose output carries MoE aux losses
 adds them to the objective at the ST-MoE weights (``MOE_LOAD_BALANCE_WEIGHT``,
-``MOE_ROUTER_Z_WEIGHT``), as the JAX tasks do; a MoE trunk and the
-pipelined trunk get the task's mesh (their experts or layers across
-processes, and the router's global-batch statistics).
+``MOE_ROUTER_Z_WEIGHT``), as the JAX tasks do; every transformer model gets
+the task's mesh (its heads and hidden units over the ``model`` axis, its
+experts or layers across processes, and the router's global-batch
+statistics), as JAX gives the tasks the trainer's mesh.
 
 ``train.remat`` recomputes the train forward in the backward, where the JAX
 tasks wrap it in ``jax.checkpoint`` (:func:`remat`).
@@ -141,14 +144,17 @@ class Seq2SeqTask:
     exact_eval = True
 
     def __init__(self, cfg: ExperimentConfig, device: torch.device,
-                 attention_impl: Optional[str] = None):
+                 attention_impl: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.device = device
+        self.mesh = mesh if mesh is not None else build_mesh(cfg.mesh)
         dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
             else torch.float32
         kwargs = dict(cfg.model.kwargs)
         kwargs.setdefault("vocab_size", cfg.data.vocab_size)
         kwargs.setdefault("max_len", max(cfg.data.seq_len, 64))
+        kwargs.setdefault("mesh", self.mesh)
         if attention_impl is not None:
             kwargs["attention_impl"] = attention_impl
         self.model = build_model(cfg.model.name, 0, dtype, device=device,
@@ -169,7 +175,8 @@ class Seq2SeqTask:
         ids = (batch["src_ids"], batch["src_mask"], batch["tgt_in_ids"])
         logits = remat(self.model, apply, generator, *ids) \
             if train and self.remat else apply(*ids)
-        ex_mask = example_mask(batch, batch["src_ids"].shape[0])
+        ex_mask = example_mask(batch, batch["src_ids"].shape[0]) \
+            / self.mesh.replicas
         mask = batch["tgt_mask"].float() * ex_mask[:, None]
         ce = cross_entropy(logits, batch["tgt_out_ids"],
                            self.cfg.train.label_smoothing)
@@ -223,8 +230,8 @@ class Seq2SeqTask:
                     for i in range(out.shape[0])
                     if emask is None or emask[i] != 0])
         # Across processes every one scores the whole eval set (the JAX
-        # task all-gathers the decoded ids).
-        pairs = gather_batches(per_batch)
+        # task all-gathers the decoded ids), each row once.
+        pairs = gather_batches(per_batch, self.mesh)
         return {"bleu": corpus_bleu([h for h, _ in pairs],
                                     [r for _, r in pairs], smooth=True)}
 
@@ -243,9 +250,11 @@ class ClassificationTask:
 
     exact_eval = True  # consumes eval_mask; gets the padded full eval set
 
-    def __init__(self, cfg: ExperimentConfig, device: torch.device):
+    def __init__(self, cfg: ExperimentConfig, device: torch.device,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.device = device
+        self.mesh = mesh if mesh is not None else build_mesh(cfg.mesh)
         dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" \
             else torch.float32
         kwargs = dict(cfg.model.kwargs)
@@ -254,6 +263,7 @@ class ClassificationTask:
             # The JAX module sizes its position table from the init's
             # dummy image; the port's from the data config.
             kwargs.setdefault("image_size", cfg.data.image_size)
+            kwargs.setdefault("mesh", self.mesh)
         self.model = build_model(cfg.model.name, cfg.model.num_classes,
                                  dtype, device=device, **kwargs)
         self.remat = cfg.train.remat
@@ -274,7 +284,7 @@ class ClassificationTask:
         logits = remat(self.model, apply, generator, batch["image"]) \
             if train and self.remat else apply(batch["image"])
         labels = batch["label"]
-        mask = example_mask(batch, logits.shape[0])
+        mask = example_mask(batch, logits.shape[0]) / self.mesh.replicas
         denom = torch.clamp(global_total(mask.sum()), min=1e-6)
         ce = cross_entropy(logits, labels, self.cfg.train.label_smoothing)
         loss = (ce * mask).sum() / denom
@@ -302,9 +312,9 @@ class MlmTask:
     ``bert_pipelined`` gets the mesh and runs its stacked trunk under the
     GPipe schedule across a ``pipe`` axis; on one process it runs the plain
     layer scan, and the preset's ``n_microbatches`` and ``mesh.pipe`` are
-    printed as ignored. ``bert_long`` and a MoE trunk get the mesh, as JAX
-    gives the long and pipelined trunks the trainer's mesh and batch axes
-    (and GSPMD the MoE layers).
+    printed as ignored. Every trunk gets the mesh, as JAX gives the long and
+    pipelined trunks the trainer's mesh and batch axes (and GSPMD the MoE
+    and tensor-parallel layers).
     """
 
     exact_eval = True
@@ -329,9 +339,7 @@ class MlmTask:
         kwargs.setdefault("max_len", max(cfg.data.seq_len, 128))
         if attention_impl is not None:
             kwargs["attention_impl"] = attention_impl
-        if cfg.model.name in ("bert_long", "bert_pipelined") or \
-                kwargs.get("num_experts", 0):
-            kwargs.setdefault("mesh", self.mesh)
+        kwargs.setdefault("mesh", self.mesh)
         self.model = build_model(cfg.model.name, cfg.model.num_classes,
                                  dtype, device=device, **kwargs)
         self.remat = cfg.train.remat
@@ -348,8 +356,8 @@ class MlmTask:
               batch["mlm_positions"])
         out = remat(self.model, apply, generator, *xs) \
             if train and self.remat else apply(*xs)
-        # Whole rows on every process of a seq or pipe group: each holds a
-        # 1/n share of them.
+        # Whole rows on every process of a seq, pipe or model group: each
+        # holds a 1/n share of them.
         mask = example_mask(batch, batch["input_ids"].shape[0]) \
             / self.mesh.replicas
         weights = batch["mlm_weights"].float() * mask[:, None]
@@ -416,8 +424,7 @@ class CausalLmTask:
         kwargs.setdefault("max_len", max(cfg.data.seq_len, 128))
         if attention_impl is not None:
             kwargs["attention_impl"] = attention_impl
-        if cfg.model.name == "gpt_long" or kwargs.get("num_experts", 0):
-            kwargs.setdefault("mesh", self.mesh)
+        kwargs.setdefault("mesh", self.mesh)
         self.model = build_model(cfg.model.name, 0, dtype, device=device,
                                  **kwargs)
         self.remat = cfg.train.remat
@@ -473,9 +480,9 @@ def build_task(cfg: ExperimentConfig, device: torch.device,
     Mask R-CNN). ``mesh`` defaults to ``build_mesh(cfg.mesh)``."""
     name = cfg.model.name
     if name.startswith("transformer_nmt"):
-        return Seq2SeqTask(cfg, device, attention_impl)
+        return Seq2SeqTask(cfg, device, attention_impl, mesh)
     if name.startswith(("resnet", "vit")):
-        return ClassificationTask(cfg, device)
+        return ClassificationTask(cfg, device, mesh)
     if name.startswith("gpt"):
         return CausalLmTask(cfg, device, attention_impl, mesh)
     if name.startswith("bert"):
@@ -483,5 +490,5 @@ def build_task(cfg: ExperimentConfig, device: torch.device,
     if name.startswith("maskrcnn"):
         from .detection_task import DetectionTask
 
-        return DetectionTask(cfg, device)
+        return DetectionTask(cfg, device, mesh)
     raise KeyError(f"no task for model {name!r}")

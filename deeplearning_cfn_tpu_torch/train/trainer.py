@@ -10,11 +10,13 @@ update. What carries over exactly:
   data ways (``validate_batch``), and each process trains its contiguous
   block of rows (the processes of a ``seq`` group the same block, each its
   slice of the sequence; those of a ``pipe`` group the same block, each its
-  stage). The task's loss is this process's share of the global-batch mean
+  stage; those of a ``model`` group the same block, each its heads and
+  hidden units; those of a ``spatial`` group the same block, each its
+  slice of every image's rows). The task's loss is this process's share of the global-batch mean
   (``train/task.py``), so the gradients, summed right after the backward
   and before the clip — a replicated leaf's over every process, a piece of
-  a leaf split over ``pipe`` or ``expert`` over the processes that hold
-  that piece, in one flat buffer per group — are the single-program
+  a leaf split over ``pipe``, ``model`` or ``expert`` over the processes
+  that hold that piece, in one flat buffer per group — are the single-program
   gradients, and ``grad_norm`` is their global norm (every piece counted
   once, ``Optimizer.grad_norm``). Metrics are summed over the processes once per log boundary (and
   per eval batch), not per step. ``examples_per_sec_per_device`` divides by
@@ -36,8 +38,16 @@ update. What carries over exactly:
   capture); on the CPU it runs k eager steps, the plain version. K = 1 is
   the per-step loop;
 - across processes each process draws its rows' dropout from a
-  ``(seed, step, process)`` stream, where the JAX step draws one mask over
-  the global batch: a difference kept on purpose (ROADMAP);
+  ``(seed, step, data block)`` stream (``Mesh.data_index``), where the JAX
+  step draws one mask over the global batch: a difference kept on purpose
+  (ROADMAP). The processes of a ``model``, ``spatial``, ``seq`` or
+  ``pipe`` group share a block, so they draw the same masks on the
+  activations they share, and their replicated leaves stay equal;
+- a task with ``spatial_keys`` (Mask R-CNN: ``image``) has each process of
+  a ``spatial`` group keep its ``spatial_index``-th slice of dim
+  ``spatial_dim`` (the height) of those keys' arrays of 4 or more dims
+  (JAX's ``_spatial_for``): :meth:`Trainer.local_batch`, applied in every
+  train and eval step;
 - ``fit`` syncs only at ``log_every`` boundaries and once after the first
   window (whose time, kernel builds and graph capture included, is reported
   as ``compile_s`` and kept out of the throughput window), and writes the
@@ -81,6 +91,7 @@ from ..data.pipeline import DevicePrefetcher, to_device
 from ..obs.trace import span
 from ..parallel.collectives import all_reduce_sum_, reduce_scalars
 from ..parallel.mesh import build_mesh, validate_batch
+from ..parallel.sharding import spatial_slice
 from .graphs import GraphedStep, StepGenerator
 from .state import TrainState
 
@@ -101,6 +112,17 @@ def _plan_window(step: int, num_steps: int, window: int,
         if b > step:
             k = min(k, b - step)
     return max(k, 1)
+
+
+def check_window(step_window: int, processes: int) -> None:
+    """Refuse ``train.step_window`` > 1 across processes (before a
+    launch, too)."""
+    if step_window > 1 and processes > 1:
+        raise NotImplementedError(
+            f"train.step_window={step_window} over {processes} processes: "
+            f"a window replays CUDA graphs, which cannot capture gloo's "
+            f"collectives, and NCCL under capture is not ported yet "
+            f"(ROADMAP A.10)")
 
 
 class Trainer:
@@ -143,12 +165,7 @@ class Trainer:
             raise ValueError(
                 f"train.step_window must be >= 1, got "
                 f"{cfg.train.step_window}")
-        if cfg.train.step_window > 1 and self.world > 1:
-            raise NotImplementedError(
-                f"train.step_window={cfg.train.step_window} over "
-                f"{self.world} processes: a window replays CUDA graphs, "
-                f"which cannot capture gloo's collectives, and NCCL under "
-                f"capture is not ported yet (ROADMAP A.10)")
+        check_window(cfg.train.step_window, self.world)
         if cfg.train.device_prefetch < 0:
             raise ValueError(
                 f"train.device_prefetch must be >= 0, got "
@@ -161,17 +178,30 @@ class Trainer:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.generator = StepGenerator(
             self.device, cfg.train.seed,
-            self.mesh.process_index if self.world > 1 else None)
+            self.mesh.data_index if self.world > 1 else None)
+        self.spatial_dim = getattr(task, "spatial_dim", None)
+        self.spatial_keys = getattr(task, "spatial_keys", None)
         self.graphs = GraphedStep(self.device) if (
             cfg.train.step_window > 1 and self.device.type == "cuda") \
             else None
 
     # -- steps --------------------------------------------------------------
 
+    def local_batch(self, batch: Dict) -> Dict:
+        """This process's part of a batch of its rows: with a ``spatial``
+        axis, its slice of dim ``spatial_dim`` of the task's
+        ``spatial_keys`` (views; the batch itself without one)."""
+        if self.spatial_dim is None or self.mesh.spatial_ways == 1:
+            return batch
+        return {k: spatial_slice(v, self.mesh, self.spatial_dim)
+                if k in self.spatial_keys and v.ndim >= 4 else v
+                for k, v in batch.items()}
+
     def grads_and_metrics(self, state: TrainState, batch: Dict,
                           generator: torch.Generator) -> Metrics:
         """Forward + backward of one step, leaving the (microbatch-mean)
         gradients in the parameters' ``.grad``. Returns detached metrics."""
+        batch = self.local_batch(batch)
         state.optimizer.zero_grad()
         accum = self.cfg.train.grad_accum_steps
         loss_fn = self.task.loss_fn
@@ -230,7 +260,7 @@ class Trainer:
 
     def eval_step(self, state: TrainState, batch: Dict) -> Metrics:
         with torch.no_grad(), state.eval_weights():
-            loss, aux = self.task.loss_fn(batch, False)
+            loss, aux = self.task.loss_fn(self.local_batch(batch), False)
         return {"loss": loss, **aux}
 
     # -- loops --------------------------------------------------------------

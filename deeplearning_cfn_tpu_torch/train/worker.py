@@ -12,7 +12,8 @@ for one host; with more it joins the process group, on this host's card,
 with the hang timeout ``train.hang_timeout_s`` as the group's timeout when
 it is set), then runs the experiment. At the end every process prints its
 flash kernel launches over its training steps after the first (their
-counts per step do not depend on the batch) and, on a card, its peak device
+counts per step do not depend on the batch), its step time p50 over the
+logged steps after the first and, on a card, its peak device
 memory.
 
 ``--profiler-port`` is refused: the JAX worker starts a ``jax.profiler``
@@ -68,6 +69,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                            hooks=(launches.hook,))
     print(f"[dlcfn-tpu] worker {spec.process_id} {launches.line()}",
           flush=True)
+    if launches.step_s:
+        print(f"[dlcfn-tpu] worker {spec.process_id} step time p50 "
+              f"{sorted(launches.step_s)[len(launches.step_s) // 2]} s over "
+              f"{len(launches.step_s)} logged steps", flush=True)
     if device.type == "cuda":
         import torch
 
@@ -86,6 +91,7 @@ class _LaunchTally:
 
     def __init__(self):
         self.first = self.last = None
+        self.step_s = []  # each logged step's time after the first
 
     @staticmethod
     def _now():
@@ -97,6 +103,9 @@ class _LaunchTally:
 
     def hook(self, step, state, record) -> None:
         now = (step, self._now())
+        if self.first is not None and record and "step_time_s" in record \
+                and record.get("step") == step:
+            self.step_s.append(record["step_time_s"])
         self.first = self.first or now
         self.last = now
 

@@ -300,7 +300,9 @@ def test_train_refuses_a_missing_or_multihost_stack_naming_a10(tmp_path,
     capsys.readouterr()
     assert main(["train", "--preset", "transformer_nmt_wmt", "--stack",
                  "two", "--state-dir", state, "--accelerator", "cpu",
-                 f"workdir={tmp_path / 'work'}", "mesh.model=2"]) == 1
+                 f"workdir={tmp_path / 'work'}",
+                 "train.step_window=2"]) == 1
     err = capsys.readouterr().err
     assert "2 hosts" in err and "ROADMAP A.10" in err
+    assert "step_window=2" in err
     assert not (tmp_path / "work").exists()  # nothing was launched

@@ -361,11 +361,21 @@ def test_backend_without_a_card_raises():
         choose_backend(ClusterSpec(hosts=["a", "b"]), "gpu", 0)
 
 
-@pytest.mark.parametrize("axis", ["model", "spatial"])
-def test_mesh_refuses_a_non_batch_axis_across_processes(axis):
-    cfg = MeshConfig(data=-1, **{axis: 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        build_mesh(cfg, num_processes=4, index=0)
+@pytest.mark.parametrize("axis,ways", [("model", 2), ("spatial", 2),
+                                      ("model", 4), ("spatial", 4)])
+def test_mesh_refuses_a_non_batch_axis_across_processes(axis, ways):
+    """The ``model`` and ``spatial`` axes resolve over processes as JAX
+    resolves them; what the mesh refuses is a size that does not divide
+    the processes, with JAX's message."""
+    cfg = MeshConfig(data=-1, **{axis: ways})
+    mesh = build_mesh(cfg, num_processes=4, index=0)
+    j_mesh = j_build_mesh(cfg, devices=jax.devices()[:4])
+    assert dict(j_mesh.shape) == mesh.shape
+    assert mesh.shape[axis] == ways and mesh.data_ways == 4 // ways
+    assert mesh.replicas == ways
+    with pytest.raises(ValueError, match="does not divide"):
+        build_mesh(MeshConfig(data=-1, **{axis: 3}), num_processes=4,
+                   index=0)
     # One process ignores the preset's mesh, as it always did.
     assert build_mesh(cfg, num_processes=1).size == 1
 

@@ -1,5 +1,6 @@
 """One process of a multi-process group for ``tests/test_torch_dist.py``,
-``tests/test_torch_seq.py`` and ``tests/test_torch_pipe_expert.py``.
+``tests/test_torch_seq.py``, ``tests/test_torch_pipe_expert.py``,
+``tests/test_torch_model_axis.py`` and ``tests/test_torch_spatial.py``.
 
     python tests/torch_dist_worker.py SPEC.json RANK
 
@@ -10,7 +11,10 @@ spec's ``ops`` (sequence-parallel attention over the whole group as one
 and the gradients of a seeded projection of it, to
 ``<out>/<op>-p<rank>.npz``; with ``kind`` ``gpipe`` or ``moe``, the GPipe
 schedule of a seeded stage function or a seeded ``MoeMlp`` on the op's
-mesh, this process's rows and pieces, with the same outputs), then every
+mesh, this process's rows and pieces, with the same outputs; with ``kind``
+``tp_layer``, a seeded ``TransformerLayer`` on the op's ``model`` mesh;
+with ``kind`` ``spatial``, a seeded ``Conv`` or ``max_pool_same`` over the
+op's ``spatial`` mesh, this process's rows of each image), then every
 case in turn: the preset with the
 case's overrides (its mesh resolved over the group), the initial state from
 a file of JAX-named leaves (``TrainState.load_named``) or, with
@@ -21,7 +25,12 @@ global batches, of which this process trains its rows through the port's
 a split leaf as ``<name>::<first row>``) and, on
 process 0, ``<out>/<case>.json`` (the per-step losses summed over the
 processes, and the sequence collectives' calls); with ``ckpt`` every process writes its part of a checkpoint of
-the final state there. Imports torch, the port and ``chip_smoke`` only.
+the final state there. With ``grad_sum`` ``discard`` the gradients are
+never summed (a control). With ``eval_batches`` process 0's json also holds
+the task's ``final_eval`` over them (each process its rows) and the
+decoded outputs; with ``all_params`` every process also saves each of its
+parameters as it holds it (``local/<port name>``). Imports torch, the port
+and ``chip_smoke`` only.
 """
 
 import json
@@ -51,28 +60,63 @@ def run_case(case, out_dir, rank):
 
     comm_timer.reset()
     comm_timer.enabled = True
-    losses, state = chip_smoke.fed_run(
-        torch, cfg, chip_smoke.load_batches(case["batches"]), "cpu",
-        init=init, total_steps=case.get("total_steps"))
+    from deeplearning_cfn_tpu_torch.train import trainer
+
+    summed = trainer.all_reduce_sum_
+    if case.get("grad_sum") == "discard":
+        # The control: the same processes with their gradients never
+        # summed (chip_smoke's, as phases 28-32 run it).
+        chip_smoke.time_grad_sum(torch, "discard", {})
+    try:
+        losses, state = chip_smoke.fed_run(
+            torch, cfg, chip_smoke.load_batches(case["batches"]), "cpu",
+            init=init, total_steps=case.get("total_steps"))
+    finally:
+        trainer.all_reduce_sum_ = summed
     comm_timer.enabled = False
     from deeplearning_cfn_tpu_torch.parallel import Rows
 
     leaves = {}
     for name, value in state.named_leaves():
         if isinstance(value, Rows):
-            leaves[f"{name}::{value.start}"] = value.data
+            # A piece along dim 0 as <name>::<first row>, along another dim
+            # as <name>::<dim>:<first index>.
+            at = f"{value.dim}:{value.start}" if value.dim else value.start
+            leaves[f"{name}::{at}"] = value.data
         elif not isinstance(value, Elsewhere):
             leaves[name] = value
+    if case.get("all_params"):
+        leaves.update({f"local/{n}": p.detach().numpy()
+                       for n, p in state.model.named_parameters()})
     np.savez(os.path.join(out_dir, f"{case['name']}-p{rank}.npz"), **leaves)
     if case.get("ckpt"):
         save_checkpoint(case["ckpt"], state.step, state)
+    record = {"losses": losses, "comm_calls": comm_timer.calls,
+              "slot_bytes": state.optimizer.slot_bytes(),
+              "slot_bytes_all": state.optimizer.slot_bytes(owned_only=False)}
+    if case.get("eval_batches"):
+        record["final_eval"] = final_eval(cfg, state,
+                                          case["eval_batches"])
     if rank == 0:
         with open(os.path.join(out_dir, f"{case['name']}.json"), "w") as fh:
-            json.dump({"losses": losses, "comm_calls": comm_timer.calls,
-                       "slot_bytes": state.optimizer.slot_bytes(),
-                       "slot_bytes_all":
-                           state.optimizer.slot_bytes(owned_only=False)},
-                      fh)
+            json.dump(record, fh)
+
+
+def final_eval(cfg, state, path):
+    """The task's ``final_eval`` of ``state`` over the global eval batches
+    in ``path``, each process on its rows (the same task, rebuilt on the
+    trained model's mesh)."""
+    import chip_smoke
+    from deeplearning_cfn_tpu_torch.parallel import build_mesh, local_shard
+    from deeplearning_cfn_tpu_torch.train.task import build_task
+
+    mesh = build_mesh(cfg.mesh)
+    task = build_task(cfg, torch.device("cpu"), mesh=mesh)
+    task.model = state.model
+    batches = chip_smoke.load_batches(path)
+    out = task.final_eval(state, lambda: iter(
+        [{k: local_shard(v, mesh) for k, v in b.items()} for b in batches]))
+    return {k: float(v) for k, v in out.items()}
 
 
 def run_gpipe(op, out_dir, rank):
@@ -150,11 +194,120 @@ def run_moe(op, out_dir, rank):
              experts=[experts.start, experts.stop])
 
 
+def seeded_tp_layer(shape, seed, mesh=None):
+    """A seeded f32 post-LN ``TransformerLayer`` (hidden, heads, mlp of
+    ``shape``) holding ``mesh``'s pieces of the one-process layer's
+    weights, the seeded inputs [B, S, F] and the output projection."""
+    from deeplearning_cfn_tpu_torch.models.transformer import Dense, \
+        TransformerLayer
+
+    b, s, f, h, m = shape
+    rng = np.random.RandomState(seed)
+    whole = TransformerLayer(f, h, m, torch.float32)
+    with torch.no_grad():
+        for _, p in whole.named_parameters():
+            p.copy_(torch.from_numpy(rng.normal(0, 0.3, tuple(p.shape))
+                                     .astype(np.float32)))
+    x = rng.standard_normal((b, s, f)).astype(np.float32)
+    proj = rng.standard_normal((b, s, f)).astype(np.float32)
+    if mesh is None:
+        return whole, x, proj
+    layer = TransformerLayer(f, h, m, torch.float32, mesh=mesh)
+    mods = dict(whole.named_modules())
+    with torch.no_grad():
+        for name, mod in layer.named_modules():
+            for pname, p in mod.named_parameters(recurse=False):
+                src = getattr(mods[name], pname)
+                if isinstance(mod, Dense) and pname == "weight":
+                    src = mod.piece_of(src)
+                p.copy_(src)
+    return layer, x, proj
+
+
+def run_tp_layer(op, out_dir, rank):
+    """A seeded ``TransformerLayer`` on the op's ``model`` mesh: this
+    process's rows, heads and hidden units; its loss, a seeded projection
+    of the output, is divided by the replicas (each process of a model
+    group computes the whole output). Saves the output, the input's and
+    every parameter's gradient, and each split weight's range."""
+    from deeplearning_cfn_tpu_torch.config import MeshConfig
+    from deeplearning_cfn_tpu_torch.models.transformer import Dense
+    from deeplearning_cfn_tpu_torch.parallel import batch_sharding, \
+        build_mesh
+
+    mesh = build_mesh(MeshConfig(**op["mesh"]))
+    layer, x, proj = seeded_tp_layer(op["shape"], op["seed"], mesh)
+    rows = batch_sharding(mesh, x.shape[0])
+    xt = torch.tensor(x[rows], requires_grad=True)
+    y = layer(xt)
+    ((y * torch.from_numpy(proj[rows])).sum() / mesh.replicas).backward()
+    ranges = {}
+    for name, mod in layer.named_modules():
+        if isinstance(mod, Dense) and mod.split is not None:
+            dim = 0 if mod.split == "column" else 1
+            n = mod.weight.shape[dim]
+            ranges[f"range/{name}.weight"] = [dim, mesh.model_index * n,
+                                              (mesh.model_index + 1) * n]
+    np.savez(os.path.join(out_dir, f"{op['name']}-p{rank}.npz"),
+             out=y.detach().numpy(), dx=xt.grad.numpy(),
+             rows=[rows.start, rows.stop], **ranges,
+             **{f"grad/{n}": p.grad.numpy()
+                for n, p in layer.named_parameters()})
+
+
+def seeded_spatial_op(op):
+    """The op's seeded weights, inputs [B, C, H, W] and projection."""
+    b, c, h, o = op["shape"]
+    rng = np.random.RandomState(op["seed"])
+    k = op["kernel"]
+    w = rng.normal(0, 0.3, (o, c, k, k)).astype(np.float32)
+    x = rng.standard_normal((b, c, h, h)).astype(np.float32)
+    out_h = -(-h // op["stride"])
+    proj = rng.standard_normal((b, c if op["pool"] else o, out_h, out_h)) \
+        .astype(np.float32)
+    return w, x, proj
+
+
+def run_spatial(op, out_dir, rank):
+    """A seeded ``Conv`` (or ``max_pool_same``) over the op's ``spatial``
+    mesh: this process's rows of its images. Saves the output rows, the
+    input rows' gradient and the weight's gradient (this process's
+    part)."""
+    from deeplearning_cfn_tpu_torch.config import MeshConfig
+    from deeplearning_cfn_tpu_torch.models.resnet import Conv, \
+        max_pool_same
+    from deeplearning_cfn_tpu_torch.parallel import batch_sharding, \
+        build_mesh, spatial_slice
+
+    mesh = build_mesh(MeshConfig(**op["mesh"]))
+    w, x, proj = seeded_spatial_op(op)
+    rows = batch_sharding(mesh, x.shape[0])
+    xt = torch.tensor(spatial_slice(x[rows], mesh, 2).copy(),
+                      requires_grad=True)
+    conv = Conv(w.shape[1], w.shape[0], op["kernel"], op["stride"],
+                torch.float32)
+    conv.mesh = mesh
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(w))
+    y = max_pool_same(xt, op["kernel"], op["stride"], mesh) if op["pool"] \
+        else conv(xt)
+    mine = spatial_slice(proj[rows], mesh, 2)
+    (y * torch.from_numpy(np.ascontiguousarray(mine))).sum().backward()
+    np.savez(os.path.join(out_dir, f"{op['name']}-p{rank}.npz"),
+             out=y.detach().numpy(), dx=xt.grad.numpy(),
+             dw=np.zeros_like(w) if op["pool"] else conv.weight.grad.numpy(),
+             rows=[rows.start, rows.stop], spatial=mesh.spatial_index)
+
+
 def run_op(op, out_dir, rank):
     if op.get("kind") == "gpipe":
         return run_gpipe(op, out_dir, rank)
     if op.get("kind") == "moe":
         return run_moe(op, out_dir, rank)
+    if op.get("kind") == "tp_layer":
+        return run_tp_layer(op, out_dir, rank)
+    if op.get("kind") == "spatial":
+        return run_spatial(op, out_dir, rank)
     from deeplearning_cfn_tpu_torch.config import MeshConfig
     from deeplearning_cfn_tpu_torch.ops.ring_attention import \
         ring_attention_sharded
