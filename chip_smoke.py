@@ -529,14 +529,14 @@ BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 SLOTS, SRC_LEN, HEADS, HEAD_DIM = 8, 128, 8, 64
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
-TRAIN_BATCH, TRAIN_STEPS, PARITY_BATCH = 128, 30, 16
+TRAIN_BATCH, TRAIN_STEPS, PARITY_BATCH = 128, 12, 16
 # Attention calls per microbatch step of the NMT model (6+6 layers): the
 # forward kernel for every call; the backward kernels for the 6 bias-free
 # causal decoder self-attentions; the reference VJP for the 6 encoder
 # self-attentions and 6 cross-attentions (padding bias).
 PER_STEP = {"fwd": 18, "dkdv": 6, "dq": 6, "vjp": 12}
 # Phase 11: ResNet-50 at full width, bf16.
-RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS = 256, 2, 10
+RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS = 256, 2, 4
 RESNET_CUTS = ["train.global_batch=256 (preset 8192, a 128-chip batch; lr "
                "by the preset's scale_with_batch rule)",
                "data.num_train_examples=1024 (preset 8192: 4.9 GB of f32 "
@@ -570,7 +570,7 @@ BERT_CUTS = ["train.grad_accum_steps=2 (the preset's global batch 1024 as "
 RESUME_K, RESUME_BATCH, RESUME_TOL = 3, 32, 1e-4
 # Phase 15: Mask R-CNN (maskrcnn_coco) at full width, bf16. No kernel of
 # ours is on this path: the attention counts must not move.
-MRCNN_BATCH, MRCNN_ACCUM, MRCNN_WARMUP, MRCNN_STEPS = 8, 1, 2, 10
+MRCNN_BATCH, MRCNN_ACCUM, MRCNN_WARMUP, MRCNN_STEPS = 8, 1, 2, 5
 MRCNN_EXAMPLES, MRCNN_EVAL, MRCNN_LR = 96, 16, 0.01
 MRCNN_ROIS, MRCNN_MASK_ROIS = 256 + 100, 64  # post_nms_topk + max_boxes
 MRCNN_CUTS = ["train.global_batch=8 (one card's share of the preset's 64), "
@@ -579,7 +579,8 @@ MRCNN_CUTS = ["train.global_batch=8 (one card's share of the preset's 64), "
               "linearly to batch 8)",
               "data.num_train_examples=96 (the default 512 would be 6.4 GB "
               "of f32 host images)",
-              "train.steps=12 (preset 24 epochs: 2 warm-up steps, 10 timed)",
+              f"train.steps={MRCNN_WARMUP + MRCNN_STEPS} (preset 24 epochs: "
+              f"{MRCNN_WARMUP} warm-up steps, {MRCNN_STEPS} timed)",
               "schedule.warmup_steps=2 (preset 500, scaled to the step "
               "count; the step boundaries stay at 0.66 and 0.88 of the run)",
               "eval on 16 images (batch 8) with eval.detect_topk=100",
@@ -605,14 +606,15 @@ MRCNN_LOSS_TOL, MRCNN_GRAD_TOL, MRCNN_VALUE_TOL = 1e-5, 1e-3, 1e-4
 # self-attentions are causal with no bias: per step the forward, dK/dV and
 # dQ kernels 12 times each (tc), the reference VJP never; per eval batch 12
 # forwards; per generated position 12 forwards on the decode variant.
-GPT_BATCH, GPT_WARMUP, GPT_STEPS, GPT_EVAL = 16, 2, 20, 64
+GPT_BATCH, GPT_WARMUP, GPT_STEPS, GPT_EVAL = 16, 2, 8, 64
 GPT_SEQ, GPT_LAYERS, GPT_HEADS, GPT_VOCAB = 1024, 12, 12, 32768
 GPT_SHAPE = (GPT_BATCH, GPT_HEADS, GPT_SEQ, GPT_SEQ, HEAD_DIM)
 GPT_PER_STEP = {"fwd": 12, "dkdv": 12, "dq": 12, "vjp": 0}
 GPT_PROMPT, GPT_NEW, GPT_PARITY_BATCH = 16, 64, 8
 GPT_CUTS = ["train.global_batch=16 in one microbatch (the preset's 512 is a "
             "v5p-32 batch; 16 is the JAX bench's per-chip batch)",
-            "train.steps=22 (preset 100000: 2 warm-up steps, 20 timed)",
+            f"train.steps={GPT_WARMUP + GPT_STEPS} (preset 100000: "
+            f"{GPT_WARMUP} warm-up steps, {GPT_STEPS} timed)",
             "schedule.warmup_steps=2 (preset 2000, scaled to the step "
             "count)",
             "train.shard_opt_state ignored (ZeRO-1 over one device is the "
@@ -627,7 +629,7 @@ GPT_CUTS = ["train.global_batch=16 in one microbatch (the preset's 512 is a "
 # 64-key tiles and 4 keys): per microbatch the forward, dK/dV and dQ
 # kernels 12 times each (tc), the reference VJP never; per eval batch 12
 # forwards.
-VIT_BATCH, VIT_ACCUM, VIT_WARMUP, VIT_STEPS = 1024, 4, 2, 8
+VIT_BATCH, VIT_ACCUM, VIT_WARMUP, VIT_STEPS = 1024, 4, 2, 4
 VIT_LAYERS, VIT_HEADS, VIT_TOKENS = 12, 6, 196
 VIT_TRAIN_EXAMPLES, VIT_EVAL, VIT_EVAL_BATCH = 1024, 512, 256
 VIT_SHAPE = (VIT_BATCH // VIT_ACCUM, VIT_HEADS, VIT_TOKENS, VIT_TOKENS,
@@ -680,7 +682,7 @@ PIPE_CUTS = BERT_CUTS + [
 # and the same batches, K = 1 (eager steps) then K = 4 (windows whose steps
 # replay one captured CUDA graph, after the eager warm-up step). The batches
 # are WINDOW distinct ones, staged on the card once and cycled.
-WINDOW, WINDOW_STEPS, WINDOW_TINY_STEPS = 4, 16, 8
+WINDOW, WINDOW_STEPS, WINDOW_TINY_STEPS = 4, 8, 4
 # A replay runs the eager step's kernels on the same addresses, so the two
 # agree bit for bit where the step has no atomics. Where it has (the
 # embedding and index_add backward, cuDNN's weight gradients), the order
@@ -747,6 +749,13 @@ _LINES = threading.local()    # a job's own lines while jobs run at once
 IN_PROCESS, CLI = threading.Lock(), threading.RLock()
 PHASE_S = {}                    # each phase's seconds, by number
 _PHASE = {}
+
+
+def mfu_share(examples_per_s, flops):
+    """A training rate's MFU share: 3 × the forward FLOPs per example
+    (forward and backward) per second over 989 TFLOP/s, as
+    ``deeplearning_cfn_tpu_torch.bench.run_bench`` counts it."""
+    return examples_per_s * 3 * flops / BF16_FLOP_PER_S
 
 
 def log(msg: str) -> None:
@@ -1799,7 +1808,9 @@ def resnet_cfg(batch, steps, workdir_name):
 
 
 def train_resnet(torch):
-    """Phase 11: ResNet-50 at full width in bf16 through run_experiment."""
+    """Phase 11: ResNet-50 at full width in bf16 through run_experiment:
+    losses, the running statistics, the layouts and the host's feed rate
+    (the step's throughput and MFU share: phase 34a's ``run_bench``)."""
     from deeplearning_cfn_tpu_torch.models.resnet import forward_flops
     from deeplearning_cfn_tpu_torch.train.run import run_experiment
 
@@ -1850,14 +1861,13 @@ def train_resnet(torch):
     img_s = sorted(r["examples_per_sec"] for r in timed)
     p50 = lambda xs: xs[len(xs) // 2]
     flops = forward_flops(model, cfg.data.image_size)
-    mfu = p50(img_s) * 3 * flops / BF16_FLOP_PER_S
     out = dict(steps=steps, timed_steps=len(timed),
                global_batch=RESNET_BATCH, image_size=cfg.data.image_size,
                params=sum(p.numel() for p in model.parameters()),
                forward_gflop_per_image=flops / 1e9,
                first5_loss=first, last5_loss=last,
                step_time_p50_s=p50(step_s), images_per_s_p50=p50(img_s),
-               mfu_share=mfu, first_step_s=records[0]["compile_s"],
+               first_step_s=records[0]["compile_s"],
                max_memory_allocated_bytes=peak, wall_s=wall,
                final_eval_loss=final["loss"],
                final_eval_top1=final["accuracy"],
@@ -1869,8 +1879,8 @@ def train_resnet(torch):
         f"{cfg.data.image_size}² image (counted from the conv/Dense shapes; "
         f"published ~8.2)")
     log(f"  step time p50 {out['step_time_p50_s'] * 1e3:.2f} ms, images/s "
-        f"p50 {out['images_per_s_p50']:.1f}, MFU share {mfu:.4f} (of 989 "
-        f"TFLOP/s dense bf16), first step {out['first_step_s']:.2f} s, "
+        f"p50 {out['images_per_s_p50']:.1f} (the MFU share: phase 34a's "
+        f"run_bench), first step {out['first_step_s']:.2f} s, "
         f"max_memory_allocated {peak / 2**30:.2f} GiB; eval on "
         f"{final['examples']:.0f}: loss {final['loss']:.4f}, top-1 "
         f"{final['accuracy']:.4f}, top-5 {final['accuracy_top5']:.4f}; "
@@ -2130,7 +2140,7 @@ def train_bert(torch, attn, preset="bert_base_wikipedia",
     p50 = lambda xs: xs[len(xs) // 2]
     forward_flops = sys.modules[type(model).__module__].forward_flops
     flops = forward_flops(model, BERT_SEQ, BERT_PRED)
-    mfu = p50(seq_s) * 3 * flops / BF16_FLOP_PER_S
+    mfu = mfu_share(p50(seq_s), flops)
     bound_step_s = BERT_BATCH * 3 * flops / BF16_FLOP_PER_S
     decoder = tied_decoder_ms(torch, BERT_BATCH // BERT_ACCUM * BERT_PRED,
                               30522)
@@ -2361,7 +2371,7 @@ def train_maskrcnn(torch, attn):
     p50 = lambda xs: xs[len(xs) // 2]
     flops = forward_flops(model, cfg.data.image_size, MRCNN_ROIS,
                           MRCNN_MASK_ROIS)
-    mfu = p50(img_s) * 3 * flops / BF16_FLOP_PER_S
+    mfu = mfu_share(p50(img_s), flops)
     n_params = sum(p.numel() for p in model.parameters())
     del model
     out = dict(steps=steps, timed_steps=len(timed),
@@ -2589,7 +2599,7 @@ def train_gpt(torch, attn):
     p50 = lambda xs: xs[len(xs) // 2]
     flops = forward_flops(model, GPT_SEQ)
     tok_s = p50(seq_s) * GPT_SEQ
-    mfu = p50(seq_s) * 3 * flops / BF16_FLOP_PER_S
+    mfu = mfu_share(p50(seq_s), flops)
     bound_step_s = GPT_BATCH * 3 * flops / BF16_FLOP_PER_S
     logits_ms = tied_decoder_ms(torch, GPT_BATCH * GPT_SEQ, GPT_VOCAB)
     n_params = sum(p.numel() for p in model.parameters())
@@ -3346,7 +3356,7 @@ def train_vit(torch, attn):
     img_s = sorted(r["examples_per_sec"] for r in timed)
     p50 = lambda xs: xs[len(xs) // 2]
     flops = forward_flops(model)
-    mfu = p50(img_s) * 3 * flops / BF16_FLOP_PER_S
+    mfu = mfu_share(p50(img_s), flops)
     bound_step_s = VIT_BATCH * 3 * flops / BF16_FLOP_PER_S
     n_params = sum(p.numel() for p in model.parameters())
     del model
@@ -4418,8 +4428,9 @@ def int8_tiny_parity(torch):
     return dict(logits_rel=logit_err, codes_max_diff=code_err)
 
 
-def int8_cli(torch):
-    """``cli serve --quantize int8 --kv-quant int8 --vocab`` on three text
+def int8_cli():
+    """Phase 25's ``cli serve --quantize int8 --kv-quant int8 --vocab`` (a
+    process of its own; it times nothing) on three text
     lines, with a BPE vocab trained offline (``data/bpe.py``): exit 0, and
     on every result line a ``"text"`` field that is the vocab's decoding of
     its tokens (the random weights emit ids past the 300-id vocab too,
@@ -4462,8 +4473,9 @@ def int8_cli(torch):
 def serve_int8(torch, attn, reqs, served):
     """Phase 25: phase 5's engine and requests with ``quantize="int8"`` and
     ``kv_quant="int8"``, then the byte ratios, the divergence checks, the
-    speculative and beam-window identities, the weight swap, the tiny f32
-    card-vs-CPU check and the text CLI."""
+    speculative and beam-window identities, the weight swap and the tiny
+    f32 card-vs-CPU check (its text CLI, ``int8_cli``, runs beside phase
+    26's jobs and joins the row as ``cli``)."""
     from deeplearning_cfn_tpu_torch.serve.quant import (kv_pool_bytes,
                                                         variables_bytes)
 
@@ -4548,7 +4560,6 @@ def serve_int8(torch, attn, reqs, served):
         raise AssertionError("swap_variables check failed")
     del eng, f32_model
     tiny = int8_tiny_parity(torch)
-    cli = int8_cli(torch)
     row.update(
         weight_bytes=w_int8, weight_bytes_f32=w_f32,
         weight_ratio=w_int8 / w_f32, kv_bytes=stored, kv_bytes_f32=f32_pool,
@@ -4562,7 +4573,7 @@ def serve_int8(torch, attn, reqs, served):
         beam_windows_identical=beams[0] == beams[1],
         swap=dict(radix_before=held, radix_after=dropped,
                   token_identical=f"{same_swap}/{len(greedy)}"),
-        tiny_f32_card_vs_cpu=tiny, cli=cli,
+        tiny_f32_card_vs_cpu=tiny,
         phase5=dict(tokens_per_s=served["tokens_per_s"],
                     ttft_p50_s=served["ttft_p50_s"],
                     decode_step_p50_ms=served["decode_step_p50_ms"]),
@@ -4805,17 +4816,18 @@ def obs_verbs(root, chaos):
     return out
 
 
-def launched_path(torch, trained, root):
+def launched_path(torch, trained, root, beside=()):
     """Phase 26: 26a-26d in the directory ``root`` (phase 27 reuses the
-    chaos run's checkpoints; the caller removes it); 26a and 26b at once
-    (``at_once``)."""
+    chaos run's checkpoints; the caller removes it); 26a, 26b and the
+    ``beside`` jobs at once (``at_once``), whose results come back under
+    ``"beside"``."""
     # The workers find the package from any directory; this process's
     # cached blocks go back to the card first.
     os.environ["PYTHONPATH"] = os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
     torch.cuda.empty_cache()
     runs = at_once([("26a", lambda: launched_training(torch, root, trained)),
-                    ("26b", lambda: crash_recovery(root))])
+                    ("26b", lambda: crash_recovery(root)), *beside])
     launched, chaos = runs["26a"], runs["26b"]
     t = time.perf_counter()
     verbs = obs_verbs(root, chaos)
@@ -4825,7 +4837,8 @@ def launched_path(torch, trained, root):
     if rc != 0 or "all checks passed" not in out:
         raise AssertionError(f"doctor: rc {rc}")
     return dict(launched=launched, crash_recovery=chaos, obs=verbs,
-                doctor="all checks passed")
+                doctor="all checks passed",
+                beside={label: runs[label] for label, _ in beside})
 
 
 # Phase 27: the fleet (ROADMAP A.6d + A.12). transformer_nmt_wmt at full
@@ -6225,7 +6238,7 @@ def long_mfu(torch, run, flops_per_seq):
     seq = run["cfg"].data.seq_len
     seqs_s = run["cfg"].train.global_batch / run["step_time_p50_s"]
     run["forward_mflop_per_token"] = flops_per_seq / seq / 1e6
-    run["mfu_share"] = seqs_s * 3 * flops_per_seq / BF16_FLOP_PER_S
+    run["mfu_share"] = mfu_share(seqs_s, flops_per_seq)
     log(f"  step time p50 {run['step_time_p50_s'] * 1e3:.2f} ms, tokens/s "
         f"p50 {run['tokens_per_s_p50']:.1f}, MFU share {run['mfu_share']:.4f} "
         f"({run['forward_mflop_per_token']:.1f} MFLOP forward per token, "
@@ -7068,29 +7081,189 @@ def first_card_only():
 
 
 def host_phase(torch, root):
-    """Phase 33: 33a, 33b, 33c where the machine has 2 cards, 33d; 33a's
-    and 33d's processes share the first card whatever the machine."""
+    """Phase 33: 33a and 33d at once (``at_once``; their processes share
+    the first card whatever the machine), then 33b, then 33c where the
+    machine has 2 cards."""
     os.environ["PYTHONPATH"] = os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
     torch.cuda.empty_cache()
-    out = {}
-    steps = [("33a", lambda: host_windows(torch, root), first_card_only),
-             ("33b", lambda: nccl_capture(torch), contextlib.nullcontext)]
+    with first_card_only():
+        out = at_once([("33a", lambda: host_windows(torch, root)),
+                       ("33d", lambda: host_collectives_bench(root))])
+    steps = [("33b", lambda: nccl_capture(torch))]
     if torch.cuda.device_count() >= 2:
         steps.append(("33c", lambda: host_windows(
             torch, root, backend="nccl",
-            windows="windows replay CUDA graphs", name="33c"),
-            contextlib.nullcontext))
+            windows="windows replay CUDA graphs", name="33c")))
     else:
         log("  33c not run: 1 card")
-    steps.append(("33d", lambda: host_collectives_bench(root),
-                  first_card_only))
-    for key, fn, cards in steps:
+    for key, fn in steps:
         t = time.perf_counter()
-        with cards():
-            out[key] = fn()
+        out[key] = fn()
         log(f"  {key} {time.perf_counter() - t:.1f} s")
         torch.cuda.empty_cache()
+    return out
+
+
+# Phase 34: the bench verb. 34a's records come from run_bench in this
+# process (steps timed after the first step and the warm-up, as the CLI's
+# bench does with its own defaults of 30 and 5); 34b's processes run beside
+# phase 26's (they time nothing), 34a and 34c alone.
+BENCH_STEPS, BENCH_WARMUP = 6, 1
+BENCH_RUNS = (("nmt", dict(preset="transformer_nmt_wmt")),
+              ("resnet50", dict(preset="imagenet_resnet50",
+                                include_input=True)),
+              ("nmt_window", dict(preset="transformer_nmt_wmt",
+                                  step_window=WINDOW)))
+BENCH_HBM = ("hbm_gib_peak", "hbm_gib_in_use", "hbm_gib_limit")
+
+
+def _fleet_ok(r):
+    return (r["dropped_requests"] == 0 and r["token_identical"] is True
+            and r["goodput_sum_ok"] is True)
+
+
+# 34b: the record contracts of ``cli bench`` as processes of their own
+# (their exit code is part of the contract), each with its check.
+BENCH_CLI = (
+    ("serve", ["--serve", "--smoke"], lambda r: r["value"] > 0),
+    ("serve_spec", ["--serve", "--speculate", "2", "--smoke"],
+     lambda r: r["token_identical"] is True
+     and r["tokens_per_target_step"] > 1),
+    ("serve_int8", ["--serve", "--quantize", "int8", "--kv-quant", "int8",
+                    "--smoke"],
+     lambda r: r["weight_bytes"] <= 0.35 * r["weight_bytes_fp32"]
+     and r["kv_cache_bytes"] <= 0.30 * r["kv_cache_bytes_fp32"]
+     and r["divergence_ok"] is True and r["kv_divergence_ok"] is True),
+    ("fleet", ["--fleet", "--smoke"], _fleet_ok),
+    ("fleet_disagg", ["--fleet", "--smoke", "--fleet-prefill", "1",
+                      "--fleet-decode", "1"],
+     lambda r: _fleet_ok(r) and r["token_identical_colocated"] is True),
+    ("fleet_burst", ["--fleet", "--smoke", "--trace", "burst",
+                     "--autoscale"],
+     lambda r: _fleet_ok(r) and r["scale_ups"] >= 1
+     and r["replicas_final"] == r["min_replicas"]),
+    ("fleet_net", ["--fleet", "--net", "--smoke"],
+     lambda r: r["dropped_requests"] == 0 and r["token_identical"] is True
+     and r["token_identical_disagg"] is True),
+    ("obs", ["--obs-smoke", "--preset", "transformer_nmt_wmt", "--steps",
+             "10"], lambda r: r["trace_valid"] is True),
+)
+# 34c: the op suites at their default shapes, in the JAX suites' order.
+OPS_NAMES = ["resnet50_fwd_bwd", "resnet50_s2d_fwd_bwd",
+             "backbone_rpn_fwd_bwd", "proposals_decode_topk_nms",
+             "rpn_top_k", "nms_static", "roi_align_box_fwd_bwd",
+             "roi_align_mask_fwd_bwd", "box_and_mask_heads_fwd_bwd",
+             "full_loss_fwd_bwd", "sum_of_pieces"]
+
+
+def bench_records(torch, attn):
+    """34a: ``run_bench`` once for each of BENCH_RUNS, every count set to 0
+    just before and read just after. Each record must be measured, on this
+    card, with its memory keys and an MFU share in (0, 1]; the NMT's runs
+    launch all three kernels (tc), a step's worth of each per step; the
+    ResNet's none."""
+    import gc
+
+    from deeplearning_cfn_tpu_torch.bench import run_bench
+
+    kind = torch.cuda.get_device_name(0)
+    out = {}
+    for label, kw in BENCH_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        set_counts(attn, 0)
+        rec = run_bench(steps=BENCH_STEPS, warmup=BENCH_WARMUP, **kw)
+        launched, by_variant = counts(attn), variant_counts(attn)
+        log(f"  34a {label}: {json.dumps(rec)}")
+        bad = [k for k in BENCH_HBM if k not in rec]
+        if rec["measured"] is not True or not 0 < rec["mfu"] <= 1 \
+                or rec["device_kind"] != kind or bad:
+            raise AssertionError(f"34a {label}: a bad record (missing "
+                                 f"{bad}): {rec}")
+        window = rec["step_window"]
+        steps = rec["steps"] + window * (1 + BENCH_WARMUP)
+        if kw.get("include_input"):
+            steps += rec["steps"] + window
+        per_step = PER_STEP if kw["preset"] == "transformer_nmt_wmt" \
+            else dict.fromkeys(PER_STEP, 0)
+        expect = {k: v * steps for k, v in per_step.items()}
+        log(f"  34a {label}: launches over {steps} steps {launched} "
+            f"(expected {expect}), by variant {by_variant}")
+        if launched != expect or any(
+                by_variant[k]["tc"] != launched[k]
+                for k in ("fwd", "dkdv", "dq")):
+            raise AssertionError(f"34a {label}: launches {launched} "
+                                 f"{by_variant} != {expect} (all tc)")
+        out[label] = dict(record=rec, launches=launched,
+                          variant_launches=by_variant)
+    log(f"  [{card_line()}]")
+    return out
+
+
+def bench_cli(label, argv, check):
+    """34b: one ``cli bench`` process; rc 0, the record's last line passing
+    ``check``, and the parent process's kernel launches from its stderr
+    line (a ``--net`` fleet's children count their own)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "bench",
+         *argv], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=600)
+    marker = "[dlcfn-tpu] bench kernel launches "
+    lines = [ln for ln in proc.stderr.splitlines() if ln.startswith(marker)]
+    if proc.returncode != 0 or not lines or not proc.stdout.strip():
+        raise AssertionError(f"34b {label}: rc {proc.returncode}\n"
+                             f"{(proc.stdout + proc.stderr)[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = json.loads(lines[-1][len(marker):])
+    log(f"  34b {label}: {json.dumps(rec)}")
+    log(f"  34b {label}: kernel launches in the bench process {launches}")
+    if rec.get("device", "gpu") != "gpu" or not check(rec):
+        raise AssertionError(f"34b {label}: the record's contract failed")
+    return dict(record=rec, launches=launches)
+
+
+def bench_ops(torch):
+    """34c: ``bench --ops all --steps 3`` at the default shapes (ResNet-50
+    at batch 512, 224²; Mask R-CNN's pieces at batch 4, 1024²)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc, out = cli_inprocess(["bench", "--ops", "all", "--steps", "3"])
+    records = [json.loads(ln) for ln in out.splitlines()
+               if ln.startswith('{"op"')]
+    for r in records:
+        log(f"  34c {json.dumps(r)}")
+    if rc != 0 or [r["op"] for r in records] != OPS_NAMES \
+            or not all(r["ms"] > 0 for r in records):
+        raise AssertionError(f"34c: rc {rc}, ops {[r['op'] for r in records]}")
+    log(f"  [{card_line()}]")
+    return records
+
+
+def bench_cli_jobs():
+    """34b's ``at_once`` jobs (run beside phase 26's)."""
+    return [(f"34b {label}", lambda a=argv, c=check, n=label:
+             bench_cli(n, a, c)) for label, argv, check in BENCH_CLI]
+
+
+def bench_phase(torch, attn, cli_runs):
+    """Phase 34: 34a, then 34c, each alone; ``cli_runs``, 34b's results
+    (``{job label: result}``), join the record."""
+    t = time.perf_counter()
+    out = {"34a": bench_records(torch, attn)}
+    log(f"  34a {time.perf_counter() - t:.1f} s")
+    for label, run in cli_runs.items():
+        log(f"  {label} (beside phase 26, {run['phase_s']:.1f} s): "
+            f"launches {run['launches']}")
+    out["34b"] = cli_runs
+    t = time.perf_counter()
+    set_counts(attn, 0)
+    out["34c"] = bench_ops(torch)
+    log(f"  34c {time.perf_counter() - t:.1f} s")
     return out
 
 
@@ -7263,8 +7436,13 @@ def main() -> int:
     try:
         phase("26. launched training: dry-run stack, train --stack, "
               "SIGKILL and resume, obs verbs, doctor (NMT full width, "
-              "bf16)")
-        launched = launched_path(torch, trained, root)
+              "bf16); beside them phase 34b's cli bench record contracts "
+              "and phase 25's cli serve with int8 and text")
+        launched = launched_path(
+            torch, trained, root, beside=bench_cli_jobs() + [
+                ("25 cli", int8_cli)])
+        bench_cli_runs = launched.pop("beside")
+        int8["cli"] = bench_cli_runs.pop("25 cli")
 
         phase("27. the fleet: disaggregated prefill/decode, route, "
               "rollout, fleet up and fleet up --net (NMT full width, "
@@ -7304,6 +7482,11 @@ def main() -> int:
               "(NMT full width, bf16), NCCL under capture, "
               "collectives_bench")
         host = host_phase(torch, root)
+
+        phase("34. the bench verb on the card: run_bench (NMT; ResNet-50 "
+              "with its input; NMT with train.step_window=4), cli bench's "
+              "record contracts (serve, fleet, net, obs), bench --ops all")
+        benched = bench_phase(torch, attn, bench_cli_runs)
         end_phase()
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -7367,6 +7550,16 @@ def main() -> int:
                                      long[name]["variant_launches"]["fwd"])
     fwd_paths["long_gpt_generate"] = (long["generate"]["launches"],
                                       long["generate"]["variant_launches"])
+    for label, run in benched["34a"].items():
+        fwd_paths[f"bench_{label}"] = (run["launches"]["fwd"],
+                                       run["variant_launches"]["fwd"])
+    # 34b's cli bench processes count their own launches, apart from the
+    # total (as the children of phase 27 do).
+    bench_cli_launches = {
+        name: {f"launches_bench_cli_{label.split()[-1]}": run["launches"][
+            name] for label, run in benched["34b"].items()}
+        for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv",
+                     "flash_attn_bwd_dq")}
     fwd = {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -7375,6 +7568,7 @@ def main() -> int:
                     "(_flash_kernel, launched by _flash_forward at :291)",
         "launches": sum(n for n, _ in fwd_paths.values()),
         **{f"launches_{path}": n for path, (n, _) in fwd_paths.items()},
+        **bench_cli_launches["flash_attn_fwd"],
         "variant_launches": {
             v: sum(by[v] for _, by in fwd_paths.values())
             for v in served["variant_launches"]},
@@ -7450,7 +7644,9 @@ def main() -> int:
         paths = {"train": trained, "gpt_train": gpt, "vit_train": vit,
                  "vit_window": windows["vit_run"],
                  "nmt_window": windows["nmt_run"],
-                 "long_bert": long["bert"], "long_gpt": long["gpt"]}
+                 "long_bert": long["bert"], "long_gpt": long["gpt"],
+                 **{f"bench_{label}": run
+                    for label, run in benched["34a"].items()}}
         records.append({
             "name": name, "route": "cuda",
             "source": f"deeplearning_cfn_tpu_torch/csrc/{name}.cu",
@@ -7458,6 +7654,7 @@ def main() -> int:
             "launches": sum(r["launches"][key] for r in paths.values()),
             **{f"launches_{path}": r["launches"][key]
                for path, r in paths.items()},
+            **bench_cli_launches[name],
             "variant_launches": {
                 v: sum(r["variant_launches"][key][v]
                        for r in paths.values())
@@ -7525,6 +7722,9 @@ def main() -> int:
         "model_spatial_parallel": {k: v for k, v in model_spatial.items()
                                    if k != "rows"},
         "host_processes": host,
+        "bench": {"34a": {k: v["record"] for k, v in benched["34a"].items()},
+                  "34b": {k: v["record"] for k, v in benched["34b"].items()},
+                  "34c": benched["34c"]},
         "phase_s": PHASE_S,
         "script_s": time.perf_counter() - script_t0,
     }

@@ -24,6 +24,11 @@ PyTorch and CUDA:
     python -m deeplearning_cfn_tpu_torch.cli fleet route|rollout --preset P \
         --requests reqs.jsonl [--replicas N] [--to-step S] [overrides ...]
     python -m deeplearning_cfn_tpu_torch.cli fleet status <run root> [--json]
+    python -m deeplearning_cfn_tpu_torch.cli bench --preset P [--steps N] \
+        [--global-batch B | --sweep-batches B1,B2] [--with-input] \
+        [--step-window K] [--accelerator gpu|cpu]
+    python -m deeplearning_cfn_tpu_torch.cli bench --serve|--fleet [--net] \
+        [--smoke] ... | --obs-smoke | --ops SUITE | --collectives
     python -m deeplearning_cfn_tpu_torch.cli ckpt list <ckpt dir>
     python -m deeplearning_cfn_tpu_torch.cli ckpt rollback <ckpt dir> --step N
     python -m deeplearning_cfn_tpu_torch.cli presets | config --preset P | info
@@ -80,8 +85,13 @@ handoff through a store), and with ``--net`` it drives ``net.server``
 children behind unix sockets (the seeded tiny recipe). ``fleet route``
 and ``fleet rollout`` serve in-process replicas behind the router
 (``rollout`` swaps every replica to ``--to-step`` mid-stream), and
-``fleet status`` reports on a fleet run root. Not here yet: ``bench``
-(ROADMAP A.7), with ``bench --fleet [--net]``.
+``fleet status`` reports on a fleet run root. ``bench`` prints the JAX
+package's records (one JSON line each): a preset's training step
+(``bench.py``; on one card, its MFU from the model's own FLOP count), the
+serving, fleet and process-fleet scenarios (``serve/bench.py``,
+``fleet/bench.py``, ``net/bench.py``), the obs overhead smoke, the op
+suites (``opsbench.py``) and the collectives (``parallel/
+collectives_bench.py``).
 """
 
 from __future__ import annotations
@@ -1576,6 +1586,251 @@ def _add_stack_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--state-dir", default=defaults.state_dir)
 
 
+def _cmd_bench(args) -> int:
+    """The JAX package's ``bench`` verb with its flags, guards (rc 2) and
+    failures (rc 1: a speculative parity break, an int8 divergence past its
+    bound), on the device ``--accelerator`` names. On the card a verb that
+    ran ends with one stderr line: the attention kernels' launches in this
+    process (a ``--net`` fleet's children count their own)."""
+    rc = _bench(args)
+    if rc != 2 and args.accelerator == "gpu":
+        from ..ops import attention as attn
+
+        launches = {
+            "flash_attn_fwd": attn.flash_attention_forward.launches,
+            "flash_attn_bwd_dkdv": attn.flash_attn_bwd_dkdv.launches,
+            "flash_attn_bwd_dq": attn.flash_attn_bwd_dq.launches}
+        print(f"[dlcfn-tpu] bench kernel launches {json.dumps(launches)}",
+              file=sys.stderr)
+    return rc
+
+
+def _bench(args) -> int:
+    if getattr(args, "smoke", False) and not (
+            getattr(args, "serve", False) or getattr(args, "fleet", False)):
+        print("[dlcfn-tpu] --smoke is a serving-scenario mode — pass it "
+              "with --serve or --fleet", file=sys.stderr)
+        return 2
+    if (getattr(args, "autoscale", False)
+            or getattr(args, "trace", None)) \
+            and not getattr(args, "fleet", False):
+        print("[dlcfn-tpu] --trace/--autoscale are fleet-scenario flags — "
+              "pass them with --fleet", file=sys.stderr)
+        return 2
+    if getattr(args, "radix_cache", False) \
+            and not getattr(args, "fleet", False):
+        print("[dlcfn-tpu] --radix-cache is a fleet-scenario flag — pass "
+              "it with --fleet", file=sys.stderr)
+        return 2
+    if (getattr(args, "chaos_plan", None)
+            or getattr(args, "degrade", False)) \
+            and not getattr(args, "fleet", False):
+        print("[dlcfn-tpu] --chaos-plan/--degrade are fleet-scenario "
+              "flags — pass them with --fleet", file=sys.stderr)
+        return 2
+    if getattr(args, "radix_cache", False) \
+            and (getattr(args, "fleet_prefill", 0)
+                 or getattr(args, "fleet_decode", 0)):
+        print("[dlcfn-tpu] --radix-cache needs co-located replicas — a "
+              "phase-split stream never owns a reusable finished block "
+              "table (drop --fleet-prefill/--fleet-decode)",
+              file=sys.stderr)
+        return 2
+    if getattr(args, "prefill_chunk", 0) \
+            and (getattr(args, "fleet_prefill", 0)
+                 or getattr(args, "fleet_decode", 0)):
+        print("[dlcfn-tpu] --prefill-chunk is the co-located answer to "
+              "prefill-induced decode stall — disaggregated phases "
+              "already split prefill off the decode tick (drop "
+              "--fleet-prefill/--fleet-decode)", file=sys.stderr)
+        return 2
+    if getattr(args, "net", False) and not getattr(args, "fleet", False):
+        print("[dlcfn-tpu] --net is a fleet-scenario flag — pass it "
+              "with --fleet", file=sys.stderr)
+        return 2
+    if getattr(args, "fleet", False):
+        if getattr(args, "ops", None) or args.collectives or \
+                getattr(args, "sweep_batches", None) or \
+                getattr(args, "serve", False):
+            print("[dlcfn-tpu] --fleet is its own scenario — don't combine "
+                  "with --serve/--ops/--collectives/--sweep-batches",
+                  file=sys.stderr)
+            return 2
+        if getattr(args, "net", False):
+            # Real child processes over unix sockets — the wall-clock
+            # fleet record (bench --fleet without --net stays the
+            # in-process simulation).
+            if getattr(args, "trace", None) or args.chaos_plan or \
+                    args.degrade or args.radix_cache or \
+                    getattr(args, "prefill_chunk", 0) or \
+                    args.trace_mix != "uniform":
+                print("[dlcfn-tpu] --net runs the process-fleet record "
+                      "— --trace/--trace-mix/--chaos-plan/--degrade/"
+                      "--radix-cache/--prefill-chunk are in-process "
+                      "scenario flags", file=sys.stderr)
+                return 2
+            import tempfile
+
+            from ..net.bench import run_net_fleet_bench
+
+            run_root = tempfile.mkdtemp(prefix="dlcfn-netbench-")
+            line = run_net_fleet_bench(
+                run_root,
+                smoke=args.smoke,
+                accelerator=args.accelerator,
+                replicas=args.fleet_replicas,
+                num_requests=args.requests_count,
+                slots=args.slots,
+                decode_window=args.decode_window,
+                policy=args.fleet_policy,
+                disagg=True,
+                chaos_kill=bool(args.fleet_chaos_step),
+                autoscale=args.autoscale,
+                trace_dir=args.fleet_trace_dir or "")
+            print(json.dumps(line))
+            return 0
+        if getattr(args, "autoscale", False) and not args.trace:
+            print("[dlcfn-tpu] --autoscale needs --trace (the controller "
+                  "runs on the open-loop replay clock)", file=sys.stderr)
+            return 2
+        from ..fleet.bench import run_fleet_bench
+
+        line = run_fleet_bench(replicas=args.fleet_replicas,
+                               num_requests=args.requests_count,
+                               slots=args.slots,
+                               decode_window=args.decode_window,
+                               policy=args.fleet_policy,
+                               chaos_kill_step=args.fleet_chaos_step,
+                               smoke=args.smoke,
+                               trace_dir=args.fleet_trace_dir,
+                               prefill_replicas=args.fleet_prefill,
+                               decode_replicas=args.fleet_decode,
+                               trace_mix=args.trace_mix,
+                               speculate=args.speculate,
+                               speculate_device=args.speculate_device,
+                               kv_quant=args.kv_quant,
+                               radix=args.radix_cache,
+                               trace_spec=args.trace,
+                               autoscale=args.autoscale,
+                               min_replicas=args.min_replicas,
+                               max_replicas=args.max_replicas,
+                               prefill_chunk=getattr(
+                                   args, "prefill_chunk", 0),
+                               chaos_plan=args.chaos_plan,
+                               degrade=args.degrade,
+                               accelerator=args.accelerator)
+        print(json.dumps(line))
+        return 0
+    if getattr(args, "obs_smoke", False):
+        from ..bench import run_obs_overhead_smoke
+
+        record = run_obs_overhead_smoke(
+            preset=args.preset, steps=args.steps,
+            global_batch=args.global_batch, accelerator=args.accelerator)
+        print(json.dumps(record))
+        return 0
+    if getattr(args, "serve", False):
+        if getattr(args, "ops", None) or args.collectives or \
+                getattr(args, "sweep_batches", None):
+            print("[dlcfn-tpu] --serve is its own scenario — don't combine "
+                  "with --ops/--collectives/--sweep-batches",
+                  file=sys.stderr)
+            return 2
+        from ..serve.bench import run_serve_bench
+
+        line = run_serve_bench(num_requests=args.requests_count,
+                               slots=args.slots, beam_size=args.beam_size,
+                               decode_window=args.decode_window,
+                               kv_block_size=args.kv_block_size,
+                               kv_blocks=args.kv_blocks,
+                               prefix_cache=args.prefix_cache,
+                               prefix_dup=args.prefix_dup,
+                               speculate=args.speculate,
+                               speculate_device=args.speculate_device,
+                               draft=args.draft,
+                               quantize=args.quantize,
+                               kv_quant=args.kv_quant,
+                               smoke=args.smoke,
+                               accelerator=args.accelerator)
+        print(json.dumps(line))
+        # The speculative contract is token-identity with plain greedy;
+        # a parity break is a correctness bug, not a perf datapoint —
+        # fail the run so a gate can rely on the exit code.
+        if line.get("token_identical") is False:
+            print("[dlcfn-tpu] speculative decode broke greedy token "
+                  "parity", file=sys.stderr)
+            return 1
+        if line.get("divergence_ok") is False:
+            print("[dlcfn-tpu] int8 logits divergence exceeded the "
+                  "bound", file=sys.stderr)
+            return 1
+        if line.get("kv_divergence_ok") is False:
+            print("[dlcfn-tpu] int8 KV-cache logits divergence exceeded "
+                  "the bound", file=sys.stderr)
+            return 1
+        return 0
+    if getattr(args, "sweep_batches", None):
+        if getattr(args, "ops", None) or args.collectives:
+            print("[dlcfn-tpu] --sweep-batches only applies to the "
+                  "training-step bench (not --ops/--collectives)",
+                  file=sys.stderr)
+            return 2
+        if args.global_batch:
+            print("[dlcfn-tpu] pass either --sweep-batches or "
+                  "--global-batch, not both", file=sys.stderr)
+            return 2
+    if getattr(args, "ops", None):
+        from ..opsbench import main as opsbench_main
+
+        ops_argv = ["--suite", args.ops, "--steps", str(args.steps),
+                    "--accelerator", args.accelerator]
+        if args.global_batch:
+            ops_argv += ["--batch", str(args.global_batch)]
+        opsbench_main(ops_argv)
+        return 0
+    if args.collectives:
+        # The nccl-tests role: psum/all-gather/ppermute/reduce-scatter bus
+        # bandwidth over this host's processes (one per card, as the JAX
+        # bench runs over every local device), one JSON line per op from
+        # run_collectives_bench in process 0.
+        from ..parallel.collectives_bench import main as collectives_main
+
+        return collectives_main(["--size-mb", str(args.size_mb),
+                                 "--accelerator", args.accelerator])
+    from ..bench import run_bench
+
+    if getattr(args, "sweep_batches", None):
+        # Batch-size tuning table (how BASELINE.md's 512-vs-1024 row was
+        # found): one JSON line per global batch, same process so later
+        # sizes reuse the warm backend.
+        try:
+            batches = [int(b) for b in args.sweep_batches.split(",") if b]
+        except ValueError:
+            print(f"[dlcfn-tpu] bad --sweep-batches {args.sweep_batches!r}: "
+                  "expected comma-separated integers, e.g. 256,512,768",
+                  file=sys.stderr)
+            return 2
+        if not batches or any(b <= 0 for b in batches):
+            print("[dlcfn-tpu] --sweep-batches values must be positive "
+                  "integers", file=sys.stderr)
+            return 2
+        for gb in batches:
+            line = run_bench(preset=args.preset, steps=args.steps,
+                             global_batch=gb,
+                             include_input=args.with_input,
+                             step_window=args.step_window,
+                             accelerator=args.accelerator)
+            print(json.dumps(line), flush=True)
+        return 0
+    line = run_bench(preset=args.preset, steps=args.steps,
+                     global_batch=args.global_batch,
+                     include_input=args.with_input,
+                     step_window=args.step_window,
+                     accelerator=args.accelerator)
+    print(json.dumps(line))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
@@ -1930,6 +2185,194 @@ def build_parser() -> argparse.ArgumentParser:
              "mean throughput)")
     met.add_argument("path", help="metrics.jsonl path (or its directory)")
     met.set_defaults(fn=_cmd_metrics)
+
+    # bench ------------------------------------------------------------------
+    be = sub.add_parser("bench", help="run the benchmark harness")
+    be.add_argument("--preset", default="cifar10_resnet20")
+    be.add_argument("--steps", type=int, default=30)
+    be.add_argument("--global-batch", type=int, default=0)
+    be.add_argument("--with-input", action="store_true",
+                    help="also report value_with_input (host pipeline + "
+                         "transfer in the timed loop)")
+    be.add_argument("--step-window", type=int, default=1,
+                    help="K train steps per call, each a CUDA graph "
+                         "replay on the card (train.step_window=K; 1 = "
+                         "per-step)")
+    be.add_argument("--collectives", action="store_true",
+                    help="run the collectives microbench (nccl-tests role) "
+                         "instead of a training-step bench")
+    be.add_argument("--size-mb", type=float, default=64.0,
+                    help="collectives payload size in MB")
+    be.add_argument("--ops", choices=["detection", "resnet", "all"],
+                    help="run the op-level microbench suite (opsbench) "
+                         "instead of a training-step bench")
+    be.add_argument("--sweep-batches",
+                    help="comma-separated global batch sizes to bench in "
+                         "sequence (one JSON line each), e.g. 256,512,768")
+    be.add_argument("--serve", action="store_true",
+                    help="run the serving scenario (fixed request trace "
+                         "through the continuous-batching engine) instead "
+                         "of a training-step bench")
+    be.add_argument("--requests-count", type=int, default=16,
+                    help="serving scenario: trace length")
+    be.add_argument("--slots", type=int, default=4,
+                    help="serving scenario: slot-table capacity")
+    be.add_argument("--beam-size", type=int, default=1,
+                    help="serving scenario: beam width (1 = greedy)")
+    be.add_argument("--decode-window", type=int, default=4,
+                    help="serving scenario: fused decode steps per device "
+                         "call (1 = the host-driven per-token loop)")
+    be.add_argument("--kv-block-size", type=int, default=16,
+                    help="serving scenario: paged KV block size (0 = "
+                         "dense slot rows)")
+    be.add_argument("--kv-blocks", type=int, default=0,
+                    help="serving scenario: KV pool blocks (0 = match "
+                         "dense memory)")
+    be.add_argument("--prefix-cache", type=int, default=16,
+                    help="serving scenario: encoder prefix-cache entries "
+                         "(0 = disabled)")
+    be.add_argument("--prefix-dup", type=float, default=0.0,
+                    help="serving scenario: fraction of trace requests "
+                         "repeating the first source — exercises the "
+                         "prefix cache")
+    be.add_argument("--speculate", type=int, default=0,
+                    help="serving scenario: speculative decode draft "
+                         "depth γ (self-draft); the record gains "
+                         "spec_accept_rate / tokens_per_target_step and "
+                         "the run fails on a greedy-parity break")
+    be.add_argument("--speculate-device", action="store_true",
+                    help="serving scenario: device-resident speculative "
+                         "chains; the record gains spec_chain_len_p50 "
+                         "and host_syncs_per_token (plus the host-path "
+                         "comparison number)")
+    be.add_argument("--draft", default="self",
+                    help="serving scenario: draft for --speculate — "
+                         "'self' (acceptance ceiling) or a committed "
+                         "preset like 'tiny-distilled' (measured accept "
+                         "rate)")
+    be.add_argument("--quantize", default="", choices=["", "int8"],
+                    help="serving scenario: weight-only quantization; "
+                         "the record reports weight_bytes vs fp32 and a "
+                         "bounded logits-divergence check")
+    be.add_argument("--kv-quant", default="", choices=["", "int8"],
+                    help="serving scenario: int8 paged KV cache; the "
+                         "record reports kv_cache_bytes vs fp32 and a "
+                         "bounded KV logits-divergence check (the run "
+                         "fails when it exceeds the bound)")
+    be.add_argument("--smoke", action="store_true",
+                    help="serving scenario: CI fast mode (few requests, "
+                         "tiny budget, same record contract)")
+    be.add_argument("--fleet", action="store_true",
+                    help="fleet scenario: the fixed trace routed across N "
+                         "in-process engine replicas; reports aggregate "
+                         "tokens/sec, per-replica utilization, and the "
+                         "zero-drop contract (dropped_requests)")
+    be.add_argument("--net", action="store_true",
+                    help="fleet scenario: REAL child-process replicas "
+                         "over unix sockets behind the network front "
+                         "door (tiny-NMT recipe engines) — the record "
+                         "gains wall-clock net_decode_p95_disagg vs "
+                         "_colocated, net_stream_ttfb_p50/p95 measured "
+                         "client-side, and (with --autoscale) "
+                         "autoscale_time_to_scale_s including process "
+                         "fork + model build + warmup; "
+                         "--fleet-chaos-step N (any N > 0) SIGKILLs a "
+                         "replica mid-stream and asserts the zero-drop "
+                         "contract")
+    be.add_argument("--fleet-replicas", type=int, default=2,
+                    help="fleet scenario: replica count (default 2)")
+    be.add_argument("--fleet-prefill", type=int, default=0,
+                    help="fleet scenario: disaggregated topology — "
+                         "prefill replica count (pair with "
+                         "--fleet-decode; overrides --fleet-replicas and "
+                         "arms the co-located contract run)")
+    be.add_argument("--fleet-decode", type=int, default=0,
+                    help="fleet scenario: disaggregated topology — "
+                         "decode replica count (pair with "
+                         "--fleet-prefill)")
+    be.add_argument("--trace-mix", default="uniform",
+                    choices=["uniform", "prefill-heavy", "tenants",
+                             "prefix-heavy"],
+                    help="fleet scenario: arrival mix — 'prefill-heavy' "
+                         "interleaves long-prompt/short-decode "
+                         "adversaries with short-prompt latency streams "
+                         "(the decode-interference trace); 'tenants' is "
+                         "the multi-tenant QoS mix (tenant-b batch-class "
+                         "bulk jobs flooding tenant-a latency-class "
+                         "streams — arms DRR admission + preemption and "
+                         "the qos_* record fields); 'prefix-heavy' "
+                         "repeats a handful of whole prompts round-robin "
+                         "(the shared-system-prompt trace the radix "
+                         "cache feeds on — with --radix-cache the "
+                         "record gains the sharing sweep and the "
+                         "prefix_affinity-vs-round_robin hit-rate "
+                         "comparison)")
+    be.add_argument("--fleet-policy", default="least_loaded",
+                    choices=["least_loaded", "round_robin",
+                             "prefix_affinity"],
+                    help="fleet scenario: routing policy")
+    be.add_argument("--radix-cache", action="store_true",
+                    help="fleet scenario: per-replica radix token-prefix "
+                         "KV cache (forces the paged path fleet-wide; "
+                         "the parity baseline stays cold-cache, and the "
+                         "record gains radix_hit_rate / "
+                         "radix_hit_tokens_per_request / "
+                         "prefill_tokens_saved_ratio)")
+    be.add_argument("--prefill-chunk", type=int, default=0,
+                    help="fleet scenario: per-replica chunked prefill "
+                         "quota in source tokens per tick (co-located "
+                         "replicas only; 0 = one-shot) — the record "
+                         "gains the chunked-vs-unchunked decode-p95 "
+                         "pair and token_identical_unchunked")
+    be.add_argument("--fleet-chaos-step", type=int, default=0,
+                    help="fleet scenario: crash-inject replica-0 on its "
+                         "Nth decode step (0 = off) — the chaos variant "
+                         "of the zero-drop contract")
+    be.add_argument("--chaos-plan", default=None, metavar="PLAN.json",
+                    help="fleet scenario: site-addressable fault plan "
+                         "(FaultPlan JSON) consulted at replica.step/"
+                         "replica.submit/handoff.export/handoff.import/"
+                         "router.cancel — the record gains chaos_plan + "
+                         "faults_injected, same zero-drop/parity/"
+                         "balanced-ledger contract")
+    be.add_argument("--degrade", action="store_true",
+                    help="fleet scenario: brownout graceful degradation "
+                         "— SignalBus queue pressure steps the fleet "
+                         "through no-spec → window-cap → batch-shed "
+                         "(and hysteretically back); transitions land "
+                         "in degrade_events and "
+                         "<trace-dir>/degrade.jsonl")
+    be.add_argument("--trace", default=None, metavar="SPEC",
+                    help="fleet scenario: open-loop trace replay — "
+                         "'poisson' | 'burst' | 'diurnal', optionally "
+                         "parameterized ('burst:requests=12,"
+                         "burst_s=0.2'); drives Router.submit on a "
+                         "virtual clock from a seeded arrival schedule")
+    be.add_argument("--autoscale", action="store_true",
+                    help="fleet scenario: closed-loop autoscaling over "
+                         "the replayed trace — starts at --min-replicas, "
+                         "scales between the bounds on SignalBus "
+                         "pressure with hysteresis + cooldown, "
+                         "scale-down as a zero-drop drain (needs "
+                         "--trace)")
+    be.add_argument("--min-replicas", type=int, default=1,
+                    help="fleet scenario: autoscale floor (default 1)")
+    be.add_argument("--max-replicas", type=int, default=0,
+                    help="fleet scenario: autoscale ceiling (default: "
+                         "--fleet-replicas)")
+    be.add_argument("--fleet-trace-dir", default=None,
+                    help="fleet scenario: write per-replica span shards, "
+                         "router fleet.request spans and the signal "
+                         "snapshot under DIR (merge with "
+                         "'obs export --fleet DIR')")
+    be.add_argument("--accelerator", default="gpu", choices=["gpu", "cpu"],
+                    help="the device (gpu: the CUDA card, raising without "
+                         "one)")
+    be.add_argument("--obs-smoke", action="store_true",
+                    help="obs overhead smoke: step time instrumented vs "
+                         "spans disabled (the <=5%% gate; use "
+                         "--preset transformer_nmt_wmt on CPU)")
+    be.set_defaults(fn=_cmd_bench)
 
     # obs --------------------------------------------------------------------
     ob = sub.add_parser(

@@ -108,6 +108,7 @@ class TransformerNMT(nn.Module):
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
+        self.mlp_dim = mlp_dim
         self.max_len = max_len
         self.dtype = dtype
         self.quantized = False  # True on serve/quant.py's int8 copy
@@ -280,6 +281,24 @@ class TransformerNMT(nn.Module):
                 f"torch.Generator for the dropout masks")
         enc = self.encode(src_ids, src_mask, generator)
         return self.decode(tgt_in_ids, enc, src_mask, generator)
+
+
+def forward_flops(model: TransformerNMT, src_len: int, tgt_len: int) -> int:
+    """Multiply-add FLOPs (2 per MAC) of one pair's teacher-forced forward,
+    counted from the model's shapes: per encoder layer the four attention
+    projections, QKᵀ and PV over every (query, key) pair, and the two MLP
+    products; per decoder layer the self-attention's projections, QKᵀ and
+    PV over the (query, key) pairs the causal mask keeps, the
+    cross-attention's projections (K and V over the source) and its QKᵀ and
+    PV, and the two MLP products; the tied logits. Embedding gathers,
+    LayerNorm, softmax and the masked-out half of the decoder's QKᵀ and PV
+    are left out."""
+    h, m, s, t = model.hidden_size, model.mlp_dim, src_len, tgt_len
+    enc = 2 * s * (4 * h * h + 2 * h * m) + 2 * 2 * s * s * h
+    pairs = t * (t + 1) // 2
+    dec = 2 * t * (4 * h * h + 2 * h * m) + 2 * 2 * pairs * h \
+        + 2 * (2 * t * h * h + 2 * s * h * h) + 2 * 2 * t * s * h
+    return model.num_layers * (enc + dec) + 2 * t * h * model.vocab_size
 
 
 @register_model("transformer_nmt")

@@ -53,6 +53,9 @@ from typing import Dict, List, Optional, Tuple
 from .codec import FrameReader, FrameType, CodecError, encode_frame, \
     error_header, pack_artifact, unpack_artifact
 from .transport import Connection, ConnectionClosed, listen
+# The seeded bench-recipe geometry every server child builds; CLI
+# callers validate request token ids against TINY_VOCAB.
+from ..serve.bench import TINY_MAX_LEN, TINY_VOCAB  # noqa: F401
 from ..serve.handoff import HandoffCorruptError
 from ..serve.queue import DeadlineExceededError, OverloadError
 
@@ -349,35 +352,20 @@ class ReplicaServer:
 
 # -- child-process entry point -----------------------------------------------
 
-# The seeded bench-recipe geometry every server child builds; CLI
-# callers validate request token ids against TINY_VOCAB.
-TINY_VOCAB = 96
-TINY_MAX_LEN = 64
-
-
 def tiny_recipe_engine(slots: int = 2, src_len: int = 8,
                        max_new_tokens: int = 4, queue_depth: int = 16,
                        decode_window: int = 4, kv_block_size: int = 0,
                        phase: str = "both", seed: int = 0,
                        device="gpu"):
-    """The seeded tiny-NMT engine every server child serves: the tiny NMT
-    (vocab :data:`TINY_VOCAB`, ``max_len`` :data:`TINY_MAX_LEN`, f32) with
-    Flax's init distributions drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` — the in-process reference of a process fleet
-    builds the same engine."""
-    import torch
-
-    from ..models.transformer_nmt import init_weights, transformer_nmt_tiny
+    """The seeded tiny-NMT engine every server child serves: the bench's
+    tiny NMT (``serve.bench.tiny_model``: Flax's init distributions drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device``) — the
+    in-process reference of a process fleet builds the same engine."""
     from ..runtime.platform import resolve_device
+    from ..serve.bench import tiny_model
     from ..serve.engine import Engine
 
-    dev = resolve_device(device)
-    model = transformer_nmt_tiny(vocab_size=TINY_VOCAB,
-                                 max_len=TINY_MAX_LEN, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-    init_weights(model, gen)
-    model.requires_grad_(False)
+    model = tiny_model(seed, resolve_device(device))
     return Engine(model, capacity=slots, max_src_len=src_len,
                   queue_depth=queue_depth,
                   default_max_new_tokens=max_new_tokens,

@@ -387,6 +387,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "deeplearning_cfn_tpu_torch.obs.tail",
             "deeplearning_cfn_tpu_torch.obs.diff",
             "deeplearning_cfn_tpu_torch.train.worker",
+            "deeplearning_cfn_tpu_torch.bench",
+            "deeplearning_cfn_tpu_torch.opsbench",
+            "deeplearning_cfn_tpu_torch.serve.bench",
+            "deeplearning_cfn_tpu_torch.fleet.bench",
+            "deeplearning_cfn_tpu_torch.net.bench",
+            "deeplearning_cfn_tpu_torch.loadgen",
+            "deeplearning_cfn_tpu_torch.loadgen.arrivals",
+            "deeplearning_cfn_tpu_torch.loadgen.replay",
+            "deeplearning_cfn_tpu_torch.loadgen.spec",
             "deeplearning_cfn_tpu_torch.cli.main"} <= set(modules)
     code = (
         "import importlib, sys\n"
