@@ -434,7 +434,12 @@ order; a failing phase raises, so the exit code is nonzero:
    processes time the ``model`` group's sums, or the conv halos and the
    pyramid's gather, apart from the step; and the three kernels timed and
    held against their plain versions at the per-process shape
-   [16,6,1024,64] causal.
+   [16,6,1024,64] causal. Beside them, the Adafactor leg: two phase-28
+   worker processes train ``gpt_small_lm`` at full width under Adafactor
+   on ``(data=1, model=2)`` (batch 8 x 1024, 6 steps), within
+   ``TS_ADAFACTOR_REL_BOUND`` of one process on the same global batches,
+   a control with every sum over a split leaf's pieces skipped beyond it,
+   each process launching 12 of each kernel per step.
 33. ``cli train`` over the processes of this one host (ROADMAP A.10 part
    2f), in phase 26's directory: (a) ``cli train --preset
    transformer_nmt_wmt --processes 2`` (the two processes share the one
@@ -459,14 +464,26 @@ order; a failing phase raises, so the exit code is nonzero:
    the card, 64 MB, the four ops' times and busbw (gloo: host-staged
    numbers, not a link's). On a machine with more cards, (a)'s and (d)'s
    processes see only the first.
+34. the bench verb: (a) ``run_bench`` of the NMT, ResNet-50 with its input
+   and the NMT at ``step_window=4``, each record measured on this card
+   with its memory keys and an MFU share, the NMT's launches a step's
+   worth per step, all ``tc``; (b) ``cli bench``'s record contracts
+   (serve, speculation, int8, the fleets, ``--net``, the obs smoke) as
+   processes of their own, beside phase 26; (c) ``bench --ops all
+   --steps 3``, beside (d) ``cli bench --preset transformer_nmt_wmt
+   --global-batch 128`` over ``--processes 2`` (the two share the card
+   over gloo) and then ``1``: one record each, ``n_chips`` and
+   ``mesh.data`` the process count, (a)'s NMT record's keys, each
+   process's launches a step's worth per step, all ``tc``.
 
 Phases 26-28 and 30-32 run their jobs at once (``at_once``), to keep the
 script well inside its time limit: 26a beside 26b; 27a-27d beside 27e's
 fleet; 28a-28b beside 28c, 28d and 28e; the four jobs of 30 and 31 (one
-phase, "30-31"); the two of 32. Each job's lines print together once all
-have ended, with its seconds. The runs on the card in this process (the
-one-process references, 27a-27d, 27e's reference engine) take turns, so
-that this process's launch counts stay each path's own. The jobs share the
+phase, "30-31"); the three of 32; 34c beside 34d. Each job's lines print
+together once all have ended, with its seconds. The runs on the card in
+this process (the one-process references, 27a-27d, 27e's reference
+engine) take turns, so that this process's launch counts stay each path's
+own. The jobs share the
 card and the host's cores: a time that one of them measures (a step, an
 exchange, an attempt, a TTFT) was taken beside the others. Every phase
 prints its seconds, and the summary line carries them (``phase_s``).
@@ -5650,6 +5667,34 @@ TS_CUTS = ["gpt_small_lm: batch 16 x 1024 (preset 512), 4 steps, warmup 1, "
 # three steps moved 2.188e-1 to 2.214e-1).
 TS_LOSS_REL_BOUND = {"model": 5e-5, "spatial": 2e-2}
 TS_MOVE_FACTOR = {"model": 10, "spatial": 5}
+# 32a's Adafactor leg: gpt_small_lm at full width under Adafactor on the
+# same mesh, its kernels' moments factored by the whole leaves' shapes and
+# each mean over a split dim and each block RMS summed over the model
+# group. Two processes (phase 28's workers, fed the same global batches)
+# against one process; the control, the same two processes with every sum
+# over the peers skipped (each piece's moments' means, rms(p) and rms(u)
+# its own): skipping only rms(u)'s changes nothing on these steps, whose
+# updates' RMS stays under the clip's 1 (a CPU run of GPT-2's dims at
+# sequence 64 gave the sound run's losses to the bit). Batch 8 x 1024
+# (32a's is 16) and a rate of 1e-2, Adafactor's scale (its updates are
+# relative to each leaf's RMS).
+TS_ADAFACTOR_STEPS = 6
+TS_ADAFACTOR = [o for o in TS_JOBS["model"][1]
+                if not o.startswith(("train.global_batch=",
+                                     "schedule.base_lr="))] + [
+    "train.global_batch=8", "schedule.base_lr=1e-2",
+    "optimizer.name=adafactor"]
+# The bound, set between readings of this leg on the card (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md, PR 21): the two processes part from one
+# process by 1.212e-5 (the first step's bf16 forward over half the heads;
+# the later steps by 6.3e-7 to 4.6e-6), the control by 7.626e-5 at 4
+# steps and 8.531e-5 at 6 (from the third step on, when the updates
+# differ).
+TS_ADAFACTOR_REL_BOUND = 4e-5
+TS_ADAFACTOR_CUTS = [f"gpt_small_lm: batch 8 x 1024 (preset 512), "
+                     f"{TS_ADAFACTOR_STEPS} steps, warmup 1, dropout 0, "
+                     f"mesh.model=2",
+                     "two processes share one card over gloo"]
 
 
 def dp_batches(cfg, steps, ranks=DP_RANKS):
@@ -5766,6 +5811,13 @@ def dp_worker(spec_path, rank):
     out = {}
     if spec.get("grad_sum"):
         time_grad_sum(torch, spec["grad_sum"], out)
+    if spec.get("peer_sums") == "skip":
+        # 32a's Adafactor control: every sum over a leaf's pieces (the
+        # moments' means over a split dim, rms(p), rms(u)) from this
+        # process's piece alone, the peers' parts never added.
+        from deeplearning_cfn_tpu_torch.train.optim import Adafactor
+
+        Adafactor._peer_sums = lambda self, params, parts: parts
     if spec.get("comm"):
         from deeplearning_cfn_tpu_torch.parallel.collectives import \
             comm_timer
@@ -6804,12 +6856,68 @@ def ts_reference(torch, root, name, stacked, device=None):
                 moved=moved, **timing)
 
 
+def ts_adafactor(torch, root, device=None):
+    """32a's Adafactor leg: the two processes (``fed``), then the control
+    (``peer_sums`` ``skip``), against one process on the same global
+    batches: per-step relative loss differences, each process's launches
+    per step held to :data:`TS_PER_STEP`'s ``model``, the losses moving."""
+    from deeplearning_cfn_tpu_torch.config import apply_overrides
+    from deeplearning_cfn_tpu_torch.presets import get_preset
+
+    device = device or DEVICE
+    cfg = apply_overrides(get_preset("gpt_small_lm"), TS_ADAFACTOR)
+    batches = dp_batches(cfg, TS_ADAFACTOR_STEPS, ranks=1)
+    path = os.path.join(root, "ts_adafactor_batches.npz")
+    save_batches(path, batches)
+    spec = dict(mode="fed", preset="gpt_small_lm", overrides=TS_ADAFACTOR,
+                batches=path, accelerator="gpu" if device != "cpu" else "cpu")
+    sound = spawn_dp_workers(root, "ts_adafactor", spec, ranks=TS_RANKS)
+    control = spawn_dp_workers(root, "ts_adafactor_no_peer_sums",
+                               dict(spec, peer_sums="skip"), ranks=TS_RANKS)
+    with IN_PROCESS:
+        losses = fed_run(torch, cfg, batches, device)[0]
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    relative = lambda got: [abs(a - b) / abs(b) for a, b in zip(got, losses)]
+    rel, ctl = relative(sound[0]["losses"]), relative(control[0]["losses"])
+    got = sound[0]["losses"]
+    moved = max(abs(x - got[0]) for x in got) / abs(got[0])
+    for r, res in enumerate(sound):
+        per_step = {k: v / TS_ADAFACTOR_STEPS
+                    for k, v in res["launches"].items()}
+        log(f"  rank {r}: launches per step {per_step} (expected "
+            f"{TS_PER_STEP['model']})")
+        if device != "cpu" and per_step != TS_PER_STEP["model"]:
+            raise AssertionError(f"Adafactor rank {r} per-step launches "
+                                 f"{per_step}")
+    log(f"  Adafactor on model=2: two processes "
+        f"{' '.join(f'{x:.6f}' for x in got)}, one process "
+        f"{' '.join(f'{x:.6f}' for x in losses)}: max relative difference "
+        f"{max(rel):.3e}; the control (no sum over the peers) "
+        f"{' '.join(f'{x:.6f}' for x in control[0]['losses'])}, "
+        f"{max(ctl):.3e} (bound {TS_ADAFACTOR_REL_BOUND:.1e}); the losses "
+        f"moved {moved:.3e}; cuts: {TS_ADAFACTOR_CUTS} [{card_line()}]")
+    checks = {"within the bound": max(rel) <= TS_ADAFACTOR_REL_BOUND,
+              "the control beyond it": max(ctl) > TS_ADAFACTOR_REL_BOUND,
+              "the losses moved":
+              moved >= TS_MOVE_FACTOR["model"] * TS_ADAFACTOR_REL_BOUND}
+    if not all(checks.values()):
+        raise AssertionError(f"Adafactor, 2 processes against 1: {checks}; "
+                             f"relative {rel}, control {ctl}")
+    return dict(losses=got, reference_losses=losses, max_rel=max(rel),
+                control_losses=control[0]["losses"], control_max_rel=max(ctl),
+                bound=TS_ADAFACTOR_REL_BOUND, moved=moved,
+                launches={f"rank{r}": res["launches"]
+                          for r, res in enumerate(sound)})
+
+
 def ts_phase(torch, attn, root):
     """Phase 32: for the model axis (gpt_small_lm) and the spatial axis
     (maskrcnn_coco), the stack run and its one-process reference with the
-    control, in ``root`` (phase 28a made the stack), the two jobs at once
-    (``at_once``); then, alone, the three kernels timed and held against
-    their plain versions at the model axis's per-process shape."""
+    control, in ``root`` (phase 28a made the stack), and the Adafactor leg
+    (:func:`ts_adafactor`), the three jobs at once (``at_once``); then,
+    alone, the three kernels timed and held against their plain versions
+    at the model axis's per-process shape."""
     os.environ["PYTHONPATH"] = os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
     torch.cuda.empty_cache()
@@ -6819,7 +6927,8 @@ def ts_phase(torch, attn, root):
         return dict(stack=stacked,
                     reference=ts_reference(torch, root, name, stacked))
 
-    out = at_once([(name, lambda name=name: job(name)) for name in TS_JOBS])
+    out = at_once([(name, lambda name=name: job(name)) for name in TS_JOBS]
+                  + [("model_adafactor", lambda: ts_adafactor(torch, root))])
     torch.cuda.empty_cache()
     rows = time_training_kernels(torch, attn, TS_SHAPE, "gpt_tp_self",
                                  (20, 3, 5, 2))
@@ -7108,7 +7217,7 @@ def host_phase(torch, root):
 # Phase 34: the bench verb. 34a's records come from run_bench in this
 # process (steps timed after the first step and the warm-up, as the CLI's
 # bench does with its own defaults of 30 and 5); 34b's processes run beside
-# phase 26's (they time nothing), 34a and 34c alone.
+# phase 26's (they time nothing), 34a alone, 34c beside 34d's processes.
 BENCH_STEPS, BENCH_WARMUP = 6, 1
 BENCH_RUNS = (("nmt", dict(preset="transformer_nmt_wmt")),
               ("resnet50", dict(preset="imagenet_resnet50",
@@ -7244,6 +7353,78 @@ def bench_ops(torch):
     return records
 
 
+# 34d: ``cli bench --preset`` over the processes of this host, as a
+# process of its own that launches them: two processes that share the one
+# card over gloo (so the rate times the host's staging of the gradient
+# sum, not a link), and one process, at the NMT's global batch 128 for
+# BENCH_CARDS_STEPS timed steps (after the first step and run_bench's 4
+# warm-ups, as the verb runs them).
+BENCH_CARDS_STEPS, BENCH_CARDS_BATCH, BENCH_CARDS_WARMUP = 4, 128, 4
+
+
+def bench_cards(processes, nmt_keys):
+    """34d: ``cli bench --preset transformer_nmt_wmt --processes N``: rc 0,
+    one record, ``n_chips`` and ``mesh.data`` N, 34a's NMT record's keys,
+    and each process's three kernels launched a step's worth each step (as
+    34a), all ``tc``, read from its own line (in its log with N > 1)."""
+    import re
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "bench",
+         "--preset", "transformer_nmt_wmt", "--processes", str(processes),
+         "--global-batch", str(BENCH_CARDS_BATCH), "--steps",
+         str(BENCH_CARDS_STEPS)], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=600)
+    label = f"34d --processes {processes}"
+    records = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")]
+    if proc.returncode != 0 or len(records) != 1:
+        raise AssertionError(f"{label}: rc {proc.returncode}, "
+                             f"{len(records)} records\n"
+                             f"{(proc.stdout + proc.stderr)[-4000:]}")
+    rec = records[0]
+    texts = [proc.stderr]
+    if processes > 1:
+        log_dir = re.search(r"logs in (\S+)\)", proc.stderr).group(1)
+        texts = []
+        for r in range(processes):
+            with open(os.path.join(log_dir, f"attempt0-host{r}.log"),
+                      errors="replace") as fh:
+                texts.append(fh.read())
+    marker = "[dlcfn-tpu] bench kernel launches "
+    steps = rec["steps"] + 1 + BENCH_CARDS_WARMUP
+    expect = {k: PER_STEP[k] * steps for k in ("fwd", "dkdv", "dq")}
+    names = {"fwd": "flash_attn_fwd", "dkdv": "flash_attn_bwd_dkdv",
+             "dq": "flash_attn_bwd_dq"}
+    launches = {}
+    for r, text in enumerate(texts):
+        line = [ln for ln in text.splitlines() if ln.startswith(marker)][-1]
+        got = json.loads(line[len(marker):])
+        launches[f"rank{r}"] = got
+        ok = all(got[names[k]] == v == got["variants"][names[k]]["tc"]
+                 for k, v in expect.items())
+        log(f"  {label} rank {r}: launches over {steps} steps "
+            f"{ {k: got[n] for k, n in names.items()} } (expected {expect}, "
+            f"all tc: {ok})")
+        if not ok:
+            raise AssertionError(f"{label} rank {r}: launches {got} != "
+                                 f"{expect} (all tc)")
+    log(f"  {label}: {json.dumps(rec)}")
+    shared = " (two processes share one card over gloo: the rate times the " \
+        "host's staging of the gradient sum, not a link)" \
+        if processes > 1 else ""
+    log(f"  {label}: {rec['value']} seq/s per card, step "
+        f"{rec['mean_step_s'] * 1e3:.2f} ms (the slowest process's), "
+        f"global batch {rec['global_batch']}{shared} [{card_line()}]")
+    if rec["n_chips"] != processes or rec["mesh"]["data"] != processes \
+            or set(rec) != nmt_keys or rec["measured"] is not True:
+        raise AssertionError(f"{label}: a bad record {rec} (34a's keys "
+                             f"{sorted(nmt_keys)})")
+    return dict(record=rec, launches=launches)
+
+
 def bench_cli_jobs():
     """34b's ``at_once`` jobs (run beside phase 26's)."""
     return [(f"34b {label}", lambda a=argv, c=check, n=label:
@@ -7251,8 +7432,9 @@ def bench_cli_jobs():
 
 
 def bench_phase(torch, attn, cli_runs):
-    """Phase 34: 34a, then 34c, each alone; ``cli_runs``, 34b's results
-    (``{job label: result}``), join the record."""
+    """Phase 34: 34a alone, then 34c beside 34d's two processes (at
+    once); ``cli_runs``, 34b's results (``{job label: result}``), join the
+    record."""
     t = time.perf_counter()
     out = {"34a": bench_records(torch, attn)}
     log(f"  34a {time.perf_counter() - t:.1f} s")
@@ -7260,10 +7442,14 @@ def bench_phase(torch, attn, cli_runs):
         log(f"  {label} (beside phase 26, {run['phase_s']:.1f} s): "
             f"launches {run['launches']}")
     out["34b"] = cli_runs
-    t = time.perf_counter()
     set_counts(attn, 0)
-    out["34c"] = bench_ops(torch)
-    log(f"  34c {time.perf_counter() - t:.1f} s")
+    keys = set(out["34a"]["nmt"]["record"])
+    # 34d's two runs one after the other: beside 34c's ResNet-50 at batch
+    # 512 (~56 GiB) there is room for one of them at a time.
+    runs = at_once([("34c", lambda: bench_ops(torch)),
+                    ("34d", lambda: {f"processes={n}": bench_cards(n, keys)
+                                     for n in (2, 1)})])
+    out["34c"], out["34d"] = runs["34c"], runs["34d"]
     return out
 
 
@@ -7473,8 +7659,9 @@ def main() -> int:
 
         phase("32. the model and spatial axes across 2 processes: train "
               "--stack of gpt_small_lm with mesh.model=2 and of "
-              "maskrcnn_coco on its spatial=2 mesh (full width, bf16) "
-              "against one process")
+              "maskrcnn_coco on its spatial=2 mesh (full width, bf16), and "
+              "gpt_small_lm under Adafactor on model=2, against one "
+              "process")
         model_spatial = ts_phase(torch, attn, root)
 
         phase("33. cli train over the processes of this host: "
@@ -7485,7 +7672,8 @@ def main() -> int:
 
         phase("34. the bench verb on the card: run_bench (NMT; ResNet-50 "
               "with its input; NMT with train.step_window=4), cli bench's "
-              "record contracts (serve, fleet, net, obs), bench --ops all")
+              "record contracts (serve, fleet, net, obs), bench --ops all "
+              "beside cli bench --preset over 2 processes and over 1")
         benched = bench_phase(torch, attn, bench_cli_runs)
         end_phase()
     finally:
@@ -7560,6 +7748,14 @@ def main() -> int:
             name] for label, run in benched["34b"].items()}
         for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv",
                      "flash_attn_bwd_dq")}
+    # 34d's processes, each from its own line (apart from the total).
+    cards = {leg: run for leg, run in benched["34d"].items()
+             if leg != "phase_s"}
+    bench_cards_launches = {
+        name: {f"{leg} {rank}": got[name] for leg, run in cards.items()
+               for rank, got in run["launches"].items()}
+        for name in ("flash_attn_fwd", "flash_attn_bwd_dkdv",
+                     "flash_attn_bwd_dq")}
     fwd = {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -7619,7 +7815,11 @@ def main() -> int:
             **{f"model_spatial_{name}": {
                 r: c["fwd"] for r, c in
                 model_spatial[name]["stack"]["launches"].items()}
-               for name in TS_JOBS}},
+               for name in TS_JOBS},
+            "model_spatial_model_adafactor": {
+                r: c["fwd"] for r, c in
+                model_spatial["model_adafactor"]["launches"].items()},
+            "bench_cards": bench_cards_launches["flash_attn_fwd"]},
         "shapes": rows,
     }
     if sum(fwd["variant_launches"].values()) != fwd["launches"]:
@@ -7682,7 +7882,11 @@ def main() -> int:
                 **{f"model_spatial_{job}": {
                     r: c[key] for r, c in
                     model_spatial[job]["stack"]["launches"].items()}
-                   for job in TS_JOBS}},
+                   for job in TS_JOBS},
+                "model_spatial_model_adafactor": {
+                    r: c[key] for r, c in
+                    model_spatial["model_adafactor"]["launches"].items()},
+                "bench_cards": bench_cards_launches[name]},
             "shapes": shapes,
         })
         if sum(records[-1]["variant_launches"].values()) \
@@ -7724,7 +7928,8 @@ def main() -> int:
         "host_processes": host,
         "bench": {"34a": {k: v["record"] for k, v in benched["34a"].items()},
                   "34b": {k: v["record"] for k, v in benched["34b"].items()},
-                  "34c": benched["34c"]},
+                  "34c": benched["34c"],
+                  "34d": {k: v["record"] for k, v in cards.items()}},
         "phase_s": PHASE_S,
         "script_s": time.perf_counter() - script_t0,
     }

@@ -1,11 +1,16 @@
 """In-package benchmark harness: step-time/throughput for any preset.
 
-The port of the JAX package's ``bench.py``: ``cli bench --preset P`` and
-``python -m deeplearning_cfn_tpu_torch.bench``, on one card (or the CPU
-when the caller asks for it), with the JAX record's keys. Where the JAX
-harness reads the step's FLOPs from XLA's cost analysis of the compiled
-step, the port counts them from the model's shapes: 3 × the model's own
-``forward_flops`` per example (``mfu_source: "forward_flops_x3"``).
+The port of the JAX package's ``bench.py``, with the JAX record's keys.
+``cli bench --preset P`` runs it over every card of the host, one process
+per card (``--processes N`` sets the count; ``cli/main.py``), as the JAX
+harness runs one process over every local device; in each process
+:func:`run_bench` trains on a ``data``-only mesh over the job's processes
+(one process: the whole mesh 1, on one card or the CPU when the caller
+asks for it). ``python -m deeplearning_cfn_tpu_torch.bench`` runs one
+process. Where the JAX harness reads the step's FLOPs from XLA's cost
+analysis of the compiled step, the port counts them from the model's
+shapes: 3 × the model's own ``forward_flops`` per example
+(``mfu_source: "forward_flops_x3"``).
 """
 
 from __future__ import annotations
@@ -147,15 +152,25 @@ def _sync(metrics) -> float:
 
 class _Bench:
     """One preset's task, trainer, state and first device batch on
-    synthetic data, on one device — what both harnesses below time."""
+    synthetic data, on this process's device over the job's processes —
+    what both harnesses below time.
+
+    The batch is ``global_batch`` when given (accumulation off: an
+    explicit batch is a step-time probe, and it need not divide a
+    preset's factor); else with one process ``default_batch``, a per-card
+    batch (accumulation off), and with several the preset's global batch,
+    with its accumulation when ``keep_accum`` — the JAX harness's rule. With
+    several processes the mesh is ``data`` over all of them, as the JAX
+    harness's ``MeshConfig(data=-1)``."""
 
     def __init__(self, preset: str, global_batch: int, accelerator,
-                 default_batch: int, schedule_steps: int):
+                 default_batch: int, schedule_steps: int,
+                 keep_accum: bool = False):
         import torch
 
-        from .config import apply_overrides
+        from .config import MeshConfig, apply_overrides
         from .data.pipeline import to_device
-        from .parallel.mesh import build_mesh
+        from .parallel.mesh import build_mesh, process_count
         from .presets import get_preset
         from .runtime.platform import resolve_device
         from .train.optim import build_optimizer, build_schedule
@@ -165,15 +180,16 @@ class _Bench:
 
         stage("backend_init")
         self.dev = dev = resolve_device(accelerator)
-        stage("devices_ok", n=1, kind=device_kind(dev))
+        n = process_count()
+        stage("devices_ok", n=n, kind=device_kind(dev))
         self.cfg = cfg = get_preset(preset)
-        # An explicit batch is a step-time probe, and the default is a
-        # per-card batch, not the pod-sized one (--global-batch sweeps
-        # it). Either way accumulation is off: it is a global-batch
-        # scaling tool, and these batches need not divide a preset's
-        # factor.
-        cfg.train.global_batch = global_batch or default_batch
-        cfg.train.grad_accum_steps = 1
+        if global_batch or n == 1:
+            cfg.train.global_batch = global_batch or default_batch
+            cfg.train.grad_accum_steps = 1
+        elif not keep_accum:
+            cfg.train.grad_accum_steps = 1
+        if n > 1:
+            cfg.mesh = MeshConfig(data=-1)
         apply_overrides(cfg, ["data.prefetch=0", "data.synthetic=true"])
         # One batch is all the bench consumes — don't materialize the
         # default synthetic dataset.
@@ -201,6 +217,7 @@ class _Bench:
         self.dev_batch = self.to_device(self.host_batch)
 
     def pipeline(self, seed: int):
+        """This process's pipeline: its share of each global batch."""
         from .data.pipeline import build_pipeline
         from .parallel.mesh import local_batch_size
 
@@ -208,6 +225,23 @@ class _Bench:
                               local_batch_size(self.gb, self.mesh),
                               self.cfg.model.num_classes, seed=seed,
                               train=True)
+
+    def timed(self, loop) -> float:
+        """Seconds of ``loop()`` (which ends with a host read of its last
+        step) on the slowest process: every process enters it after a
+        barrier, and their times are reduced with MAX."""
+        if self.mesh.process_count == 1:
+            t0 = time.perf_counter()
+            loop()
+            return time.perf_counter() - t0
+        import torch.distributed as dist
+
+        from .parallel.collectives import all_gather_objects
+
+        dist.barrier()
+        t0 = time.perf_counter()
+        loop()
+        return max(all_gather_objects(time.perf_counter() - t0))
 
 
 def run_bench(
@@ -234,8 +268,17 @@ def run_bench(
     CUDA graph replay, as ``cli train`` runs ``train.step_window=K``); the
     record says which was measured (``step_window``). ``compile_s`` is the
     first step's (the first window's, with its capture) time: the kernels'
-    loads and the libraries' plans. The JAX harness's ``mesh`` argument has
-    no counterpart: the port's bench runs one process on one device."""
+    loads and the libraries' plans.
+
+    Over several processes (a process group set up by
+    ``runtime.cluster.initialize``, as ``cli bench`` does) each trains its
+    share of the global batch on a ``data`` mesh over all of them, the JAX
+    harness's ``mesh`` over every local device: ``n_chips`` is the count,
+    ``mean_step_s`` the slowest process's, ``value`` per card, the MFU of
+    one card's share of the FLOPs, the memory keys this process's card's;
+    a window replays its graphs under NCCL and runs eagerly over gloo
+    (``runtime.cluster.windows_replay``). Every process returns the
+    record."""
     if step_window < 1:
         raise ValueError(f"step_window must be >= 1, got {step_window}")
     stage("import_torch")
@@ -244,7 +287,8 @@ def run_bench(
     from .presets import get_preset
 
     b = _Bench(preset, global_batch, accelerator,
-               _PER_CHIP_BATCH.get(preset, 64), max(steps * 10, 1000))
+               _PER_CHIP_BATCH.get(preset, 64), max(steps * 10, 1000),
+               keep_accum=True)
     cfg, dev, mesh, gb, task = b.cfg, b.dev, b.mesh, b.gb, b.task
     trainer, state, dev_batch = b.trainer, b.state, b.dev_batch
     cfg.train.step_window = step_window
@@ -275,16 +319,18 @@ def run_bench(
     # Timed block: every step back-to-back with NO per-step sync —
     # steady-state pipelined throughput — then one trailing sync on a
     # scalar that depends on every step.
-    t0 = time.perf_counter()
-    for _ in range(n_windows):
-        m = dispatch(dev_batch)
-    _sync(m)
-    mean_step_s = (time.perf_counter() - t0) / (n_windows * k)
+    def loop():
+        for _ in range(n_windows):
+            m = dispatch(dev_batch)
+        _sync(m)
+
+    mean_step_s = b.timed(loop) / (n_windows * k)
 
     # MFU: 3 × the model's forward FLOPs per example (forward + the
-    # backward's two products) over the batch, against one card's peak
-    # bf16 rate. 0.0 when the peak is unknown (the CPU, an unlisted card).
-    flops = 3 * example_flops(cfg, task, b.host_batch) * gb
+    # backward's two products) over one card's share of the batch, against
+    # one card's peak bf16 rate. 0.0 when the peak is unknown (the CPU, an
+    # unlisted card).
+    flops = 3 * example_flops(cfg, task, b.host_batch) * gb / n_chips
     mfu_source = "forward_flops_x3"
     peak = peak_flops_per_chip(dev)
     mfu = flops / (mean_step_s * peak) if flops and peak else 0.0
@@ -308,16 +354,17 @@ def run_bench(
         "n_chips": n_chips,
         "mean_step_s": round(mean_step_s, 5),
         "device_kind": device_kind(dev),
-        # The mesh the step ran on: one process, so every axis is 1 — in
-        # particular bert_long then runs its DENSE attention, not
-        # ring/Ulysses (those need a seq axis > 1).
+        # The mesh the step ran on: data over the processes, every other
+        # axis 1 — in particular bert_long then runs its DENSE attention,
+        # not ring/Ulysses (those need a seq axis > 1).
         "mesh": {a: int(v) for a, v in mesh.shape.items()},
         "mfu_source": mfu_source,
         "measured": True,
     }
     annotate_record(record, preset, dict(mesh.shape), gb,
                     get_preset(preset).train.global_batch)
-    # Card memory after the run (absent on the CPU): the peak is the
+    # Card memory after the run (absent on the CPU), this process's card
+    # (the JAX harness reads its first local device): the peak is the
     # batch-headroom number.
     if dev.type == "cuda":
         gib = 2 ** 30
@@ -347,13 +394,14 @@ def run_bench(
         else:
             def step_fed():
                 return trainer.train_step(state, feed())
-        try:
-            _sync(step_fed())
-            t0 = time.perf_counter()
+        def fed_loop():
             for _ in range(n_windows):
                 m = step_fed()
             _sync(m)
-            step_s = (time.perf_counter() - t0) / (n_windows * k)
+
+        try:
+            _sync(step_fed())
+            step_s = b.timed(fed_loop) / (n_windows * k)
         finally:
             it.close()  # stop the prefetch worker, release its buffers
         record["value_with_input"] = round(gb / step_s / n_chips, 2)
@@ -374,7 +422,9 @@ def run_obs_overhead_smoke(
     with spans disabled (``DLCFN_OBS_OFF``-equivalent) and once fully
     instrumented (span + sink write per step — the train loop's worst
     case). The record reports ``overhead_pct``, and proves the Perfetto
-    export of the instrumented loop's spans (``trace_valid``)."""
+    export of the instrumented loop's spans (``trace_valid``). Over
+    several processes it runs as :func:`run_bench` does (the preset's
+    global batch by default, each loop's time the slowest process's)."""
     stage("import_torch")
     import os
     import tempfile
@@ -388,18 +438,19 @@ def run_obs_overhead_smoke(
     stage("first_compile")
     _sync(trainer.train_step(state, dev_batch))
 
+    def loop():
+        for i in range(steps):
+            with span("train.dispatch", step=i, k=1):
+                m = trainer.train_step(state, dev_batch)
+        _sync(m)
+
     def timed_loop(enabled: bool) -> float:
         set_enabled(enabled)
         try:
             for _ in range(max(warmup, 1)):
                 m = trainer.train_step(state, dev_batch)
             _sync(m)
-            t0 = time.perf_counter()
-            for i in range(steps):
-                with span("train.dispatch", step=i, k=1):
-                    m = trainer.train_step(state, dev_batch)
-            _sync(m)
-            return (time.perf_counter() - t0) / steps
+            return b.timed(loop) / steps
         finally:
             set_enabled(None)
 

@@ -26,9 +26,10 @@ PyTorch and CUDA:
     python -m deeplearning_cfn_tpu_torch.cli fleet status <run root> [--json]
     python -m deeplearning_cfn_tpu_torch.cli bench --preset P [--steps N] \
         [--global-batch B | --sweep-batches B1,B2] [--with-input] \
-        [--step-window K] [--accelerator gpu|cpu]
+        [--step-window K] [--processes N] [--accelerator gpu|cpu]
     python -m deeplearning_cfn_tpu_torch.cli bench --serve|--fleet [--net] \
-        [--smoke] ... | --obs-smoke | --ops SUITE | --collectives
+        [--smoke] ... | --obs-smoke [--processes N] | --ops SUITE | \
+        --collectives [--processes N]
     python -m deeplearning_cfn_tpu_torch.cli ckpt list <ckpt dir>
     python -m deeplearning_cfn_tpu_torch.cli ckpt rollback <ckpt dir> --step N
     python -m deeplearning_cfn_tpu_torch.cli presets | config --preset P | info
@@ -87,10 +88,14 @@ and ``fleet rollout`` serve in-process replicas behind the router
 (``rollout`` swaps every replica to ``--to-step`` mid-stream), and
 ``fleet status`` reports on a fleet run root. ``bench`` prints the JAX
 package's records (one JSON line each): a preset's training step
-(``bench.py``; on one card, its MFU from the model's own FLOP count), the
-serving, fleet and process-fleet scenarios (``serve/bench.py``,
-``fleet/bench.py``, ``net/bench.py``), the obs overhead smoke, the op
-suites (``opsbench.py``) and the collectives (``parallel/
+(``bench.py``, its MFU from the model's own FLOP count) and the obs
+overhead smoke over every card of the host, one process per card as ``train
+--processes`` runs them (``--processes N`` sets the count; one process
+takes a per-card batch, several the preset's global batch, as the JAX
+verb's over one or several devices; ``--global-batch`` sets it either
+way), the serving, fleet and process-fleet scenarios (``serve/bench.py``,
+``fleet/bench.py``, ``net/bench.py``), the op suites (``opsbench.py``)
+and the collectives over the host's processes (``parallel/
 collectives_bench.py``).
 """
 
@@ -1589,17 +1594,21 @@ def _add_stack_args(p: argparse.ArgumentParser) -> None:
 def _cmd_bench(args) -> int:
     """The JAX package's ``bench`` verb with its flags, guards (rc 2) and
     failures (rc 1: a speculative parity break, an int8 divergence past its
-    bound), on the device ``--accelerator`` names. On the card a verb that
-    ran ends with one stderr line: the attention kernels' launches in this
-    process (a ``--net`` fleet's children count their own)."""
+    bound, a failed process of a bench over several), on the device
+    ``--accelerator`` names. On the card a verb that ran ends with one
+    stderr line: the attention kernels' launches in this process, in all
+    and by variant (a ``--net`` fleet's children and the processes of a
+    bench over several count their own, each in its log)."""
     rc = _bench(args)
     if rc != 2 and args.accelerator == "gpu":
         from ..ops import attention as attn
 
-        launches = {
-            "flash_attn_fwd": attn.flash_attention_forward.launches,
-            "flash_attn_bwd_dkdv": attn.flash_attn_bwd_dkdv.launches,
-            "flash_attn_bwd_dq": attn.flash_attn_bwd_dq.launches}
+        kernels = {"flash_attn_fwd": attn.flash_attention_forward,
+                   "flash_attn_bwd_dkdv": attn.flash_attn_bwd_dkdv,
+                   "flash_attn_bwd_dq": attn.flash_attn_bwd_dq}
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        launches["variants"] = {name: dict(fn.variant_launches)
+                                for name, fn in kernels.items()}
         print(f"[dlcfn-tpu] bench kernel launches {json.dumps(launches)}",
               file=sys.stderr)
     return rc
@@ -1724,11 +1733,9 @@ def _bench(args) -> int:
     if getattr(args, "obs_smoke", False):
         from ..bench import run_obs_overhead_smoke
 
-        record = run_obs_overhead_smoke(
+        return _bench_over_processes(args, lambda: [run_obs_overhead_smoke(
             preset=args.preset, steps=args.steps,
-            global_batch=args.global_batch, accelerator=args.accelerator)
-        print(json.dumps(record))
-        return 0
+            global_batch=args.global_batch, accelerator=args.accelerator)])
     if getattr(args, "serve", False):
         if getattr(args, "ops", None) or args.collectives or \
                 getattr(args, "sweep_batches", None):
@@ -1795,8 +1802,10 @@ def _bench(args) -> int:
         # run_collectives_bench in process 0.
         from ..parallel.collectives_bench import main as collectives_main
 
-        return collectives_main(["--size-mb", str(args.size_mb),
-                                 "--accelerator", args.accelerator])
+        return collectives_main(
+            ["--size-mb", str(args.size_mb), "--accelerator",
+             args.accelerator] + ([] if args.processes is None
+                                  else ["--processes", str(args.processes)]))
     from ..bench import run_bench
 
     if getattr(args, "sweep_batches", None):
@@ -1814,20 +1823,81 @@ def _bench(args) -> int:
             print("[dlcfn-tpu] --sweep-batches values must be positive "
                   "integers", file=sys.stderr)
             return 2
-        for gb in batches:
-            line = run_bench(preset=args.preset, steps=args.steps,
-                             global_batch=gb,
-                             include_input=args.with_input,
-                             step_window=args.step_window,
-                             accelerator=args.accelerator)
-            print(json.dumps(line), flush=True)
-        return 0
-    line = run_bench(preset=args.preset, steps=args.steps,
-                     global_batch=args.global_batch,
-                     include_input=args.with_input,
-                     step_window=args.step_window,
-                     accelerator=args.accelerator)
-    print(json.dumps(line))
+        return _bench_over_processes(args, lambda: (
+            run_bench(preset=args.preset, steps=args.steps, global_batch=gb,
+                      include_input=args.with_input,
+                      step_window=args.step_window,
+                      accelerator=args.accelerator) for gb in batches))
+    return _bench_over_processes(args, lambda: [run_bench(
+        preset=args.preset, steps=args.steps,
+        global_batch=args.global_batch, include_input=args.with_input,
+        step_window=args.step_window, accelerator=args.accelerator)])
+
+
+def _bench_over_processes(args, records) -> int:
+    """Print each record of ``records()`` as one JSON line as it is made,
+    over this host's processes, as the JAX verb runs one process over every
+    local device: ``--processes`` of them, by default one per card (one on
+    the CPU; on a one-card host the bench runs in this process). Each
+    process of the job is a ``cli bench`` of its own in the process group
+    (``runtime.cluster.initialize``), and process 0 prints the records."""
+    from ..runtime.cluster import current_cluster, initialize, \
+        local_processes
+
+    if current_cluster() is None:
+        processes, cards = local_processes(args.processes, args.accelerator)
+        if processes > 1:
+            return _bench_job(args, processes, cards)
+    spec = initialize(accelerator=args.accelerator)
+    for record in records():
+        if spec.process_id == 0:
+            print(json.dumps(record), flush=True)
+    if spec.is_multi_host:
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def _bench_job(args, processes: int, cards: int) -> int:
+    """The bench as ``processes`` processes of this host through the
+    launcher (NCCL when the ``cards`` cover them, else gloo), process 0's
+    log streaming to stderr; then process 0's records on stdout, as one
+    process prints them. A process that fails fails the verb (rc 1),
+    naming its log; the others are stopped and print nothing."""
+    import tempfile
+
+    from ..launch import run_local
+
+    argv = [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "bench",
+            "--preset", args.preset, "--steps", str(args.steps),
+            "--global-batch", str(args.global_batch),
+            "--step-window", str(args.step_window),
+            "--accelerator", args.accelerator]
+    argv += ["--with-input"] if args.with_input else []
+    argv += ["--obs-smoke"] if args.obs_smoke else []
+    if args.sweep_batches:
+        argv += ["--sweep-batches", args.sweep_batches]
+    log_dir = tempfile.mkdtemp(prefix="dlcfn-bench-")
+    failed: List[int] = []
+    result = run_local(argv, processes, cards, log_dir,
+                       on_failure=lambda i, host: failed.append(i),
+                       tail_stream=sys.stderr)
+    log = lambda i: os.path.join(log_dir, f"attempt0-host{i}.log")
+    if not result.success:
+        for i in failed or [i for i, c in enumerate(result.exit_codes)
+                            if c != 0]:
+            print(f"[dlcfn-tpu] bench process {i} of {processes} FAILED "
+                  f"(exit code {result.exit_codes[i]}; its log: {log(i)})",
+                  file=sys.stderr)
+        return 1
+    print(f"[dlcfn-tpu] bench on {processes} processes finished (logs in "
+          f"{log_dir})", file=sys.stderr)
+    with open(log(0), errors="replace") as fh:
+        for line in fh:
+            if line.startswith("{"):
+                print(line.rstrip("\n"), flush=True)
     return 0
 
 
@@ -2189,6 +2259,11 @@ def build_parser() -> argparse.ArgumentParser:
     # bench ------------------------------------------------------------------
     be = sub.add_parser("bench", help="run the benchmark harness")
     be.add_argument("--preset", default="cifar10_resnet20")
+    be.add_argument("--processes", type=int, default=None,
+                    help="processes on this host for --preset (with "
+                         "--obs-smoke, --sweep-batches) and --collectives "
+                         "(default: one per CUDA card, 1 on the CPU); "
+                         "more than the cards share them over gloo")
     be.add_argument("--steps", type=int, default=30)
     be.add_argument("--global-batch", type=int, default=0)
     be.add_argument("--with-input", action="store_true",

@@ -25,8 +25,8 @@ launcher's Transport abstraction — each with its own obs run dir).
 
 ``router``, ``replica``, ``autoscale`` and ``degrade`` are copies of the
 JAX package's modules (they import nothing of JAX); ``rollout`` restores
-its checkpoint through the port's loader. The fleet bench (``bench
---fleet``) is not ported yet (ROADMAP.md).
+its checkpoint through the port's loader; :mod:`.bench` is the
+in-process fleet bench (``bench --fleet``).
 
 CLI surface: ``python -m deeplearning_cfn_tpu_torch.cli fleet up | route |
 rollout | status``.

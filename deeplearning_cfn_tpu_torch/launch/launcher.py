@@ -202,6 +202,7 @@ class JobLauncher:
         the auto-resume contract the reference left manual.
     tail_rank0: stream host 0's log lines to our stdout (the reference user
         watched mpirun's merged output; per-host logs stay on disk).
+    tail_stream: where they stream instead of stdout.
     """
 
     def __init__(
@@ -210,11 +211,13 @@ class JobLauncher:
         max_restarts: int = 2,
         poll_interval_s: float = 0.2,
         tail_rank0: bool = True,
+        tail_stream: Optional[IO] = None,
     ):
         self.transport = transport or LocalTransport()
         self.max_restarts = max_restarts
         self.poll_interval_s = poll_interval_s
         self.tail_rank0 = tail_rank0
+        self.tail_stream = tail_stream
         self._handle: Optional[JobHandle] = None
 
     # -- single attempt -----------------------------------------------------
@@ -257,18 +260,18 @@ class JobLauncher:
                 hp.proc.wait()
 
     def _tail(self, path: str, stop: threading.Event) -> None:
+        out = self.tail_stream or sys.stdout
         with open(path, "rb") as fh:
             while not stop.is_set():
                 line = fh.readline()
                 if line:
-                    sys.stdout.write(
-                        line.decode("utf-8", errors="replace"))
-                    sys.stdout.flush()
+                    out.write(line.decode("utf-8", errors="replace"))
+                    out.flush()
                 else:
                     time.sleep(0.1)
             for line in fh:  # drain
-                sys.stdout.write(line.decode("utf-8", errors="replace"))
-            sys.stdout.flush()
+                out.write(line.decode("utf-8", errors="replace"))
+            out.flush()
 
     def _run_attempt(self, spec, argv, log_dir, attempt, extra_env, cwd,
                      on_failure: Optional[Callable[[int, str], None]]
@@ -394,14 +397,16 @@ class JobLauncher:
 
 def run_local(argv: Sequence[str], processes: int, cards: int, log_dir: str,
               max_restarts: int = 0,
-              on_failure: Optional[Callable[[int, str], None]] = None
-              ) -> JobResult:
+              on_failure: Optional[Callable[[int, str], None]] = None,
+              tail_stream: Optional[IO] = None) -> JobResult:
     """``argv`` as ``processes`` processes of one job on this machine
     (:func:`~..runtime.cluster.local_spec` over its ``cards``, the
     hostfile ``<log_dir>/hosts``), through :class:`JobLauncher` over
     :class:`LocalTransport`: the dry-run stack's path without a stack.
-    Process 0's log streams to stdout; every log is under ``log_dir``."""
+    Process 0's log streams to stdout (or ``tail_stream``); every log is
+    under ``log_dir``."""
     spec = local_spec(processes, cards, os.path.join(log_dir, "hosts"))
     launcher = JobLauncher(transport=LocalTransport(),
-                           max_restarts=max_restarts)
+                           max_restarts=max_restarts,
+                           tail_stream=tail_stream)
     return launcher.run(spec, argv, log_dir, on_failure=on_failure)

@@ -17,8 +17,8 @@ Promotes the in-process fleet simulation to a multi-process system:
   KV-handoff bytes over sockets, wall-clock drain
 - :mod:`.frontdoor` — async front door multiplexing client connections
   with token streaming and bounded-queue backpressure
-- :mod:`.bench` — the helpers that spawn a process fleet of servers
-  (the wall-clock fleet bench itself is not ported yet: ROADMAP.md)
+- :mod:`.bench` — the wall-clock fleet bench (``bench --fleet --net``)
+  and the helpers that spawn a process fleet of servers
 """
 
 from .client import RemoteReplica

@@ -94,22 +94,29 @@ class Piece(NamedTuple):
     mesh: Mesh
     dim: int = 0
 
-    def of(self, whole: np.ndarray) -> np.ndarray:
+    # Each of ``of``, ``shape`` and ``rows`` takes the dim that the piece
+    # splits, ``dim`` (None: the piece's own): a tensor derived from the
+    # leaf with one dim fewer (an Adafactor moment) splits at another.
+
+    def of(self, whole: np.ndarray, dim: Optional[int] = None
+           ) -> np.ndarray:
         """This piece of a whole leaf (Flax's layout)."""
         at = [slice(None)] * whole.ndim
-        at[self.dim] = slice(self.start, self.stop)
+        at[self.dim if dim is None else dim] = slice(self.start, self.stop)
         return whole[tuple(at)]
 
-    def shape(self, piece_shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    def shape(self, piece_shape: Tuple[int, ...],
+              dim: Optional[int] = None) -> Tuple[int, ...]:
         """The whole leaf's shape from this piece's (Flax's layout)."""
         out = list(piece_shape)
-        out[self.dim] = self.whole
+        out[self.dim if dim is None else dim] = self.whole
         return tuple(out)
 
-    def rows(self, data: np.ndarray) -> Rows:
+    def rows(self, data: np.ndarray, dim: Optional[int] = None) -> Rows:
         """This piece's ``data`` (Flax's layout) as the :class:`Rows` of
         the whole leaf that a checkpoint writes."""
-        return Rows(data, self.start, self.shape(data.shape), self.dim)
+        dim = self.dim if dim is None else dim
+        return Rows(data, self.start, self.shape(data.shape, dim), dim)
 
     def holders(self):
         return self.mesh.holders_group(self.axis)

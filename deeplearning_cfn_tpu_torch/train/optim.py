@@ -55,10 +55,10 @@ reads every gradient; the rule updates the owned parameters only, and then
 each process broadcasts its parameters to the others in one flat buffer. A
 parameter's update is the same arithmetic on the same values as without
 ZeRO, so the result is the replicated update bit for bit, and LAMB's and
-LARS's trust ratios and Adafactor's factored moments stay whole (sharding a
-parameter's rows would need summed norms). Slot memory per process falls to
-about 1/N (:meth:`Optimizer.slot_bytes`). Checkpoints name every slot; a
-process writes the slots it owns.
+LARS's trust ratios and Adafactor's factored moments of a whole leaf stay
+whole (sharding a parameter's rows would need summed norms). Slot memory
+per process falls to about 1/N (:meth:`Optimizer.slot_bytes`). Checkpoints
+name every slot; a process writes the slots it owns.
 Leaves split over the ``pipe``, ``model`` or ``expert`` axis (``pieces``,
 ``parallel.sharding.param_pieces``, along any dim): each process holds its
 piece of such a parameter. The rules stay the logical leaf's, as ``optax`` applies them
@@ -69,8 +69,10 @@ once. Under ZeRO-1 a piece's owner is one of the processes that hold it,
 at the same place among them for every piece of the leaf
 (:func:`zero1_owners`), so the owners of a leaf's pieces sum its norms
 together, and each broadcasts its pieces to their other holders.
-Adafactor's factored moments of a piece are refused (its block RMS is
-the whole leaf's).
+Adafactor factors a piece's moments by the whole leaf's shape and sums
+each mean over the split dim, and each block RMS, over the peers (see
+:class:`Adafactor`); a moment that reduces the split dim away is whole on
+every peer, and a checkpoint holds it once.
 """
 
 from __future__ import annotations
@@ -479,7 +481,18 @@ class Adafactor(_Rule):
 
     The slots ``v_row``, ``v_col`` and ``v`` hold optax's shapes in Flax's
     layout, the placeholders (``[1]``) included, and are updated in place
-    (a CUDA graph that captured an update keeps their addresses)."""
+    (a CUDA graph that captured an update keeps their addresses).
+
+    A parameter that holds a piece of its leaf (``pieces``) follows the
+    whole leaf, as optax does on JAX's global array: the factored dims are
+    the whole leaf's (:meth:`slot_shapes`); a slot that keeps the split dim
+    is a piece of the whole slot, and one that reduces it away is whole,
+    the same on every peer (:meth:`slot_dims`). Each mean over the split
+    dim, and each block RMS, sums its pieces' parts over ``Piece.peers``:
+    one collective per group of peers for the moments and ``rms(p)``, and
+    one for ``rms(u)`` (:meth:`_peer_sums`)."""
+
+    SLOTS = ("v_row", "v_col", "v")
 
     def __init__(self, groups, lr, count, kinds: Dict[nn.Parameter, str],
                  decay_rate: float = 0.8, eps: float = 1e-30,
@@ -492,15 +505,50 @@ class Adafactor(_Rule):
         self.clipping_threshold, self.min_scale = clipping_threshold, \
             min_scale
 
-    def slot_shapes(self, p: torch.Tensor) -> Dict[str, Tuple[int, ...]]:
-        """The shapes of ``p``'s slots (optax's, in Flax's layout)."""
+    def _leaf(self, p: torch.Tensor):
+        """``(whole leaf's Flax shape, its factored dims or None, the split
+        dim or None)`` of ``p``."""
         shape = tuple(_flax_view(p, self.kinds.get(p, "none")).shape)
-        dims = _factored_dims(shape, self.min_dim)
+        piece = self.pieces.get(id(p))
+        if piece is not None:
+            shape = piece.shape(shape)
+        return shape, _factored_dims(shape, self.min_dim), \
+            None if piece is None else piece.dim
+
+    def slot_dims(self, p: torch.Tensor) -> Dict[str, Optional[int]]:
+        """The dim of each of ``p``'s slots along which this process holds
+        a piece of it: for a piece of a leaf, the split dim of a slot that
+        keeps it; None for a whole slot (every slot of a whole leaf, and
+        a moment that reduces the split dim away)."""
+        _, dims, s = self._leaf(p)
+        if s is None:
+            return dict.fromkeys(self.SLOTS)
         if dims is None:
-            return {"v_row": (1,), "v_col": (1,), "v": shape}
+            return {"v_row": None, "v_col": None, "v": s}
         d1, d0 = dims
-        return {"v_row": shape[:d0] + shape[d0 + 1:],
-                "v_col": shape[:d1] + shape[d1 + 1:], "v": (1,)}
+        kept = lambda d: None if s == d else s - int(s > d)
+        return {"v_row": kept(d0), "v_col": kept(d1), "v": None}
+
+    def slot_shapes(self, p: torch.Tensor, whole: bool = False
+                    ) -> Dict[str, Tuple[int, ...]]:
+        """The shapes of ``p``'s slots: optax's for the whole leaf, in
+        Flax's layout, with this process's range of a split dim (all of it
+        when ``whole``)."""
+        shape, dims, _ = self._leaf(p)
+        if dims is None:
+            out = {"v_row": (1,), "v_col": (1,), "v": shape}
+        else:
+            d1, d0 = dims
+            out = {"v_row": shape[:d0] + shape[d0 + 1:],
+                   "v_col": shape[:d1] + shape[d1 + 1:], "v": (1,)}
+        piece = self.pieces.get(id(p))
+        if whole or piece is None:
+            return out
+        for key, dim in self.slot_dims(p).items():
+            if dim is not None:
+                out[key] = out[key][:dim] + (piece.stop - piece.start,) \
+                    + out[key][dim + 1:]
+        return out
 
     def _initial(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros(s, dtype=p.dtype, device=p.device)
@@ -510,14 +558,39 @@ class Adafactor(_Rule):
         state = self.state.get(p, {})
         return state[key] if key in state else self._initial(p)[key]
 
+    def _peer_sums(self, params, parts: List[List[torch.Tensor]]
+                   ) -> List[List[torch.Tensor]]:
+        """``parts[i]``, tensors of ``params[i]``, summed over the peers of
+        its piece (as they are for a whole leaf): one collective per group
+        of peers, over one flat f32 buffer of the group's parts. It reads
+        nothing from the host, so a CUDA graph captures it."""
+        by_group: Dict[int, Tuple[object, List[int]]] = {}
+        for i, p in enumerate(params):
+            piece = self.pieces.get(id(p))
+            if parts[i] and piece is not None and piece.peers() is not None:
+                by_group.setdefault(id(piece.peers()),
+                                    (piece.peers(), []))[1].append(i)
+        out = list(parts)
+        for group, idx in by_group.values():
+            tensors = [t for i in idx for t in parts[i]]
+            flat = sum_(torch.cat([t.reshape(-1).float() for t in tensors]),
+                        group)
+            chunks = iter(flat.split([t.numel() for t in tensors]))
+            for i in idx:
+                out[i] = [next(chunks).view(t.shape).to(t.dtype)
+                          for t in parts[i]]
+        return out
+
     @torch.no_grad()
     def step(self, closure=None):
         del closure
         beta = 1.0 - (self.count + 1.0) ** -self.decay_rate
         for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            ws, us, leaves, parts = [], [], [], []
+            for p in params:
                 state = self.state[p]
                 if "v" not in state:
                     state.update(self._initial(p))
@@ -525,27 +598,58 @@ class Adafactor(_Rule):
                 w, u = _flax_view(p, kind), _flax_view(p.grad, kind)
                 if group["weight_decay"]:
                     u = u + group["weight_decay"] * w
+                shape, dims, s = self._leaf(p)
                 sq = u * u + self.eps
-                dims = _factored_dims(tuple(w.shape), self.min_dim)
-                if dims is not None:
-                    d1, d0 = dims
-                    v_row, v_col = state["v_row"], state["v_col"]
-                    v_row.copy_(beta * v_row + (1.0 - beta) * sq.mean(d0))
-                    v_col.copy_(beta * v_col + (1.0 - beta) * sq.mean(d1))
-                    reduced_d1 = d1 - 1 if d1 > d0 else d1
-                    row_col_mean = v_row.mean(reduced_d1, keepdim=True)
-                    row_factor = (v_row / row_col_mean) ** -0.5
-                    update = u * row_factor.unsqueeze(d0) \
-                        * (v_col ** -0.5).unsqueeze(d1)
-                else:
+                # Σ p² of a piece, and each sum over a split dim, waits
+                # for the peers' parts.
+                mine = [w.square().sum()]
+                d1, d0 = dims if dims is not None else (None, None)
+                if dims is not None and s == d0:
+                    mine.append(sq.sum(d0))  # v_row's, whole on every peer
+                elif dims is not None and s == d1:
+                    # v_row is a piece along d1: updated now, its sum over
+                    # d1 waits beside v_col's.
+                    v_row = state["v_row"]
+                    v_row.copy_(beta * v_row
+                                + (1.0 - beta) * sq.sum(d0) / shape[d0])
+                    mine += [sq.sum(d1), v_row.sum(d1 - int(d1 > d0),
+                                                   keepdim=True)]
+                ws.append(w)
+                us.append(u)
+                leaves.append((shape, dims, s, sq))
+                parts.append(mine)
+            summed = self._peer_sums(params, parts)
+            updates = []
+            for p, u, (shape, dims, s, sq), got in zip(params, us, leaves,
+                                                       summed):
+                state = self.state[p]
+                if dims is None:
                     v = state["v"]
                     v.copy_(beta * v + (1.0 - beta) * sq)
-                    update = u * v ** -0.5
-                rms = update.square().mean().sqrt()
+                    updates.append(u * v ** -0.5)
+                    continue
+                d1, d0 = dims
+                v_row, v_col = state["v_row"], state["v_col"]
+                if s != d1:
+                    row = got[1] if s == d0 else sq.sum(d0)
+                    v_row.copy_(beta * v_row + (1.0 - beta) * row / shape[d0])
+                col = got[1] if s == d1 else sq.sum(d1)
+                v_col.copy_(beta * v_col + (1.0 - beta) * col / shape[d1])
+                row_sum = got[2] if s == d1 \
+                    else v_row.sum(d1 - int(d1 > d0), keepdim=True)
+                row_factor = (v_row / (row_sum / shape[d1])) ** -0.5
+                updates.append(u * row_factor.unsqueeze(d0)
+                               * (v_col ** -0.5).unsqueeze(d1))
+            u_sq = self._peer_sums(params, [[u.square().sum()]
+                                            for u in updates])
+            for w, update, leaf, (usq,), got in zip(ws, updates, leaves,
+                                                    u_sq, summed):
+                n = math.prod(leaf[0])
+                rms = (usq / n).sqrt()
                 update = update / torch.clamp(rms / self.clipping_threshold,
                                               min=1.0)
                 update = update * self.lr
-                p_rms = w.square().mean().sqrt()
+                p_rms = (got[0] / n).sqrt()
                 update = update * torch.where(
                     p_rms <= self.min_scale,
                     torch.full_like(p_rms, self.min_scale), p_rms)
@@ -605,12 +709,6 @@ class Optimizer:
         self.params = [p for p in params if p.requires_grad]
         self.world, self.rank = _mesh.process_count(), _mesh.process_index()
         self.pieces = dict(pieces or {})
-        if self.pieces and name in _FLAX_SLOTS:
-            axes = sorted({pc.axis for pc in self.pieces.values()})
-            raise NotImplementedError(
-                f"optimizer {name!r} with leaves split over the "
-                f"{' and '.join(axes)} axis: its factored moments and "
-                f"block RMS are the whole leaf's")
         # ZeRO-1: the owning process of each parameter (None: replicated).
         self.owners: Optional[List[int]] = zero1_owners(
             self.params, self.world, self.pieces) if shard_opt_state and \
@@ -797,34 +895,43 @@ class Optimizer:
         count = np.asarray(self.count, np.int32) if writes_replicated \
             else Elsewhere((), "int32")
         out = [(prefix + c, count) for c in counts]
+        flax_slots = self.name in _FLAX_SLOTS
         for field, key in slots.items():
             for path, p, to_flax in named_params:
                 piece = self.pieces.get(id(p))
+                # The dim along which this process holds a piece of the
+                # slot (None: the slot is whole).
+                dim = None if piece is None else \
+                    self.inner.slot_dims(p)[key] if flax_slots else piece.dim
                 if self.owners is not None:
                     writes = self.owns(p)
                 else:
                     writes = writes_replicated if piece is None \
                         else piece.writes
+                if piece is not None and dim is None:
+                    # A whole slot of a split leaf, the same on every peer:
+                    # written once, with the leaf's first piece.
+                    writes = writes and piece.start == 0
                 if not writes:
-                    shape = self.inner.slot_shapes(p)[key] \
-                        if self.name in _FLAX_SLOTS \
-                        else tuple(to_flax(_shape_only(p)).shape)
-                    if piece is not None:
-                        shape = piece.shape(shape)
+                    if flax_slots:
+                        shape = self.inner.slot_shapes(p, whole=True)[key]
+                    else:
+                        shape = piece.shape(tuple(to_flax(_shape_only(
+                            p)).shape)) if piece is not None \
+                            else tuple(to_flax(_shape_only(p)).shape)
                     out.append((f"{prefix}{field}/{path}",
                                 Elsewhere(shape, _dtype_name(p.dtype))))
                     continue
-                if self.name in _FLAX_SLOTS:
+                if flax_slots:
                     value = self.inner.slot(p, key).detach().to(
                         "cpu", copy=True).numpy()
-                    out.append((f"{prefix}{field}/{path}", value))
-                    continue
-                value = self.inner.state.get(p, {}).get(key)
-                if value is None:
-                    value = torch.zeros_like(p)
-                value = to_flax(value)
-                if piece is not None:
-                    value = piece.rows(value)
+                else:
+                    value = self.inner.state.get(p, {}).get(key)
+                    if value is None:
+                        value = torch.zeros_like(p)
+                    value = to_flax(value)
+                if dim is not None:
+                    value = piece.rows(value, dim)
                 out.append((f"{prefix}{field}/{path}", value))
         return out
 
@@ -843,12 +950,16 @@ class Optimizer:
                 continue
             state = self.inner.state[p]
             piece = self.pieces.get(id(p))
+            dims = self.inner.slot_dims(p) if self.name in _FLAX_SLOTS \
+                else None
             for field, key in slots.items():
                 value = leaves[f"{prefix}{field}/{path}"]
-                if piece is not None:
-                    value = piece.of(value)
-                if self.name not in _FLAX_SLOTS:
+                if dims is None:
+                    if piece is not None:
+                        value = piece.of(value)
                     value = from_flax(value)
+                elif dims[key] is not None:
+                    value = piece.of(value, dims[key])
                 # A copy: the update writes the slot in place, and the
                 # leaves are the caller's (a JAX state's are read-only).
                 state[key] = torch.tensor(np.ascontiguousarray(value),

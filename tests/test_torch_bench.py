@@ -342,6 +342,8 @@ def test_bench_parser_has_jax_flags_and_defaults():
 
     ref, got = flags(jax_cli.build_parser()), flags(cli.build_parser())
     assert got.pop("accelerator") == "gpu"
+    # The port's own: the processes of a bench over this host's cards.
+    assert got.pop("processes") is None
     assert got == ref
 
 

@@ -82,6 +82,17 @@ CASES = {"adamw": ("transformer_nmt_wmt", NMT),
 STEPS = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One worker's share of the cores (torch would start a thread per core
+    in every pytest-xdist worker)."""
+    before = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(before)
+
+
 # -- interchange with the JAX package ----------------------------------------
 
 

@@ -54,6 +54,7 @@ from deeplearning_cfn_tpu.ckpt import save_checkpoint as j_save
 from deeplearning_cfn_tpu.config import MeshConfig
 from deeplearning_cfn_tpu.config import apply_overrides as j_overrides
 from deeplearning_cfn_tpu.parallel import build_mesh as j_build_mesh
+from deeplearning_cfn_tpu.parallel.sharding import param_sharding_tree
 from deeplearning_cfn_tpu.presets import get_preset as j_preset
 from deeplearning_cfn_tpu.train import create_train_state
 from deeplearning_cfn_tpu.train import optim as joptim
@@ -66,10 +67,14 @@ from deeplearning_cfn_tpu_torch.data.pipeline import build_pipeline
 from deeplearning_cfn_tpu_torch.parallel import build_mesh
 from deeplearning_cfn_tpu_torch.presets import get_preset
 from deeplearning_cfn_tpu_torch.runtime.cluster import free_local_port
+from torch_adafactor_check import VIT_W128, adafactor_op, check, \
+    register_vit_w128
 from torch_capture_check import capture_op, refused_by_rank
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_dist_worker import seeded_tp_layer  # noqa: E402
+
+register_vit_w128(jax=True)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_dist_worker.py")
@@ -80,6 +85,10 @@ OPS = [dict(kind="tp_layer", name="tp-model4", mesh=dict(data=1, model=4),
             seed=31, shape=TP_SHAPE),
        dict(kind="tp_layer", name="tp-data2-model2",
             mesh=dict(data=2, model=2), seed=32, shape=TP_SHAPE)]
+# Adafactor over model pieces along each dim (tests/torch_adafactor_check.py)
+# under ZeRO-1.
+ADAFACTOR_OPS = [adafactor_op("adafactor-data2-model2",
+                              dict(data=2, model=2), 33, zero1=True)]
 
 COMMON = ["model.kwargs.max_len=32", "data.vocab_size=64", "data.seq_len=32",
           "train.dtype=float32", "data.num_train_examples=128",
@@ -99,6 +108,16 @@ NMT = [o for o in COMMON if "seq_len" not in o and "max_len" not in o] \
                 "train.eval_batch=8"]
 LONG = COMMON + WIDTHS + ["model.kwargs.seq_impl=ring",
                           "schedule.base_lr=5e-3"]
+# imagenet_vit_s16 cut to hidden 128, 4 heads, MLP 256, 2 layers (its
+# kernels factor whole; a model piece of a 128 × 128 kernel would not
+# alone) under Adafactor with the preset's own ZeRO-1; no warmup and a
+# large rate, so that the zero-initialised head moves the loss.
+VIT = ["model.name=" + VIT_W128, "model.num_classes=10",
+       "model.kwargs.dropout_rate=0.0", "data.image_size=16",
+       "train.dtype=float32", "data.num_train_examples=64",
+       "data.num_eval_examples=16", "train.global_batch=16",
+       "schedule.warmup_steps=0", "schedule.warmup_epochs=0",
+       "schedule.base_lr=0.1", "optimizer.name=adafactor"]
 DATA2_MODEL2 = dict(data=2, model=2)
 # name: (preset, overrides, mesh)
 CASES = {
@@ -106,12 +125,26 @@ CASES = {
     "gpt": ("gpt_small_lm", GPT, DATA2_MODEL2),
     "nmt": ("transformer_nmt_wmt", NMT, DATA2_MODEL2),
     "bert_long": ("bert_long_wikipedia", LONG, dict(data=1, seq=2, model=2)),
+    "vit_adafactor": ("imagenet_vit_s16", VIT, DATA2_MODEL2),
 }
+# The cases whose processes write a checkpoint of the final state.
+CKPT = ("bert", "vit_adafactor")
 DROPOUT = ("bert_base_wikipedia",
            [o for o in BERT if "dropout" not in o]
            + ["model.kwargs.dropout_rate=0.1"], DATA2_MODEL2)
 JAX_ONLY = ["model.kwargs.attention_impl=interpret"]
 LOSS_RTOL, PARAM_TOL, OP_TOL = 1e-5, 1e-5, 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One worker's share of the cores (torch would start a thread per core
+    in every pytest-xdist worker)."""
+    before = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(before)
 
 
 def _mesh_over(mesh):
@@ -123,7 +156,7 @@ def _mesh_over(mesh):
 # row pieces under ZeRO-1) checked for what a CUDA graph capture refuses.
 CAPTURE = [capture_op(f"capture-{name}", preset, over + _mesh_over(mesh))
            for name, (preset, over, mesh) in CASES.items()
-           if name in ("bert", "gpt")]
+           if name in ("bert", "gpt", "vit_adafactor")]
 
 
 def _jax_state(preset, over, mesh_axes, steps):
@@ -141,11 +174,18 @@ def _jax_state(preset, over, mesh_axes, steps):
     task = j_build_task(jcfg, mesh=mesh)
     tx = joptim.build_optimizer(jcfg.optimizer, joptim.build_schedule(
         jcfg.schedule, steps, jcfg.train.global_batch))
-    state = create_train_state(jax.random.PRNGKey(0), task.init, tx, mesh,
-                               param_rules=task.param_rules,
-                               shard_opt_state=jcfg.train.shard_opt_state)
-    split = sum(1 for leaf in jax.tree_util.tree_leaves(state.params)
-                if "model" in (getattr(leaf.sharding, "spec", None) or ()))
+    # JAX's create_train_state gives each optimizer slot tree that mirrors
+    # the params' tree the params' shardings, which Adafactor's factored
+    # slots cannot take: it refuses the task's model rules and ZeRO-1 over
+    # data = 2. There the reference lays every leaf out whole on the same
+    # mesh; its values are the same global arrays either way.
+    whole = jcfg.optimizer.name == "adafactor"
+    state = create_train_state(
+        jax.random.PRNGKey(0), task.init, tx, mesh,
+        param_rules=() if whole else task.param_rules,
+        shard_opt_state=jcfg.train.shard_opt_state and not whole)
+    split = sum(1 for sh in jax.tree_util.tree_leaves(param_sharding_tree(
+        state.params, mesh, task.param_rules)) if "model" in sh.spec)
     init = {n: np.asarray(v) for n, v in flatten_with_names(state)[0]
             if v is not None}
 
@@ -254,10 +294,10 @@ def _one_process(cfg, batches, init, eval_batches=None):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """JAX's initial states and GPT's JAX run with its checkpoint; one
-    spawn of four port processes for the ops and every case, which runs
-    while this process trains JAX on the other cases and runs the port's
-    one process on each."""
+    """JAX's initial states; one spawn of four port processes for the ops
+    and every case, which runs while this process trains JAX (GPT's run
+    first, with the checkpoint the spawn's resumed case waits for) and
+    runs the port's one process on each."""
     root = tmp_path_factory.mktemp("model_axis")
     cases, states, data = [], {}, {}
     for name, (preset, over, mesh) in CASES.items():
@@ -269,7 +309,7 @@ def runs(tmp_path_factory):
         case = dict(name=name, preset=preset, overrides=over
                     + _mesh_over(mesh), init=str(root / f"{name}-init.npz"),
                     batches=str(root / f"{name}-batches.npz"),
-                    ckpt=str(root / f"{name}-ckpt") if name == "bert"
+                    ckpt=str(root / f"{name}-ckpt") if name in CKPT
                     else None)
         eval_batches = None
         if name == "nmt":
@@ -278,11 +318,9 @@ def runs(tmp_path_factory):
             case["eval_batches"] = str(root / "nmt-eval.npz")
         cases.append(case)
         data[name] = (cfg, batches, init, eval_batches)
-    # GPT's JAX run first: the port resumes its checkpoint.
-    cfg = data["gpt"][0]
-    more = _batches(cfg, STEPS + MORE)[STEPS:]
-    jax_side = {"gpt": states["gpt"][1](data["gpt"][1], more,
-                                        str(root / "jax-ckpt"))}
+    # The port resumes GPT's JAX checkpoint (its processes wait for it):
+    # GPT's JAX run comes first.
+    more = _batches(data["gpt"][0], STEPS + MORE)[STEPS:]
     _save_batches(root / "from_jax-batches.npz", more)
     cases.append(dict(cases[1], name="from_jax", ckpt=None,
                       restore=str(root / "jax-ckpt"), restore_step=STEPS,
@@ -291,9 +329,11 @@ def runs(tmp_path_factory):
     preset, over, mesh = DROPOUT
     cases.append(dict(cases[0], name="dropout", ckpt=None, all_params=True,
                       overrides=over + _mesh_over(mesh)))
-    procs = _start(root, OPS + CAPTURE, cases)
-    single = {}
+    procs = _start(root, OPS + ADAFACTOR_OPS + CAPTURE, cases)
+    jax_side, single = {}, {}
     try:
+        jax_side["gpt"] = states["gpt"][1](data["gpt"][1], more,
+                                           str(root / "jax-ckpt"))
         for name, (cfg, batches, init, eval_batches) in data.items():
             if name not in jax_side:
                 jax_side[name] = states[name][1](batches)
@@ -351,6 +391,21 @@ def test_tensor_parallel_layer_matches_one_process(runs, name):
 
 def _op_parts(runs, name):
     return _parts(runs["root"], name)
+
+
+def _moments_close(got, want, name):
+    """A parameter within ``PARAM_TOL``; an Adafactor moment, a mean of
+    squared gradients (near 1e-10 here), within twice that of its leaf's
+    largest entry, as a square doubles its root's relative error (an entry
+    whose gradient cancels to near 0 has no relative precision)."""
+    if name.startswith("params/"):
+        np.testing.assert_allclose(got, want, rtol=PARAM_TOL,
+                                   atol=PARAM_TOL, err_msg=name)
+    else:
+        tol = 2 * PARAM_TOL
+        np.testing.assert_allclose(got, want, rtol=tol,
+                                   atol=tol * np.abs(want).max(),
+                                   err_msg=name)
 
 
 def _compared(names):
@@ -503,6 +558,57 @@ def test_model_processes_resume_a_jax_checkpoint(runs):
     for n in compared:
         np.testing.assert_allclose(leaves[n], want[n], rtol=PARAM_TOL,
                                    atol=PARAM_TOL, err_msg=n)
+
+
+@pytest.mark.parametrize("name", [o["name"] for o in ADAFACTOR_OPS])
+def test_adafactor_over_model_pieces_matches_optax(runs, name):
+    """Adafactor's updates of leaves split along a leading dim, along d0,
+    along d1, of a square leaf whose piece would not factor alone and of
+    a bias, under ZeRO-1 on ``(data=2, model=2)``: every process's
+    parameters within 1e-6 and slots within 1e-5 relative of
+    ``optax.adafactor`` on the whole leaves; some moments are pieces and
+    some whole copies."""
+    op = next(o for o in ADAFACTOR_OPS if o["name"] == name)
+    kinds = check(op, _op_parts(runs, name))
+    assert kinds["piece"] > 0 and kinds["whole"] > 0
+
+
+def test_adafactor_checkpoint_restores_in_jax_with_whole_leaves(runs):
+    """The ViT Adafactor run's checkpoint in JAX's strict
+    ``restore_checkpoint``: every ``FactoredState`` leaf, the placeholders
+    included. A moment that keeps the split dim is written as its pieces'
+    ranges, one that reduces it away once, whole."""
+    ckpt = str(runs["root"] / "vit_adafactor-ckpt")
+    manifests = []
+    for r in range(WORLD):
+        with open(os.path.join(ckpt, f"step_{STEPS:08d}",
+                               f"manifest_p{r}.json")) as fh:
+            manifests.append(json.load(fh)["leaves"])
+    # mlp_out's kernel [256, 128] splits its largest dim (d0): v_row
+    # [128] reduces it away, v_col [256] keeps it.
+    leaf = "layer_0/mlp/mlp_out/kernel"
+    written = lambda key: sorted(
+        m[f"opt_state/2/0/{key}/{leaf}"][0]["index"][0] for m in manifests
+        if f"opt_state/2/0/{key}/{leaf}" in m)
+    assert written("v_row") == [[0, 128]]
+    assert written("v_col") == [[0, 128], [128, 256]]
+    assert written("v") == [[0, 1]]
+    j_state = runs["jax"]["vit_adafactor"]["state"]
+    restored, step = j_restore(ckpt, j_state)
+    assert step == STEPS
+    got = {n: np.asarray(v) for n, v in flatten_with_names(restored)[0]
+           if v is not None}
+    port = read_leaves(ckpt, STEPS)
+    assert set(got) == set(port)
+    for n, v in got.items():
+        np.testing.assert_array_equal(v, port[n], err_msg=n)
+    trained = {n: np.asarray(v) for n, v in flatten_with_names(j_state)[0]
+               if v is not None}
+    compared = _compared(n for n in got if n.startswith(
+        ("params/", "opt_state/")))
+    assert sum("/v_row/" in n for n in compared) >= 12
+    for n in compared:
+        _moments_close(got[n], trained[n], n)
 
 
 @pytest.mark.parametrize("rank", range(4))

@@ -61,6 +61,7 @@ from deeplearning_cfn_tpu_torch.models.moe import MoeMlp
 from deeplearning_cfn_tpu_torch.ops.pipeline import scan_layers
 from deeplearning_cfn_tpu_torch.presets import get_preset
 from deeplearning_cfn_tpu_torch.runtime.cluster import free_local_port
+from torch_adafactor_check import adafactor_op, check
 from torch_capture_check import capture_op, refused_by_rank
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,6 +78,12 @@ OPS = [dict(kind="gpipe", name="gpipe-pipe4", mesh=dict(data=1, pipe=4),
             seed=23, shape=MOE_SHAPE),
        dict(kind="moe", name="moe-data2-expert2",
             mesh=dict(data=2, expert=2), seed=24, shape=MOE_SHAPE)]
+# Adafactor over expert and stage pieces along each dim
+# (tests/torch_adafactor_check.py), the stages' under ZeRO-1.
+ADAFACTOR_OPS = [adafactor_op("adafactor-expert4", dict(data=1, expert=4),
+                              25),
+                 adafactor_op("adafactor-data2-pipe2", dict(data=2, pipe=2),
+                              26, zero1=True)]
 
 TINY = ["model.kwargs.hidden_size=32", "model.kwargs.num_layers=4",
         "model.kwargs.num_heads=4", "model.kwargs.mlp_dim=64",
@@ -87,15 +94,39 @@ TINY = ["model.kwargs.hidden_size=32", "model.kwargs.num_layers=4",
         "train.shard_opt_state=true"]
 PIPE = TINY + ["model.kwargs.n_microbatches=4"]
 MOE = TINY + ["model.kwargs.dropout_rate=0.0"]
+# Adafactor with the preset's ZeRO-1, at hidden 128 and MLP 256 over 2
+# layers, so that the expert stacks [8, 128, 256] factor over their last
+# two dims and each process's two experts keep both moments as pieces.
+MOE_ADAFACTOR = [o for o in MOE if "num_layers" not in o
+                 and "hidden_size" not in o and "mlp_dim" not in o] + [
+    "model.kwargs.hidden_size=128", "model.kwargs.num_layers=2",
+    "model.kwargs.mlp_dim=256", "optimizer.name=adafactor"]
 # name: (preset, overrides, mesh)
 CASES = {
     "pipe4": ("bert_pipelined_wikipedia", PIPE, dict(data=1, pipe=4)),
     "data2_pipe2": ("bert_pipelined_wikipedia", PIPE, dict(data=2, pipe=2)),
     "data2_expert2": ("bert_moe_wikipedia", MOE, dict(data=2, expert=2)),
     "expert4": ("bert_moe_wikipedia", MOE, dict(data=1, expert=4)),
+    "expert4_adafactor": ("bert_moe_wikipedia", MOE_ADAFACTOR,
+                          dict(data=1, expert=4)),
 }
+# The cases whose JAX run checkpoints and trains on, and the port's
+# processes resume that checkpoint (as ``from_jax`` for expert4 and
+# ``from_<case>`` for the others).
+RESUMED = ("expert4", "expert4_adafactor")
 JAX_ONLY = ["model.kwargs.attention_impl=interpret"]
 LOSS_RTOL, PARAM_TOL = 1e-5, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One worker's share of the cores (torch would start a thread per core
+    in every pytest-xdist worker)."""
+    before = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(before)
 
 
 def _mesh_over(mesh):
@@ -104,43 +135,50 @@ def _mesh_over(mesh):
 
 
 # The pipe and expert meshes' steps (the GPipe schedule, MoE's all-to-all
-# dispatch, LAMB over pieces under ZeRO-1) checked for what a CUDA graph
-# capture refuses.
+# dispatch, LAMB and Adafactor over pieces under ZeRO-1) checked for what a
+# CUDA graph capture refuses.
 CAPTURE = [capture_op(f"capture-{name}", preset, over + _mesh_over(mesh))
            for name, (preset, over, mesh) in CASES.items()
-           if name in ("pipe4", "expert4")]
+           if name in ("pipe4", "expert4", "expert4_adafactor")]
 
 
-def _jax_run(preset, over, mesh_axes, batches, more=(), ckpt=None):
-    """JAX's ``Trainer`` on ``mesh_axes`` over four fake devices; with
-    ``more`` it then checkpoints into ``ckpt`` and trains on."""
+def _jax_state(preset, over, mesh_axes):
+    """JAX's initial state on ``mesh_axes`` over four fake devices (its
+    leaves), and the function that trains it with JAX's ``Trainer`` on
+    given batches; with ``more`` that function then checkpoints into
+    ``ckpt`` and trains on."""
     jcfg = j_overrides(j_preset(preset), over + JAX_ONLY
                        + _mesh_over(mesh_axes))
     mesh = j_build_mesh(MeshConfig(**mesh_axes), devices=jax.devices()[:4])
     task = j_build_task(jcfg, mesh=mesh)
     tx = joptim.build_optimizer(jcfg.optimizer, joptim.build_schedule(
-        jcfg.schedule, len(batches), jcfg.train.global_batch))
+        jcfg.schedule, STEPS, jcfg.train.global_batch))
     state = create_train_state(jax.random.PRNGKey(0), task.init, tx, mesh,
                                shard_opt_state=jcfg.train.shard_opt_state)
     init = {n: np.asarray(v) for n, v in flatten_with_names(state)[0]
             if v is not None}
-    trainer = JaxTrainer(jcfg, task.loss_fn, tx, mesh=mesh, donate=False)
-    losses = []
-    for b in batches:
-        state, metrics = trainer.train_step(
-            state, trainer.device_batch(b), jax.random.PRNGKey(1))
-        losses.append(float(metrics["loss"]))
-    params = {"params/" + n: np.asarray(v)
-              for n, v in flatten_with_names(state.params)[0]}
-    if not more:
-        return init, losses, params, state, None
-    j_save(ckpt, len(batches), state)
-    after, later = [], state
-    for b in more:
-        later, metrics = trainer.train_step(
-            later, trainer.device_batch(b), jax.random.PRNGKey(1))
-        after.append(float(metrics["loss"]))
-    return init, losses, params, state, (after, later)
+
+    def train(batches, more=(), ckpt=None):
+        trainer = JaxTrainer(jcfg, task.loss_fn, tx, mesh=mesh,
+                             donate=False)
+        st, losses = state, []
+        for b in batches:
+            st, metrics = trainer.train_step(
+                st, trainer.device_batch(b), jax.random.PRNGKey(1))
+            losses.append(float(metrics["loss"]))
+        params = {"params/" + n: np.asarray(v)
+                  for n, v in flatten_with_names(st.params)[0]}
+        if not more:
+            return losses, params, st, None
+        j_save(ckpt, len(batches), st)
+        after, later = [], st
+        for b in more:
+            later, metrics = trainer.train_step(
+                later, trainer.device_batch(b), jax.random.PRNGKey(1))
+            after.append(float(metrics["loss"]))
+        return losses, params, st, (after, later)
+
+    return init, train
 
 
 def _batches(cfg, n):
@@ -172,20 +210,21 @@ def _whole(parts):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX runs, then one spawn of four port processes for the ops and
-    every case; the one-process runs of each preset in this process."""
+    """JAX's initial states; one spawn of four port processes for the ops
+    and every case, which runs while this process trains JAX (the resumed
+    cases' first, whose checkpoints the spawn's resumed cases wait for)
+    and runs the port's one process of each preset or optimizer."""
     import chip_smoke
 
     root = tmp_path_factory.mktemp("pipe_expert")
-    cases, jax_side, single = [], {}, {}
+    cases, data = [], {}
     for name, (preset, over, mesh) in CASES.items():
         cfg = apply_overrides(get_preset(preset), over)
         batches = _batches(cfg, STEPS)
-        resume = name == "expert4"
-        more = _batches(cfg, STEPS + MORE)[STEPS:] if resume else ()
-        init, losses, params, state, resumed = _jax_run(
-            preset, over, mesh, batches, more, str(root / "jax-ckpt"))
-        jax_side[name] = (losses, params, state)
+        more = _batches(cfg, STEPS + MORE)[STEPS:] if name in RESUMED \
+            else ()
+        init, train = _jax_state(preset, over, mesh)
+        data[name] = (cfg, batches, more, init, train)
         np.savez(root / f"{name}-init.npz", **init)
         _save_batches(root / f"{name}-batches.npz", batches)
         cases.append(dict(name=name, preset=preset,
@@ -194,20 +233,17 @@ def runs(tmp_path_factory):
                           batches=str(root / f"{name}-batches.npz"),
                           ckpt=str(root / f"{name}-ckpt")
                           if name == "data2_pipe2" else None))
-        if preset not in single:
-            single[preset] = chip_smoke.fed_run(
-                torch, apply_overrides(get_preset(preset), over), batches,
-                "cpu", init=init)
-        if resume:
-            jax_side["from_jax"] = resumed
-            _save_batches(root / "from_jax-batches.npz", more)
-            cases.append(dict(cases[-1], name="from_jax", ckpt=None,
-                              restore=str(root / "jax-ckpt"),
+        if more:
+            _save_batches(root / f"{_later(name)}-batches.npz", more)
+            cases.append(dict(cases[-1], name=_later(name), ckpt=None,
+                              restore=str(root / f"jax-{name}"),
                               restore_step=STEPS, total_steps=STEPS,
-                              batches=str(root / "from_jax-batches.npz")))
+                              batches=str(root /
+                                          f"{_later(name)}-batches.npz")))
     spec = root / "spec.json"
     spec.write_text(json.dumps(dict(world=WORLD, port=free_local_port(),
-                                    out=str(root), ops=OPS + CAPTURE,
+                                    out=str(root),
+                                    ops=OPS + ADAFACTOR_OPS + CAPTURE,
                                     cases=cases)))
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
@@ -216,11 +252,24 @@ def runs(tmp_path_factory):
                               env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(WORLD)]
+    jax_side, single = {}, {}
     try:
-        outs = [p.communicate(timeout=300)[0] for p in procs]
+        for name in sorted(data, key=lambda n: n not in RESUMED):
+            cfg, batches, more, init, train = data[name]
+            losses, params, state, resumed = train(
+                batches, more, str(root / f"jax-{name}"))
+            jax_side[name] = (losses, params, state)
+            if resumed:
+                jax_side[_later(name)] = resumed
+            if _single(name) not in single:
+                single[_single(name)] = chip_smoke.fed_run(
+                    torch, cfg, batches, "cpu", init=init)
     finally:
-        for p in procs:
-            p.kill()
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-4000:]
     port_side = {}
@@ -327,9 +376,36 @@ def test_moe_over_processes_matches_one_process(runs, name):
         _close(v, getattr(moe, k).grad.numpy(), 1e-5, k)
 
 
-def _one_process_params(runs, preset):
-    _, state = runs["single"][preset]
+def _later(name):
+    """The name of the case that resumes JAX's checkpoint of ``name``."""
+    return "from_jax" if name == "expert4" else f"from_{name}"
+
+
+def _single(name):
+    """The key of a case's one-process run: its preset's, or the case's own
+    for an optimizer of its own."""
+    preset, over, _ = CASES[name]
+    return name if "optimizer.name=adafactor" in over else preset
+
+
+def _one_process_params(runs, name):
+    _, state = runs["single"][_single(name)]
     return {n: v for n, v in state.named_leaves() if n.startswith("params/")}
+
+
+def _moments_close(got, want, name):
+    """A parameter within ``PARAM_TOL``; an Adafactor moment, a mean of
+    squared gradients (near 1e-10 here), within twice that of its leaf's
+    largest entry, as a square doubles its root's relative error (an entry
+    whose gradient cancels to near 0 has no relative precision)."""
+    if name.startswith("params/"):
+        np.testing.assert_allclose(got, want, rtol=PARAM_TOL,
+                                   atol=PARAM_TOL, err_msg=name)
+    else:
+        tol = 2 * PARAM_TOL
+        np.testing.assert_allclose(got, want, rtol=tol,
+                                   atol=tol * np.abs(want).max(),
+                                   err_msg=name)
 
 
 def _compared(names):
@@ -342,10 +418,10 @@ def _compared(names):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_mesh_trains_as_jax_and_as_one_process(runs, name):
-    preset, _, mesh = CASES[name]
+    _, _, mesh = CASES[name]
     j_losses, j_params, _ = runs["jax"][name]
     record, leaves, parts = runs["port"][name]
-    one_losses, _ = runs["single"][preset]
+    one_losses, _ = runs["single"][_single(name)]
     np.testing.assert_allclose(record["losses"], j_losses, rtol=LOSS_RTOL)
     np.testing.assert_allclose(record["losses"], one_losses,
                                rtol=LOSS_RTOL)
@@ -354,7 +430,7 @@ def test_mesh_trains_as_jax_and_as_one_process(runs, name):
     losses = record["losses"]
     assert max(abs(x - losses[0]) for x in losses) \
         > 100 * LOSS_RTOL * losses[0]
-    one = _one_process_params(runs, preset)
+    one = _one_process_params(runs, name)
     compared = _compared(j_params)
     assert len(compared) > 20
     for n in compared:
@@ -420,6 +496,45 @@ def test_expert_processes_resume_a_jax_checkpoint(runs):
     for n in compared:
         np.testing.assert_allclose(leaves[n], want[n], rtol=PARAM_TOL,
                                    atol=PARAM_TOL, err_msg=n)
+
+
+def test_expert_processes_resume_a_jax_adafactor_checkpoint(runs):
+    """JAX's checkpoint of its Adafactor run on ``(data=1, expert=4)``,
+    restored by the four port processes: each keeps its two experts and
+    their moments (pieces of the whole ``FactoredState`` leaves), and they
+    train on as JAX does."""
+    j_losses, j_state = runs["jax"]["from_expert4_adafactor"]
+    record, leaves, parts = runs["port"]["from_expert4_adafactor"]
+    np.testing.assert_allclose(record["losses"], j_losses, rtol=LOSS_RTOL)
+    assert len(record["losses"]) == MORE
+    w_in = "encoder/layer_1/moe_mlp/w_in"
+    for r, part in enumerate(parts):
+        assert f"params/{w_in}::{2 * r}" in part
+        # [8, 128, 256] factors over its last two dims: both moments
+        # keep the expert dim, each process its two rows.
+        assert part[f"opt_state/2/0/v_row/{w_in}::{2 * r}"].shape == (2, 128)
+        assert part[f"opt_state/2/0/v_col/{w_in}::{2 * r}"].shape == (2, 256)
+    want = {n: np.asarray(v) for n, v in flatten_with_names(j_state)[0]
+            if v is not None}
+    assert int(want["step"]) == STEPS + MORE
+    compared = _compared(n for n in leaves if n.startswith(
+        ("params/", "opt_state/")))
+    assert len(compared) > 20 and set(compared) <= set(want)
+    for n in compared:
+        _moments_close(leaves[n], want[n], n)
+
+
+@pytest.mark.parametrize("name", [o["name"] for o in ADAFACTOR_OPS])
+def test_adafactor_over_expert_and_stage_pieces_matches_optax(runs, name):
+    """Adafactor's updates of leaves split along a leading dim (as the
+    expert and layer stacks split), along d0, along d1, of a square leaf
+    whose piece would not factor alone and of a bias, on ``expert=4`` and
+    under ZeRO-1 on ``(data=2, pipe=2)``: every process's parameters
+    within 1e-6 and slots within 1e-5 relative of ``optax.adafactor`` on
+    the whole leaves."""
+    op = next(o for o in ADAFACTOR_OPS if o["name"] == name)
+    kinds = check(op, _op_parts(runs, name))
+    assert kinds["piece"] > 0 and kinds["whole"] > 0
 
 
 @pytest.mark.parametrize("name", [o["name"] for o in CAPTURE])

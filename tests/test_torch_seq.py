@@ -97,6 +97,17 @@ VOLUME_OPS = [dict(kind="comm_volume", name=f"comm-volume-{name}",
               for name, mesh in VOLUME.items()]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One worker's share of the cores (torch would start a thread per core
+    in every pytest-xdist worker)."""
+    before = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_run(preset, over, batches):
     jcfg = j_overrides(j_preset(preset), over)
     mesh = j_build_mesh(MeshConfig(data=2, seq=2), devices=jax.devices()[:4])

@@ -124,6 +124,17 @@ STATS_TOL = 1e-4
 MARGIN = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One worker's share of the cores (torch would start a thread per core
+    in every pytest-xdist worker)."""
+    before = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(before)
+
+
 def _mesh_over(mesh):
     return [f"mesh.{k}={v}" for k, v in {**dict(data=1, spatial=1, model=1),
                                          **mesh}.items()]

@@ -17,11 +17,15 @@ with ``kind`` ``spatial``, a seeded ``Conv`` or ``max_pool_same`` over the
 op's ``spatial`` mesh, this process's rows of each image; with ``kind``
 ``capture_check``, two train steps of a preset on the op's mesh, the
 second under ``tests/torch_capture_check.py``; with ``comm_volume`` and
-``collectives_bench``, those modules of ``parallel/`` on the op's mesh),
-then every case in turn: the preset with the
+``collectives_bench``, those modules of ``parallel/`` on the op's mesh;
+with ``adafactor``, ``tests/torch_adafactor_check.py``'s updates of
+seeded leaves split over the op's mesh), then every case in turn (the
+port's ``vit_w128`` registered first, as that file's
+``register_vit_w128`` makes it): the preset with the
 case's overrides (its mesh resolved over the group), the initial state from
 a file of JAX-named leaves (``TrainState.load_named``) or, with
-``restore``, from a committed checkpoint of either package, and the given
+``restore``, from a committed checkpoint of either package (waited for:
+the test may write it while the spawn runs), and the given
 global batches, of which this process trains its rows through the port's
 ``Trainer`` (``chip_smoke.fed_run``). Each case writes
 ``<out>/<case>-p<rank>.npz`` (the leaves this process holds; a piece of
@@ -39,6 +43,7 @@ and ``chip_smoke`` only.
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -55,6 +60,15 @@ def run_case(case, out_dir, rank):
     if case.get("restore"):
         from deeplearning_cfn_tpu_torch.ckpt import read_leaves
 
+        # The test may still be writing the checkpoint while this spawn
+        # runs: wait for its commit.
+        commit = os.path.join(case["restore"],
+                              f"step_{case['restore_step']:08d}", "COMMIT")
+        deadline = time.monotonic() + 300
+        while not os.path.exists(commit):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no checkpoint committed at {commit}")
+            time.sleep(0.1)
         init = read_leaves(case["restore"], case["restore_step"])
     else:
         with np.load(case["init"]) as data:
@@ -371,7 +385,14 @@ def run_collectives_bench(op, out_dir, rank):
             json.dump(records, fh)
 
 
-OP_KINDS = {"capture_check": run_capture_check,
+def run_adafactor(op, out_dir, rank):
+    from torch_adafactor_check import run_op as adafactor
+
+    adafactor(op, out_dir, rank)
+
+
+OP_KINDS = {"adafactor": run_adafactor,
+            "capture_check": run_capture_check,
             "comm_volume": run_comm_volume,
             "collectives_bench": run_collectives_bench}
 
@@ -412,6 +433,9 @@ def run_op(op, out_dir, rank):
 
 def main(spec_path, rank):
     torch.set_num_threads(1)
+    from torch_adafactor_check import register_vit_w128
+
+    register_vit_w128()
     with open(spec_path) as fh:
         spec = json.load(fh)
     from deeplearning_cfn_tpu_torch.runtime.cluster import ClusterSpec, \
